@@ -1,11 +1,15 @@
-"""Time and profile the full-width TV2V clip edit on one GPU.
+"""Time and profile the full-width TV2V or TVI2V clip edit on one GPU.
 
     python -m ccedit_tpu_torch.cli.profile_tv2v --steps 30 --profile_steps 2 --out DIR
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v   # 50 steps, CFG 7
 
-Builds the SD-1.5 TV2V engine (seeded random weights, bf16), edits a
-17x512x768 synthetic clip once to warm up, then (1) times ``edit_clip`` at
-``--steps`` with its stage seconds and (2) profiles an edit at
-``--profile_steps`` with torch.profiler.  The profile is read from its chrome
+Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
+with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
+DPT-Hybrid, an edited reference frame, ``--prior_type ref`` and
+prior_coefficient_x 0.03 at CFG 7), edits a 17x512x768 synthetic clip once
+to warm up, then (1) times ``edit_clip`` at ``--steps`` (default 30 for
+TV2V, 50 for TVI2V, the README's settings) with its stage seconds and (2)
+profiles an edit at ``--profile_steps`` with torch.profiler.  The profile is read from its chrome
 trace: device time by kernel (the trace's kernel, memcpy and memset events),
 grouped into our attention kernels / convolution / GEMM / normalisation /
 other, the device's busy share of the profiled wall time (the union of the
@@ -23,8 +27,10 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..config import TV2V_CONFIG, TVI2V_CONFIG
 from ..data.video import moving_gradient_clip
 from .pipeline import base_parser, edit_clip, load_engine
 
@@ -83,33 +89,43 @@ def summarise_trace(trace_path: Path, wall_seconds: float, top: int = 25) -> dic
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--workload", choices=("tv2v", "tvi2v"), default="tv2v")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v)")
     ap.add_argument("--profile_steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="build/profile_tv2v")
     a = ap.parse_args(argv)
+    tvi2v = a.workload == "tvi2v"
+    steps = a.steps or (50 if tvi2v else 30)
+    cfg_scale = 7.0 if tvi2v else 7.5
     if not torch.cuda.is_available():
         raise SystemExit("profile_tv2v needs a CUDA device")
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     t, h, w = 17, 512, 768
-    args = base_parser().parse_args([
-        "--bf16", "--fake_annotator", "--device", str(device), "--seed", str(a.seed),
-        "--H", str(h), "--W", str(w), "--num_keyframes", str(t)])
-    engine, _ = load_engine(args, a.steps)
+    args = base_parser().parse_args(
+        ["--bf16", "--device", str(device), "--seed", str(a.seed), "--H", str(h),
+         "--W", str(w), "--num_keyframes", str(t)] + ([] if tvi2v else ["--fake_annotator"]))
+    engine, _ = load_engine(args, steps, TVI2V_CONFIG if tvi2v else TV2V_CONFIG)
     frames = moving_gradient_clip(t, h, w)
     gen = torch.Generator(device=device).manual_seed(a.seed)
+    extra = {}
+    if tvi2v:  # the edited reference: the centre frame with its colours shifted
+        extra = dict(reference=np.ascontiguousarray(np.roll(frames[t // 2], 1, axis=-1)),
+                     prior_type="ref", prior_coefficient_x=0.03)
 
-    def edit(steps, stages=None):
+    def edit(n_steps, stages=None):
         return edit_clip(engine, frames, "a robot bear walking through the snow",
-                         "ugly, low quality", 7.5, steps, gen, stage_seconds=stages)
+                         "ugly, low quality", cfg_scale, n_steps, gen, stage_seconds=stages,
+                         **extra)
 
     edit(1)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
     stages = {}
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    edit(a.steps, stages)
+    edit(steps, stages)
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) / 1e9
 
@@ -122,9 +138,10 @@ def main(argv=None) -> None:
         wall = time.perf_counter() - t1
     prof.export_chrome_trace(str(out / "trace.json"))
     profile = summarise_trace(out / "trace.json", wall)
-    rows = 2 * a.steps - 1
+    rows = 2 * steps - 1
     print(json.dumps({
-        "gpu": smi, "frames": t, "height": h, "width": w, "steps": a.steps, "rows": rows,
+        "gpu": smi, "workload": a.workload, "cfg_scale": cfg_scale,
+        "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
         "edit_seconds": total, "stage_seconds": stages,
         "sample_seconds_per_row": stages["sample"] / rows, "peak_memory_gb": peak,
         "profile": dict(profile, steps=a.profile_steps, rows=2 * a.profile_steps - 1),

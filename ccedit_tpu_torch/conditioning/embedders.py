@@ -1,11 +1,12 @@
-"""Conditioning embedders of the TV2V main path (port of
+"""Conditioning embedders of the TV2V and TVI2V paths (port of
 ``ccedit_tpu/conditioning/embedders.py``: ``CLIPTextEmbedder``,
-``IdentityEncoder``).  Each embedder has ``prepare(value)`` (host side:
-tokenise, ...) and ``forward(prepared)`` (device side)."""
+``IdentityEncoder``, ``VAEEmbedder``).  Each embedder has
+``prepare(value)`` (host side: tokenise, ...) and ``forward(prepared)``
+(device side)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -52,3 +53,19 @@ class CLIPTextEmbedder(Embedder):
 class IdentityEncoder(Embedder):
     def forward(self, prepared):
         return as_float_frames(prepared)
+
+
+class VAEEmbedder(Embedder):
+    """The edited reference frame -> its scaled VAE latent, through the
+    engine's shared first stage: ``encode`` is set by the engine to
+    ``CCEditEngine.encode_first_stage`` (the posterior mode times the scale
+    factor at inference).  (B, H, W, 3) pixels -> (B, H/8, W/8, 4)."""
+
+    def __init__(self):
+        super().__init__()
+        self.encode: Optional[Callable] = None
+
+    def forward(self, prepared):
+        if self.encode is None:
+            raise RuntimeError("VAEEmbedder is not wired to an engine's VAE")
+        return self.encode(prepared)

@@ -1,12 +1,15 @@
-"""TV2V engine from a reference-format config (port of the TV2V subset of
-``ccedit_tpu/config.py``).
+"""TV2V and TVI2V engines from a reference-format config (port of the
+TV2V/TVI2V subset of ``ccedit_tpu/config.py``).
 
 The reference wires everything through ``{target: python.path, params:
-{...}}`` trees.  This module resolves the targets the TV2V slice implements
-and raises ``KeyError`` naming any other.  ``TV2V_CONFIG`` is the SD-1.5 TV2V
+{...}}`` trees.  This module resolves the targets the port implements and
+raises ``KeyError`` naming any other.  ``TV2V_CONFIG`` is the SD-1.5 TV2V
 depth-MiDaS configuration (the shape of the reference's
 ``keyframe_no2ndca_depthmidas`` inference YAML), used when no config file is
-given.
+given; ``TVI2V_CONFIG`` the reference-guided one of
+``keyframe_ref_cp_no2ndca_add_cfca`` as ``bench.py`` builds it: CFCA
+centre+self in the UNet, the structure ControlNet, and the appearance
+ControlNet fed the VAE latent of the edited centre frame.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from .conditioning.annotators.base import build_annotator
 from .conditioning.conditioner import Conditioner, EmbedderSpec
-from .conditioning.embedders import CLIPTextEmbedder, IdentityEncoder
+from .conditioning.embedders import CLIPTextEmbedder, IdentityEncoder, VAEEmbedder
 from .diffusion import (
     DiscreteDenoiser,
     DPMPP2SAncestralSampler,
@@ -74,6 +77,25 @@ TV2V_CONFIG: Dict = {"model": {
 }}
 
 
+
+def _tvi2v_config() -> Dict:
+    cfg = copy.deepcopy(TV2V_CONFIG)
+    p = cfg["model"]["params"]
+    p["network_config"]["params"].update(
+        enable_attention3d_crossframe=True, ST3DCA_ca_type="center_self",
+        controlnet_img_config={
+            "target": "sgm.modules.diffusionmodules.controlmodel.ControlNet2D",
+            "params": dict(_SD15_UNET, hint_channels=4, set_input_hint_block_as_identity=True,
+                           no_add_x=True, disable_text_ca=True)})
+    p["conditioner_config"]["params"]["emb_models"].append(
+        {"input_key": "cond_img", "target": "sgm.modules.encoders.modules.VAEEmbedder",
+         "params": {}})
+    return cfg
+
+
+TVI2V_CONFIG: Dict = _tvi2v_config()
+
+
 def load_config(path: str) -> Dict:
     import yaml
 
@@ -97,38 +119,47 @@ def _expect(cfg: Optional[Dict], *names: str) -> str:
     return name
 
 
-def _unet_kwargs(p: Dict) -> Dict:
-    for flag in ("use_linear_in_transformer", "legacy", "use_scale_shift_norm",
-                 "enable_attention3d_crossframe", "use_learnable_alpha", "disable_text_ca"):
+def _unet_kwargs(p: Dict, video: bool) -> Dict:
+    unported = ["use_linear_in_transformer", "legacy", "use_scale_shift_norm",
+                "use_learnable_alpha", "enable_ref_attn"]
+    unported += ["disable_text_ca"] if video else ["enable_attention3d_crossframe"]
+    for flag in unported:
         if p.get(flag):
-            raise KeyError(f"network option {flag}=True is not implemented by the TV2V port")
+            raise KeyError(f"network option {flag}=True is not implemented by the port "
+                           f"for a {'pseudo-3D UNet' if video else '2-D ControlNet'}")
     kw = {k: p[k] for k in ("in_channels", "model_channels", "out_channels",
                             "num_res_blocks", "num_heads", "num_head_channels",
-                            "transformer_depth", "context_dim") if k in p}
+                            "transformer_depth", "context_dim", "disable_text_ca",
+                            "enable_attention3d_crossframe") if k in p}
+    if "ST3DCA_ca_type" in p:
+        kw["st3dca_ca_type"] = p["ST3DCA_ca_type"]
     for k in ("attention_resolutions", "channel_mult"):
         if k in p:
             kw[k] = tuple(p[k])
     return kw
 
 
+def build_controlnet(cfg: Dict) -> ControlNet2D:
+    _expect(cfg, "ControlNet2D")
+    p = _params(cfg)
+    return ControlNet2D(hint_channels=p.get("hint_channels", 3),
+                        control_scales=float(p.get("control_scales", 1.0)),
+                        no_add_x=bool(p.get("no_add_x", False)),
+                        input_hint_identity=bool(p.get("set_input_hint_block_as_identity", False)),
+                        **_unet_kwargs(p, video=False))
+
+
 def build_network(cfg: Dict) -> CCEditNetwork:
     _expect(cfg, "ControlledUNetModel3DTV2V")
     p = _params(cfg)
-    if p.get("controlnet_img_config"):
-        raise KeyError("controlnet_img_config (the TVI2V appearance branch) is not "
-                       "implemented by the TV2V port")
     unet = UNetModel(unet_type="pseudo-3d",
                      disable_temporal_text_ca=p.get("disable_temporal_text_ca", True),
-                     **_unet_kwargs(p))
-    controlnet = None
-    if p.get("controlnet_config"):
-        ccfg = p["controlnet_config"]
-        _expect(ccfg, "ControlNet2D")
-        cp = _params(ccfg)
-        controlnet = ControlNet2D(hint_channels=cp.get("hint_channels", 3),
-                                  control_scales=float(cp.get("control_scales", 1.0)),
-                                  **_unet_kwargs(cp))
-    return CCEditNetwork(unet, controlnet)
+                     **_unet_kwargs(p, video=True))
+    controlnet = build_controlnet(p["controlnet_config"]) if p.get("controlnet_config") else None
+    controlnet_img = (build_controlnet(p["controlnet_img_config"])
+                      if p.get("controlnet_img_config") else None)
+    return CCEditNetwork(unet, controlnet, controlnet_img,
+                         crossframe_type=p.get("crossframe_type"))
 
 
 def build_vae(cfg: Dict) -> AutoencoderKL:
@@ -147,7 +178,8 @@ def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,
                       fake_annotator: bool = False) -> Conditioner:
     specs = []
     for emb in _params(cfg).get("emb_models", []):
-        name = _expect(emb, "FrozenCLIPEmbedder", "IdentityEncoder", "DepthMidasEncoder")
+        name = _expect(emb, "FrozenCLIPEmbedder", "IdentityEncoder", "VAEEmbedder",
+                       "DepthMidasEncoder")
         p = _params(emb)
         if name == "FrozenCLIPEmbedder":
             embedder = CLIPTextEmbedder(CLIPTextModel(), asset_dir=asset_dir,
@@ -155,6 +187,8 @@ def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,
                                         layer_idx=p.get("layer_idx"))
         elif name == "IdentityEncoder":
             embedder = IdentityEncoder()
+        elif name == "VAEEmbedder":
+            embedder = VAEEmbedder()
         else:
             embedder = build_annotator(name, dict(p, fake_annotator=fake_annotator
                                                   or p.get("fake_annotator", False)))
@@ -166,8 +200,9 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
                  guider_scale: float = 7.5, num_steps: Optional[int] = None,
                  fake_annotator: bool = False) -> CCEditEngine:
     """CCEditEngine from a reference-format config (``TV2V_CONFIG`` when
-    None).  Modules are built on the current default device with PyTorch's
-    default initialisation; load or randomise weights afterwards."""
+    None; ``TVI2V_CONFIG`` for the reference-guided edit).  Modules are
+    built on the current default device with PyTorch's default
+    initialisation; load or randomise weights afterwards."""
     cfg = copy.deepcopy(cfg if cfg is not None else TV2V_CONFIG)
     model_cfg = cfg.get("model", cfg)
     _expect(model_cfg, "VideoDiffusionEngineTV2V")

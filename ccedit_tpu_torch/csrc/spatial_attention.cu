@@ -1,5 +1,8 @@
 // Kernel 1: exact softmax attention for the UNet/ControlNet spatial
-// self-attention, head_dim 40 (level 0, 6144 tokens) and 80 (level 1, 1536).
+// attention, head_dim 40 (level 0, 6144 tokens), 80 (level 1, 1536) and 160
+// (level 2 at geometries of 512 tokens and more, e.g. 1024 at 1024x1024).
+// n_k may differ from n_q: the CFCA "center_self" cross-frame attention of
+// the TVI2V network attends 6144 queries to 12288 keys (anchor frame + own).
 //
 // Replaces: ccedit_tpu/ops/spatial_attention.py `_kernel` / `_run` /
 // `kv_resident_attention` (the k/v-VMEM-resident Pallas kernel).
@@ -16,7 +19,15 @@
 // output accumulator stay in registers (mma.sync m16n8k16, fp32 accumulate);
 // the softmax is an fp32 online softmax with log2(e) folded into the scale
 // and exp2, as the TPU kernel does.  The online softmax takes any n_k, so the
-// same kernel covers the multi-chunk n_k = 2*n_q case later.
+// same kernel covers the TPU kernel's multi-chunk n_k = 2*n_q case (its
+// `n_chunks > 1` branch): keys are walked in 64-key tiles whatever n_k is,
+// the last tile masked by `k0 + r < n_k`.
+//
+// Shared memory: Q is staged through the K tile buffer (it moves to
+// registers before the first K tile arrives), so a block holds one 64-row
+// Q/K buffer and the transposed V tile: 44 KB at head_dim 160, under the
+// 48 KB static limit.  At head_dim 160 a thread keeps 80 fp32 accumulators
+// and 40 Q-fragment registers (the 16-row warp tile of mma.sync).
 //
 // Head-dim padding: the QK^T contraction runs in k-steps of 16, and 40 is not
 // a multiple of 16.  Q and K are staged with DK = 48 columns whose last 8 are
@@ -48,9 +59,10 @@ spatial_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NSB = kBN / 8;  // 8-wide key blocks of a score tile
   constexpr int VPR = D / 8;    // 16-byte vectors per global row
 
-  __shared__ __align__(16) bf16 s_q[kBM * LDQ];
+  static_assert(kBM == kBN, "Q is staged through the K tile buffer");
   __shared__ __align__(16) bf16 s_k[kBN * LDQ];
   __shared__ __align__(16) bf16 s_vt[D * LDV];
+  bf16* s_q = s_k;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -66,12 +78,11 @@ spatial_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = i / VPR, c = i % VPR;
     st128(s_q + r * LDQ + c * 8, q0 + r < n_q ? ld128(q + (q0 + r) * sq.n + c * 8) : zero);
   }
-  if constexpr (DK > D) {  // zero pad columns [D, DK) of Q and K once
+  if constexpr (DK > D) {  // zero pad columns [D, DK) of the Q/K buffer once
     constexpr int PAD = (DK - D) / 8;
-    for (int i = tid; i < (kBM + kBN) * PAD; i += kThreads) {
+    for (int i = tid; i < kBN * PAD; i += kThreads) {
       const int r = i / PAD, c = D / 8 + i % PAD;
-      bf16* row = r < kBM ? s_q + r * LDQ : s_k + (r - kBM) * LDQ;
-      st128(row + c * 8, zero);
+      st128(s_k + r * LDQ + c * 8, zero);
     }
   }
   __syncthreads();
@@ -94,7 +105,7 @@ spatial_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
 
   for (int k0 = 0; k0 < n_k; k0 += kBN) {
-    __syncthreads();  // the previous tile has been consumed
+    __syncthreads();  // the previous tile (on the first pass, Q) has been consumed
     for (int i = tid; i < kBN * VPR; i += kThreads) {
       const int r = i / VPR, c = i % VPR;
       uint4 kv = zero, vv = zero;
@@ -189,6 +200,8 @@ extern "C" int ccedit_spatial_attention(
       return ccedit::launch<40, 48>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
     case 80:
       return ccedit::launch<80, 80>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
+    case 160:
+      return ccedit::launch<160, 160>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
     default:
       return -1;
   }

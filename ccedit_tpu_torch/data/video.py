@@ -1,5 +1,5 @@
-"""Host-side video IO for inference (port of the TV2V subset of
-``ccedit_tpu/data/video.py``).  Clips are uint8 (T, H, W, 3).  The decoders
+"""Host-side video and image IO for inference (port of the TV2V/TVI2V subset
+of ``ccedit_tpu/data/video.py``).  Clips are uint8 (T, H, W, 3).  The decoders
 (cv2 for video files, PIL for frame directories, imageio for gifs) are
 imported inside the functions that use them."""
 
@@ -83,6 +83,15 @@ def load_video_keyframes(path: str, origin_fps: Optional[float] = None,
     out = [np.asarray(Image.fromarray(frames[i]).resize((size_hw[1], size_hw[0]), Image.BICUBIC))
            for i in idx]
     return np.ascontiguousarray(np.stack(out))
+
+
+def load_image(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
+    """The TVI2V reference frame: RGB, bicubic-resized to ``size_hw``,
+    (H, W, 3) float32 in [-1, 1]."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB").resize((size_hw[1], size_hw[0]), Image.BICUBIC)
+    return np.asarray(img).astype(np.float32) / 127.5 - 1.0
 
 
 def save_video_frames(frames: np.ndarray, out_path: str, fps: float = 6.0) -> None:

@@ -10,7 +10,7 @@ CCEdit checkpoint (sgm key layout) into the engine's modules with strict
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -44,21 +44,25 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
-def _sub(sd: Dict, prefix: str, exclude: str = None) -> Dict:
+def _sub(sd: Dict, prefix: str, exclude: Tuple[str, ...] = ()) -> Dict:
     return {k[len(prefix):]: v for k, v in sd.items()
-            if k.startswith(prefix) and not (exclude and k.startswith(exclude))}
+            if k.startswith(prefix) and not k.startswith(exclude)}
 
 
 def load_reference_checkpoint(engine, sd: Dict[str, torch.Tensor]) -> None:
-    """Strict-load the UNet, ControlNet, VAE decoder and CLIP sub-dicts of a
-    reference checkpoint (``model.diffusion_model.``,
-    ``model.diffusion_model.controlnet.``, ``first_stage_model.``,
+    """Strict-load the UNet, ControlNet, appearance ControlNet, VAE and CLIP
+    sub-dicts of a reference checkpoint (``model.diffusion_model.``,
+    ``model.diffusion_model.controlnet.``,
+    ``model.diffusion_model.controlnet_img.``, ``first_stage_model.``,
     ``cond_stage_model.transformer.`` or ``conditioner.embedders.0.transformer.``)."""
     net = engine.network
-    cn_prefix = "model.diffusion_model.controlnet."
-    net.unet.load_state_dict(_sub(sd, "model.diffusion_model.", exclude=cn_prefix), strict=True)
-    if net.controlnet is not None:
-        net.controlnet.load_state_dict(_sub(sd, cn_prefix), strict=True)
+    branches = {"controlnet": "model.diffusion_model.controlnet.",
+                "controlnet_img": "model.diffusion_model.controlnet_img."}
+    net.unet.load_state_dict(_sub(sd, "model.diffusion_model.",
+                                  exclude=tuple(branches.values())), strict=True)
+    for name, prefix in branches.items():
+        if getattr(net, name) is not None:
+            getattr(net, name).load_state_dict(_sub(sd, prefix), strict=True)
     engine.vae.load_reference_state_dict(_sub(sd, "first_stage_model."))
     clip_sd = (_sub(sd, "cond_stage_model.transformer.")
                or _sub(sd, "conditioner.embedders.0.transformer."))

@@ -2,9 +2,10 @@
 
 ``from_jax(kind, params)`` is the inverse of
 ``ccedit_tpu/io/torch_convert.py``'s ``convert_unet`` / ``convert_controlnet``
-/ ``convert_vae`` / ``convert_clip``: it takes a flax parameter tree (nested
-dicts of numpy arrays) and returns a state dict in the reference sgm/LDM/HF
-key layout, which the port's modules load as it is.  Layouts:
+/ ``convert_vae`` / ``convert_clip`` and of ``convert_dpt_midas``: it takes a
+flax parameter tree (nested dicts of numpy arrays) and returns a state dict
+in the reference sgm/LDM/HF/MiDaS key layout, which the port's modules load
+as it is.  Layouts:
 
   Conv2d kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
   Conv1d kernel (k, I, O)      -> weight (O, I, k)
@@ -66,6 +67,24 @@ _CLIP = [
     (r"^position_embedding$", "embeddings.position_embedding/weight"),
     (r"^layers_(\d+)/fc([12])/", r"encoder.layers.\1.mlp.fc\2/"),
     (r"^layers_(\d+)/", r"encoder.layers.\1/"),
+]
+_DPT = [
+    (r"^bit_stem_(conv|norm)(/gn)?/", r"pretrained.model.patch_embed.backbone.stem.\1/"),
+    (r"^stage(\d+)_block(\d+)/", r"pretrained.model.patch_embed.backbone.stages.\1.blocks.\2/"),
+    (r"/down_(conv|norm)(/gn)?/", r"/downsample.\1/"),
+    (r"/(norm\d)/gn/", r"/\1/"),
+    (r"^(cls_token|pos_embed)$", r"pretrained.model.\1"),
+    (r"^vit_proj/", "pretrained.model.patch_embed.proj/"),
+    (r"^block(\d+)/(qkv|proj)/", r"pretrained.model.blocks.\1.attn.\2/"),
+    (r"^block(\d+)/(fc\d)/", r"pretrained.model.blocks.\1.mlp.\2/"),
+    (r"^block(\d+)/", r"pretrained.model.blocks.\1."),
+    (r"^readout(\d)/", r"pretrained.act_postprocess\1.0.project.0/"),
+    (r"^neck_proj(\d)/", r"pretrained.act_postprocess\1.3/"),
+    (r"^neck_down4/", "pretrained.act_postprocess4.4/"),
+    (r"^rn(\d)/", r"scratch.layer\1_rn/"),
+    (r"^fusion(\d)/ru(\d)/", r"scratch.refinenet\1.resConfUnit\2."),
+    (r"^fusion(\d)/out/", r"scratch.refinenet\1.out_conv/"),
+    (r"^head_conv(\d)/", lambda m: f"scratch.output_conv.{2 * int(m[1]) - 2}/"),
 ]
 
 
@@ -149,7 +168,7 @@ def _unet_path(path: str, index: Dict[str, str]) -> str:
 
 
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
-    """kind: 'unet' | 'controlnet' | 'vae' | 'clip'.  ``params`` is the flax
+    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt'.  ``params`` is the flax
     tree of that module (``{"params": ...}`` is unwrapped).  Returns the
     reference-layout state dict, fp32 torch tensors."""
     if "params" in params and len(params) == 1:
@@ -170,7 +189,7 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
             name, val = _leaf(mod, value)
             out[name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))
         return out
-    rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model.")}[kind]
+    rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model."), "dpt": (_DPT, "")}[kind]
     for path, value in flat.items():
         name, val = _leaf(_sub(rules, path), value)
         out[prefix + name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))

@@ -1,7 +1,8 @@
-"""CCEditEngine: network, diffusion math, conditioner and VAE decoder (port
-of ``ccedit_tpu/models/engine.py``: ``sample`` in mode "full" with
-``init_noise``/``loop_noise``, ``make_denoise_fn``, ``_hoist_control_hint``
-and ``decode_first_stage``; training waits for the training slice).
+"""CCEditEngine: network, diffusion math, conditioner and VAE (port of
+``ccedit_tpu/models/engine.py``: ``sample`` in mode "full" with
+``init_noise``/``loop_noise`` and the x-prior mix, ``make_denoise_fn``,
+``_hoist_control_hint``, ``encode_first_stage``, ``_wire_vae_embedders`` and
+``decode_first_stage``; sdedit, inpainting and training are not ported).
 
 The modules own their weights.  The network (and VAE, CLIP) may run in
 bf16; the sampler state and the denoiser math stay fp32, with a cast at the
@@ -15,11 +16,12 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..conditioning.conditioner import Conditioner
+from ..conditioning.embedders import VAEEmbedder, as_float_frames
 from ..diffusion.denoiser import DiscreteDenoiser
 from ..diffusion.guidance import IdentityGuider, VanillaCFG
 from ..diffusion.samplers import DPMPP2SAncestralSampler
 from ..modules.controlnet import CCEditNetwork
-from ..modules.vae import AutoencoderKL
+from ..modules.vae import AutoencoderKL, DiagonalGaussian
 
 
 class CCEditEngine:
@@ -34,6 +36,13 @@ class CCEditEngine:
         self.vae = vae
         self.guider = guider if guider is not None else VanillaCFG(scale=7.5)
         self.scale_factor = scale_factor
+        self._wire_vae_embedders()
+
+    def _wire_vae_embedders(self) -> None:
+        """Give the conditioner's VAEEmbedders the shared first stage."""
+        for spec in self.conditioner.specs:
+            if isinstance(spec.embedder, VAEEmbedder):
+                spec.embedder.encode = self.encode_first_stage
 
     @property
     def network_dtype(self) -> torch.dtype:
@@ -43,6 +52,18 @@ class CCEditEngine:
     def latent_factor(self) -> int:
         """Pixel -> latent downsampling of the first stage (8 for SD's VAE)."""
         return 2 ** (len(self.vae.ch_mult) - 1) if self.vae is not None else 1
+
+    def encode_first_stage(self, x: torch.Tensor,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Pixels in [-1, 1] (or uint8) -> scaled fp32 latents: the
+        posterior mode, or a sample drawn from ``generator``."""
+        x = as_float_frames(x)
+        if self.vae is None:
+            return x
+        moments = self.vae.encode_moments(x.to(next(self.vae.parameters()).dtype)).float()
+        post = DiagonalGaussian(moments)
+        z = post.mode() if generator is None else post.sample(generator)
+        return z * self.scale_factor
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         if self.vae is None:
@@ -86,11 +107,15 @@ class CCEditEngine:
                num_steps: Optional[int] = None, generator: Optional[torch.Generator] = None,
                init_noise: Optional[torch.Tensor] = None,
                loop_noise: Optional[torch.Tensor] = None,
-               guider_scale: Optional[float] = None) -> torch.Tensor:
+               guider_scale: Optional[float] = None,
+               x_prior: Optional[torch.Tensor] = None, prior_coefficient: float = 0.0,
+               prior_noise_coefficient: float = 1.0) -> torch.Tensor:
         """Draw latents (fp32) from noise (mode "full" of the JAX engine).
         ``init_noise`` replaces the start-of-chain gaussian and
         ``loop_noise`` (num_steps, *shape) the per-step ancestral draws;
-        otherwise both come from ``generator``."""
+        otherwise both come from ``generator``.  With ``x_prior`` and a
+        nonzero ``prior_coefficient`` the start is
+        ``prior_noise_coefficient * noise + prior_coefficient * x_prior``."""
         device = next(self.network.parameters()).device
         if init_noise is not None:
             x = init_noise.to(device=device, dtype=torch.float32)
@@ -98,6 +123,8 @@ class CCEditEngine:
                 raise ValueError(f"init_noise shape {tuple(x.shape)} != {tuple(shape)}")
         else:
             x = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+        if x_prior is not None and prior_coefficient != 0:
+            x = prior_noise_coefficient * x + prior_coefficient * x_prior.to(x)
         denoise_fn = self.make_denoise_fn(cond, uc, guider_scale=guider_scale)
         return self.sampler(denoise_fn, x, num_steps=num_steps,
                             noise_override=loop_noise, generator=generator)

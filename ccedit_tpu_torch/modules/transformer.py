@@ -1,6 +1,7 @@
-"""Transformer blocks: 2D spatial and factorised 3D spatio-temporal (port of
-``ccedit_tpu/modules/transformer.py``; ``SpatialTransformer3DCA`` comes with
-the TVI2V slice).
+"""Transformer blocks: 2D spatial, factorised 3D spatio-temporal and the 3D
+one with cross-frame cross-attention, CFCA (port of
+``ccedit_tpu/modules/transformer.py``; the RAIG ``SpatialTransformerCA`` is
+not ported).
 
 Tokens are channels-last.  Every attention goes through the one dispatch
 point, ``ops.attention.dot_product_attention``.  Two numerics follow the JAX
@@ -112,16 +113,21 @@ class BasicTransformerSingleLayerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """2D token transformer over (N, H, W, C) with 1x1-conv projections."""
+    """2D token transformer over (N, H, W, C) with 1x1-conv projections.
+    ``disable_text_ca`` (the TVI2V appearance ControlNet) makes its blocks
+    self-attention single blocks, without text cross-attention."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
-                 depth: int = 1, context_dim: Optional[int] = None):
+                 depth: int = 1, context_dim: Optional[int] = None,
+                 disable_text_ca: bool = False):
         super().__init__()
         inner = n_heads * d_head
         self.norm = group_norm(in_channels, eps=1e-6)
         self.proj_in = conv2d(in_channels, inner, k=1)
+        self.disable_text_ca = disable_text_ca
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim)
+            BasicTransformerSingleLayerBlock(inner, n_heads, d_head) if disable_text_ca
+            else BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim)
             for _ in range(depth))
         self.proj_out = conv2d(inner, in_channels, k=1, zero=True)
 
@@ -130,7 +136,7 @@ class SpatialTransformer(nn.Module):
         y = self.proj_in(self.norm(x))
         y = y.reshape(n, h * w, -1)
         for blk in self.transformer_blocks:
-            y = blk(y, context=context)
+            y = blk(y, context=None if self.disable_text_ca else context)
         return self.proj_out(y.reshape(n, h, w, -1)) + x
 
 
@@ -178,3 +184,49 @@ class SpatialTransformer3D(nn.Module):
         xt = self._temporal(tokens_to_temporal(xs, b))
         return temporal_to_tokens(xt, b, h, w).reshape(b, t, h, w, c)
 
+
+
+class SpatialTransformer3DCA(SpatialTransformer3D):
+    """SpatialTransformer3D + a fifth attention: cross-frame cross-attention
+    (CFCA) of every frame's tokens against an anchor, after the temporal
+    attention.  ``ca_type``: "center" (the centre frame's tokens), "self"
+    (the frame's own) or "center_self" (centre then own, concatenated: the
+    TVI2V network's, with n_k = 2 * n_q).  ``ref_context`` (B, H*W, C), the
+    appearance branch's banked tokens, replaces the anchor when given."""
+
+    def __init__(self, in_channels: int, n_heads: int, d_head: int,
+                 depth: int = 1, context_dim: Optional[int] = None,
+                 ca_type: str = "center"):
+        super().__init__(in_channels, n_heads, d_head, depth, context_dim)
+        if ca_type not in ("center", "self", "center_self"):
+            raise ValueError(f"ca_type {ca_type!r}")
+        inner = n_heads * d_head
+        self.ca_type = ca_type
+        self.norm_temporal_ca = group_norm(in_channels, eps=1e-6)
+        self.proj_in_temporal_ca = conv2d(in_channels, inner, k=1)
+        self.transformer_blocks_temporal_ca = nn.ModuleList(
+            [BasicTransformerSingleLayerBlock(inner, n_heads, d_head)])
+        self.proj_out_temporal_ca = conv2d(inner, in_channels, k=1, zero=True)
+
+    def _cfca(self, x, b, t, ref_context):
+        n, h, w, _ = x.shape
+        y = self.proj_in_temporal_ca(self.norm_temporal_ca(x)).reshape(n, h * w, -1)
+        if ref_context is not None:
+            anchor = torch.repeat_interleave(ref_context, t, dim=0)  # (B*T, hw, C)
+        elif self.ca_type == "self":
+            anchor = y
+        else:
+            centre = y.reshape(b, t, h * w, -1)[:, t // 2]
+            anchor = torch.repeat_interleave(centre, t, dim=0)  # b-major
+            if self.ca_type == "center_self":
+                anchor = torch.cat([anchor, y], dim=1)
+        y = self.transformer_blocks_temporal_ca[0](y, context=anchor)
+        return self.proj_out_temporal_ca(y.reshape(n, h, w, -1)) + x
+
+    def forward(self, x, context=None, ref_context=None):
+        b, t, h, w, c = x.shape
+        ctx = torch.repeat_interleave(context, t, dim=0) if context is not None else None
+        xs = self._spatial(fold_time(x), ctx)
+        xt = self._temporal(tokens_to_temporal(xs, b))
+        xs = self._cfca(temporal_to_tokens(xt, b, h, w), b, t, ref_context)
+        return xs.reshape(b, t, h, w, c)

@@ -5,10 +5,13 @@ Submodules follow the sgm ``UNetModel`` state-dict layout: ``time_embed``,
 ``input_blocks.{i}.{j}``, ``middle_block.{j}``, ``output_blocks.{i}.{j}``,
 ``out``, and for the pseudo-3D UNet ``input_blocks_temporal`` and
 ``out_temporal``.  Ported options: ``unet_type`` "2d" | "pseudo-3d" with
-``disable_temporal_text_ca=True``, and ``encoder_only`` (the ControlNet
-trunk).  CFCA, RAIG, ``disable_text_ca`` (the TVI2V appearance ControlNet),
-learnable alphas, scale-shift norm and vector conditioning come with later
-slices.
+``disable_temporal_text_ca=True``, ``encoder_only`` (the ControlNet trunk),
+``disable_text_ca`` (2D: the TVI2V appearance ControlNet),
+``enable_attention3d_crossframe`` with ``st3dca_ca_type`` (pseudo-3D: CFCA
+in every transformer), and the appearance branch's inputs to ``forward``:
+``img_control`` (added onto the centre frame in the encoder) and
+``ref_contexts`` (the CFCA reference bank).  RAIG, learnable alphas,
+scale-shift norm and vector conditioning are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +23,16 @@ from torch import nn
 
 from .blocks import Downsample, Downsample3D, ResBlock, ResBlock3D, Upsample, Upsample3D, spatial_temporal
 from .layers import TimeEmbed, conv2d, group_norm, temporal_conv, timestep_embedding
-from .transformer import SpatialTransformer, SpatialTransformer3D
+from .transformer import SpatialTransformer, SpatialTransformer3D, SpatialTransformer3DCA
+
+_TRANSFORMERS = (SpatialTransformer, SpatialTransformer3D)
+
+
+def _add_to_centre_frame(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """h[:, T // 2] += c, in place: every block returns a fresh tensor that
+    nothing else holds."""
+    h[:, h.shape[1] // 2] += c
+    return h
 
 
 class UNetModel(nn.Module):
@@ -39,6 +51,9 @@ class UNetModel(nn.Module):
         unet_type: str = "2d",
         disable_temporal_text_ca: bool = True,
         encoder_only: bool = False,
+        disable_text_ca: bool = False,
+        enable_attention3d_crossframe: bool = False,
+        st3dca_ca_type: str = "center",
     ):
         super().__init__()
         if unet_type not in ("2d", "pseudo-3d"):
@@ -57,9 +72,13 @@ class UNetModel(nn.Module):
 
         def transformer(c):
             n_heads, d_head = heads(c)
+            if self.is_video and enable_attention3d_crossframe:
+                return SpatialTransformer3DCA(c, n_heads, d_head, transformer_depth,
+                                              context_dim, ca_type=st3dca_ca_type)
             if self.is_video:
                 return SpatialTransformer3D(c, n_heads, d_head, transformer_depth, context_dim)
-            return SpatialTransformer(c, n_heads, d_head, transformer_depth, context_dim)
+            return SpatialTransformer(c, n_heads, d_head, transformer_depth, context_dim,
+                                      disable_text_ca=disable_text_ca)
 
         self.time_embed = TimeEmbed(ch, 4 * ch)
         blocks = [nn.ModuleList([conv2d(in_channels, ch)])]
@@ -106,38 +125,58 @@ class UNetModel(nn.Module):
             self.time_embed[0].weight.dtype))
 
     @staticmethod
-    def apply_block(blk: nn.ModuleList, h, emb, context):
+    def apply_block(blk: nn.ModuleList, h, emb, context, refs=None, bank=None):
+        """One input/middle/output block.  ``refs``: an iterator over the
+        CFCA reference bank, one entry taken by every CFCA transformer in
+        order (entries past its end are None); ``bank``: a list that collects
+        2D transformer outputs (the appearance branch's bank)."""
         for mod in blk:
             if isinstance(mod, (ResBlock, ResBlock3D)):
                 h = mod(h, emb)
-            elif isinstance(mod, (SpatialTransformer, SpatialTransformer3D)):
+            elif isinstance(mod, SpatialTransformer3DCA):
+                ref = next(refs, None) if refs is not None else None
+                h = mod(h, context=context, ref_context=ref)
+            elif isinstance(mod, _TRANSFORMERS):
                 h = mod(h, context=context)
+                if bank is not None:
+                    bank.append(h)
             else:
                 h = mod(h)
         return h
 
-    def forward(self, x, timesteps, context=None, control: Optional[Sequence] = None):
+    def forward(self, x, timesteps, context=None, control: Optional[Sequence] = None,
+                img_control: Optional[Sequence] = None,
+                ref_contexts: Optional[Sequence] = None):
         """x: (B, T, H, W, C) video latents (or (N, H, W, C) for "2d").
         ``control``: the ControlNet's 13 encoder+middle residuals, added in
-        the decoder."""
+        the decoder.  ``img_control``: the appearance ControlNet's 13
+        (B, h, w, C) maps, added onto frame T // 2 after every input block
+        and after the middle block.  ``ref_contexts``: (B, h*w, C) token
+        banks for the first transformers' CFCA, in application order."""
         emb = self.embed(timesteps)
         control = list(control) if control is not None else None
+        img_control = list(img_control) if img_control is not None else None
+        refs = iter(ref_contexts) if ref_contexts is not None else None
         hs = []
         h = x
         for i, blk in enumerate(self.input_blocks):
             if i == 0 and self.is_video:
                 h = spatial_temporal(h, blk[0], self.input_blocks_temporal)
             else:
-                h = self.apply_block(blk, h, emb, context)
+                h = self.apply_block(blk, h, emb, context, refs)
+            if img_control is not None:
+                h = _add_to_centre_frame(h, img_control.pop(0))
             hs.append(h)
-        h = self.apply_block(self.middle_block, h, emb, context)
+        h = self.apply_block(self.middle_block, h, emb, context, refs)
+        if img_control is not None:
+            h = _add_to_centre_frame(h, img_control.pop(0))
         if control is not None:
             h = h + control.pop()
         for blk in self.output_blocks:
             skip = hs.pop()
             if control is not None:
                 skip = skip + control.pop()
-            h = self.apply_block(blk, torch.cat([h, skip], dim=-1), emb, context)
+            h = self.apply_block(blk, torch.cat([h, skip], dim=-1), emb, context, refs)
         if self.is_video:
             return spatial_temporal(h, self.out, self.out_temporal)
         return self.out(h)

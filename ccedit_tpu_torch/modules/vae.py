@@ -1,23 +1,26 @@
-"""KL-VAE first stage, decoder half (port of ``ccedit_tpu/modules/vae.py``:
-``VAEResnetBlock``, ``VAEAttnBlock``, ``VAEUpsample``, ``Decoder`` and
-``AutoencoderKL.decode``; the encoder comes with the x-prior and TVI2V).
+"""KL-VAE first stage (port of ``ccedit_tpu/modules/vae.py``:
+``VAEResnetBlock``, ``VAEAttnBlock``, ``VAEDownsample``, ``VAEUpsample``,
+``Encoder``, ``Decoder``, ``DiagonalGaussian`` and ``AutoencoderKL``'s
+``encode_moments`` / ``decode``).
 
-Submodules follow the LDM ``AutoencoderKL`` keys (``decoder.mid.block_1``,
-``decoder.up.{level}.block.{i}``, ``post_quant_conv``, ...).  A reference
-``first_stage_model.`` sub-dict loads with ``load_reference_state_dict``,
-which drops the encoder's keys.  GroupNorm epsilon 1e-6, as in LDM.
+Submodules follow the LDM ``AutoencoderKL`` keys (``encoder.down.{level}.
+block.{i}``, ``decoder.mid.block_1``, ``quant_conv``, ``post_quant_conv``,
+...), so a reference ``first_stage_model.`` sub-dict loads with a strict
+``load_state_dict``.  GroupNorm epsilon 1e-6, as in LDM.  Both halves' mid
+blocks hold the single-head d = 512 attention that kernel 3 computes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
 from .blocks import nearest_upsample_2x
-from .layers import conv2d, group_norm
+from .layers import Conv2d, conv2d, group_norm
 
 
 class VAEResnetBlock(nn.Module):
@@ -59,6 +62,17 @@ class VAEAttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class VAEDownsample(nn.Module):
+    """conv3x3 stride 2 with LDM's asymmetric (0, 1) padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -85,6 +99,45 @@ class _UpLevel(nn.Module):
         self.block = nn.ModuleList(blocks)
         if upsample is not None:
             self.upsample = upsample
+
+
+class _DownLevel(nn.Module):
+    def __init__(self, blocks, downsample=None):
+        super().__init__()
+        self.block = nn.ModuleList(blocks)
+        if downsample is not None:
+            self.downsample = downsample
+
+
+class Encoder(nn.Module):
+    """(N, H, W, 3) pixels -> (N, H/f, W/f, 2 * z_channels) moments."""
+
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4):
+        super().__init__()
+        self.conv_in = conv2d(in_channels, ch)
+        levels, cur = [], ch
+        for level, mult in enumerate(ch_mult):
+            blocks = []
+            for _ in range(num_res_blocks):
+                blocks.append(VAEResnetBlock(cur, ch * mult))
+                cur = ch * mult
+            last = level == len(ch_mult) - 1
+            levels.append(_DownLevel(blocks, None if last else VAEDownsample(cur)))
+        self.down = nn.ModuleList(levels)
+        self.mid = _Mid(cur)
+        self.norm_out = group_norm(cur, eps=1e-6)
+        self.conv_out = conv2d(cur, 2 * z_channels)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for blk in level.block:
+                h = blk(h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -115,29 +168,58 @@ class Decoder(nn.Module):
         return self.conv_out(torch.nn.functional.silu(self.norm_out(h)))
 
 
+class DiagonalGaussian:
+    """The posterior over latents: mean and log-variance split on the
+    channel axis, log-variance clamped to [-30, 20]."""
+
+    def __init__(self, moments: torch.Tensor):
+        self.mean, logvar = moments.chunk(2, dim=-1)
+        self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise; ``noise`` (the shape of the mean) or a draw
+        from ``generator``."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + self.std * noise
+
+
 class AutoencoderKL(nn.Module):
-    """The decoder half of the f=8 KL autoencoder.  ``decode`` takes
-    (B, T, h, w, 4) (or (N, h, w, 4)) latents and returns pixels in about
-    [-1, 1], channels-last; video is decoded per frame."""
+    """The f=8 KL autoencoder.  ``encode_moments`` takes (B, T, H, W, 3) (or
+    (N, H, W, 3)) pixels in [-1, 1] and returns the posterior moments;
+    ``decode`` takes (B, T, h, w, 4) (or (N, h, w, 4)) latents and returns
+    pixels in about [-1, 1].  Channels-last; video is folded per frame."""
 
     def __init__(self, embed_dim: int = 4, ch: int = 128,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
-                 out_ch: int = 3, z_channels: int = 4):
+                 out_ch: int = 3, z_channels: int = 4, in_channels: int = 3):
         super().__init__()
         self.ch_mult = tuple(ch_mult)
+        self.encoder = Encoder(ch, ch_mult, num_res_blocks, in_channels, z_channels)
         self.decoder = Decoder(ch, ch_mult, num_res_blocks, out_ch, z_channels)
+        self.quant_conv = conv2d(2 * z_channels, 2 * embed_dim, k=1)
         self.post_quant_conv = conv2d(embed_dim, z_channels, k=1)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        if z.dim() == 5:
-            b, t = z.shape[:2]
-            out = self.decoder(self.post_quant_conv(z.reshape((b * t,) + z.shape[2:])))
+    @staticmethod
+    def _per_frame(fn, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 5:
+            b, t = x.shape[:2]
+            out = fn(x.reshape((b * t,) + x.shape[2:]))
             return out.reshape((b, t) + out.shape[1:])
-        return self.decoder(self.post_quant_conv(z))
+        return fn(x)
+
+    def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        return self._per_frame(lambda f: self.quant_conv(self.encoder(f)), x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self._per_frame(lambda f: self.decoder(self.post_quant_conv(f)), z)
 
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]):
-        """Strict load of an LDM AutoencoderKL state dict, minus the encoder
-        (``encoder.*``, ``quant_conv.*``), which this slice does not run."""
-        keep = {k: v for k, v in sd.items()
-                if not k.startswith(("encoder.", "quant_conv."))}
-        return self.load_state_dict(keep, strict=True)
+        """Strict load of an LDM AutoencoderKL state dict."""
+        return self.load_state_dict(sd, strict=True)

@@ -1,16 +1,20 @@
 """Scaled-dot-product attention with one dispatch point.
 
 Port of ``ccedit_tpu/ops/attention.py::dot_product_attention``.  The route is
-chosen by shape alone, the same way on every device:
+chosen by shape alone, before any launch, the same way on every device, and a
+kernel gets only the head dims its module lists in ``HEAD_DIMS``:
 
-* temporal kernel (2): n_q == n_k <= 32, B*H >= 2048, d <= 256 — the
-  pseudo-3D temporal attention at UNet levels 0-2;
-* spatial kernel (1): n_q, n_k >= 512 and d <= 128 — spatial self-attention
-  at UNet/ControlNet levels 0 and 1;
-* flash kernel (3): n_q, n_k >= 512 and d > 128 — the VAE mid-block attention;
-* plain math everywhere the JAX package used XLA: the 77-token text
-  cross-attention, level-2 and middle spatial self-attention (384 / 96
-  tokens) and the middle temporal attention (B*H < 2048).
+* temporal kernel (2): n_q == n_k <= 32, B*H >= 2048, d % 8 == 0, d <= 256 —
+  the pseudo-3D temporal attention at UNet levels 0-2;
+* spatial kernel (1): n_q, n_k >= 512 and d in (40, 80, 160) — spatial
+  self-attention at UNet/ControlNet levels 0 and 1 (and level 2 from 512
+  tokens on), and the CFCA cross-frame attention (n_k = 2 * n_q);
+* flash kernel (3): n_q, n_k >= 512 and d = 512 — the VAE encoder's and
+  decoder's mid-block attention;
+* plain math everywhere else, as the JAX package sends to XLA what its
+  kernels refuse: the 77-token text cross-attention, spatial attention under
+  512 tokens, the middle temporal attention (B*H < 2048) and head dims no
+  kernel is instantiated for.
 
 Each kernel wrapper then takes its plain version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor.
@@ -18,13 +22,13 @@ launches its kernel (or raises) for a CUDA tensor.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from .flash_attention import flash_attention
-from .spatial_attention import kv_resident_attention
-from .temporal_attention import small_seq_attention
+from . import flash_attention as fa
+from . import spatial_attention as sa
+from . import temporal_attention as ta
 
 
 def plain_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -38,17 +42,21 @@ def plain_attention(q, k, v, scale: float) -> torch.Tensor:
 def attention_route(q, k) -> str:
     """'temporal' | 'spatial' | 'flash' | 'plain' for (B, H, N, D) q and k."""
     n_q, n_k, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    if n_q == n_k and n_q <= 32 and q.shape[0] * q.shape[1] >= 2048 and d <= 256:
+    if (n_q == n_k and n_q <= ta.MAX_T and q.shape[0] * q.shape[1] >= 2048
+            and d in ta.HEAD_DIMS):
         return "temporal"
     if n_q >= 512 and n_k >= 512:
-        return "spatial" if d <= 128 else "flash"
+        if d in sa.HEAD_DIMS:
+            return "spatial"
+        if d in fa.HEAD_DIMS:
+            return "flash"
     return "plain"
 
 
 _ROUTES = {
-    "temporal": small_seq_attention,
-    "spatial": kv_resident_attention,
-    "flash": flash_attention,
+    "temporal": ta.small_seq_attention,
+    "spatial": sa.kv_resident_attention,
+    "flash": fa.flash_attention,
     "plain": plain_attention,
 }
 
@@ -58,3 +66,20 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None) -> torch.Tenso
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     return _ROUTES[attention_route(q, k)](q, k, v, scale)
+
+
+def reset_launch_counts() -> None:
+    for wrapper in (sa.kv_resident_attention, ta.small_seq_attention, fa.flash_attention):
+        wrapper.launches = 0
+    sa.kv_resident_attention.variant_launches.clear()
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count, and kernel 1's by variant
+    (``spatial_attention[d40 n_k!=n_q]``, ...)."""
+    out = {"spatial_attention": sa.kv_resident_attention.launches,
+           "temporal_attention": ta.small_seq_attention.launches,
+           "flash_attention": fa.flash_attention.launches}
+    for name, n in sorted(sa.kv_resident_attention.variant_launches.items()):
+        out[f"spatial_attention[{name}]"] = n
+    return out

@@ -13,6 +13,7 @@ from . import build
 
 MAX_T = 32
 MAX_HEAD_DIM = 256
+HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))  # the kernel takes d % 8 == 0
 
 
 def plain_temporal_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -30,7 +31,7 @@ def small_seq_attention(q, k, v, scale: float) -> torch.Tensor:
     if not q.is_cuda:
         return plain_temporal_attention(q, k, v, scale)
     b, h, t, d = q.shape
-    if k.shape[2] != t or t > MAX_T or d > MAX_HEAD_DIM or d % 8:
+    if k.shape[2] != t or t > MAX_T or d not in HEAD_DIMS:
         raise ValueError(f"temporal kernel takes n_q == n_k <= {MAX_T}, "
                          f"head_dim % 8 == 0 and <= {MAX_HEAD_DIM}; got "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")

@@ -72,7 +72,7 @@ def test_unported_options_and_geometry_raise():
 
 @pytest.mark.parametrize("key,value,match", [
     ("target", "x.ControlledUNetModel2DRAIG", "ControlledUNetModel2DRAIG"),
-    ("disable_text_ca", True, "disable_text_ca"),  # the TVI2V appearance branch
+    ("disable_text_ca", True, "disable_text_ca"),  # a 2-D option: the UNet is pseudo-3D
 ])
 def test_config_rejects_targets_outside_the_slice(key, value, match):
     cfg = json.loads(json.dumps(config.TV2V_CONFIG))

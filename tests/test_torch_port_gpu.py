@@ -43,6 +43,13 @@ def _qkv(shape, n_k, device, seed):
     (ta.small_seq_attention, ta.plain_temporal_attention, (7, 2, 32, 256), 32),
     (fa.flash_attention, fa.plain_flash_attention, (2, 1, 6144, 512), 6144),
     (fa.flash_attention, fa.plain_flash_attention, (2, 1, 100, 512), 70),
+    # kernel 1 at n_k = 2 * n_q (the CFCA centre+self attention) and at d = 160
+    (sa.kv_resident_attention, sa.plain_spatial_attention, (1, 8, 6144, 40), 12288),
+    (sa.kv_resident_attention, sa.plain_spatial_attention, (2, 8, 1536, 80), 3072),
+    (sa.kv_resident_attention, sa.plain_spatial_attention, (2, 8, 1024, 160), 1024),
+    (sa.kv_resident_attention, sa.plain_spatial_attention, (2, 3, 1000, 160), 777),
+    # kernel 3 at the VAE encoder's reference-frame shape
+    (fa.flash_attention, fa.plain_flash_attention, (1, 1, 6144, 512), 6144),
 ])
 def test_kernel_matches_plain(cuda, kernel, plain, shape, n_k):
     q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape))
@@ -60,6 +67,17 @@ def test_dispatch_launches_the_routed_kernel(cuda):
     before = sa.kv_resident_attention.launches
     att.dot_product_attention(q, k, v)
     assert sa.kv_resident_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("shape,n_k,variant", [
+    ((1, 8, 1024, 40), 2048, "d40 n_k!=n_q"),
+    ((1, 8, 512, 160), 512, "d160 n_k=n_q"),
+])
+def test_variant_counts(cuda, shape, n_k, variant):
+    q, k, v = _qkv(shape, n_k, cuda, seed=3)
+    before = att.launch_counts().get(f"spatial_attention[{variant}]", 0)
+    att.dot_product_attention(q, k, v)
+    assert att.launch_counts()[f"spatial_attention[{variant}]"] == before + 1
 
 
 @pytest.mark.parametrize("bad", ["fp32", "head_dim", "strides"])

@@ -16,6 +16,9 @@ import ccedit_tpu_torch.models.engine
 import ccedit_tpu_torch.config
 import ccedit_tpu_torch.cli.pipeline
 import ccedit_tpu_torch.cli.sampling_tv2v
+import ccedit_tpu_torch.cli.sampling_tv2v_ref
+import ccedit_tpu_torch.cli.profile_tv2v
+import ccedit_tpu_torch.conditioning.annotators.dpt_midas
 import ccedit_tpu_torch.io.jax_params
 import ccedit_tpu_torch.ops.attention
 import ccedit_tpu_torch.ops.build

@@ -77,7 +77,7 @@ def test_controlnet_round_trip(layout):
 @pytest.mark.parametrize("ch_mult,num_res_blocks", [((1, 2, 4, 4), 2), ((1, 2, 2, 2), 1)])
 def test_vae_round_trip(ch_mult, num_res_blocks):
     """The LDM state dict, encoder included, from the JAX VAE's parameter
-    shapes; its decoder half is exactly the port's AutoencoderKL."""
+    shapes is exactly the port's AutoencoderKL's."""
     jm = jvae.AutoencoderKL(ch=32, ch_mult=ch_mult, num_res_blocks=num_res_blocks)
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
                                             None, False))["params"]
@@ -86,8 +86,7 @@ def test_vae_round_trip(ch_mult, num_res_blocks):
     sd = {k: v.numpy() for k, v in from_jax("vae", tree).items()}
     assert any(k.startswith("encoder.down.0.block.0") for k in sd)
     port = AutoencoderKL(ch=32, ch_mult=ch_mult, num_res_blocks=num_res_blocks)
-    assert sorted(k for k in sd if not k.startswith(("encoder.", "quant_conv."))) == \
-        sorted(port.state_dict())
+    assert sorted(sd) == sorted(port.state_dict())
     back = tc.convert_vae({"first_stage_model." + k: v for k, v in sd.items()},
                           ch_mult=ch_mult, num_res_blocks=num_res_blocks)
     _assert_same(from_jax("vae", back), sd)
@@ -103,8 +102,8 @@ def test_clip_round_trip():
 
 def test_reference_checkpoint_loads_strictly():
     """``load_reference_checkpoint``: the UNet, ControlNet, VAE (encoder
-    included, which this slice drops) and CLIP (with HF's ``position_ids``)
-    sub-dicts of a reference checkpoint load value for value."""
+    included) and CLIP (with HF's ``position_ids``) sub-dicts of a reference
+    checkpoint load value for value."""
     unet = UNetModel(unet_type="pseudo-3d", **_TINY)
     controlnet = ControlNet2D(hint_channels=3, **_TINY)
     vae = AutoencoderKL(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
