@@ -1,7 +1,9 @@
-"""Time and profile the full-width TV2V or TVI2V clip edit on one GPU.
+"""Time and profile the full-width TV2V or TVI2V clip edit, or a TV2V
+training step, on one GPU.
 
     python -m ccedit_tpu_torch.cli.profile_tv2v --steps 30 --profile_steps 2 --out DIR
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v   # 50 steps, CFG 7
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 1 profiled
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
 with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
@@ -14,8 +16,14 @@ trace: device time by kernel (the trace's kernel, memcpy and memset events),
 grouped into our attention kernels / convolution / GEMM / normalisation /
 other, the device's busy share of the profiled wall time (the union of the
 device events' intervals over the host's window), and the device time of the
-heaviest (launching op, input shapes) pairs.  Prints one JSON line; the
-trace goes to ``--out``.
+heaviest (launching op, input shapes) pairs.  The ``train`` workload (the
+counterpart of ``bench.py::bench_train``) builds the engine of
+``TV2V_TRAIN_CONFIG`` (seeded random fp32 masters, a random full-size
+DPT-Hybrid, ``use_checkpoint``, ``spatial_tv2v``), takes one warm-up step
+at batch 4 of 12-frame 384x512 synthetic clips under bf16 autocast, times
+``--steps`` (default 5) ``train_step`` calls and profiles
+``--profile_steps`` more.  Prints one JSON line; the trace goes to
+``--out``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ _GROUPS = (  # matched against "launching op + kernel name"; first match wins
     ("normalisation", ("norm", "welford", "rowwisemoments")),
     ("copies", ("copy", "memcpy", "memset", "::cat")),
     ("softmax", ("softmax",)),
+    ("optimizer (AdamW)", ("adam", "foreach")),
 )
 
 
@@ -87,23 +96,83 @@ def summarise_trace(trace_path: Path, wall_seconds: float, top: int = 25) -> dic
             "top_ops_seconds": dict((k[:160], v) for k, v in by_op.most_common(top))}
 
 
+def _profile(fn, out: Path) -> dict:
+    """Run ``fn`` under torch.profiler; the trace goes to ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    prof.export_chrome_trace(str(out / "trace.json"))
+    return summarise_trace(out / "trace.json", wall)
+
+
+def profile_train(a, device, smi: str) -> dict:
+    """Time and profile the TV2V recipe's training step."""
+    from ..config import TV2V_TRAIN_CONFIG
+    from ..data.dataset import DataLoader, SyntheticVideoDataset
+    from ..ops.attention import launch_counts, reset_launch_counts
+    from .train import build_train_engine
+
+    bs, t, h, w = 4, 12, 384, 512
+    steps = a.steps or 5
+    engine = build_train_engine(TV2V_TRAIN_CONFIG, device, a.seed)
+    optimizer = engine.make_optimizer(1e-4)
+    loader = DataLoader(SyntheticVideoDataset(n_items=bs * (steps + a.profile_steps + 1),
+                                              num_frames=t, size_hw=(h, w), seed=a.seed),
+                        batch_size=bs, seed=a.seed)
+    batches = iter(loader)
+    gen = torch.Generator(device=device).manual_seed(a.seed)
+
+    def step():
+        return engine.train_step(next(batches), optimizer, gen, autocast_dtype=torch.bfloat16)
+
+    float(step())  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    profile = _profile(lambda: [step() for _ in range(a.profile_steps)], Path(a.out))
+    n_train = sum(p.numel() for p in engine.trainable_parameters().values())
+    n_total = sum(p.numel() for m in (engine.network, engine.vae, engine.conditioner)
+                  for p in m.parameters())
+    mean = sum(times) / steps
+    return {"gpu": smi, "workload": "train", "batch": bs, "frames": t, "height": h, "width": w,
+            "freeze_policy": engine.freeze_policy, "params_trainable": n_train,
+            "params_total": n_total, "steps": steps, "step_seconds": times,
+            "mean_step_seconds": mean, "frames_per_second": bs * t / mean, "losses": losses,
+            "peak_memory_gb": peak, "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "profile": dict(profile, steps=a.profile_steps)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("tv2v", "tvi2v"), default="tv2v")
+    ap.add_argument("--workload", choices=("tv2v", "tvi2v", "train"), default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
-                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v)")
+                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v); "
+                         "timed training steps for train (default 5)")
     ap.add_argument("--profile_steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="build/profile_tv2v")
     a = ap.parse_args(argv)
-    tvi2v = a.workload == "tvi2v"
-    steps = a.steps or (50 if tvi2v else 30)
-    cfg_scale = 7.0 if tvi2v else 7.5
     if not torch.cuda.is_available():
         raise SystemExit("profile_tv2v needs a CUDA device")
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if a.workload == "train":
+        print(json.dumps(profile_train(a, device, smi)))
+        return
+    tvi2v = a.workload == "tvi2v"
+    steps = a.steps or (50 if tvi2v else 30)
+    cfg_scale = 7.0 if tvi2v else 7.5
     t, h, w = 17, 512, 768
     args = base_parser().parse_args(
         ["--bf16", "--device", str(device), "--seed", str(a.seed), "--H", str(h),
@@ -129,15 +198,7 @@ def main(argv=None) -> None:
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) / 1e9
 
-    out = Path(a.out)
-    out.mkdir(parents=True, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        t1 = time.perf_counter()
-        edit(a.profile_steps)
-        wall = time.perf_counter() - t1
-    prof.export_chrome_trace(str(out / "trace.json"))
-    profile = summarise_trace(out / "trace.json", wall)
+    profile = _profile(lambda: edit(a.profile_steps), Path(a.out))
     rows = 2 * steps - 1
     print(json.dumps({
         "gpu": smi, "workload": a.workload, "cfg_scale": cfg_scale,

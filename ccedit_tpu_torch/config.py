@@ -10,12 +10,20 @@ given; ``TVI2V_CONFIG`` the reference-guided one of
 ``keyframe_ref_cp_no2ndca_add_cfca`` as ``bench.py`` builds it: CFCA
 centre+self in the UNet, the structure ControlNet, and the appearance
 ControlNet fed the VAE latent of the edited centre frame.
+``TV2V_TRAIN_CONFIG`` is the TV2V training recipe (the shape of the
+reference's ``sd_1_5_controlldm-test-tv2v-depthmidas.yaml``): the TV2V
+network with ``use_checkpoint``, the depth-MiDaS conditioner with text
+dropout, ``StandardDiffusionLoss`` with ``DiscreteSampling`` and eps
+weighting, ``freeze_model: spatial``, base LR 1e-4 with a
+``LambdaLinearScheduler`` warm-up, and its data: batch 4 of 12-frame clips
+at 384x512.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+import json
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -24,12 +32,16 @@ from .conditioning.conditioner import Conditioner, EmbedderSpec
 from .conditioning.embedders import CLIPTextEmbedder, IdentityEncoder, VAEEmbedder
 from .diffusion import (
     DiscreteDenoiser,
+    DiscreteSampling,
     DPMPP2SAncestralSampler,
+    EDMSampling,
     EpsScaling,
     IdentityGuider,
     LegacyDDPMDiscretization,
+    StandardDiffusionLoss,
     VanillaCFG,
 )
+from .diffusion.weighting import EDMWeighting, EpsWeighting, UnitWeighting, VWeighting
 from .models.engine import CCEditEngine
 from .modules.clip import CLIPTextModel
 from .modules.controlnet import CCEditNetwork, ControlNet2D
@@ -96,11 +108,96 @@ def _tvi2v_config() -> Dict:
 TVI2V_CONFIG: Dict = _tvi2v_config()
 
 
+def _tv2v_train_config() -> Dict:
+    cfg = copy.deepcopy(TV2V_CONFIG)
+    p = cfg["model"]["params"]
+    net = p["network_config"]["params"]
+    net["use_checkpoint"] = True
+    net["controlnet_config"]["params"]["use_checkpoint"] = True
+    p["denoiser_config"]["params"]["weighting_config"] = {
+        "target": "sgm.modules.diffusionmodules.denoiser_weighting.EpsWeighting"}
+    p["conditioner_config"]["params"]["emb_models"][0]["ucg_rate"] = 0.1
+    p.update(
+        freeze_model="spatial",
+        base_learning_rate=1e-4,
+        loss_fn_config={
+            "target": "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss",
+            "params": {"sigma_sampler_config": {
+                "target": "sgm.modules.diffusionmodules.sigma_sampling.DiscreteSampling",
+                "params": {"num_idx": 1000, "discretization_config": {
+                    "target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization"}}}},
+        },
+        scheduler_config={
+            "target": "sgm.lr_scheduler.LambdaLinearScheduler",
+            "params": {"warm_up_steps": [100], "cycle_lengths": [10000000000000],
+                       "f_start": [1e-6], "f_max": [1.0], "f_min": [1.0]},
+        },
+    )
+    cfg["data"] = {"params": {"batch_size": 4, "train": {"params": {
+        "video_length": 12, "resolution": [384, 512]}}}}
+    return cfg
+
+
+TV2V_TRAIN_CONFIG: Dict = _tv2v_train_config()
+
+
 def load_config(path: str) -> Dict:
     import yaml
 
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def deep_merge(base: Dict, over: Dict) -> Dict:
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = deep_merge(out[k], v) if isinstance(out.get(k), dict) and isinstance(v, dict) else v
+    return out
+
+
+def _parse_value(text: str):
+    """A dotlist value: YAML when PyYAML is installed, else JSON, else the
+    string itself."""
+    try:
+        import yaml
+
+        return yaml.safe_load(text)
+    except ImportError:
+        pass
+    except Exception:
+        return text
+    try:
+        return json.loads(text)
+    except ValueError:
+        return text
+
+
+def apply_dotlist(cfg: Dict, overrides: Sequence[str]) -> Dict:
+    """OmegaConf-style ``a.b.c=value`` overrides; integer segments index
+    lists (``...emb_models.1.params.fake_annotator=true``)."""
+    cfg = copy.deepcopy(cfg)
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not key=value")
+        key, val = item.split("=", 1)
+        node, parts = cfg, key.split(".")
+        for part in parts[:-1]:
+            node = node[int(part)] if isinstance(node, list) else node.setdefault(part, {})
+        if isinstance(node, list):
+            node[int(parts[-1])] = _parse_value(val)
+        else:
+            node[parts[-1]] = _parse_value(val)
+    return cfg
+
+
+def load_configs(paths: Sequence[str], overrides: Sequence[str] = (),
+                 base: Optional[Dict] = None) -> Dict:
+    """``base`` (or an empty config), then the YAML files merged left to
+    right, then the dotlist overrides."""
+    cfg = copy.deepcopy(base or {})
+    for path in paths:
+        cfg = deep_merge(cfg, load_config(path))
+    return apply_dotlist(cfg, overrides)
 
 
 def _tname(cfg: Optional[Dict]) -> str:
@@ -130,7 +227,7 @@ def _unet_kwargs(p: Dict, video: bool) -> Dict:
     kw = {k: p[k] for k in ("in_channels", "model_channels", "out_channels",
                             "num_res_blocks", "num_heads", "num_head_channels",
                             "transformer_depth", "context_dim", "disable_text_ca",
-                            "enable_attention3d_crossframe") if k in p}
+                            "enable_attention3d_crossframe", "use_checkpoint") if k in p}
     if "ST3DCA_ca_type" in p:
         kw["st3dca_ca_type"] = p["ST3DCA_ca_type"]
     for k in ("attention_resolutions", "channel_mult"):
@@ -192,8 +289,64 @@ def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,
         else:
             embedder = build_annotator(name, dict(p, fake_annotator=fake_annotator
                                                   or p.get("fake_annotator", False)))
-        specs.append(EmbedderSpec(embedder, emb.get("input_key", "txt")))
+        specs.append(EmbedderSpec(embedder, emb.get("input_key", "txt"),
+                                  ucg_rate=float(emb.get("ucg_rate", 0.0)),
+                                  legacy_ucg_value=emb.get("legacy_ucg_value")))
     return Conditioner(specs)
+
+
+_WEIGHTINGS = {"EpsWeighting": EpsWeighting, "EDMWeighting": EDMWeighting,
+               "VWeighting": VWeighting, "UnitWeighting": UnitWeighting}
+
+
+def build_weighting(cfg: Optional[Dict]):
+    """A denoiser's ``weighting_config`` (eps when absent, as in the JAX
+    package)."""
+    if not cfg:
+        return EpsWeighting()
+    return _WEIGHTINGS[_expect(cfg, *_WEIGHTINGS)](**_params(cfg))
+
+
+def build_loss(cfg: Optional[Dict]) -> Optional[StandardDiffusionLoss]:
+    """``StandardDiffusionLoss`` from a ``loss_fn_config`` (None without one)."""
+    if not cfg:
+        return None
+    _expect(cfg, "StandardDiffusionLoss")
+    p = _params(cfg)
+    ss_cfg = p.get("sigma_sampler_config", {"target": "DiscreteSampling"})
+    ss_params = _params(ss_cfg)
+    if _expect(ss_cfg, "DiscreteSampling", "EDMSampling") == "EDMSampling":
+        sigma_sampler = EDMSampling(**ss_params)
+    else:
+        disc_cfg = ss_params.pop("discretization_config", None)
+        if disc_cfg is not None:
+            _expect(disc_cfg, "LegacyDDPMDiscretization")
+            ss_params["discretization"] = LegacyDDPMDiscretization(**_params(disc_cfg))
+        sigma_sampler = DiscreteSampling(**ss_params)
+    return StandardDiffusionLoss(sigma_sampler, loss_type=p.get("type", "l2"),
+                                 offset_noise_level=p.get("offset_noise_level", 0.0),
+                                 offset_noise_varying_dim=p.get("offset_noise_varying_dim", 1))
+
+
+def build_lr_scheduler(cfg: Optional[Dict]):
+    """An LR multiplier schedule from a ``scheduler_config`` (None without
+    one)."""
+    if not cfg:
+        return None
+    from .train.lr_schedule import SCHEDULERS
+
+    return SCHEDULERS[_expect(cfg, *SCHEDULERS)](**_params(cfg))
+
+
+_FREEZE_MAP = {"none": "none", "spatial": "spatial", "spatial_openlora": "spatial_openlora"}
+# the TV2V engine re-freezes the structure ControlNet and opens controlnet_img
+_TV2V_FREEZE = {"spatial": "spatial_tv2v", "spatial_openlora": "spatial_tv2v_openlora"}
+
+
+def freeze_policy(model_params: Dict) -> str:
+    """The freeze policy of a VideoDiffusionEngineTV2V's ``freeze_model``."""
+    freeze = _FREEZE_MAP.get(model_params.get("freeze_model", "none"), "none")
+    return _TV2V_FREEZE.get(freeze, freeze)
 
 
 def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
@@ -214,7 +367,8 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
             "LegacyDDPMDiscretization")
     denoiser = DiscreteDenoiser(EpsScaling(), num_idx=dcfg.get("num_idx", 1000),
                                 discretization=LegacyDDPMDiscretization(
-                                    **_params(dcfg.get("discretization_config"))))
+                                    **_params(dcfg.get("discretization_config"))),
+                                weighting=build_weighting(dcfg.get("weighting_config")))
     guider = VanillaCFG(scale=guider_scale)
     if "sampler_config" in p:
         scfg = p["sampler_config"]
@@ -236,4 +390,8 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
         vae=build_vae(p["first_stage_config"]),
         guider=guider,
         scale_factor=p.get("scale_factor", 0.18215),
+        loss_fn=build_loss(p.get("loss_fn_config")),
+        input_key=p.get("input_key", "jpg"),
+        freeze_policy=freeze_policy(p),
+        use_ema=bool(p.get("use_ema", False)),
     )

@@ -35,6 +35,12 @@
 // pad: its output columns come in blocks of 8, and 40 = 5*8.  The TPU kernel's
 // "head_dim in sublanes" transposed layout is a TPU fact and is not used.
 //
+// Training: given a non-null `lse`, the kernel also writes each row's fp32
+// log-sum-exp in the log2 domain of its scores, m + log2(l) over
+// s * scale_log2, to lse[b*h, row]; the backward (spatial_attention_bwd.cu)
+// recomputes P = exp2(s * scale_log2 - lse) from it.  Inference passes null
+// and writes nothing more.
+//
 // Left for later: cp.async/TMA double buffering, wgmma, ldmatrix.
 #include "attention_common.cuh"
 
@@ -50,8 +56,9 @@ template <int D, int DK>
 __global__ void __launch_bounds__(kThreads)
 spatial_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int heads, int n_q, int n_k, Strides sq, Strides sk,
-                         Strides sv, Strides so, float scale_log2) {
+                         float* __restrict__ lse, int heads, int n_q, int n_k,
+                         Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale_log2) {
   constexpr int LDQ = DK + 8;   // smem row pitch of Q and K (bank-conflict free)
   constexpr int LDV = kBN + 8;  // smem row pitch of V^T
   constexpr int NKS = DK / 16;  // k-steps of QK^T
@@ -164,17 +171,22 @@ spatial_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row1 < n_q)
       *reinterpret_cast<uint32_t*>(o + row1 * so.n + col) = pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
   }
+  if (lse != nullptr && t == 0) {  // m and l are full-row values in every lane of the quad
+    float* row_lse = lse + static_cast<long long>(bh) * n_q;
+    if (row0 < n_q) row_lse[row0] = m[0] + log2f(l[0]);
+    if (row1 < n_q) row_lse[row1] = m[1] + log2f(l[1]);
+  }
 }
 
 template <int D, int DK>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int heads, int n_q, int n_k, Strides sq, Strides sk, Strides sv,
-           Strides so, float scale_log2, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int heads, int n_q, int n_k, Strides sq, Strides sk,
+           Strides sv, Strides so, float scale_log2, cudaStream_t stream) {
   dim3 grid((n_q + kBM - 1) / kBM, batch * heads);
   spatial_attention_kernel<D, DK><<<grid, kThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, n_q, n_k, sq,
-      sk, sv, so, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, heads, n_q, n_k,
+      sq, sk, sv, so, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -183,25 +195,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 }  // namespace ccedit
 
 // C entry point.  Strides are (batch, head, token) element strides of the
-// (B, H, N, D) operands; the D stride is 1.  Returns the launch's cudaError_t
+// (B, H, N, D) operands; the D stride is 1.  `lse` is null or a contiguous
+// fp32 (batch * heads, n_q) output.  Returns the launch's cudaError_t
 // (0 = success); -1 for a head_dim without an instantiation.
 extern "C" int ccedit_spatial_attention(
-    const void* q, const void* k, const void* v, void* o, int batch, int heads,
-    int n_q, int n_k, int head_dim, const long long* strides, float scale_log2,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+    int heads, int n_q, int n_k, int head_dim, const long long* strides,
+    float scale_log2, void* stream) {
   using ccedit::Strides;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (head_dim) {
     case 40:
-      return ccedit::launch<40, 48>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
+      return ccedit::launch<40, 48>(q, k, v, o, l, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
     case 80:
-      return ccedit::launch<80, 80>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
+      return ccedit::launch<80, 80>(q, k, v, o, l, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
     case 160:
-      return ccedit::launch<160, 160>(q, k, v, o, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
+      return ccedit::launch<160, 160>(q, k, v, o, l, batch, heads, n_q, n_k, sq, sk, sv, so, scale_log2, st);
     default:
       return -1;
   }

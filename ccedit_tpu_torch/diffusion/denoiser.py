@@ -1,7 +1,8 @@
 """Discrete denoiser (port of ``ccedit_tpu/diffusion/denoiser.py``):
 ``denoised = network(x * c_in, c_noise, cond) * c_out + x * c_skip``, with
 sigma quantised to the nearest entry of the 1000-step DDPM table and the
-table index passed to the network as the timestep."""
+table index passed to the network as the timestep.  ``w(sigma)`` is the
+training loss weighting (eps, CCEdit's default)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from .discretization import LegacyDDPMDiscretization
 from .scaling import EpsScaling
+from .weighting import EpsWeighting
 
 
 def append_dims(x: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -20,8 +22,10 @@ def append_dims(x: torch.Tensor, ndim: int) -> torch.Tensor:
 
 class DiscreteDenoiser:
     def __init__(self, scaling=None, num_idx: int = 1000,
-                 discretization: Optional[LegacyDDPMDiscretization] = None):
+                 discretization: Optional[LegacyDDPMDiscretization] = None,
+                 weighting=None):
         self.scaling = scaling or EpsScaling()
+        self.weighting = weighting or EpsWeighting()
         disc = discretization or LegacyDDPMDiscretization()
         # ascending sigma table indexed by DDPM timestep, fp32 as in the JAX package
         self.sigmas_np = np.asarray(disc(num_idx, do_append_zero=False, flip=True), np.float32)
@@ -32,6 +36,9 @@ class DiscreteDenoiser:
         if key not in self._sigmas:
             self._sigmas[key] = torch.from_numpy(self.sigmas_np).to(device)
         return self._sigmas[key]
+
+    def w(self, sigma: torch.Tensor) -> torch.Tensor:
+        return self.weighting(sigma)
 
     def sigma_to_idx(self, sigma: torch.Tensor) -> torch.Tensor:
         dists = sigma[None, :] - self.sigmas(sigma.device)[:, None]

@@ -1,16 +1,23 @@
 """CCEditEngine: network, diffusion math, conditioner and VAE (port of
 ``ccedit_tpu/models/engine.py``: ``sample`` in mode "full" with
 ``init_noise``/``loop_noise`` and the x-prior mix, ``make_denoise_fn``,
-``_hoist_control_hint``, ``encode_first_stage``, ``_wire_vae_embedders`` and
-``decode_first_stage``; sdedit, inpainting and training are not ported).
+``_hoist_control_hint``, ``encode_first_stage``, ``_wire_vae_embedders``,
+``decode_first_stage``, and training: ``loss``, ``make_optimizer``,
+``train_step``, ``ema_subset``/``merge_ema``; sdedit and inpainting are not
+ported).
 
 The modules own their weights.  The network (and VAE, CLIP) may run in
 bf16; the sampler state and the denoiser math stay fp32, with a cast at the
-network call.
+network call.  Training keeps fp32 master weights, optionally under
+``torch.autocast`` (bf16 on the GPU, so the attention kernels get bf16);
+only the network's parameters of the freeze policy train: the rest get
+``requires_grad_(False)``, and the conditioner and the VAE run without
+autograd.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -22,13 +29,17 @@ from ..diffusion.guidance import IdentityGuider, VanillaCFG
 from ..diffusion.samplers import DPMPP2SAncestralSampler
 from ..modules.controlnet import CCEditNetwork
 from ..modules.vae import AutoencoderKL, DiagonalGaussian
+from ..train.ema import Ema
+from ..train.freeze import freeze_mask
 
 
 class CCEditEngine:
     def __init__(self, network: CCEditNetwork, denoiser: DiscreteDenoiser,
                  sampler: DPMPP2SAncestralSampler, conditioner: Conditioner,
                  vae: Optional[AutoencoderKL] = None, guider=None,
-                 scale_factor: float = 0.18215):
+                 scale_factor: float = 0.18215, loss_fn=None, input_key: str = "jpg",
+                 freeze_policy: str = "none", use_ema: bool = False,
+                 ema_decay: float = 0.9999):
         self.network = network
         self.denoiser = denoiser
         self.sampler = sampler
@@ -36,6 +47,11 @@ class CCEditEngine:
         self.vae = vae
         self.guider = guider if guider is not None else VanillaCFG(scale=7.5)
         self.scale_factor = scale_factor
+        self.loss_fn = loss_fn
+        self.input_key = input_key
+        self.freeze_policy = freeze_policy
+        self.use_ema = use_ema
+        self.ema_decay = ema_decay
         self._wire_vae_embedders()
 
     def _wire_vae_embedders(self) -> None:
@@ -54,15 +70,20 @@ class CCEditEngine:
         return 2 ** (len(self.vae.ch_mult) - 1) if self.vae is not None else 1
 
     def encode_first_stage(self, x: torch.Tensor,
-                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pixels in [-1, 1] (or uint8) -> scaled fp32 latents: the
-        posterior mode, or a sample drawn from ``generator``."""
+        posterior mode, or a sample with ``noise`` or a draw from
+        ``generator``."""
         x = as_float_frames(x)
         if self.vae is None:
             return x
         moments = self.vae.encode_moments(x.to(next(self.vae.parameters()).dtype)).float()
         post = DiagonalGaussian(moments)
-        z = post.mode() if generator is None else post.sample(generator)
+        if generator is None and noise is None:
+            z = post.mode()
+        else:
+            z = post.sample(generator, noise=None if noise is None else noise.to(post.mean))
         return z * self.scale_factor
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
@@ -128,3 +149,98 @@ class CCEditEngine:
         denoise_fn = self.make_denoise_fn(cond, uc, guider_scale=guider_scale)
         return self.sampler(denoise_fn, x, num_steps=num_steps,
                             noise_override=loop_noise, generator=generator)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def trainable_parameters(self) -> Dict[str, torch.nn.Parameter]:
+        """The network's parameters that the freeze policy trains, by name."""
+        mask = freeze_mask(self.network.named_parameters(), self.freeze_policy)
+        return {n: p for n, p in self.network.named_parameters() if mask[n]}
+
+    def make_optimizer(self, lr: float) -> torch.optim.AdamW:
+        """AdamW (weight decay 1e-2, as ``optax.adamw`` in the JAX engine)
+        over the trainable parameters; every other parameter of the engine
+        is frozen with ``requires_grad_(False)``."""
+        trainable = self.trainable_parameters()
+        for m in (self.network, self.conditioner, self.vae):
+            if m is not None:
+                m.requires_grad_(False)
+        for p in trainable.values():
+            p.requires_grad_(True)
+        return torch.optim.AdamW(list(trainable.values()), lr=lr, weight_decay=1e-2)
+
+    def ema_subset(self) -> Dict[str, torch.Tensor]:
+        """The EMA shadows only the trainable subset: the EMA of a constant
+        is the constant."""
+        return self.trainable_parameters()
+
+    def make_ema(self) -> Ema:
+        return Ema(self.ema_subset(), self.ema_decay)
+
+    @contextlib.contextmanager
+    def merge_ema(self, shadow: Dict[str, torch.Tensor]):
+        """Within the block the network carries the EMA values on its
+        trainable parameters; they are restored on exit."""
+        params = dict(self.network.named_parameters())
+        saved = {n: params[n].detach().clone() for n in shadow}
+        with torch.no_grad():
+            for n, v in shadow.items():
+                params[n].copy_(v)
+        try:
+            yield self.network
+        finally:
+            with torch.no_grad():
+                for n, v in saved.items():
+                    params[n].copy_(v)
+
+    def loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None, sigmas: Optional[torch.Tensor] = None,
+             offset: Optional[torch.Tensor] = None,
+             vae_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean diffusion loss of a raw batch (strings, arrays): conditioning
+        with classifier-free dropout, the VAE posterior sample of
+        ``batch[input_key]``, then ``loss_fn``.  ``noise``, ``sigmas``,
+        ``offset`` and ``vae_noise`` replace the draws from ``generator``."""
+        device = next(self.network.parameters()).device
+        with torch.no_grad():  # the conditioner and the VAE are frozen
+            prepared = self.conditioner.prepare(batch, apply_legacy_ucg=True, generator=generator)
+            cond = self.conditioner.embed(prepared, apply_ucg=True, generator=generator)
+            x = torch.as_tensor(batch[self.input_key], device=device)
+            z = self.encode_first_stage(x, generator=generator, noise=vae_noise)
+        losses = self.loss_fn(self._network_fn, self.denoiser, cond, z.float(), generator=generator,
+                              noise_override=noise, sigma_override=sigmas, offset_override=offset)
+        return losses.mean()
+
+    def backward_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                      autocast_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0,
+                      **overrides) -> torch.Tensor:
+        """loss(batch) and its backward (grads accumulate into ``.grad``,
+        scaled by ``grad_scale``); ``autocast_dtype`` runs the loss under
+        ``torch.autocast``.  Returns the detached loss."""
+        device = next(self.network.parameters()).device
+        ctx = (torch.autocast(device.type, dtype=autocast_dtype) if autocast_dtype is not None
+               else contextlib.nullcontext())
+        with ctx:
+            loss = self.loss(batch, generator, **overrides)
+        (loss * grad_scale).backward()
+        return loss.detach()
+
+    def train_step(self, batch: Dict, optimizer: torch.optim.Optimizer,
+                   generator: Optional[torch.Generator] = None, ema: Optional[Ema] = None,
+                   lr_scheduler=None, autocast_dtype: Optional[torch.dtype] = None,
+                   accumulate: int = 1, apply: bool = True, **overrides) -> torch.Tensor:
+        """One batch of training: loss + backward, its grads scaled by
+        1/``accumulate`` and added to ``.grad``; with ``apply`` (the last of
+        ``accumulate`` batches) the AdamW update, zeroed grads and an LR
+        schedule step; then the EMA update.  Returns the detached loss."""
+        loss = self.backward_step(batch, generator, autocast_dtype,
+                                  grad_scale=1.0 / accumulate, **overrides)
+        if apply:
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            if lr_scheduler is not None:
+                lr_scheduler.step()
+        if ema is not None:
+            ema.update(self.ema_subset())
+        return loss

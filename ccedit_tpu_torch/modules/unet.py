@@ -10,8 +10,11 @@ Submodules follow the sgm ``UNetModel`` state-dict layout: ``time_embed``,
 ``enable_attention3d_crossframe`` with ``st3dca_ca_type`` (pseudo-3D: CFCA
 in every transformer), and the appearance branch's inputs to ``forward``:
 ``img_control`` (added onto the centre frame in the encoder) and
-``ref_contexts`` (the CFCA reference bank).  RAIG, learnable alphas,
-scale-shift norm and vector conditioning are not ported.
+``ref_contexts`` (the CFCA reference bank).  ``use_checkpoint`` (the
+reference's activation checkpointing, the JAX package's ``use_remat``)
+recomputes every residual block and transformer in the backward pass
+instead of keeping its activations, while autograd is recording.  RAIG,
+learnable alphas, scale-shift norm and vector conditioning are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import Downsample, Downsample3D, ResBlock, ResBlock3D, Upsample, Upsample3D, spatial_temporal
 from .layers import TimeEmbed, conv2d, group_norm, temporal_conv, timestep_embedding
@@ -54,8 +58,10 @@ class UNetModel(nn.Module):
         disable_text_ca: bool = False,
         enable_attention3d_crossframe: bool = False,
         st3dca_ca_type: str = "center",
+        use_checkpoint: bool = False,
     ):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         if unet_type not in ("2d", "pseudo-3d"):
             raise ValueError(f"unet_type {unet_type!r}")
         if unet_type == "pseudo-3d" and not disable_temporal_text_ca:
@@ -124,20 +130,27 @@ class UNetModel(nn.Module):
         return self.time_embed(timestep_embedding(timesteps, self.model_channels).to(
             self.time_embed[0].weight.dtype))
 
-    @staticmethod
-    def apply_block(blk: nn.ModuleList, h, emb, context, refs=None, bank=None):
+    def _run(self, mod: nn.Module, *args, **kwargs):
+        """mod(*args, **kwargs), checkpointed under ``use_checkpoint`` while
+        autograd records (non-reentrant: parameter grads survive blocks none
+        of whose inputs need a grad)."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(mod, *args, use_reentrant=False, **kwargs)
+        return mod(*args, **kwargs)
+
+    def apply_block(self, blk: nn.ModuleList, h, emb, context, refs=None, bank=None):
         """One input/middle/output block.  ``refs``: an iterator over the
         CFCA reference bank, one entry taken by every CFCA transformer in
         order (entries past its end are None); ``bank``: a list that collects
         2D transformer outputs (the appearance branch's bank)."""
         for mod in blk:
             if isinstance(mod, (ResBlock, ResBlock3D)):
-                h = mod(h, emb)
+                h = self._run(mod, h, emb)
             elif isinstance(mod, SpatialTransformer3DCA):
                 ref = next(refs, None) if refs is not None else None
-                h = mod(h, context=context, ref_context=ref)
+                h = self._run(mod, h, context=context, ref_context=ref)
             elif isinstance(mod, _TRANSFORMERS):
-                h = mod(h, context=context)
+                h = self._run(mod, h, context=context)
                 if bank is not None:
                     bank.append(h)
             else:

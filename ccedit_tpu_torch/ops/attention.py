@@ -17,7 +17,9 @@ kernel gets only the head dims its module lists in ``HEAD_DIMS``:
   kernel is instantiated for.
 
 Each kernel wrapper then takes its plain version for a CPU tensor and
-launches its kernel (or raises) for a CUDA tensor.
+launches its kernel (or raises) for a CUDA tensor.  Kernels 1 and 2 are
+differentiable (kernel 1's backward is kernel 4; kernel 2's is the plain
+recompute, as in the JAX package); kernel 3 is forward-only on the GPU.
 """
 
 from __future__ import annotations
@@ -68,18 +70,24 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None) -> torch.Tenso
     return _ROUTES[attention_route(q, k)](q, k, v, scale)
 
 
+_COUNTED = {"spatial_attention": sa.kv_resident_attention,
+            "spatial_attention_bwd": sa.spatial_attention_bwd,
+            "temporal_attention": ta.small_seq_attention,
+            "flash_attention": fa.flash_attention}
+
+
 def reset_launch_counts() -> None:
-    for wrapper in (sa.kv_resident_attention, ta.small_seq_attention, fa.flash_attention):
+    for wrapper in _COUNTED.values():
         wrapper.launches = 0
-    sa.kv_resident_attention.variant_launches.clear()
+        if hasattr(wrapper, "variant_launches"):
+            wrapper.variant_launches.clear()
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count, and kernel 1's by variant
-    (``spatial_attention[d40 n_k!=n_q]``, ...)."""
-    out = {"spatial_attention": sa.kv_resident_attention.launches,
-           "temporal_attention": ta.small_seq_attention.launches,
-           "flash_attention": fa.flash_attention.launches}
-    for name, n in sorted(sa.kv_resident_attention.variant_launches.items()):
-        out[f"spatial_attention[{name}]"] = n
+    """Every kernel's launch count, and kernels 1 and 4 by variant
+    (``spatial_attention[d40 n_k!=n_q]``, ``spatial_attention_bwd[d80 n_k=n_q]``, ...)."""
+    out = {name: wrapper.launches for name, wrapper in _COUNTED.items()}
+    for name, wrapper in _COUNTED.items():
+        for var, n in sorted(getattr(wrapper, "variant_launches", {}).items()):
+            out[f"{name}[{var}]"] = n
     return out

@@ -33,9 +33,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    # q, k, v, o, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
-    "ccedit_spatial_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+    # q, k, v, o, lse, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
+    "ccedit_spatial_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                                  ctypes.c_float, _P),
+    # q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, n_q, n_k, head_dim,
+    # strides, scale_log2, scale, stream
+    "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _STRIDES, ctypes.c_float, ctypes.c_float,
+                                     _P),
+    # q, k, v, o, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
     "ccedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                                ctypes.c_float, _P),
     # q, k, v, o, batch, heads, T, head_dim, strides, scale, stream
@@ -103,20 +109,20 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_grad_free(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the attention kernels are forward-only; their backward kernels "
-            "come with the training slice (run under torch.no_grad())")
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will differentiate through an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def attention_operand_strides(q, k, v, out, head_dims: Sequence[int]):
-    """Validate the four (B, H, N, D) operands of a kernel launch and return
-    their (batch, head, token) strides as the C array the kernels take."""
+def attention_operand_strides(q, k, v, out, head_dims: Sequence[int], **more):
+    """Validate the (B, H, N, D) operands of a kernel launch (q, k, v, out,
+    then ``more`` in order) and return their (batch, head, token) strides as
+    the C array the kernels take."""
     if q.shape[-1] not in head_dims:
         raise ValueError(f"head_dim {q.shape[-1]} has no kernel instantiation "
                          f"(supported: {tuple(head_dims)})")
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+    operands = (("q", q), ("k", k), ("v", v), ("out", out)) + tuple(more.items())
+    for name, x in operands:
         if x.dim() != 4:
             raise ValueError(f"{name} must be (B, H, N, D), got {tuple(x.shape)}")
         if x.dtype != torch.bfloat16:
@@ -130,8 +136,8 @@ def attention_operand_strides(q, k, v, out, head_dims: Sequence[int]):
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"mismatched q/k/v shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    return (ctypes.c_longlong * 12)(
-        *[s for x in (q, k, v, out) for s in x.stride()[:3]])
+    return (ctypes.c_longlong * (3 * len(operands)))(
+        *[s for _, x in operands for s in x.stride()[:3]])
 
 
 def launch(name: str, *args) -> None:

@@ -3,7 +3,9 @@ mid-block attention) — wrapper, plain version and launch count.
 
 Port of the stock Pallas TPU flash attention forward that
 ``ccedit_tpu/ops/attention.py::_flash_diff`` calls.  The CUDA source, with its
-design note, is ``csrc/flash_attention.cu``.
+design note, is ``csrc/flash_attention.cu``.  Its d = 512 backward is not
+ported (ROADMAP queue 2, item 4: VAE training), so a CUDA tensor that needs
+a gradient raises; on the CPU the plain version differentiates.
 """
 
 from __future__ import annotations
@@ -29,9 +31,13 @@ def plain_flash_attention(q, k, v, scale: float) -> torch.Tensor:
 def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     """Non-causal attention over (B, H, N, D), D = 512.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
-    build.check_grad_free(q, k, v)
     if not q.is_cuda:
         return plain_flash_attention(q, k, v, scale)
+    if build.needs_grad(q, k, v):
+        raise NotImplementedError(
+            "kernel 3 (d = 512, the VAE's attention) has no backward kernel yet "
+            "(ROADMAP queue 2, item 4: the d = 512 backward with VAE training); "
+            "run the VAE under torch.no_grad()")
     out = torch.empty_like(q)
     strides = build.attention_operand_strides(q, k, v, out, HEAD_DIMS)
     b, h, n_q, d = q.shape

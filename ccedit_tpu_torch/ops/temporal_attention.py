@@ -2,7 +2,11 @@
 and launch count.
 
 Port of ``ccedit_tpu/ops/temporal_attention.py::small_seq_attention``.  The
-CUDA source, with its design note, is ``csrc/temporal_attention.cu``.
+CUDA source, with its design note, is ``csrc/temporal_attention.cu``.  When
+autograd needs the gradient, the wrapper goes through ``TemporalAttention``:
+kernel 2 forward, and a backward that recomputes the plain attention and
+takes its vector-Jacobian product, as ``ccedit_tpu/ops/attention.py::
+_small_seq_diff`` does (the JAX package has no Pallas backward for it).
 """
 
 from __future__ import annotations
@@ -23,11 +27,7 @@ def plain_temporal_attention(q, k, v, scale: float) -> torch.Tensor:
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def small_seq_attention(q, k, v, scale: float) -> torch.Tensor:
-    """Self-attention over (B, H, T, D) with T <= 32 and a large B*H.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
-    build.check_grad_free(q, k, v)
+def _forward(q, k, v, scale: float) -> torch.Tensor:
     if not q.is_cuda:
         return plain_temporal_attention(q, k, v, scale)
     b, h, t, d = q.shape
@@ -42,6 +42,32 @@ def small_seq_attention(q, k, v, scale: float) -> torch.Tensor:
                  float(scale), build.stream_of(q))
     small_seq_attention.launches += 1
     return out
+
+
+class TemporalAttention(torch.autograd.Function):
+    """Kernel 2 forward (plain on the CPU); plain recompute + vjp backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            out = plain_temporal_attention(q, k, v, ctx.scale)
+        return (*torch.autograd.grad(out, (q, k, v), do), None)
+
+
+def small_seq_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Self-attention over (B, H, T, D) with T <= 32 and a large B*H.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises.  Differentiable through ``TemporalAttention``."""
+    if build.needs_grad(q, k, v):
+        return TemporalAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
 small_seq_attention.launches = 0

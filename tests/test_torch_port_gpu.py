@@ -4,7 +4,8 @@ machine with a GPU and without JAX, run them without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py
 
-Tolerance 2e-2 absolute in bf16, as in ``chip_smoke.py`` phase 3.
+Tolerance 2e-2 absolute in bf16, as in ``chip_smoke.py`` phase 3; the
+backward kernel is held to 2e-2 of max|plain| on dq, dk and dv.
 """
 
 import pytest
@@ -91,3 +92,78 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
         q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
     with pytest.raises(ValueError):
         sa.kv_resident_attention(q, k, v, 0.1)
+
+
+@pytest.mark.parametrize("shape,n_k", [
+    ((1, 2, 128, 40), 128),
+    ((2, 3, 200, 40), 141),   # ragged n_q and n_k
+    ((1, 2, 512, 80), 512),
+    ((1, 2, 300, 160), 250),
+    ((1, 2, 256, 40), 512),   # n_k = 2 * n_q
+])
+def test_backward_kernel_matches_plain(cuda, shape, n_k):
+    q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
+    do = _qkv(shape, shape[2], cuda, seed=7)[0]
+    scale = shape[-1] ** -0.5
+    b, h, n_q, _ = shape
+    lse = torch.empty((b * h, n_q), device=cuda, dtype=torch.float32)
+    out = sa._forward(q, k, v, scale, lse)
+    before = sa.spatial_attention_bwd.launches
+    grads = sa.spatial_attention_bwd(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    assert sa.spatial_attention_bwd.launches == before + 1
+    for got, ref in zip(grads, sa.plain_spatial_attention_bwd(q, k, v, do, scale)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        assert torch.isfinite(got.float()).all() and rel <= TOL
+
+
+def test_autograd_through_the_dispatch_launches_kernels_1_and_4(cuda):
+    q, k, v = (x.detach().requires_grad_(True) for x in _qkv((1, 8, 1024, 40), 1024, cuda, 5))
+    counts = att.launch_counts()
+    out = att.dot_product_attention(q, k, v)
+    out.float().square().sum().backward()
+    after = att.launch_counts()
+    assert after["spatial_attention"] == counts["spatial_attention"] + 1
+    assert after["spatial_attention_bwd"] == counts["spatial_attention_bwd"] + 1
+    assert all(x.grad is not None and x.grad.dtype == torch.bfloat16 for x in (q, k, v))
+
+
+def test_flash_kernel_raises_for_a_tensor_that_needs_a_grad(cuda):
+    q, k, v = _qkv((1, 1, 512, 512), 512, cuda, seed=4)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention(q, k, v, 512 ** -0.5)
+    with torch.no_grad():
+        fa.flash_attention(q, k, v, 512 ** -0.5)
+
+
+def test_one_bf16_train_step(cuda):
+    """A narrow TV2V training engine (model_channels 160, 4 heads: d 40 and
+    80) takes one bf16-autocast step on 2 frames of 256x512: finite loss,
+    kernel 4 launched, only trainable tensors move."""
+    import copy
+
+    from ccedit_tpu_torch.cli.train import build_train_engine
+    from ccedit_tpu_torch.config import TV2V_TRAIN_CONFIG
+
+    cfg = copy.deepcopy(TV2V_TRAIN_CONFIG)
+    p = cfg["model"]["params"]
+    for net in (p["network_config"]["params"], p["network_config"]["params"]["controlnet_config"]["params"]):
+        net.update(model_channels=160, num_res_blocks=1, num_heads=4, channel_mult=[1, 2],
+                   attention_resolutions=[2, 1])
+    p["conditioner_config"]["params"]["emb_models"][1]["params"]["fake_annotator"] = True
+    engine = build_train_engine(cfg, cuda, seed=0)
+    optimizer = engine.make_optimizer(1e-4)
+    before = {n: t.detach().clone() for n, t in engine.network.named_parameters()}
+    trainable = engine.trainable_parameters()
+    clip = torch.rand((1, 2, 256, 512, 3), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    batch = {"jpg": clip.numpy(), "txt": ["a bear"], "control_hint": clip.numpy()}
+    counts = att.launch_counts()
+    loss = engine.train_step(batch, optimizer, torch.Generator(device=cuda).manual_seed(1),
+                             autocast_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert att.launch_counts()["spatial_attention_bwd"] > counts["spatial_attention_bwd"]
+    for n, t in engine.network.named_parameters():
+        assert torch.equal(t, before[n]) != (n in trainable), n

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it, its engine, its CLI and
-``chip_smoke.py``'s imports pulls in neither JAX/flax nor the file-IO
-libraries (cv2, PIL, imageio, yaml), which the GPU machine may not have."""
+"""The port stands alone: importing it, its engine, its CLIs (the train CLI
+included), its training modules and ``chip_smoke.py``'s imports pulls in
+neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
+the GPU machine may not have."""
 
 import subprocess
 import sys
@@ -18,6 +19,15 @@ import ccedit_tpu_torch.cli.pipeline
 import ccedit_tpu_torch.cli.sampling_tv2v
 import ccedit_tpu_torch.cli.sampling_tv2v_ref
 import ccedit_tpu_torch.cli.profile_tv2v
+import ccedit_tpu_torch.cli.train
+import ccedit_tpu_torch.data.dataset
+import ccedit_tpu_torch.diffusion.loss
+import ccedit_tpu_torch.diffusion.sigma_sampling
+import ccedit_tpu_torch.diffusion.weighting
+import ccedit_tpu_torch.train.ema
+import ccedit_tpu_torch.train.freeze
+import ccedit_tpu_torch.train.lr_schedule
+import ccedit_tpu_torch.train.trainer
 import ccedit_tpu_torch.conditioning.annotators.dpt_midas
 import ccedit_tpu_torch.io.jax_params
 import ccedit_tpu_torch.ops.attention

@@ -106,9 +106,16 @@ def test_cpu_tensors_take_the_plain_version(shape, route):
 
 
 def test_kernel_wrappers_are_forward_only():
-    q, k, v = map(torch.from_numpy, _qkv((1, 1, 512, 40), 5))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sa.kv_resident_attention(q, k, v, 0.1)
-    with torch.no_grad():
-        sa.kv_resident_attention(q, k, v, 0.1)
+    """Only kernel 3 (d = 512) is forward-only, and only on the GPU: on the
+    CPU every wrapper differentiates through its plain version (kernels 1
+    and 2 through their autograd Functions) and launches nothing."""
+    for wrapper, shape in ((sa.kv_resident_attention, (1, 1, 512, 40)),
+                           (ta.small_seq_attention, (2048, 1, 12, 40)),
+                           (fa.flash_attention, (1, 1, 512, 512))):
+        q, k, v = map(torch.from_numpy, _qkv(shape, 5))
+        q.requires_grad_(True)
+        before = port_attention.launch_counts()
+        wrapper(q, k, v, 0.1).square().sum().backward()
+        assert port_attention.launch_counts() == before
+        want = torch.autograd.grad(port_attention.plain_attention(q, k, v, 0.1).square().sum(), q)[0]
+        torch.testing.assert_close(q.grad, want, atol=ATOL, rtol=0)
