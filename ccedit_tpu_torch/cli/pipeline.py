@@ -177,8 +177,10 @@ def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               stage_seconds: Optional[Dict[str, float]] = None,
               reference: Optional[np.ndarray] = None, prior_type: str = "ref",
               prior_coefficient_x: float = 0.0, prior_coefficient_noise: float = 1.0,
-              stage_launches: Optional[Dict[str, Dict[str, int]]] = None) -> np.ndarray:
-    """Edit one clip: (T, H, W, 3) uint8 -> (T, H, W, 3) uint8.
+              stage_launches: Optional[Dict[str, Dict[str, int]]] = None,
+              return_latents: bool = False):
+    """Edit one clip: (T, H, W, 3) uint8 -> (T, H, W, 3) uint8 (and, with
+    ``return_latents``, the sampled latents (1, T, h, w, 4) before decoding).
 
     ``reference`` (H, W, 3), uint8 or in [-1, 1], is the edited reference
     frame of a TVI2V edit: its VAE latent conditions the appearance branch
@@ -234,7 +236,7 @@ def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
         raise FloatingPointError("the decoded clip has non-finite values")
     out = ((decoded + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
     watch.lap("decode")
-    return out
+    return (out, latents) if return_latents else out
 
 
 def _ledger(save_dir: Path) -> Dict:

@@ -22,7 +22,10 @@ counterpart of ``bench.py::bench_train``) builds the engine of
 DPT-Hybrid, ``use_checkpoint``, ``spatial_tv2v``), takes one warm-up step
 at batch 4 of 12-frame 384x512 synthetic clips under bf16 autocast, times
 ``--steps`` (default 5) ``train_step`` calls and profiles
-``--profile_steps`` more.  Prints one JSON line; the trace goes to
+``--profile_steps`` more.  The int8 QK^T attention (kernel 1c) is turned
+on by the environment, ``CCEDIT_QUANT_QK=1`` (or ``CCEDIT_INT8=1``), as in
+the JAX package; the JSON line records it as ``quantized_qk``.  Prints one
+JSON line; the trace goes to
 ``--out``.
 """
 
@@ -40,6 +43,7 @@ import torch
 
 from ..config import TV2V_CONFIG, TVI2V_CONFIG
 from ..data.video import moving_gradient_clip
+from ..ops.attention import quantized_qk_enabled
 from .pipeline import base_parser, edit_clip, load_engine
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -144,12 +148,45 @@ def profile_train(a, device, smi: str) -> dict:
     n_total = sum(p.numel() for m in (engine.network, engine.vae, engine.conditioner)
                   for p in m.parameters())
     mean = sum(times) / steps
-    return {"gpu": smi, "workload": "train", "batch": bs, "frames": t, "height": h, "width": w,
+    return {"gpu": smi, "workload": "train", "quantized_qk": quantized_qk_enabled(),
+            "batch": bs, "frames": t, "height": h, "width": w,
             "freeze_policy": engine.freeze_policy, "params_trainable": n_train,
             "params_total": n_total, "steps": steps, "step_seconds": times,
             "mean_step_seconds": mean, "frames_per_second": bs * t / mean, "losses": losses,
             "peak_memory_gb": peak, "launches_per_step": {k: v / steps for k, v in counts.items()},
             "profile": dict(profile, steps=a.profile_steps)}
+
+
+EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
+
+
+def build_edit(workload: str, device, seed: int, steps: int):
+    """The full-width engine of the ``tv2v`` or ``tvi2v`` edit (seeded random
+    weights, bf16) and ``edit(n_steps, generator, **edit_clip keywords)``,
+    which edits the synthetic 17x512x768 clip as the README's settings do:
+    TV2V with the luminance depth stand-in at CFG 7.5; TVI2V with a random
+    DPT-Hybrid, the centre frame with its colours shifted as the edited
+    reference, ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.
+    Returns (engine, edit, cfg_scale)."""
+    tvi2v = workload == "tvi2v"
+    cfg_scale = 7.0 if tvi2v else 7.5
+    t, h, w = EDIT_GEOMETRY
+    args = base_parser().parse_args(
+        ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(h),
+         "--W", str(w), "--num_keyframes", str(t), "--sample_steps", str(steps),
+         "--cfg_scale", str(cfg_scale)] + ([] if tvi2v else ["--fake_annotator"]))
+    engine, _ = load_engine(args, steps, TVI2V_CONFIG if tvi2v else TV2V_CONFIG)
+    frames = moving_gradient_clip(t, h, w)
+    extra = {}
+    if tvi2v:  # the edited reference: the centre frame with its colours shifted
+        extra = dict(reference=np.ascontiguousarray(np.roll(frames[t // 2], 1, axis=-1)),
+                     prior_type="ref", prior_coefficient_x=0.03)
+
+    def edit(n_steps, generator, **kw):
+        return edit_clip(engine, frames, "a robot bear walking through the snow",
+                         "ugly, low quality", cfg_scale, n_steps, generator, **extra, **kw)
+
+    return engine, edit, cfg_scale
 
 
 def main(argv=None) -> None:
@@ -170,38 +207,24 @@ def main(argv=None) -> None:
     if a.workload == "train":
         print(json.dumps(profile_train(a, device, smi)))
         return
-    tvi2v = a.workload == "tvi2v"
-    steps = a.steps or (50 if tvi2v else 30)
-    cfg_scale = 7.0 if tvi2v else 7.5
-    t, h, w = 17, 512, 768
-    args = base_parser().parse_args(
-        ["--bf16", "--device", str(device), "--seed", str(a.seed), "--H", str(h),
-         "--W", str(w), "--num_keyframes", str(t)] + ([] if tvi2v else ["--fake_annotator"]))
-    engine, _ = load_engine(args, steps, TVI2V_CONFIG if tvi2v else TV2V_CONFIG)
-    frames = moving_gradient_clip(t, h, w)
+    steps = a.steps or (50 if a.workload == "tvi2v" else 30)
+    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)
     gen = torch.Generator(device=device).manual_seed(a.seed)
-    extra = {}
-    if tvi2v:  # the edited reference: the centre frame with its colours shifted
-        extra = dict(reference=np.ascontiguousarray(np.roll(frames[t // 2], 1, axis=-1)),
-                     prior_type="ref", prior_coefficient_x=0.03)
+    t, h, w = EDIT_GEOMETRY
 
-    def edit(n_steps, stages=None):
-        return edit_clip(engine, frames, "a robot bear walking through the snow",
-                         "ugly, low quality", cfg_scale, n_steps, gen, stage_seconds=stages,
-                         **extra)
-
-    edit(1)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
+    edit(1, gen)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
     stages = {}
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    edit(steps, stages)
+    edit(steps, gen, stage_seconds=stages)
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) / 1e9
 
-    profile = _profile(lambda: edit(a.profile_steps), Path(a.out))
+    profile = _profile(lambda: edit(a.profile_steps, gen), Path(a.out))
     rows = 2 * steps - 1
     print(json.dumps({
-        "gpu": smi, "workload": a.workload, "cfg_scale": cfg_scale,
+        "gpu": smi, "workload": a.workload, "quantized_qk": quantized_qk_enabled(),
+        "cfg_scale": cfg_scale,
         "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
         "edit_seconds": total, "stage_seconds": stages,
         "sample_seconds_per_row": stages["sample"] / rows, "peak_memory_gb": peak,

@@ -20,10 +20,21 @@ Each kernel wrapper then takes its plain version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor.  Kernels 1 and 2 are
 differentiable (kernel 1's backward is kernel 4; kernel 2's is the plain
 recompute, as in the JAX package); kernel 3 is forward-only on the GPU.
+
+The int8 QK^T opt-in (``set_quantized_qk``, or ``CCEDIT_QUANT_QK=1``, or
+the umbrella ``CCEDIT_INT8=1``, read once, lazily, as in the JAX package)
+sends a spatial-route shape to kernel 1c exactly where the JAX dispatch
+would quantize: where the JAX kernel's gate ``supported`` holds for k's
+element size (``quantizes``).  Every other shape stays exact, among them
+the port's own additions to kernel 1's route, head_dim 160 and n_q that is
+not a multiple of 128.  The port has no W8A8 path (``ops/quant.py`` is not
+ported), so ``CCEDIT_INT8`` turns on only the QK^T half, with a warning.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -55,9 +66,39 @@ def attention_route(q, k) -> str:
     return "plain"
 
 
+_QUANT = {"qk": None}
+
+
+def set_quantized_qk(enabled: bool) -> None:
+    _QUANT["qk"] = bool(enabled)
+
+
+def quantized_qk_enabled() -> bool:
+    if _QUANT["qk"] is None:
+        qk = os.environ.get("CCEDIT_QUANT_QK", "") not in ("", "0")
+        umbrella = os.environ.get("CCEDIT_INT8", "") not in ("", "0")
+        if umbrella:
+            warnings.warn("CCEDIT_INT8: the port has no W8A8 convolution/matmul path "
+                          "(ops/quant.py is not ported); only the int8 QK^T attention "
+                          "is turned on", stacklevel=2)
+        _QUANT["qk"] = qk or umbrella
+    return _QUANT["qk"]
+
+
+def quantizes(q, k) -> bool:
+    """Whether the switch sends this attention to kernel 1c: the spatial
+    route, and the JAX kernel's gate at k's element size."""
+    return (quantized_qk_enabled() and attention_route(q, k) == "spatial"
+            and sa.supported(q.shape[-2], k.shape[-2], q.shape[-1], k.element_size()))
+
+
+def _spatial(q, k, v, scale: float) -> torch.Tensor:
+    return sa.kv_resident_attention(q, k, v, scale, quantized_qk=quantizes(q, k))
+
+
 _ROUTES = {
     "temporal": ta.small_seq_attention,
-    "spatial": sa.kv_resident_attention,
+    "spatial": _spatial,
     "flash": fa.flash_attention,
     "plain": plain_attention,
 }
@@ -85,7 +126,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count, and kernels 1 and 4 by variant
-    (``spatial_attention[d40 n_k!=n_q]``, ``spatial_attention_bwd[d80 n_k=n_q]``, ...)."""
+    (``spatial_attention[d40 n_k!=n_q]``, ``spatial_attention[int8 d40 n_k=n_q]``
+    for kernel 1c, ``spatial_attention_bwd[d80 n_k=n_q]``, ...)."""
     out = {name: wrapper.launches for name, wrapper in _COUNTED.items()}
     for name, wrapper in _COUNTED.items():
         for var, n in sorted(getattr(wrapper, "variant_launches", {}).items()):

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and bind them with ctypes.
 
 The sources compile into one shared library with a plain C interface, for
-``sm_90a`` (H100).  The library goes to ``build/kernels/`` at the root of the
-checkout, named by a hash of the sources, so an edited source rebuilds and an
+``sm_90a`` (H100): one nvcc per source, all started together, then one
+link.  The library goes to ``build/kernels/`` at the root of the checkout,
+named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads in milliseconds.  Nothing builds at import: the first
 kernel launch (or ``chip_smoke.py``'s build phase) does.  Every failure
 raises: a missing ``nvcc``, a compile error, a refused launch.
@@ -36,6 +37,13 @@ _SIGNATURES = {
     # q, k, v, o, lse, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
     "ccedit_spatial_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                                  ctypes.c_float, _P),
+    # q8, k8, v, o, scales, batch, heads, n_q, n_k, head_dim, strides, stream
+    "ccedit_spatial_attention_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _P),
+    # stage, int8, transposed, q, k, v, out, batch, n, strides, scale_log2, stream
+    "ccedit_attention_probe": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _STRIDES,
+                               ctypes.c_float, _P),
+    # int8, a, b, c, m, n, k, stream
+    "ccedit_gemm": (_I, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, n_q, n_k, head_dim,
     # strides, scale_log2, scale, stream
     "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -83,16 +91,35 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, compile_flags = _nvcc(), [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *compile_flags, *(("-Xptxas", "-v") if verbose else ()), "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{logs[-1]}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)
-    return path, seconds, log
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,30 +141,65 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _check_operand(name: str, x: torch.Tensor, dtype: torch.dtype, device) -> None:
+    """A (B, H, N, D) kernel operand of ``dtype`` on ``device``: unit D
+    stride, other strides whole 16-byte vectors, 16-byte aligned."""
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be (B, H, N, D), got {tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on the GPU, got {x.dtype}")
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"{name} must lie on {device}, got {x.device}")
+    vec = 16 // x.element_size()
+    if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs a unit head_dim stride, other strides multiple "
+            f"of {vec} and 16-byte alignment; got strides {x.stride()}")
+
+
+def _strides(operands) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(operands)))(
+        *[s for x in operands for s in x.stride()[:3]])
+
+
 def attention_operand_strides(q, k, v, out, head_dims: Sequence[int], **more):
-    """Validate the (B, H, N, D) operands of a kernel launch (q, k, v, out,
-    then ``more`` in order) and return their (batch, head, token) strides as
-    the C array the kernels take."""
+    """Validate the bf16 (B, H, N, D) operands of a kernel launch (q, k, v,
+    out, then ``more`` in order) and return their (batch, head, token)
+    strides as the C array the kernels take."""
     if q.shape[-1] not in head_dims:
         raise ValueError(f"head_dim {q.shape[-1]} has no kernel instantiation "
                          f"(supported: {tuple(head_dims)})")
     operands = (("q", q), ("k", k), ("v", v), ("out", out)) + tuple(more.items())
     for name, x in operands:
-        if x.dim() != 4:
-            raise ValueError(f"{name} must be (B, H, N, D), got {tuple(x.shape)}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16 on the GPU, got {x.dtype}")
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must lie on {q.device}, got {x.device}")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs a unit head_dim stride, other strides multiple "
-                f"of 8 and 16-byte alignment; got strides {x.stride()}")
+        _check_operand(name, x, torch.bfloat16, q.device)
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"mismatched q/k/v shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    return (ctypes.c_longlong * (3 * len(operands)))(
-        *[s for _, x in operands for s in x.stride()[:3]])
+    return _strides([x for _, x in operands])
+
+
+def int8_attention_operand_strides(q8, k8, v, out, head_dims: Sequence[int]):
+    """Validate kernel 1c's operands: int8 q8 and k8 whose rows are the head
+    dim zero-padded to whole 16-byte vectors (``width`` columns), bf16 v and
+    out; return their strides as the C array the kernel takes (in bytes for
+    q8 and k8, elements for v and out)."""
+    d = v.shape[-1]
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} has no int8 kernel instantiation "
+                         f"(supported: {tuple(head_dims)})")
+    width = -(-d // 16) * 16
+    for name, x in (("q8", q8), ("k8", k8)):
+        _check_operand(name, x, torch.int8, v.device)
+        if x.shape[-1] != width:
+            raise ValueError(f"{name} rows must be {width} wide (head_dim {d} padded), "
+                             f"got {tuple(x.shape)}")
+    for name, x in (("v", v), ("out", out)):
+        _check_operand(name, x, torch.bfloat16, v.device)
+    if (k8.shape[:3] != v.shape[:3] or q8.shape[:3] != out.shape[:3]
+            or q8.shape[:2] != k8.shape[:2] or out.shape[-1] != d):
+        raise ValueError(f"mismatched q8/k8/v/out shapes {tuple(q8.shape)}, "
+                         f"{tuple(k8.shape)}, {tuple(v.shape)}, {tuple(out.shape)}")
+    return _strides((q8, k8, v, out))
 
 
 def launch(name: str, *args) -> None:

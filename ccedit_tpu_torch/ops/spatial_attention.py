@@ -1,5 +1,6 @@
-"""Kernel 1: spatial attention (head_dim 40 / 80 / 160, any n_k), and its
-backward, kernel 4 — wrappers, plain versions and launch counts.
+"""Kernel 1: spatial attention (head_dim 40 / 80 / 160, any n_k), its int8
+QK^T variant, kernel 1c (head_dim 40 / 80), and its backward, kernel 4 —
+wrappers, plain versions and launch counts.
 
 Port of ``ccedit_tpu/ops/spatial_attention.py::kv_resident_attention``, both
 its one-chunk branch (self-attention, n_k = n_q) and its multi-chunk branch
@@ -12,7 +13,15 @@ gradient, ``kv_resident_attention`` goes through ``SpatialAttention``: its
 forward launches kernel 1 with the row log-sum-exp saved, its backward
 launches kernel 4; on the CPU both are the plain versions.  ``launches``
 counts every launch of a wrapper; ``variant_launches`` splits them by
-``variant(q, k)``.
+``variant(q, k)`` (``int8 `` before it for kernel 1c).
+
+``quantized_qk=True`` is the JAX function's int8 path: ``quantize_qk``, the
+JAX pre-pass bit for bit (plain torch, as JAX leaves it to XLA), quantizes q
+and k per (batch, head); kernel 1c computes int32 QK^T and the fp32 softmax
+with the dequant factor folded into each (batch, head)'s logits scale, which
+stays on the device.  ``supported`` is the port's copy of the JAX gate that
+decides where the JAX package runs its Pallas kernel, and so where it
+quantizes (``ops/attention.py::quantizes``).  The int8 path has no gradient.
 """
 
 from __future__ import annotations
@@ -25,13 +34,85 @@ import torch
 from . import build
 
 HEAD_DIMS = (40, 80, 160)
+INT8_HEAD_DIMS = (40, 80)  # the JAX gate quantizes only d <= 128
 _LOG2E = 1.0 / math.log(2.0)  # exp(x) == exp2(x * log2(e))
+
+# the JAX kernel's VMEM budget (ccedit_tpu/ops/spatial_attention.py:50-56,
+# 139-166): a single score chunk up to 6144 keys, else chunks of 3072
+_MAX_CHUNK = 6144
+_MULTI_CHUNK = 3072
+
+
+def _n_chunks(n_k: int) -> int:
+    return 1 if n_k <= _MAX_CHUNK else -(-n_k // _MULTI_CHUNK)
+
+
+def _pick_qb(n_q: int, n_k: int) -> int:
+    n_chunks = _n_chunks(n_k)
+    chunk = max(1, n_k // n_chunks)
+    budget = (12.6e6 if n_chunks == 1 else 6.3e6) / 4 / chunk
+    for qb in (512, 256, 128):
+        if n_q % qb == 0 and qb <= budget:
+            return qb
+    return 0
+
+
+def supported(n_q: int, n_k: int, d: int, itemsize: int = 2) -> bool:
+    """The JAX package's gate for its Pallas kernel (``supported`` there),
+    with ``itemsize`` k's element size in bytes: where it holds, the JAX
+    dispatch runs the kernel, and with the int8 switch on, quantizes."""
+    n_chunks = _n_chunks(n_k)
+    return (n_q >= 512 and d % 8 == 0 and d <= 128 and n_k % n_chunks == 0
+            and (n_k // n_chunks) % 128 == 0 and n_k * d * 2 * itemsize <= 4.0e6
+            and _pick_qb(n_q, n_k) > 0)
+
+
+def int8_width(d: int) -> int:
+    """Kernel 1c's int8 row width: head_dim rounded up to whole 16-byte rows."""
+    return -(-d // 16) * 16
+
+
+def quantize_qk(q, k, scale: float):
+    """The JAX int8 pre-pass (``kv_resident_attention`` :190-201) in the
+    same order of fp32 operations: per-(batch, head) amax over (N, D),
+    floored at 1e-6; x8 = clip(round(x * (127 / amax)), -127, 127) with
+    round-half-even; the folded logits scale scale * (aq * ak) / 127^2.
+    Returns q8, k8 (int8, q's and k's shapes) and the scales, fp32
+    (B * H,)."""
+    (q8, aq), (k8, ak) = _quantize(q), _quantize(k)
+    folded = scale * (aq * ak)
+    scales = folded / torch.full_like(folded, 127.0 * 127.0)
+    return q8, k8, scales.reshape(-1)
+
+
+def _quantize(x):
+    """One operand of ``quantize_qk``: (x8, amax).  The amax is exact in x's
+    own dtype; x's product with the fp32 factor is computed in fp32.  The
+    divisions are true ones, tensor by tensor: ``127.0 / amax`` is torch's
+    reciprocal times 127, and a CUDA tensor over a scalar its product with
+    the scalar's reciprocal, a last bit away from JAX's quotients (ties
+    would round apart).  ``full_like`` fills on the device: a tensor made
+    from a host scalar is a copy that synchronises the stream."""
+    amax = x.abs().amax(dim=(2, 3)).float().clamp_min(1e-6)
+    x8 = torch.mul(x, (torch.full_like(amax, 127.0) / amax)[..., None, None])
+    return x8.round_().clamp_(-127, 127).to(torch.int8), amax
 
 
 def plain_spatial_attention(q, k, v, scale: float) -> torch.Tensor:
     """Matmul + fp32 softmax; probabilities cast to v's dtype for P.V, as the
     TPU kernel does."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p, v).to(q.dtype)
+
+
+def plain_spatial_attention_int8(q, k, v, scale: float) -> torch.Tensor:
+    """Kernel 1c's plain version: ``quantize_qk``, the integer scores in fp32
+    (exact: |S| <= 127^2 * 80 < 2^24) times each (batch, head)'s folded
+    scale, fp32 softmax, probabilities in v's dtype for P.V; q's dtype out."""
+    q8, k8, scales = quantize_qk(q, k, scale)
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
+    s = s * scales.reshape(q.shape[0], q.shape[1], 1, 1)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p, v).to(q.dtype)
 
@@ -67,6 +148,24 @@ def _forward(q, k, v, scale: float, lse=None) -> torch.Tensor:
                  build.stream_of(q))
     kv_resident_attention.launches += 1
     kv_resident_attention.variant_launches[variant(q, k)] += 1
+    return out
+
+
+def _forward_int8(q, k, v, scale: float) -> torch.Tensor:
+    """Quantize q and k (``quantize_qk``, zero-padded to ``int8_width``
+    columns where head_dim is not a whole 16 bytes) and launch kernel 1c."""
+    b, h, n_q, d = q.shape
+    q8, k8, scales = quantize_qk(q, k, scale)
+    pad = int8_width(d) - d
+    if pad:
+        q8, k8 = (torch.nn.functional.pad(x, (0, pad)) for x in (q8, k8))
+    out = torch.empty_like(q)
+    strides = build.int8_attention_operand_strides(q8, k8, v, out, INT8_HEAD_DIMS)
+    build.launch("ccedit_spatial_attention_int8", q8.data_ptr(), k8.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), scales.data_ptr(), b, h, n_q, k.shape[2], d,
+                 strides, build.stream_of(q))
+    kv_resident_attention.launches += 1
+    kv_resident_attention.variant_launches["int8 " + variant(q, k)] += 1
     return out
 
 
@@ -119,10 +218,22 @@ class SpatialAttention(torch.autograd.Function):
         return (*spatial_attention_bwd(q, k, v, out, do, lse, ctx.scale), None)
 
 
-def kv_resident_attention(q, k, v, scale: float) -> torch.Tensor:
-    """Exact attention over (B, H, N, D).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.  Differentiable:
-    when autograd needs the gradient, it goes through ``SpatialAttention``."""
+def kv_resident_attention(q, k, v, scale: float, quantized_qk: bool = False) -> torch.Tensor:
+    """Exact attention over (B, H, N, D), or with ``quantized_qk`` the int8
+    QK^T attention (kernel 1c).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.  The exact path is
+    differentiable: when autograd needs the gradient, it goes through
+    ``SpatialAttention``.  The int8 path raises there instead: kernel 4
+    needs the exact log-sum-exp, and the JAX package's trainer refuses the
+    mode too."""
+    if quantized_qk:
+        if build.needs_grad(q, k, v):
+            raise RuntimeError("the int8 QK^T attention has no gradient: turn it off "
+                               "(set_quantized_qk(False), unset CCEDIT_QUANT_QK/CCEDIT_INT8) "
+                               "to train")
+        if not q.is_cuda:
+            return plain_spatial_attention_int8(q, k, v, scale)
+        return _forward_int8(q, k, v, scale)
     if build.needs_grad(q, k, v):
         return SpatialAttention.apply(q, k, v, scale)
     if not q.is_cuda:

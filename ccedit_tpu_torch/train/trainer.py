@@ -32,6 +32,18 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..models.engine import CCEditEngine
+from ..ops.attention import quantized_qk_enabled
+
+
+def assert_exact_arithmetic() -> None:
+    """Refuse to train with the int8 QK^T attention on (the JAX trainer's
+    guard, QK half only: the port has no W8A8 path).  round() has zero
+    gradient almost everywhere, and the quantized forward has no backward
+    kernel, so ``kv_resident_attention`` would raise inside the first step
+    anyway; this says why before any work is done."""
+    if quantized_qk_enabled():
+        raise RuntimeError("training requires exact arithmetic: unset CCEDIT_QUANT_QK/"
+                           "CCEDIT_INT8 or call set_quantized_qk(False) before fit()")
 
 
 def scale_learning_rate(base_lr: float, accumulate: int, n_devices: int,
@@ -136,6 +148,7 @@ class Trainer:
 
     # -- main loop ----------------------------------------------------
     def fit(self, loader, batch_size: int, resume: bool = True) -> FitResult:
+        assert_exact_arithmetic()
         cfg, eng = self.cfg, self.engine
         lr = (scale_learning_rate(cfg.base_lr, cfg.accumulate_grad_batches, 1, batch_size,
                                   cfg.lr_cap) if cfg.scale_lr else cfg.base_lr)

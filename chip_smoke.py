@@ -12,16 +12,36 @@ Phases:
      384x512), plus kernel 1's head_dim 160 instantiation at level 2 of
      1024x1024, with the error tolerance and CUDA-event times.  The backward
      kernel (4) is held to ``plain_spatial_attention_bwd`` on dq, dk and dv.
+     Kernel 1c (the int8 QK^T path) is held to
+     ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1.
+     Every shape also gets its bound (``scripts/roofline.py``: the largest of
+     the tensor, exponential and memory times on the H100's published peaks)
+     and the time of PyTorch's ``scaled_dot_product_attention`` on the same
+     tensors (forward and backward beside kernels 1 + 4), a yardstick the
+     port never calls.
+  3b. probes: each probe script's own run, counted: the seven kernel-5
+     variants (``scripts/kv_resident_attn.py``) at (272, 6144, 40), their
+     first rows held to their plain versions (row sums within 1e-3 of
+     max|plain|, full attention within 2e-2 of it and at cosine >= 0.9999,
+     limits that the full and softmax probes fail with log2 e left out of
+     their exp2 scale), and the kernel-6 GEMMs (``scripts/int8_probe.py``)
+     at 1024x512x1024 and 4096^3 (the int8 product exactly).
   4. TV2V: the full-width SD-1.5 TV2V engine (seeded random weights, bf16,
      the luminance depth stand-in), its network through the kernels against
      plain attention, then one clip edit through ``edit_clip``: 17 frames at
-     512x768, CFG 7.5, DPM++2S-ancestral, 3 steps (5 network rows).
+     512x768, CFG 7.5, DPM++2S-ancestral, 3 steps (5 network rows).  Then
+     the same edit with ``set_quantized_qk(True)`` (same engine, seed and
+     noise): it must launch only kernel 1c at d 40/80, and its final latents
+     must stay within LATENT_COSINE of the exact edit's, while the same edit
+     with a planted fault (the dequant factor left out of the folded logits
+     scale) must not.
   5. TVI2V: the full-width TVI2V engine (CFCA centre+self, structure and
      appearance ControlNets, seeded random weights, bf16, a seeded random
      full-size DPT-Hybrid depth annotator), its network check, then one
      reference-guided edit: 17x512x768, an edited reference frame (the
      centre frame with its colours shifted), ``--prior_type ref`` with
-     prior_coefficient_x 0.03, CFG 7, 3 steps.
+     prior_coefficient_x 0.03, CFG 7, 3 steps; then its quantized edit and
+     the planted fault, as in phase 4 (the CFCA quantized too).
   6. train: the full-width TV2V training engine of ``TV2V_TRAIN_CONFIG``
      (seeded random fp32 master weights, the zero-initialised temporal
      layers included; a random full-size DPT-Hybrid inside the step;
@@ -34,20 +54,24 @@ Phases:
      clips.  The frozen
      parameters must stay bit-identical, every trainable tensor must move,
      and each step must launch the backward kernel 5 times at d 40 and 5 at
-     d 80 (the UNet's level-0 and level-1 self-attentions).
+     d 80 (the UNet's level-0 and level-1 self-attentions).  With the int8
+     switch on, ``Trainer.fit`` must refuse to start.
   Launch counts are reset just before each path and read just after (per
   stage for the edits); every kernel of that path must have run (on the
   TVI2V path: kernel 1 at n_k = n_q and at n_k = 2 * n_q, kernel 2, and
-  kernel 3 in both the VAE encoder and decoder).
+  kernel 3 in both the VAE encoder and decoder; on the quantized edits
+  kernel 1c in place of kernel 1; on the probe path every probe variant).
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
-training path for the kernels it runs, else from the TVI2V edit;
-``launches_by_path`` from all three), the last line the device JSON.  Any
-failed phase exits non-zero before those lines.
+path named by each kernel's ``path``; ``launches_by_path`` from all; ``ms``,
+``bound_ms`` and ``library_ms`` at the first full shape, ``compared_ms`` and
+``plain_ms`` on the slice ``plain_shape``), the last line the device JSON.
+Any failed phase exits non-zero before those lines.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -56,9 +80,16 @@ import sys
 import time
 
 STEPS, SEED = 3, 0
-T, H, W = 17, 512, 768
-PRIOR_COEFFICIENT_X = 0.03
+T, H, W = 17, 512, 768  # profile_tv2v.EDIT_GEOMETRY, the edits' clip
 TOLERANCE = 2e-2  # max abs error, bf16 out: 2^-8 output rounding + bf16 P
+# kernel 1c against exact attention: tests/test_spatial_attention.py's bound
+# for the JAX int8 path
+INT8_COSINE = 0.9995
+# cosine of a quantized 3-step edit's final latents with the exact edit's
+# (same seed and noise); the edit with the dequant factor left out of the
+# folded scale must fall below it.  First reading (H100): 0.99872 TV2V and
+# 0.99753 TVI2V sound, 0.778 and 0.503 with the fault
+LATENT_COSINE = 0.99
 # backward kernel: max|kernel - plain| / max|plain| of dq, dk and dv; bf16
 # P and dS feed its products, the outputs round to bf16
 BWD_TOLERANCE = 2e-2
@@ -80,56 +111,70 @@ TRAIN_STEPS = 4  # 1 warm-up + 3 timed
 BWD_PER_STEP = {"d40": 5, "d80": 5}
 
 
-def _variant_sum(stages, variant):
+def _variant_sum(stages, prefix, variant):
+    """Kernel 1's launches of ``variant`` (n_k=n_q or n_k!=n_q): exact with
+    ``prefix`` "d", kernel 1c with "int8 d"."""
     return sum(n for counts in stages.values() for k, n in counts.items()
-               if k.startswith("spatial_attention[") and variant in k)
+               if k.startswith(f"spatial_attention[{prefix}") and variant in k)
 
 
 # every kernel and variant: its wrapper ("kernel"), the shapes it is checked
-# at ((B, H, N_q, D), N_k, compare batches), and its launch count from a
-# path's per-stage counts
+# at ((B, H, N_q, D), N_k, compare batches), the path its JSON ``launches``
+# come from, and its launch count from a path's per-stage counts
 KERNELS = (
-    dict(name="spatial_attention", kernel="spatial",
+    dict(name="spatial_attention", kernel="spatial", path="train",
          source="ccedit_tpu_torch/csrc/spatial_attention.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:113",
          shapes=(((34, 8, 6144, 40), 6144, 1), ((34, 8, 1536, 80), 1536, 34),
                  ((34, 8, 1024, 160), 1024, 34), ((48, 8, 3072, 40), 3072, 4),
                  ((48, 8, 768, 80), 768, 48)),
-         count=lambda st: _variant_sum(st, "n_k=n_q")),
-    dict(name="spatial_attention_1b", kernel="spatial",
+         count=lambda st: _variant_sum(st, "d", "n_k=n_q")),
+    dict(name="spatial_attention_1b", kernel="spatial", path="tvi2v",
          source="ccedit_tpu_torch/csrc/spatial_attention.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:93",
          shapes=(((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34)),
-         count=lambda st: _variant_sum(st, "n_k!=n_q")),
-    dict(name="temporal_attention", kernel="temporal",
+         count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
+    dict(name="spatial_attention_1c", kernel="spatial_int8", path="tvi2v_int8",
+         source="ccedit_tpu_torch/csrc/spatial_attention.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:190",
+         shapes=(((34, 8, 6144, 40), 6144, 1), ((34, 8, 1536, 80), 1536, 34),
+                 ((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34)),
+         count=lambda st: _variant_sum(st, "int8 d", "n_k")),
+    dict(name="temporal_attention", kernel="temporal", path="train",
          source="ccedit_tpu_torch/csrc/temporal_attention.cu",
          replaces="ccedit_tpu/ops/temporal_attention.py:48",
          shapes=(((12288, 8, 17, 40), 17, 12288), ((3072, 8, 17, 80), 17, 3072),
                  ((768, 8, 17, 160), 17, 768), ((12288, 8, 12, 40), 12, 12288),
                  ((3072, 8, 12, 80), 12, 3072), ((768, 8, 12, 160), 12, 768)),
          count=lambda st: sum(c.get("temporal_attention", 0) for c in st.values())),
-    dict(name="flash_attention", kernel="flash",
+    dict(name="flash_attention", kernel="flash", path="tvi2v",
          source="ccedit_tpu_torch/csrc/flash_attention.cu",
          replaces="ccedit_tpu/ops/attention.py:203",
          shapes=(((17, 1, 6144, 512), 6144, 17),),
          count=lambda st: st.get("decode", {}).get("flash_attention", 0)),
-    dict(name="flash_attention_encoder", kernel="flash",
+    dict(name="flash_attention_encoder", kernel="flash", path="train",
          source="ccedit_tpu_torch/csrc/flash_attention.cu",
          replaces="ccedit_tpu/ops/attention.py:203",
          shapes=(((1, 1, 6144, 512), 6144, 1), ((48, 1, 3072, 512), 3072, 4)),
          count=lambda st: sum(c.get("flash_attention", 0) for stage, c in st.items()
                               if stage != "decode")),
-    dict(name="spatial_attention_bwd", kernel="spatial_bwd",
+    dict(name="spatial_attention_bwd", kernel="spatial_bwd", path="train",
          source="ccedit_tpu_torch/csrc/spatial_attention_bwd.cu",
          replaces="ccedit_tpu/ops/attention.py:173",
          shapes=(((48, 8, 3072, 40), 3072, 4), ((48, 8, 768, 80), 768, 48),
                  ((8, 8, 1024, 160), 1024, 8), ((4, 8, 3072, 40), 6144, 1)),
          count=lambda st: sum(c.get("spatial_attention_bwd", 0) for c in st.values())),
 )
+# the probes (kernels 5 and 6), checked and counted in phase 3b
+GEMM_VARIANTS = (("int8", True), ("bf16", False))
 # the kernels each path must launch
 PATH_KERNELS = {
     "tv2v": ("spatial_attention", "temporal_attention", "flash_attention"),
-    "tvi2v": tuple(k["name"] for k in KERNELS if k["name"] != "spatial_attention_bwd"),
+    "tvi2v": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
+              "flash_attention", "flash_attention_encoder"),
+    "tv2v_int8": ("spatial_attention_1c", "temporal_attention", "flash_attention"),
+    "tvi2v_int8": ("spatial_attention_1c", "temporal_attention", "flash_attention",
+                   "flash_attention_encoder"),
     "train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
               "spatial_attention_bwd"),
 }
@@ -147,17 +192,9 @@ def gpu_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int) -> float:
-    import torch
+    from ccedit_tpu_torch.scripts.roofline import cuda_time_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters)
 
 
 def model_layout(shape, gen, device):
@@ -173,10 +210,12 @@ def model_layout(shape, gen, device):
 def check_backward(shape, n_k, nb, gen, device) -> dict:
     """Kernel 4 at one shape: its full-shape time, and dq, dk, dv against
     ``plain_spatial_attention_bwd`` on the first ``nb`` batch rows (the
-    plain version's fp32 scores do not fit at every full shape)."""
+    plain version's fp32 scores do not fit at every full shape); kernel 1
+    (with lse) + kernel 4 beside SDPA's forward and backward."""
     import torch
 
     from ccedit_tpu_torch.ops import spatial_attention as sa
+    from ccedit_tpu_torch.scripts import roofline
 
     q = model_layout(shape, gen, device)
     k, v = (model_layout(shape[:2] + (n_k, shape[3]), gen, device) for _ in range(2))
@@ -186,6 +225,8 @@ def check_backward(shape, n_k, nb, gen, device) -> dict:
     lse = torch.empty((b * h, n_q), device=device, dtype=torch.float32)
     out = sa._forward(q, k, v, scale, lse)
     full_ms = cuda_time_ms(lambda: sa.spatial_attention_bwd(q, k, v, out, do, lse, scale), 5)
+    fwd_ms = cuda_time_ms(lambda: sa._forward(q, k, v, scale, lse), 5)
+    library_ms, backend = roofline.sdpa_ms(q, k, v, scale, 5, grad_out=do)
     sl = slice(0, nb * h)
     qs, ks, vs, os_, dos, lses = q[:nb], k[:nb], v[:nb], out[:nb], do[:nb], lse[sl]
     grads = sa.spatial_attention_bwd(qs, ks, vs, os_, dos, lses, scale)
@@ -196,8 +237,11 @@ def check_backward(shape, n_k, nb, gen, device) -> dict:
     finite = all(bool(torch.isfinite(g.float()).all().item()) for g in grads)
     ms = cuda_time_ms(lambda: sa.spatial_attention_bwd(qs, ks, vs, os_, dos, lses, scale), 5)
     plain_ms = cuda_time_ms(lambda: sa.plain_spatial_attention_bwd(qs, ks, vs, dos, scale), 3)
+    bound = roofline.attention_bound(b, h, n_q, n_k, shape[3], backward=True)
     cmp_shape = (nb,) + tuple(shape[1:])
-    print(f"[kernels] spatial_attention_bwd q {shape} n_k {n_k}: full {full_ms:.4f} ms; compared "
+    print(f"[kernels] spatial_attention_bwd q {shape} n_k {n_k}: full {full_ms:.4f} ms "
+          f"(bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}; kernels 1 + 4 "
+          f"{fwd_ms + full_ms:.4f} ms, SDPA fwd+bwd {library_ms} ms [{backend}]); compared "
           f"on {cmp_shape}: dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
           f"relative to max|plain| {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} "
           f"(tol {BWD_TOLERANCE:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
@@ -205,18 +249,30 @@ def check_backward(shape, n_k, nb, gen, device) -> dict:
         raise RuntimeError(f"spatial_attention_bwd at {shape} x {n_k} disagrees with its plain "
                            f"version: relative errors {rels} (finite={finite})")
     return dict(shape=list(shape), n_k=n_k, compare_shape=list(cmp_shape), max_abs_err=max(errs),
-                max_rel_err=max(rels), ms=ms, plain_ms=plain_ms, full_shape_ms=full_ms)
+                max_rel_err=max(rels), compared_ms=ms, plain_ms=plain_ms, ms=full_ms,
+                fwd_with_lse_ms=fwd_ms, kernels_fwd_bwd_ms=fwd_ms + full_ms,
+                library_ms=library_ms, library=f"scaled_dot_product_attention forward+backward "
+                f"[{backend}]", **bound)
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
 
 
 def check_kernels(device) -> list:
+    """Phase 3: every kernel and variant of the paths at its shapes."""
     import torch
 
     from ccedit_tpu_torch.ops import flash_attention as fa
     from ccedit_tpu_torch.ops import spatial_attention as sa
     from ccedit_tpu_torch.ops import temporal_attention as ta
+    from ccedit_tpu_torch.scripts import roofline
 
+    int8 = functools.partial(sa.kv_resident_attention, quantized_qk=True)
     fns = {
         "spatial": (sa.kv_resident_attention, sa.plain_spatial_attention),
+        "spatial_int8": (int8, sa.plain_spatial_attention_int8),
         "temporal": (ta.small_seq_attention, ta.plain_temporal_attention),
         "flash": (fa.flash_attention, fa.plain_flash_attention),
     }
@@ -235,31 +291,140 @@ def check_kernels(device) -> list:
             k, v = (model_layout(shape[:2] + (n_k, shape[3]), gen, device) for _ in range(2))
             scale = shape[-1] ** -0.5
             full_ms = cuda_time_ms(lambda: kernel(q, k, v, scale), 5)
+            library_ms, backend = roofline.sdpa_ms(q, k, v, scale, 5)
+            bound = roofline.attention_bound(*shape[:3], n_k, shape[3],
+                                             qk_int8=spec["kernel"] == "spatial_int8")
             qs, ks, vs = q[:nb], k[:nb], v[:nb]
             out = kernel(qs, ks, vs, scale)
             ref = plain(qs, ks, vs, scale)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             finite = bool(torch.isfinite(out.float()).all().item())
+            extra, note = {}, ""
+            if spec["kernel"] == "spatial_int8":  # against exact kernel 1 on the same slice
+                extra["cosine_to_exact"] = cosine(out, sa.kv_resident_attention(qs, ks, vs, scale))
+                extra["prepass_ms"] = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
+                note = (f", cosine to exact kernel 1 {extra['cosine_to_exact']:.6f} (> "
+                        f"{INT8_COSINE}), its pre-pass (quantize_qk) at the full shape "
+                        f"{extra['prepass_ms']:.4f} ms")
             ms = cuda_time_ms(lambda: kernel(qs, ks, vs, scale), 5)
             plain_ms = cuda_time_ms(lambda: plain(qs, ks, vs, scale), 3)
             cmp_shape = (nb,) + tuple(shape[1:])
-            print(f"[kernels] {name} q {shape} n_k {n_k}: full {full_ms:.4f} ms; compared on "
-                  f"{cmp_shape}: max_abs_err {err:.3e} (tol {TOLERANCE:.0e}), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            print(f"[kernels] {name} q {shape} n_k {n_k}: full {full_ms:.4f} ms (bound "
+                  f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}; SDPA {library_ms} ms "
+                  f"[{backend}]); compared on {cmp_shape}: max_abs_err {err:.3e} (tol "
+                  f"{TOLERANCE:.0e}){note}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
             if not finite or not err <= TOLERANCE:
                 raise RuntimeError(f"{name} at {shape} x {n_k} disagrees with its plain "
                                    f"version: max_abs_err {err} (finite={finite})")
+            if extra and not extra["cosine_to_exact"] > INT8_COSINE:
+                raise RuntimeError(f"{name} at {shape} x {n_k}: cosine to exact kernel 1 "
+                                   f"{extra['cosine_to_exact']} <= {INT8_COSINE}")
             per_shape.append(dict(shape=list(shape), n_k=n_k, compare_shape=list(cmp_shape),
-                                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  full_shape_ms=full_ms))
+                                  max_abs_err=err, compared_ms=ms, plain_ms=plain_ms,
+                                  ms=full_ms, library_ms=library_ms,
+                                  library=f"scaled_dot_product_attention [{backend}]",
+                                  **bound, **extra))
             del q, k, v, out, ref
             torch.cuda.empty_cache()
-        first = per_shape[0]
-        records.append(dict(name=name, route="cuda", source=spec["source"],
-                            replaces=spec["replaces"], launches=0, max_abs_err=max(p["max_abs_err"] for p in per_shape),
-                            ms=first["ms"], plain_ms=first["plain_ms"], shapes=per_shape))
+        records.append(record(spec, per_shape))
     return records
+
+
+def record(spec, per_shape) -> dict:
+    """A kernel's JSON record: its first shape's numbers and every shape's
+    in ``shapes``.  ``ms``, ``bound_ms`` and ``library_ms`` are at the full
+    shape; ``compared_ms`` and ``plain_ms`` are the kernel's and the plain
+    version's times on the compared slice, ``plain_shape``."""
+    first = per_shape[0]
+    return dict(name=spec["name"], route="cuda", source=spec["source"],
+                replaces=spec["replaces"], launches=0,
+                max_abs_err=max(p["max_abs_err"] for p in per_shape), ms=first["ms"],
+                compared_ms=first["compared_ms"], plain_ms=first["plain_ms"],
+                plain_shape=first["compare_shape"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["library_ms"],
+                library=first["library"], shapes=per_shape)
+
+
+def run_probes(device):
+    """Phase 3b: the probe scripts' own runs, counted.
+    ``kv_resident_attn.run`` runs kernel 5's seven variants at (272, 6144,
+    40) and holds each one's first rows to ``plain_probe``;
+    ``int8_probe.part_kernel`` runs kernel 6 at 1024x512x1024 and 4096^3
+    against ``plain_gemm`` (the int8 product exactly).  Then the probes that
+    read the logits scale run with log2 e left out of it (a softmax
+    temperature off by ln 2), a planted fault that ``kr.compare`` must
+    refuse.  Returns the probes' records and their launch counts by
+    variant, as one stage ("probes")."""
+    from ccedit_tpu_torch.scripts import int8_probe as ip
+    from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+
+    reset_launches()
+    split = kr.run(device, iters=5)
+    gemms = ip.part_kernel(device, iters=5)
+    counts = {f"attention_probe[{k}]": n for k, n in kr.probe.variant_launches.items()}
+    for label, _ in GEMM_VARIANTS:
+        counts[f"int8_gemm[{label}]"] = sum(n for k, n in ip.gemm.variant_launches.items()
+                                            if k.startswith(label))
+    print(f"[probes] launches {json.dumps(counts)}", flush=True)
+    print(f"[probes] kv_resident_attn.run: kernel 1 {split['kernel1_ms']:.4f} ms exact, "
+          f"{split['kernel1_int8_ms']:.4f} ms int8 (1c); split "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split["kernel1_split_ms"].items()),
+          flush=True)
+    records = []
+    for r, key in zip(split["variants"], kr.VARIANTS):
+        limits = (f"max|err|/max|plain| <= {kr.FULL_TOLERANCE}, cosine >= {kr.FULL_COSINE}"
+                  if key[0] == "full" else f"max|err|/max|plain| <= {kr.ROWSUM_TOLERANCE}")
+        print(f"[probes] kernel 5 {r['variant']} {tuple(split['shape'])}: {r['ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.4f} ms, {r['bound_what']}; {r['library']} "
+              f"{r['library_ms']} ms); on {r['plain_shape']}: max_abs_err {r['max_abs_err']:.3e}, "
+              f"relative {r['max_rel_err']:.3e}, cosine {r['cosine']:.7f} ({limits}), kernel "
+              f"{r['compared_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+        if not r["ok"]:
+            raise RuntimeError(f"probe {r['variant']} disagrees with its plain version: {r}")
+        records.append(dict(
+            name=f"attention_probe[{r['variant']}]", route="cuda",
+            source="ccedit_tpu_torch/csrc/attention_probe.cu",
+            replaces="scripts/kv_resident_attn.py" + kr.REPLACES[key], launches=0,
+            **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "compared_ms",
+                                 "plain_ms", "plain_shape", "bound_ms", "bound_by",
+                                 "bound_what", "library_ms", "library")}))
+    x = kr.inputs(device, b=kr.COMPARE_ROWS)
+    log2e = kr._LOG2E
+    kr._LOG2E = 1.0  # the planted fault
+    try:
+        for key in kr.VARIANTS:
+            if key[0] == "qkt":  # reads no scale
+                continue
+            args = kr.call_args(x, *key)
+            fault = kr.compare(key[0], kr.probe(key[0], *args), kr.plain_probe(key[0], *args))
+            print(f"[probes] kernel 5 {kr.variant_name(*key)} without log2 e in its scale: "
+                  f"relative {fault['max_rel_err']:.3e}, cosine {fault['cosine']:.7f}", flush=True)
+            if fault["ok"]:
+                raise RuntimeError(f"the probe check passes {kr.variant_name(*key)} with its "
+                                   f"softmax temperature off by ln 2: {fault}")
+    finally:
+        kr._LOG2E = log2e
+    for label, _ in GEMM_VARIANTS:
+        per_shape = []
+        for g in gemms:
+            if not g["variant"].startswith(label):
+                continue
+            print(f"[probes] kernel 6 {g['variant']}: {g['ms']:.4f} ms ({g['tops']:.1f} TOP/s; "
+                  f"bound {g['bound_ms']:.4f} ms, {g['bound_what']}; {g['library']} "
+                  f"{g['library_ms']:.4f} ms), max_abs_err {g['max_abs_err']:.3e}, relative "
+                  f"{g['max_rel_err']:.3e} ({'exact' if label == 'int8' else 'tol %.0e' % ip.BF16_TOLERANCE}"
+                  f"), plain {g['plain_ms']:.4f} ms", flush=True)
+            if not g["ok"]:
+                raise RuntimeError(f"gemm {g['variant']} disagrees with its plain version: {g}")
+            mkn = [int(s) for s in g["variant"].split()[1].split("x")]
+            per_shape.append(dict(shape=mkn, compare_shape=mkn, compared_ms=g["ms"], **g))
+        records.append(record(dict(name=f"int8_gemm[{label}]",
+                                   source="ccedit_tpu_torch/csrc/int8_gemm.cu",
+                                   replaces="scripts/int8_probe.py:"
+                                   + ("142" if label == "int8" else "159")), per_shape))
+    return records, {"probes": counts}
 
 
 def check_network_routes(engine, device, seed: int) -> float:
@@ -294,33 +459,61 @@ def check_network_routes(engine, device, seed: int) -> float:
     return ((out_k - out_p).abs().max() / out_p.abs().max()).item()
 
 
-def run_path(path: str, device, steps: int, seed: int) -> dict:
-    """Build the path's full-width engine, check its network's routes, and
-    edit one synthetic 17x512x768 clip with the launch counts reset just
-    before and read, per stage, just after.  Returns the per-stage counts."""
+def edit_counted(edit, device, steps: int, seed: int, label: str):
+    """One edit with the launch counts reset just before it and read, per
+    stage, just after.  Returns (uint8 frames, latents, per-stage counts)."""
     import numpy as np
     import torch
 
-    from ccedit_tpu_torch.cli.pipeline import base_parser, edit_clip, load_engine
-    from ccedit_tpu_torch.config import TV2V_CONFIG, TVI2V_CONFIG
-    from ccedit_tpu_torch.data.video import moving_gradient_clip
     from ccedit_tpu_torch.ops import attention as att
 
-    tvi2v = path == "tvi2v"
-    cfg_scale = 7.0 if tvi2v else 7.5
-    argv = ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(H),
-            "--W", str(W), "--num_keyframes", str(T), "--sample_steps", str(steps),
-            "--cfg_scale", str(cfg_scale)]
-    args = base_parser().parse_args(argv + ([] if tvi2v else ["--fake_annotator"]))
+    stages, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
     t0 = time.perf_counter()
-    engine, _ = load_engine(args, steps, TVI2V_CONFIG if tvi2v else TV2V_CONFIG)
+    out, latents = edit(steps, torch.Generator(device=device).manual_seed(seed),
+                        stage_seconds=stages, stage_launches=launches, return_latents=True)
+    total = time.perf_counter() - t0
+    counts = att.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    summed = {k: sum(c.get(k, 0) for c in launches.values()) for k in counts}
+    if summed != counts:
+        raise RuntimeError(f"per-stage launch counts {summed} do not add up to {counts}")
+    print(f"[{label}] edit_clip {T}x{H}x{W}, {steps} steps ({2 * steps - 1} network rows): "
+          f"{total:.2f} s; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"[{label}] kernel launches by stage {json.dumps(launches)}", flush=True)
+    if out.dtype != np.uint8 or out.shape != (T, H, W, 3):
+        raise RuntimeError(f"edit_clip returned {out.dtype} {out.shape}")
+    if not bool(torch.isfinite(latents).all()):
+        raise FloatingPointError(f"{label}: the final latents are not finite")
+    print(f"[{label}] output uint8 {out.shape}, mean {out.mean():.2f}, std {out.std():.2f}",
+          flush=True)
+    return out, latents, launches
+
+
+def run_path(path: str, device, steps: int, seed: int) -> dict:
+    """Build the path's full-width engine, check its network's routes, edit
+    one synthetic 17x512x768 clip exactly, then with the int8 switch on
+    (same engine, seed and noise), then with the switch on and the dequant
+    factor left out of the folded scale.  Returns the per-stage counts of
+    the exact and the quantized edit, as paths ``path`` and
+    ``path + "_int8"``."""
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit
+    from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+
+    t0 = time.perf_counter()
+    engine, edit, cfg_scale = build_edit(path, device, seed, steps)
     torch.cuda.synchronize()
     modules = {"network": engine.network, "vae": engine.vae, "conditioner": engine.conditioner}
     n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in modules.items()}
     print(f"[{path}] engine built in {time.perf_counter() - t0:.1f} s: "
           f"{sum(n_params.values()) / 1e9:.3f} B parameters ("
-          + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n_params.items()) + "), bf16",
-          flush=True)
+          + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n_params.items()) + f"), bf16, CFG "
+          f"{cfg_scale}", flush=True)
 
     rel = check_network_routes(engine, device, seed)
     print(f"[{path}] network through kernels vs plain attention at 3x256x256: "
@@ -329,38 +522,39 @@ def run_path(path: str, device, steps: int, seed: int) -> dict:
         raise RuntimeError(f"{path} network through the kernels disagrees with plain "
                            f"attention: {rel}")
 
-    frames = moving_gradient_clip(T, H, W)
-    extra = {}
-    if tvi2v:  # the edited reference: the centre frame with its colours shifted
-        extra = dict(reference=np.ascontiguousarray(np.roll(frames[T // 2], 1, axis=-1)),
-                     prior_type="ref", prior_coefficient_x=PRIOR_COEFFICIENT_X)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    stages, launches = {}, {}
-    torch.cuda.reset_peak_memory_stats(device)
-    att.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = edit_clip(engine, frames, "a robot bear walking through the snow",
-                    "ugly, low quality", cfg_scale, steps, gen, stage_seconds=stages,
-                    stage_launches=launches, **extra)
-    total = time.perf_counter() - t0
-    counts = att.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    summed = {k: sum(c.get(k, 0) for c in launches.values()) for k in counts}
-    if summed != counts:
-        raise RuntimeError(f"per-stage launch counts {summed} do not add up to {counts}")
-    print(f"[{path}] edit_clip {T}x{H}x{W}, {steps} steps ({2 * steps - 1} network rows), "
-          f"CFG {cfg_scale}: {total:.2f} s; stages "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
-          + f"; peak memory {peak_gb:.2f} GB", flush=True)
-    print(f"[{path}] kernel launches by stage {json.dumps(launches)}", flush=True)
-    if out.dtype != np.uint8 or out.shape != (T, H, W, 3):
-        raise RuntimeError(f"edit_clip returned {out.dtype} {out.shape}")
-    print(f"[{path}] output uint8 {out.shape}, mean {out.mean():.2f}, std {out.std():.2f}",
-          flush=True)
-    del engine, out
+    _, exact, launches = edit_counted(edit, device, steps, seed, path)
+    quantize = sa.quantize_qk
+
+    def without_dequant(q, k, scale):  # the planted fault
+        q8, k8, scales = quantize(q, k, scale)
+        return q8, k8, torch.full_like(scales, scale)
+
+    try:
+        att.set_quantized_qk(True)
+        _, quant, launches_int8 = edit_counted(edit, device, steps, seed, f"{path}_int8")
+        sa.quantize_qk = without_dequant
+        _, fault, _ = edit_counted(edit, device, steps, seed, f"{path}_int8 fault")
+    finally:
+        sa.quantize_qk = quantize
+        att.set_quantized_qk(False)
+    cos_quant, cos_fault = cosine(quant, exact), cosine(fault, exact)
+    print(f"[{path}_int8] final latents vs the exact edit's: cosine {cos_quant:.6f}, with the "
+          f"dequant factor left out {cos_fault:.6f} (limit {LATENT_COSINE})", flush=True)
+    exact_left = {k: n for st in launches_int8.values() for k, n in st.items()
+                  if k.startswith(("spatial_attention[d40", "spatial_attention[d80")) and n}
+    if exact_left:
+        raise RuntimeError(f"the quantized {path} edit still launched exact kernel 1: {exact_left}")
+    if path == "tvi2v" and _variant_sum(launches_int8, "int8 d", "n_k!=n_q") <= 0:
+        raise RuntimeError("the quantized TVI2V edit never ran the CFCA through kernel 1c")
+    if not cos_quant >= LATENT_COSINE:
+        raise RuntimeError(f"the quantized {path} edit left the exact one: cosine {cos_quant}")
+    if not cos_fault < LATENT_COSINE:
+        raise RuntimeError(f"the latent check passes a kernel 1c without its dequant factor: "
+                           f"cosine {cos_fault}")
+    del engine, edit
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {path: launches, f"{path}_int8": launches_int8}
 
 
 def grad_errors(g, ref) -> dict:
@@ -536,6 +730,25 @@ def run_train(device, seed: int) -> dict:
     if changed_frozen or unmoved:
         raise RuntimeError(f"frozen tensors changed: {changed_frozen[:5]}; trainable tensors "
                            f"that did not move: {unmoved[:5]}")
+    # the int8 QK^T switch has no gradient: fit must refuse, by its guard,
+    # before any step
+    steps_taken = []
+    train_step = engine.train_step
+    engine.train_step = lambda *a, **kw: steps_taken.append(1) or train_step(*a, **kw)
+    try:
+        att.set_quantized_qk(True)
+        Trainer(engine, cfg).fit(loader, TRAIN_BATCH, resume=False)
+    except RuntimeError as e:
+        if "exact arithmetic" not in str(e) or steps_taken:
+            raise RuntimeError(f"with the int8 switch on, Trainer.fit took {len(steps_taken)} "
+                               f"steps and raised another error: {e}") from e
+        print(f"[train] with the int8 switch on, Trainer.fit refuses before any step: {e}",
+              flush=True)
+    else:
+        raise RuntimeError("Trainer.fit trained with the int8 QK^T switch on")
+    finally:
+        att.set_quantized_qk(False)
+        del engine.train_step
     del engine, trainer, before
     gc.collect()
     torch.cuda.empty_cache()
@@ -543,9 +756,15 @@ def run_train(device, seed: int) -> dict:
 
 
 def reset_launches():
+    """Every launch count to 0: the attention kernels' and the probes'."""
     from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.scripts import int8_probe as ip
+    from ccedit_tpu_torch.scripts import kv_resident_attn as kr
 
     att.reset_launch_counts()
+    for wrapper in (kr.probe, ip.gemm):
+        wrapper.launches = 0
+        wrapper.variant_launches.clear()
 
 
 def main() -> int:
@@ -576,22 +795,29 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
     build.library()
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions; 3b: the probes'
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = check_kernels(device)
+    probe_records, probe_counts = run_probes(device)
 
-    # phases 4 and 5: the TV2V and TVI2V edits; phase 6: training; with the
-    # launch counts of each
-    by_path = {p: run_path(p, device, steps=STEPS, seed=SEED) for p in ("tv2v", "tvi2v")}
+    # phases 4 and 5: the TV2V and TVI2V edits, exact and quantized; phase
+    # 6: training; with the launch counts of each
+    by_path = {"probes": probe_counts}
+    for p in ("tv2v", "tvi2v"):
+        by_path.update(run_path(p, device, steps=STEPS, seed=SEED))
     by_path["train"] = run_train(device, SEED)
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
-        rec["launches"] = rec["launches_by_path"][
-            "train" if rec["name"] in PATH_KERNELS["train"] else "tvi2v"]
+        rec["launches"] = rec["launches_by_path"][spec["path"]]
         for p, names in PATH_KERNELS.items():
             if rec["name"] in names and rec["launches_by_path"][p] <= 0:
                 return fail(f"the {p} path never launched {rec['name']}")
+    for rec in probe_records:
+        rec["launches"] = by_path["probes"]["probes"].get(rec["name"], 0)
+        if rec["launches"] <= 0:
+            return fail(f"the probe scripts never launched {rec['name']}")
+    records += probe_records
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -167,3 +167,107 @@ def test_one_bf16_train_step(cuda):
     assert att.launch_counts()["spatial_attention_bwd"] > counts["spatial_attention_bwd"]
     for n, t in engine.network.named_parameters():
         assert torch.equal(t, before[n]) != (n in trainable), n
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+@pytest.mark.parametrize("shape,n_k", [
+    ((1, 8, 6144, 40), 6144),
+    ((2, 8, 1536, 80), 1536),
+    ((1, 8, 6144, 40), 12288),   # CFCA, n_k = 2 * n_q
+    ((2, 8, 1536, 80), 3072),
+    ((2, 3, 1000, 40), 777),     # ragged n_q and n_k
+])
+def test_int8_kernel_matches_plain(cuda, shape, n_k):
+    """Kernel 1c against its plain version (2e-2 abs in bf16) and against
+    exact attention (cosine > 0.9995, tests/test_spatial_attention.py's
+    bound for the JAX int8 path)."""
+    q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
+    scale = shape[-1] ** -0.5
+    before = att.launch_counts()
+    out = sa.kv_resident_attention(q, k, v, scale, quantized_qk=True)
+    torch.cuda.synchronize()
+    variant = "int8 " + sa.variant(q, k)
+    assert att.launch_counts().get(f"spatial_attention[{variant}]", 0) == \
+        before.get(f"spatial_attention[{variant}]", 0) + 1
+    err = (out.float() - sa.plain_spatial_attention_int8(q, k, v, scale).float()).abs().max().item()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all() and err <= TOL
+    assert _cosine(out, sa.plain_spatial_attention(q, k, v, scale)) > 0.9995
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_int8_prepass_on_the_card_equals_the_cpu_one(cuda, d):
+    """``quantize_qk`` on the card is bit-identical to the CPU pre-pass,
+    which the CPU tests hold bit for bit to the JAX one (true divisions on
+    both devices, round-half-even)."""
+    q, k, _ = _qkv((2, 8, 1024, d), 2048, cuda, seed=d)
+    q[0, 0] = torch.round(q[0, 0] * 20) / 2  # one head of halves with amax 127: ties
+    q[0, 0, 0, 0] = 127.0
+    scale = d ** -0.5
+    for got, want in zip(sa.quantize_qk(q, k, scale), sa.quantize_qk(q.cpu(), k.cpu(), scale)):
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def test_int8_switch_routes_to_kernel_1c(cuda):
+    """With the switch on, a gated shape launches the int8 variant; d = 160
+    and n_q not a multiple of 128 stay exact; a tensor needing a grad raises."""
+    shapes = (((1, 8, 1024, 40), 2048, "int8 d40 n_k!=n_q"),
+              ((1, 8, 1024, 160), 1024, "d160 n_k=n_q"),
+              ((1, 8, 1000, 40), 1000, "d40 n_k=n_q"))
+    try:
+        att.set_quantized_qk(True)
+        for shape, n_k, variant in shapes:
+            q, k, v = _qkv(shape, n_k, cuda, seed=6)
+            before = att.launch_counts().get(f"spatial_attention[{variant}]", 0)
+            att.dot_product_attention(q, k, v)
+            assert att.launch_counts()[f"spatial_attention[{variant}]"] == before + 1
+        q, k, v = _qkv((1, 8, 1024, 40), 1024, cuda, seed=7)
+        with pytest.raises(RuntimeError, match="no gradient"):
+            att.dot_product_attention(q.requires_grad_(True), k, v)
+    finally:
+        att.set_quantized_qk(False)
+
+
+@pytest.mark.parametrize("stage,transposed,int8", [
+    ("qkt", False, False), ("softmax", False, False), ("full", False, False),
+    ("qkt", True, False), ("full", True, False), ("qkt", True, True), ("full", True, True)])
+def test_probe_matches_plain(cuda, stage, transposed, int8):
+    """Kernel 5 at (8, 1024, 40) within ``kv_resident_attn.compare``'s
+    limits: row sums within 1e-3 of max|plain| (fp32 sums of 1024 terms;
+    bf16 products exact in fp32), full within 2e-2 of max|plain| and at
+    cosine >= 0.9999."""
+    from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+
+    x = kr.inputs(cuda, seed=1, b=8, n=1024)
+    q, k, v, scale, tr = kr.call_args(x, stage, transposed, int8)
+    before = kr.probe.launches
+    out = kr.probe(stage, q, k, v, scale, tr)
+    torch.cuda.synchronize()
+    assert kr.probe.launches == before + 1
+    ref = kr.plain_probe(stage, q, k, v, scale, tr)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    checked = kr.compare(stage, out, ref)
+    assert checked["ok"], checked
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("mkn", [(256, 128, 384), (1024, 512, 1024)])
+def test_gemm_matches_plain(cuda, int8, mkn):
+    """Kernel 6: int8 -> int32 exactly equal to the float64 product; bf16 ->
+    fp32 within 1e-5 of max|plain| (fp32 sums in another order)."""
+    from ccedit_tpu_torch.scripts import int8_probe as ip
+
+    m, k, n = mkn
+    a, b = ip.operands(m, k, n, int8, cuda, seed=2)
+    before = ip.gemm.launches
+    c = ip.gemm(a, b)
+    torch.cuda.synchronize()
+    assert ip.gemm.launches == before + 1
+    ref = ip.plain_gemm(a, b)
+    if int8:
+        assert c.dtype == torch.int32 and torch.equal(c, ref)
+    else:
+        assert ((c - ref).abs().max() / ref.abs().max()).item() <= 1e-5
