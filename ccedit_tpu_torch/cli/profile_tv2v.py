@@ -1,9 +1,10 @@
-"""Time and profile the full-width TV2V or TVI2V clip edit, or a TV2V
-training step, on one GPU.
+"""Time and profile the full-width TV2V or TVI2V clip edit, a TV2V
+training step or a VAE GAN training step, on one GPU.
 
     python -m ccedit_tpu_torch.cli.profile_tv2v --steps 30 --profile_steps 2 --out DIR
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v   # 50 steps, CFG 7
-    python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 1 profiled
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 2 profiled
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
 with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
@@ -22,7 +23,12 @@ counterpart of ``bench.py::bench_train``) builds the engine of
 DPT-Hybrid, ``use_checkpoint``, ``spatial_tv2v``), takes one warm-up step
 at batch 4 of 12-frame 384x512 synthetic clips under bf16 autocast, times
 ``--steps`` (default 5) ``train_step`` calls and profiles
-``--profile_steps`` more.  The int8 QK^T attention (kernel 1c) is turned
+``--profile_steps`` more.  The ``vae_train`` workload builds the SD KL-f8
+autoencoder of ``VAE_TRAIN_CONFIG`` with a full VGG16 LPIPS and the
+PatchGAN (seeded random weights, fp32 masters, bf16 autocast, the GAN term
+live from step 0) and times ``VAETrainer.train_step`` the same way on 12
+synthetic 256x256 images a step (the sd-vae-ft-mse fine-tune's per-GPU
+batch).  The int8 QK^T attention (kernel 1c) is turned
 on by the environment, ``CCEDIT_QUANT_QK=1`` (or ``CCEDIT_INT8=1``), as in
 the JAX package; the JSON line records it as ``quantized_qk``.  Prints one
 JSON line; the trace goes to
@@ -54,7 +60,7 @@ _GROUPS = (  # matched against "launching op + kernel name"; first match wins
     ("normalisation", ("norm", "welford", "rowwisemoments")),
     ("copies", ("copy", "memcpy", "memset", "::cat")),
     ("softmax", ("softmax",)),
-    ("optimizer (AdamW)", ("adam", "foreach")),
+    ("optimizer (Adam, AdamW)", ("adam", "foreach")),
 )
 
 
@@ -113,18 +119,42 @@ def _profile(fn, out: Path) -> dict:
     return summarise_trace(out / "trace.json", wall)
 
 
+def _time_train_steps(a, device, step, read) -> dict:
+    """One warm-up ``step()`` (cuDNN/cuBLAS algorithm selection, kernel
+    library load), ``a.steps`` (default 5) timed ones, each result turned
+    into host values by ``read`` (which waits for the step), then
+    ``a.profile_steps`` profiled: the timing fields of a training
+    workload's JSON line."""
+    from ..ops.attention import launch_counts, reset_launch_counts
+
+    steps = a.steps or 5
+    read(step())
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    times, results = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        results.append(read(step()))
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    profile = _profile(lambda: [step() for _ in range(a.profile_steps)], Path(a.out))
+    return {"steps": steps, "step_seconds": times, "mean_step_seconds": sum(times) / steps,
+            "results": results, "peak_memory_gb": peak,
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "profile": dict(profile, steps=a.profile_steps)}
+
+
 def profile_train(a, device, smi: str) -> dict:
     """Time and profile the TV2V recipe's training step."""
     from ..config import TV2V_TRAIN_CONFIG
     from ..data.dataset import DataLoader, SyntheticVideoDataset
-    from ..ops.attention import launch_counts, reset_launch_counts
     from .train import build_train_engine
 
     bs, t, h, w = 4, 12, 384, 512
-    steps = a.steps or 5
     engine = build_train_engine(TV2V_TRAIN_CONFIG, device, a.seed)
     optimizer = engine.make_optimizer(1e-4)
-    loader = DataLoader(SyntheticVideoDataset(n_items=bs * (steps + a.profile_steps + 1),
+    loader = DataLoader(SyntheticVideoDataset(n_items=bs * ((a.steps or 5) + a.profile_steps + 1),
                                               num_frames=t, size_hw=(h, w), seed=a.seed),
                         batch_size=bs, seed=a.seed)
     batches = iter(loader)
@@ -133,28 +163,38 @@ def profile_train(a, device, smi: str) -> dict:
     def step():
         return engine.train_step(next(batches), optimizer, gen, autocast_dtype=torch.bfloat16)
 
-    float(step())  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_launch_counts()
-    times, losses = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(float(step()))
-        times.append(time.perf_counter() - t0)
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated(device) / 1e9
-    profile = _profile(lambda: [step() for _ in range(a.profile_steps)], Path(a.out))
+    timed = _time_train_steps(a, device, step, float)
     n_train = sum(p.numel() for p in engine.trainable_parameters().values())
     n_total = sum(p.numel() for m in (engine.network, engine.vae, engine.conditioner)
                   for p in m.parameters())
-    mean = sum(times) / steps
     return {"gpu": smi, "workload": "train", "quantized_qk": quantized_qk_enabled(),
             "batch": bs, "frames": t, "height": h, "width": w,
             "freeze_policy": engine.freeze_policy, "params_trainable": n_train,
-            "params_total": n_total, "steps": steps, "step_seconds": times,
-            "mean_step_seconds": mean, "frames_per_second": bs * t / mean, "losses": losses,
-            "peak_memory_gb": peak, "launches_per_step": {k: v / steps for k, v in counts.items()},
-            "profile": dict(profile, steps=a.profile_steps)}
+            "params_total": n_total, "losses": timed.pop("results"),
+            "frames_per_second": bs * t / timed["mean_step_seconds"], **timed}
+
+
+VAE_BATCH, VAE_SIZE = 12, 256  # images a step, their height and width
+
+
+def profile_vae_train(a, device, smi: str) -> dict:
+    """Time and profile the VAE GAN training step (``VAETrainer``)."""
+    from ..config import VAE_TRAIN_CONFIG
+    from ..models.autoencoder_engine import build_vae_trainer
+
+    engine, trainer = build_vae_trainer(VAE_TRAIN_CONFIG, device, a.seed, disc_start=0)
+    gen = torch.Generator(device=device).manual_seed(a.seed)
+
+    def step():
+        x = torch.rand((VAE_BATCH, VAE_SIZE, VAE_SIZE, 3), generator=gen, device=device) * 2 - 1
+        return trainer.train_step(x, gen)
+
+    timed = _time_train_steps(a, device, step, lambda logs: {k: float(v) for k, v in logs.items()})
+    n_params = {name: sum(p.numel() for p in getattr(engine, name).parameters())
+                for name in ("ae", "disc", "lpips")}
+    return {"gpu": smi, "workload": "vae_train", "batch": VAE_BATCH, "height": VAE_SIZE,
+            "width": VAE_SIZE, "params": n_params, "logs": timed.pop("results"),
+            "images_per_second": VAE_BATCH / timed["mean_step_seconds"], **timed}
 
 
 EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
@@ -191,10 +231,12 @@ def build_edit(workload: str, device, seed: int, steps: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("tv2v", "tvi2v", "train"), default="tv2v")
+    ap.add_argument("--workload", choices=("tv2v", "tvi2v", "train", "vae_train"), default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
                     help="sampling steps (default: 30 for tv2v, 50 for tvi2v); "
-                         "timed training steps for train (default 5)")
+                         "timed training steps for train and vae_train (default 5)")
+    # one profiled training step reads a busy share of 58-75 % where two
+    # read 97 %: the profiler's start falls inside a single step's window
     ap.add_argument("--profile_steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="build/profile_tv2v")
@@ -204,8 +246,9 @@ def main(argv=None) -> None:
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if a.workload == "train":
-        print(json.dumps(profile_train(a, device, smi)))
+    if a.workload in ("train", "vae_train"):
+        profile = profile_train if a.workload == "train" else profile_vae_train
+        print(json.dumps(profile(a, device, smi)))
         return
     steps = a.steps or (50 if a.workload == "tvi2v" else 30)
     _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)

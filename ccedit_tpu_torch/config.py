@@ -16,7 +16,10 @@ network with ``use_checkpoint``, the depth-MiDaS conditioner with text
 dropout, ``StandardDiffusionLoss`` with ``DiscreteSampling`` and eps
 weighting, ``freeze_model: spatial``, base LR 1e-4 with a
 ``LambdaLinearScheduler`` warm-up, and its data: batch 4 of 12-frame clips
-at 384x512.
+at 384x512.  ``VAE_TRAIN_CONFIG`` is the SD KL-f8 autoencoder's GAN
+fine-tune in the layout of the reference's autoencoder training YAMLs
+(``model.params.encoder_config`` / ``loss_config``), which
+``build_autoencoder_engine`` reads.
 """
 
 from __future__ import annotations
@@ -140,6 +143,36 @@ def _tv2v_train_config() -> Dict:
 
 TV2V_TRAIN_CONFIG: Dict = _tv2v_train_config()
 
+# The SD KL-f8 autoencoder (the edits' VAE: ch 128, ch_mult 1,2,4,4, 2 res
+# blocks, 4 latent channels, no attention but the mid blocks') with a full
+# VGG16 LPIPS and the n_layers = 3, ndf = 64 PatchGAN, in the reference's
+# autoencoder-YAML layout.  The loss is LDM's ``autoencoder_kl_32x32x4``
+# recipe (LPIPSWithDiscriminator: KL weight 1e-6, disc_weight 0.5, the GAN
+# from step 50001, LR 4.5e-6); the data is the public sd-vae-ft-mse
+# fine-tune's, by its model card: 256x256 images, 12 per GPU.
+VAE_TRAIN_CONFIG: Dict = {
+    "model": {
+        "target": "sgm.models.autoencoder.AutoencodingEngine",
+        "base_learning_rate": 4.5e-6,
+        "params": {
+            "input_key": "jpg",
+            "encoder_config": {
+                "target": "sgm.modules.diffusionmodules.model.Encoder",
+                "params": {"double_z": True, "z_channels": 4, "resolution": 256,
+                           "in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2, 4, 4],
+                           "num_res_blocks": 2, "attn_resolutions": [], "dropout": 0.0}},
+            "regularizer_config": {
+                "target": "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer"},
+            "loss_config": {
+                "target": "sgm.modules.autoencoding.losses.GeneralLPIPSWithDiscriminator",
+                "params": {"disc_start": 50001, "disc_weight": 0.5, "disc_num_layers": 3,
+                           "disc_in_channels": 3, "disc_factor": 1.0, "perceptual_weight": 1.0,
+                           "disc_loss": "hinge", "regularization_weights": {"kl_loss": 1e-6}}},
+        },
+    },
+    "data": {"params": {"batch_size": 12, "train": {"params": {"resolution": [256, 256]}}}},
+}
+
 
 def load_config(path: str) -> Dict:
     import yaml
@@ -262,13 +295,45 @@ def build_network(cfg: Dict) -> CCEditNetwork:
 def build_vae(cfg: Dict) -> AutoencoderKL:
     _expect(cfg, "AutoencoderKL", "AutoencoderKLInferenceWrapper")
     p = _params(cfg)
-    dd = p.get("ddconfig", {})
-    if dd.get("attn_resolutions"):
-        raise KeyError("VAE attn_resolutions is not implemented by the TV2V port")
-    return AutoencoderKL(embed_dim=p.get("embed_dim", 4), ch=dd.get("ch", 128),
+    return _autoencoder_kl(p.get("ddconfig", {}), p.get("embed_dim", 4))
+
+
+def _autoencoder_kl(dd: Dict, embed_dim: int = 4) -> AutoencoderKL:
+    """``AutoencoderKL`` from an LDM ``ddconfig`` (or ``encoder_config``
+    params) dict."""
+    return AutoencoderKL(embed_dim=embed_dim, ch=dd.get("ch", 128),
                          ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
                          num_res_blocks=dd.get("num_res_blocks", 2),
-                         out_ch=dd.get("out_ch", 3), z_channels=dd.get("z_channels", 4))
+                         out_ch=dd.get("out_ch", 3), z_channels=dd.get("z_channels", 4),
+                         in_channels=dd.get("in_channels", 3),
+                         attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+                         resolution=dd.get("resolution", 256))
+
+
+def build_autoencoder_engine(cfg: Dict):
+    """``AutoencodingEngine`` from a reference autoencoder training config
+    (``VAE_TRAIN_CONFIG``'s layout, as ``ccedit_tpu/config.py::
+    build_autoencoder_engine`` reads it): the encoder's geometry (the
+    decoder's always agrees in the shipped files) and the
+    ``GeneralLPIPSWithDiscriminator`` loss knobs.  Modules are built on the
+    current default device with PyTorch's default initialisation."""
+    from .models.autoencoder_engine import AutoencodingEngine, LPIPSWithDiscriminatorConfig
+
+    p = _params(cfg.get("model", cfg))
+    lp = _params(p.get("loss_config"))
+    loss_cfg = LPIPSWithDiscriminatorConfig(
+        disc_start=int(lp.get("disc_start", 0)),
+        logvar_init=float(lp.get("logvar_init", 0.0)),
+        pixelloss_weight=float(lp.get("pixelloss_weight", 1.0)),
+        disc_num_layers=int(lp.get("disc_num_layers", 3)),
+        disc_in_channels=int(lp.get("disc_in_channels", 3)),
+        disc_factor=float(lp.get("disc_factor", 1.0)),
+        disc_weight=float(lp.get("disc_weight", 1.0)),
+        perceptual_weight=float(lp.get("perceptual_weight", 1.0)),
+        disc_loss=lp.get("disc_loss", "hinge"),
+        learn_logvar=bool(lp.get("learn_logvar", False)),
+        regularization_weights=lp.get("regularization_weights"))
+    return AutoencodingEngine(_autoencoder_kl(_params(p.get("encoder_config"))), loss_cfg)
 
 
 def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,

@@ -2,7 +2,9 @@
 
 ``from_jax(kind, params)`` is the inverse of
 ``ccedit_tpu/io/torch_convert.py``'s ``convert_unet`` / ``convert_controlnet``
-/ ``convert_vae`` / ``convert_clip`` and of ``convert_dpt_midas``: it takes a
+/ ``convert_vae`` / ``convert_clip``, of ``convert_dpt_midas``, of
+``ccedit_tpu/modules/lpips.py::convert_lpips`` (taming's ``vgg.pth`` layout)
+and of the NLayerDiscriminator layout (taming's ``main.{i}``): it takes a
 flax parameter tree (nested dicts of numpy arrays) and returns a state dict
 in the reference sgm/LDM/HF/MiDaS key layout, which the port's modules load
 as it is.  Layouts:
@@ -88,6 +90,24 @@ _DPT = [
 ]
 
 
+# VGG16: the JAX conv index -> taming's (slice, torchvision features index)
+_VGG_SLICE = (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5)
+_VGG_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_LPIPS = [
+    (r"^net/conv_(\d+)/", lambda m: f"net.slice{_VGG_SLICE[int(m[1])]}.{_VGG_INDEX[int(m[1])]}/"),
+    (r"^lin_(\d)/", r"lin\1.model.1/"),
+]
+
+
+def _disc_rules(n_layers: int):
+    """NLayerDiscriminator: conv_0 -> main.0, conv_n / bn_n -> main.{3n - 1}
+    / main.{3n}, head -> main.{3 n_layers + 2}."""
+    return [(r"^conv_0/", "main.0/"),
+            (r"^conv_(\d+)/", lambda m: f"main.{3 * int(m[1]) - 1}/"),
+            (r"^bn_(\d+)/", lambda m: f"main.{3 * int(m[1])}/"),
+            (r"^head/", f"main.{3 * n_layers + 2}/")]
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -168,9 +188,10 @@ def _unet_path(path: str, index: Dict[str, str]) -> str:
 
 
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
-    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt'.  ``params`` is the flax
-    tree of that module (``{"params": ...}`` is unwrapped).  Returns the
-    reference-layout state dict, fp32 torch tensors."""
+    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt' | 'lpips' | 'disc'.
+    ``params`` is the flax tree of that module (``{"params": ...}`` is
+    unwrapped).  Returns the reference-layout state dict, fp32 torch
+    tensors."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     flat = _flatten(params)
@@ -189,7 +210,11 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
             name, val = _leaf(mod, value)
             out[name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))
         return out
-    rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model."), "dpt": (_DPT, "")}[kind]
+    if kind == "disc":
+        rules, prefix = _disc_rules(sum(p.startswith("bn_") for p in params)), ""
+    else:
+        rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model."), "dpt": (_DPT, ""),
+                         "lpips": (_LPIPS, "")}[kind]
     for path, value in flat.items():
         name, val = _leaf(_sub(rules, path), value)
         out[prefix + name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))

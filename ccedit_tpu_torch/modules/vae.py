@@ -1,17 +1,19 @@
 """KL-VAE first stage (port of ``ccedit_tpu/modules/vae.py``:
 ``VAEResnetBlock``, ``VAEAttnBlock``, ``VAEDownsample``, ``VAEUpsample``,
-``Encoder``, ``Decoder``, ``DiagonalGaussian`` and ``AutoencoderKL``'s
-``encode_moments`` / ``decode``).
+``Encoder``, ``Decoder``, ``DiagonalGaussian`` and ``AutoencoderKL``).
 
 Submodules follow the LDM ``AutoencoderKL`` keys (``encoder.down.{level}.
-block.{i}``, ``decoder.mid.block_1``, ``quant_conv``, ``post_quant_conv``,
-...), so a reference ``first_stage_model.`` sub-dict loads with a strict
+block.{i}``, ``encoder.down.{level}.attn.{i}`` at ``attn_resolutions``,
+``decoder.mid.block_1``, ``quant_conv``, ``post_quant_conv``, ...), so a
+reference ``first_stage_model.`` sub-dict loads with a strict
 ``load_state_dict``.  GroupNorm epsilon 1e-6, as in LDM.  Both halves' mid
-blocks hold the single-head d = 512 attention that kernel 3 computes.
+blocks hold the single-head d = 512 attention that kernel 3 computes (and,
+in VAE training, kernel 4 differentiates).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -93,37 +95,48 @@ class _Mid(nn.Module):
         return self.block_2(self.attn_1(self.block_1(x)))
 
 
-class _UpLevel(nn.Module):
-    def __init__(self, blocks, upsample=None):
+class _Level(nn.Module):
+    """One resolution of the encoder or decoder: res blocks, each followed
+    by an attention block where the level's resolution is in
+    ``attn_resolutions`` (``attn`` is empty otherwise, as in LDM), then the
+    ``downsample`` or ``upsample`` between levels."""
+
+    def __init__(self, blocks, attns, **resample):
         super().__init__()
         self.block = nn.ModuleList(blocks)
-        if upsample is not None:
-            self.upsample = upsample
+        self.attn = nn.ModuleList(attns)
+        for name, module in resample.items():
+            if module is not None:
+                setattr(self, name, module)
 
-
-class _DownLevel(nn.Module):
-    def __init__(self, blocks, downsample=None):
-        super().__init__()
-        self.block = nn.ModuleList(blocks)
-        if downsample is not None:
-            self.downsample = downsample
+    def forward(self, h):
+        for i, blk in enumerate(self.block):
+            h = blk(h)
+            if len(self.attn):
+                h = self.attn[i](h)
+        return h
 
 
 class Encoder(nn.Module):
-    """(N, H, W, 3) pixels -> (N, H/f, W/f, 2 * z_channels) moments."""
+    """(N, H, W, 3) pixels -> (N, H/f, W/f, 2 * z_channels) moments.
+    ``resolution`` is the input's, against which ``attn_resolutions`` are
+    matched."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
-                 num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4):
+                 num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4,
+                 attn_resolutions: Sequence[int] = (), resolution: int = 256):
         super().__init__()
         self.conv_in = conv2d(in_channels, ch)
-        levels, cur = [], ch
+        levels, cur, cur_res = [], ch, resolution
         for level, mult in enumerate(ch_mult):
             blocks = []
             for _ in range(num_res_blocks):
                 blocks.append(VAEResnetBlock(cur, ch * mult))
                 cur = ch * mult
+            attns = [VAEAttnBlock(cur) for _ in blocks] if cur_res in attn_resolutions else []
             last = level == len(ch_mult) - 1
-            levels.append(_DownLevel(blocks, None if last else VAEDownsample(cur)))
+            levels.append(_Level(blocks, attns, downsample=None if last else VAEDownsample(cur)))
+            cur_res //= 2
         self.down = nn.ModuleList(levels)
         self.mid = _Mid(cur)
         self.norm_out = group_norm(cur, eps=1e-6)
@@ -132,8 +145,7 @@ class Encoder(nn.Module):
     def forward(self, x):
         h = self.conv_in(x)
         for level in self.down:
-            for blk in level.block:
-                h = blk(h)
+            h = level(h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
@@ -142,9 +154,11 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
-                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4):
+                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
+                 attn_resolutions: Sequence[int] = (), resolution: int = 256):
         super().__init__()
         cur = ch * ch_mult[-1]
+        cur_res = resolution // 2 ** (len(ch_mult) - 1)
         self.conv_in = conv2d(z_channels, cur)
         self.mid = _Mid(cur)
         levels = [None] * len(ch_mult)
@@ -153,7 +167,9 @@ class Decoder(nn.Module):
             for _ in range(num_res_blocks + 1):
                 blocks.append(VAEResnetBlock(cur, ch * ch_mult[level]))
                 cur = ch * ch_mult[level]
-            levels[level] = _UpLevel(blocks, VAEUpsample(cur) if level else None)
+            attns = [VAEAttnBlock(cur) for _ in blocks] if cur_res in attn_resolutions else []
+            levels[level] = _Level(blocks, attns, upsample=VAEUpsample(cur) if level else None)
+            cur_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = group_norm(cur, eps=1e-6)
         self.conv_out = conv2d(cur, out_ch)
@@ -161,8 +177,7 @@ class Decoder(nn.Module):
     def forward(self, z):
         h = self.mid(self.conv_in(z))
         for level in reversed(range(len(self.up))):
-            for blk in self.up[level].block:
-                h = blk(h)
+            h = self.up[level](h)
             if level:
                 h = self.up[level].upsample(h)
         return self.conv_out(torch.nn.functional.silu(self.norm_out(h)))
@@ -176,6 +191,20 @@ class DiagonalGaussian:
         self.mean, logvar = moments.chunk(2, dim=-1)
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
+        self.var = torch.exp(self.logvar)
+
+    def _sum_per_item(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=tuple(range(1, self.mean.dim())))
+
+    def kl(self) -> torch.Tensor:
+        """KL(posterior || N(0, 1)) per item (summed over all but the first
+        axis)."""
+        return 0.5 * self._sum_per_item(self.mean ** 2 + self.var - 1.0 - self.logvar)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """-log p(sample) per item."""
+        return 0.5 * self._sum_per_item(math.log(2.0 * math.pi) + self.logvar
+                                        + (sample - self.mean) ** 2 / self.var)
 
     def mode(self) -> torch.Tensor:
         return self.mean
@@ -198,11 +227,14 @@ class AutoencoderKL(nn.Module):
 
     def __init__(self, embed_dim: int = 4, ch: int = 128,
                  ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
-                 out_ch: int = 3, z_channels: int = 4, in_channels: int = 3):
+                 out_ch: int = 3, z_channels: int = 4, in_channels: int = 3,
+                 attn_resolutions: Sequence[int] = (), resolution: int = 256):
         super().__init__()
         self.ch_mult = tuple(ch_mult)
-        self.encoder = Encoder(ch, ch_mult, num_res_blocks, in_channels, z_channels)
-        self.decoder = Decoder(ch, ch_mult, num_res_blocks, out_ch, z_channels)
+        self.encoder = Encoder(ch, ch_mult, num_res_blocks, in_channels, z_channels,
+                               attn_resolutions, resolution)
+        self.decoder = Decoder(ch, ch_mult, num_res_blocks, out_ch, z_channels,
+                               attn_resolutions, resolution)
         self.quant_conv = conv2d(2 * z_channels, 2 * embed_dim, k=1)
         self.post_quant_conv = conv2d(embed_dim, z_channels, k=1)
 
@@ -219,6 +251,14 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self._per_frame(lambda f: self.decoder(self.post_quant_conv(f)), z)
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, sample_posterior: bool = True):
+        """(reconstruction, posterior): the latent is the posterior's sample
+        (``noise`` injected, or drawn from ``generator``) or its mode."""
+        posterior = DiagonalGaussian(self.encode_moments(x))
+        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        return self.decode(z), posterior
 
     def load_reference_state_dict(self, sd: Dict[str, torch.Tensor]):
         """Strict load of an LDM AutoencoderKL state dict."""

@@ -17,9 +17,10 @@ kernel gets only the head dims its module lists in ``HEAD_DIMS``:
   kernel is instantiated for.
 
 Each kernel wrapper then takes its plain version for a CPU tensor and
-launches its kernel (or raises) for a CUDA tensor.  Kernels 1 and 2 are
-differentiable (kernel 1's backward is kernel 4; kernel 2's is the plain
-recompute, as in the JAX package); kernel 3 is forward-only on the GPU.
+launches its kernel (or raises) for a CUDA tensor.  Every route is
+differentiable: kernels 1 and 3 through autograd Functions whose backward is
+kernel 4 (d 40/80/160 and d = 512), kernel 2 through the plain recompute, as
+in the JAX package.
 
 The int8 QK^T opt-in (``set_quantized_qk``, or ``CCEDIT_QUANT_QK=1``, or
 the umbrella ``CCEDIT_INT8=1``, read once, lazily, as in the JAX package)
@@ -114,7 +115,8 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None) -> torch.Tenso
 _COUNTED = {"spatial_attention": sa.kv_resident_attention,
             "spatial_attention_bwd": sa.spatial_attention_bwd,
             "temporal_attention": ta.small_seq_attention,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -125,9 +127,10 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count, and kernels 1 and 4 by variant
+    """Every kernel's launch count, and kernels 1, 3 and 4 by variant
     (``spatial_attention[d40 n_k!=n_q]``, ``spatial_attention[int8 d40 n_k=n_q]``
-    for kernel 1c, ``spatial_attention_bwd[d80 n_k=n_q]``, ...)."""
+    for kernel 1c, ``spatial_attention_bwd[d80 n_k=n_q]``, ``flash_attention[lse]``
+    for kernel 3 with its log-sum-exp, ...)."""
     out = {name: wrapper.launches for name, wrapper in _COUNTED.items()}
     for name, wrapper in _COUNTED.items():
         for var, n in sorted(getattr(wrapper, "variant_launches", {}).items()):

@@ -49,9 +49,16 @@ _SIGNATURES = {
     "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _STRIDES, ctypes.c_float, ctypes.c_float,
                                      _P),
-    # q, k, v, o, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
-    "ccedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+    # q, k, v, o, lse, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
+    "ccedit_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                                ctypes.c_float, _P),
+    # q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, n_q, n_k, head_dim,
+    # strides, scale_log2, scale, stream
+    "ccedit_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _STRIDES, ctypes.c_float, ctypes.c_float, _P),
+    # q, k, v, o, batch, heads, n_q, n_k, head_dim, bm, bn, strides, scale_log2, stream
+    "ccedit_flash_attention_tiles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
+                                     ctypes.c_float, _P),
     # q, k, v, o, batch, heads, T, head_dim, strides, scale, stream
     "ccedit_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
                                   ctypes.c_float, _P),

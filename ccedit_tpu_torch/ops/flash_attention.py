@@ -1,20 +1,28 @@
-"""Kernel 3: flash-attention forward at head_dim 512 (the VAE decoder's
-mid-block attention) — wrapper, plain version and launch count.
+"""Kernel 3: flash-attention forward at head_dim 512 (the VAE's mid-block
+attention), and its backward, kernel 4 at d = 512 — wrappers, plain versions
+and launch counts.
 
 Port of the stock Pallas TPU flash attention forward that
-``ccedit_tpu/ops/attention.py::_flash_diff`` calls.  The CUDA source, with its
-design note, is ``csrc/flash_attention.cu``.  Its d = 512 backward is not
-ported (ROADMAP queue 2, item 4: VAE training), so a CUDA tensor that needs
-a gradient raises; on the CPU the plain version differentiates.
+``ccedit_tpu/ops/attention.py::_flash_diff`` calls, and of the stock flash
+backward that ``_xla_attention_bwd`` runs at its shapes.  The CUDA sources,
+with their design notes, are ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``.  When autograd needs the attention's
+gradient (VAE training), ``flash_attention`` goes through ``FlashAttention``:
+its forward launches kernel 3 with the row log-sum-exp saved, its backward
+launches kernel 4 at d = 512; on the CPU both are the plain versions.  The
+same CUDA template at head_dim 40 and swept tiles is kernel 7, which only
+``scripts/profile_blocks.py`` launches.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
 
 from . import build
+from .spatial_attention import attention_function, launch_backward, plain_spatial_attention_bwd
 
 HEAD_DIMS = (512,)
 _LOG2E = 1.0 / math.log(2.0)
@@ -28,24 +36,52 @@ def plain_flash_attention(q, k, v, scale: float) -> torch.Tensor:
     return torch.matmul(p, v)
 
 
-def flash_attention(q, k, v, scale: float) -> torch.Tensor:
-    """Non-causal attention over (B, H, N, D), D = 512.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
-    if not q.is_cuda:
-        return plain_flash_attention(q, k, v, scale)
-    if build.needs_grad(q, k, v):
-        raise NotImplementedError(
-            "kernel 3 (d = 512, the VAE's attention) has no backward kernel yet "
-            "(ROADMAP queue 2, item 4: the d = 512 backward with VAE training); "
-            "run the VAE under torch.no_grad()")
+def _forward(q, k, v, scale: float, lse=None) -> torch.Tensor:
+    """Launch kernel 3; with ``lse``, a (B*H, n_q) fp32 tensor, it also
+    writes each row's log2-domain log-sum-exp there."""
     out = torch.empty_like(q)
     strides = build.attention_operand_strides(q, k, v, out, HEAD_DIMS)
     b, h, n_q, d = q.shape
-    build.launch("ccedit_flash_attention", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, h, n_q, k.shape[2], d,
-                 strides, float(scale) * _LOG2E, build.stream_of(q))
+    build.launch("ccedit_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, n_q,
+                 k.shape[2], d, strides, float(scale) * _LOG2E, build.stream_of(q))
     flash_attention.launches += 1
+    if lse is not None:
+        flash_attention.variant_launches["lse"] += 1
     return out
 
 
+def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
+    """Kernel 4 at d = 512: dq, dk, dv of kernel 3's attention from its
+    inputs, its output, the output's gradient ``do`` and kernel 3's ``lse``.
+    A CPU tensor takes kernel 4's plain version at every head dim,
+    ``plain_spatial_attention_bwd`` (which recomputes from q, k, v); a CUDA
+    tensor launches the kernel or raises."""
+    if not q.is_cuda:
+        return plain_spatial_attention_bwd(q, k, v, do, scale)
+    grads = launch_backward("ccedit_flash_attention_bwd", HEAD_DIMS, q, k, v, out, do, lse,
+                            scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+# kernel 3 forward with its lse, kernel 4 (d = 512) backward; plain versions
+# on the CPU
+FlashAttention = attention_function("FlashAttention", _forward, plain_flash_attention,
+                                    flash_attention_bwd)
+
+
+def flash_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Non-causal attention over (B, H, N, D), D = 512.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises.  When
+    autograd needs the gradient, it goes through ``FlashAttention``."""
+    if build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, scale)
+    if not q.is_cuda:
+        return plain_flash_attention(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
 flash_attention.launches = 0
+flash_attention.variant_launches = collections.Counter()
+flash_attention_bwd.launches = 0

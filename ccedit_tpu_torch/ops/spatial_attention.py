@@ -176,6 +176,17 @@ def spatial_attention_bwd(q, k, v, out, do, lse, scale: float):
     tensor launches the kernel or raises."""
     if not q.is_cuda:
         return plain_spatial_attention_bwd(q, k, v, do, scale)
+    grads = launch_backward("ccedit_spatial_attention_bwd", HEAD_DIMS, q, k, v, out, do,
+                            lse, scale)
+    spatial_attention_bwd.launches += 1
+    spatial_attention_bwd.variant_launches[variant(q, k)] += 1
+    return grads
+
+
+def launch_backward(entry: str, head_dims, q, k, v, out, do, lse, scale: float):
+    """Launch a flash backward C entry (kernel 4: ``entry`` is
+    ``ccedit_spatial_attention_bwd`` or, at d = 512,
+    ``ccedit_flash_attention_bwd``) on CUDA tensors; returns dq, dk, dv."""
     do = do.to(q.dtype)
     if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()
@@ -187,35 +198,47 @@ def spatial_attention_bwd(q, k, v, out, do, lse, scale: float):
     # Pallas backward computes its `di`)
     delta = (do.float() * out.float()).sum(-1).reshape(b * h, n_q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    strides = build.attention_operand_strides(q, k, v, do, HEAD_DIMS, dq=dq, dk=dk, dv=dv)
-    build.launch("ccedit_spatial_attention_bwd", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n_q, k.shape[2], d,
-                 strides, float(scale) * _LOG2E, float(scale), build.stream_of(q))
-    spatial_attention_bwd.launches += 1
-    spatial_attention_bwd.variant_launches[variant(q, k)] += 1
+    strides = build.attention_operand_strides(q, k, v, do, head_dims, dq=dq, dk=dk, dv=dv)
+    build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, n_q, k.shape[2], d, strides, float(scale) * _LOG2E,
+                 float(scale), build.stream_of(q))
     return dq, dk, dv
 
 
-class SpatialAttention(torch.autograd.Function):
-    """Kernel 1 forward, kernel 4 backward (plain versions on the CPU)."""
+def attention_function(name: str, forward, plain, backward) -> type:
+    """An autograd Function over (q, k, v, scale) named ``name``.  On a CUDA
+    tensor its forward is ``forward(q, k, v, scale, lse)``, a kernel that
+    also writes each row's log-sum-exp, and its backward is the kernel-4
+    wrapper ``backward(q, k, v, out, do, lse, scale)``; on the CPU they are
+    ``plain`` and the wrapper's plain version.  ``SpatialAttention`` (kernel
+    1) and ``flash_attention.FlashAttention`` (kernel 3) are built here."""
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        if q.is_cuda:
-            b, h, n_q, _ = q.shape
-            lse = torch.empty((b * h, n_q), device=q.device, dtype=torch.float32)
-            out = _forward(q, k, v, scale, lse)
-        else:
-            lse, out = None, plain_spatial_attention(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
+    class Function(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, scale):
+            if q.is_cuda:
+                b, h, n_q, _ = q.shape
+                lse = torch.empty((b * h, n_q), device=q.device, dtype=torch.float32)
+                out = forward(q, k, v, scale, lse)
+            else:
+                lse, out = None, plain(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.scale = scale
+            return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*spatial_attention_bwd(q, k, v, out, do, lse, ctx.scale), None)
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*backward(q, k, v, out, do, lse, ctx.scale), None)
+
+    Function.__name__ = Function.__qualname__ = name
+    return Function
+
+
+# kernel 1 forward, kernel 4 backward (plain versions on the CPU)
+SpatialAttention = attention_function("SpatialAttention", _forward, plain_spatial_attention,
+                                      spatial_attention_bwd)
 
 
 def kv_resident_attention(q, k, v, scale: float, quantized_qk: bool = False) -> torch.Tensor:

@@ -7,11 +7,14 @@ Phases:
   1. device: CUDA present, one card; prints nvidia-smi's name and power limit.
   2. build: the CUDA kernels in ccedit_tpu_torch/csrc, with nvcc, timed.
   3. kernels: each kernel and variant against its plain PyTorch version in
-     bf16 at the shapes the TV2V, TVI2V and training paths give it (17
+     bf16 (max|err| / max|plain| and cosine) at the shapes the TV2V, TVI2V and training paths give it (17
      frames at 512x768, CFG-doubled; training: 4 clips of 12 frames at
      384x512), plus kernel 1's head_dim 160 instantiation at level 2 of
      1024x1024, with the error tolerance and CUDA-event times.  The backward
-     kernel (4) is held to ``plain_spatial_attention_bwd`` on dq, dk and dv.
+     kernel (4) is held to ``plain_spatial_attention_bwd`` on dq, dk and dv,
+     and at d = 512 (VAE training: (12,1,1024,512), the 512x512 fine-tune's
+     (4,1,4096,512) and a ragged (2,1,600,512)) likewise; kernel 3 with its log-sum-exp (the
+     forward kernel 4 needs) has its lse held to the plain ``logsumexp``.
      Kernel 1c (the int8 QK^T path) is held to
      ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1.
      Every shape also gets its bound (``scripts/roofline.py``: the largest of
@@ -25,7 +28,11 @@ Phases:
      max|plain|, full attention within 2e-2 of it and at cosine >= 0.9999,
      limits that the full and softmax probes fail with log2 e left out of
      their exp2 scale), and the kernel-6 GEMMs (``scripts/int8_probe.py``)
-     at 1024x512x1024 and 4096^3 (the int8 product exactly).
+     at 1024x512x1024 and 4096^3 (the int8 product exactly), and the kernel-7
+     tile sweep (``scripts/profile_blocks.py``: kernel 3's template at
+     head_dim 40 over nine (BM, BN) tiles at (34, 8, 6144, 40)), each held
+     as the full kernel-5 probes are, limits that every tile pair fails with
+     log2 e left out of its scale.
   4. TV2V: the full-width SD-1.5 TV2V engine (seeded random weights, bf16,
      the luminance depth stand-in), its network through the kernels against
      plain attention, then one clip edit through ``edit_clip``: 17 frames at
@@ -56,8 +63,22 @@ Phases:
      and each step must launch the backward kernel 5 times at d 40 and 5 at
      d 80 (the UNet's level-0 and level-1 self-attentions).  With the int8
      switch on, ``Trainer.fit`` must refuse to start.
+  7. VAE training: the SD KL-f8 autoencoder of ``VAE_TRAIN_CONFIG`` with a
+     full VGG16 LPIPS and the PatchGAN (seeded random weights, fp32 masters,
+     bf16 autocast, hinge loss, KL weight 1e-6, the GAN term and the
+     adaptive weight live from step 0).  The generator pass's gradients
+     through kernels 3 and 4 (d = 512) are held, tensor by tensor, to the
+     same pass on plain attention at the step's own batch (12 images of
+     256x256), and the same pass with kernel 4's dq and dk zeroed must fail
+     that check; then ``VAETrainer`` takes 1 warm-up and 3 timed steps on
+     synthetic images made on the card.  Each step must launch kernel 4 at
+     d = 512 twice and kernel 3 four times (twice with its lse, in the
+     generator pass; twice without, in the discriminator pass under
+     no_grad), LPIPS must stay bit-identical, and every autoencoder and
+     discriminator tensor with a nonzero gradient must move.
   Launch counts are reset just before each path and read just after (per
-  stage for the edits); every kernel of that path must have run (on the
+  stage for the edits, per step in VAE training); every kernel of that path
+  must have run (on the
   TVI2V path: kernel 1 at n_k = n_q and at n_k = 2 * n_q, kernel 2, and
   kernel 3 in both the VAE encoder and decoder; on the quantized edits
   kernel 1c in place of kernel 1; on the probe path every probe variant).
@@ -81,7 +102,13 @@ import time
 
 STEPS, SEED = 3, 0
 T, H, W = 17, 512, 768  # profile_tv2v.EDIT_GEOMETRY, the edits' clip
-TOLERANCE = 2e-2  # max abs error, bf16 out: 2^-8 output rounding + bf16 P
+# phase 3's forward kernels: max|kernel - plain| / max|plain| and cosine on
+# the compared slice.  The sound error is the bf16 rounding of the output
+# and of P, ~2^-9 of |o| each (first H100 readings 4.9e-4 to 7.8e-3 absolute
+# on outputs whose max is ~0.1 to ~2); a relative limit holds the d = 512
+# and d = 40 outputs (std ~0.02-0.05), which an absolute 2e-2 would not
+TOLERANCE = 2e-2
+COSINE = 0.9999
 # kernel 1c against exact attention: tests/test_spatial_attention.py's bound
 # for the JAX int8 path
 INT8_COSINE = 0.9995
@@ -109,6 +136,20 @@ TRAIN_STEPS = 4  # 1 warm-up + 3 timed
 # backward launches a training step: the UNet's spatial self-attentions at
 # level 0 (input blocks 1, 2; output blocks 9-11) and level 1 (4, 5; 6-8)
 BWD_PER_STEP = {"d40": 5, "d80": 5}
+# kernel 3's lse: max |lse - log2(sum exp(scale q.k))| (fp32 sums in
+# another order)
+LSE_TOLERANCE = 1e-3
+# VAE training: the generator pass's gradients through kernels 3 and 4 at
+# d = 512 against plain attention, ||g_kernels - g_plain|| / ||g_plain|| of
+# the worst tensor (bf16 autocast through the whole VAE, LPIPS and the
+# discriminator): 2.3e-2 sound (the mid q/k projections 0.75-1.0e-2), 1.0
+# with kernel 4's dq and dk zeroed, where those projections lose their
+# whole gradient (first H100 reading); the limit of phase 6
+VAE_GRAD_TOLERANCE = 6e-2
+VAE_STEPS = 4  # 1 warm-up + 3 timed
+# launches a VAE training step: both mid-block attentions, with their lse and
+# backward in the generator pass, without either in the discriminator pass
+VAE_LAUNCHES_PER_STEP = {"flash_attention": 4, "flash_attention[lse]": 2, "flash_attention_bwd": 2}
 
 
 def _variant_sum(stages, prefix, variant):
@@ -164,6 +205,17 @@ KERNELS = (
          shapes=(((48, 8, 3072, 40), 3072, 4), ((48, 8, 768, 80), 768, 48),
                  ((8, 8, 1024, 160), 1024, 8), ((4, 8, 3072, 40), 6144, 1)),
          count=lambda st: sum(c.get("spatial_attention_bwd", 0) for c in st.values())),
+    dict(name="flash_attention_lse", kernel="flash_lse", path="vae_train",
+         source="ccedit_tpu_torch/csrc/flash_attention.cu",
+         replaces="ccedit_tpu/ops/attention.py:203",
+         shapes=(((12, 1, 1024, 512), 1024, 12),),
+         count=lambda st: sum(c.get("flash_attention[lse]", 0) for c in st.values())),
+    dict(name="flash_attention_bwd", kernel="flash_bwd", path="vae_train",
+         source="ccedit_tpu_torch/csrc/flash_attention_bwd.cu",
+         replaces="ccedit_tpu/ops/attention.py:173",
+         shapes=(((12, 1, 1024, 512), 1024, 12), ((4, 1, 4096, 512), 4096, 4),
+                 ((2, 1, 600, 512), 600, 2)),
+         count=lambda st: sum(c.get("flash_attention_bwd", 0) for c in st.values())),
 )
 # the probes (kernels 5 and 6), checked and counted in phase 3b
 GEMM_VARIANTS = (("int8", True), ("bf16", False))
@@ -177,6 +229,7 @@ PATH_KERNELS = {
                    "flash_attention_encoder"),
     "train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
               "spatial_attention_bwd"),
+    "vae_train": ("flash_attention_lse", "flash_attention_bwd"),
 }
 
 
@@ -207,46 +260,53 @@ def model_layout(shape, gen, device):
     return x.to(torch.bfloat16).permute(0, 2, 1, 3)
 
 
-def check_backward(shape, n_k, nb, gen, device) -> dict:
-    """Kernel 4 at one shape: its full-shape time, and dq, dk, dv against
-    ``plain_spatial_attention_bwd`` on the first ``nb`` batch rows (the
-    plain version's fp32 scores do not fit at every full shape); kernel 1
-    (with lse) + kernel 4 beside SDPA's forward and backward."""
+def check_backward(kind, shape, n_k, nb, gen, device) -> dict:
+    """Kernel 4 (``kind`` "spatial_bwd": d 40/80/160 after kernel 1;
+    "flash_bwd": d = 512 after kernel 3) at one shape: its full-shape time,
+    and dq, dk, dv against its plain version on the first ``nb`` batch rows
+    (the plain version's fp32 scores do not fit at every full shape); the
+    forward (with lse) + kernel 4 beside SDPA's forward and backward."""
     import torch
 
+    from ccedit_tpu_torch.ops import flash_attention as fa
     from ccedit_tpu_torch.ops import spatial_attention as sa
     from ccedit_tpu_torch.scripts import roofline
 
+    name, forward, backward, plain = {
+        "spatial_bwd": ("spatial_attention_bwd", sa._forward, sa.spatial_attention_bwd,
+                        sa.plain_spatial_attention_bwd),
+        "flash_bwd": ("flash_attention_bwd", fa._forward, fa.flash_attention_bwd,
+                      sa.plain_spatial_attention_bwd)}[kind]
     q = model_layout(shape, gen, device)
     k, v = (model_layout(shape[:2] + (n_k, shape[3]), gen, device) for _ in range(2))
     do = model_layout(shape, gen, device)
     scale = shape[-1] ** -0.5
     b, h, n_q, _ = shape
     lse = torch.empty((b * h, n_q), device=device, dtype=torch.float32)
-    out = sa._forward(q, k, v, scale, lse)
-    full_ms = cuda_time_ms(lambda: sa.spatial_attention_bwd(q, k, v, out, do, lse, scale), 5)
-    fwd_ms = cuda_time_ms(lambda: sa._forward(q, k, v, scale, lse), 5)
+    out = forward(q, k, v, scale, lse)
+    full_ms = cuda_time_ms(lambda: backward(q, k, v, out, do, lse, scale), 5)
+    fwd_ms = cuda_time_ms(lambda: forward(q, k, v, scale, lse), 5)
     library_ms, backend = roofline.sdpa_ms(q, k, v, scale, 5, grad_out=do)
     sl = slice(0, nb * h)
     qs, ks, vs, os_, dos, lses = q[:nb], k[:nb], v[:nb], out[:nb], do[:nb], lse[sl]
-    grads = sa.spatial_attention_bwd(qs, ks, vs, os_, dos, lses, scale)
-    refs = sa.plain_spatial_attention_bwd(*(x.float() for x in (qs, ks, vs, dos)), scale)
+    grads = backward(qs, ks, vs, os_, dos, lses, scale)
+    refs = plain(*(x.float() for x in (qs, ks, vs, dos)), scale)
     torch.cuda.synchronize()
     errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
     rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
     finite = all(bool(torch.isfinite(g.float()).all().item()) for g in grads)
-    ms = cuda_time_ms(lambda: sa.spatial_attention_bwd(qs, ks, vs, os_, dos, lses, scale), 5)
-    plain_ms = cuda_time_ms(lambda: sa.plain_spatial_attention_bwd(qs, ks, vs, dos, scale), 3)
+    ms = cuda_time_ms(lambda: backward(qs, ks, vs, os_, dos, lses, scale), 5)
+    plain_ms = cuda_time_ms(lambda: plain(qs, ks, vs, dos, scale), 3)
     bound = roofline.attention_bound(b, h, n_q, n_k, shape[3], backward=True)
     cmp_shape = (nb,) + tuple(shape[1:])
-    print(f"[kernels] spatial_attention_bwd q {shape} n_k {n_k}: full {full_ms:.4f} ms "
-          f"(bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}; kernels 1 + 4 "
+    print(f"[kernels] {name} q {shape} n_k {n_k}: full {full_ms:.4f} ms "
+          f"(bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}; forward + kernel 4 "
           f"{fwd_ms + full_ms:.4f} ms, SDPA fwd+bwd {library_ms} ms [{backend}]); compared "
           f"on {cmp_shape}: dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
           f"relative to max|plain| {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} "
           f"(tol {BWD_TOLERANCE:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     if not finite or not max(rels) <= BWD_TOLERANCE:
-        raise RuntimeError(f"spatial_attention_bwd at {shape} x {n_k} disagrees with its plain "
+        raise RuntimeError(f"{name} at {shape} x {n_k} disagrees with its plain "
                            f"version: relative errors {rels} (finite={finite})")
     return dict(shape=list(shape), n_k=n_k, compare_shape=list(cmp_shape), max_abs_err=max(errs),
                 max_rel_err=max(rels), compared_ms=ms, plain_ms=plain_ms, ms=full_ms,
@@ -270,11 +330,17 @@ def check_kernels(device) -> list:
     from ccedit_tpu_torch.scripts import roofline
 
     int8 = functools.partial(sa.kv_resident_attention, quantized_qk=True)
+
+    def with_lse(q, k, v, scale):  # kernel 3 writing its lse, as under a grad
+        b, h, n_q, _ = q.shape
+        return fa._forward(q, k, v, scale, torch.empty((b * h, n_q), device=device))
+
     fns = {
         "spatial": (sa.kv_resident_attention, sa.plain_spatial_attention),
         "spatial_int8": (int8, sa.plain_spatial_attention_int8),
         "temporal": (ta.small_seq_attention, ta.plain_temporal_attention),
         "flash": (fa.flash_attention, fa.plain_flash_attention),
+        "flash_lse": (with_lse, fa.plain_flash_attention),
     }
     gen = torch.Generator(device=device).manual_seed(0)
     records = []
@@ -282,8 +348,8 @@ def check_kernels(device) -> list:
         name = spec["name"]
         per_shape = []
         for shape, n_k, nb in spec["shapes"]:
-            if spec["kernel"] == "spatial_bwd":
-                per_shape.append(check_backward(shape, n_k, nb, gen, device))
+            if spec["kernel"] in ("spatial_bwd", "flash_bwd"):
+                per_shape.append(check_backward(spec["kernel"], shape, n_k, nb, gen, device))
                 torch.cuda.empty_cache()
                 continue
             kernel, plain = fns[spec["kernel"]]
@@ -299,8 +365,19 @@ def check_kernels(device) -> list:
             ref = plain(qs, ks, vs, scale)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            cos = cosine(out, ref)
             finite = bool(torch.isfinite(out.float()).all().item())
             extra, note = {}, ""
+            if spec["kernel"] == "flash_lse":  # the lse against log2 of the plain logsumexp
+                b, h, n_q, _ = qs.shape
+                lse = torch.empty((b * h, n_q), device=device)
+                fa._forward(qs, ks, vs, scale, lse)
+                s_ = torch.matmul(qs.float(), ks.float().transpose(-1, -2)) * scale
+                want = (torch.logsumexp(s_, dim=-1) / math.log(2.0)).reshape(b * h, n_q)
+                extra["lse_max_abs_err"] = (lse - want).abs().max().item()
+                note = f", lse max_abs_err {extra['lse_max_abs_err']:.3e} (tol {LSE_TOLERANCE:.0e})"
+                del s_, want
             if spec["kernel"] == "spatial_int8":  # against exact kernel 1 on the same slice
                 extra["cosine_to_exact"] = cosine(out, sa.kv_resident_attention(qs, ks, vs, scale))
                 extra["prepass_ms"] = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
@@ -312,17 +389,23 @@ def check_kernels(device) -> list:
             cmp_shape = (nb,) + tuple(shape[1:])
             print(f"[kernels] {name} q {shape} n_k {n_k}: full {full_ms:.4f} ms (bound "
                   f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}; SDPA {library_ms} ms "
-                  f"[{backend}]); compared on {cmp_shape}: max_abs_err {err:.3e} (tol "
-                  f"{TOLERANCE:.0e}){note}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  f"[{backend}]); compared on {cmp_shape}: max_abs_err {err:.3e}, relative "
+                  f"{rel:.3e}, cosine {cos:.7f} (max|err|/max|plain| <= {TOLERANCE:.0e}, "
+                  f"cosine >= {COSINE}){note}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
                   flush=True)
-            if not finite or not err <= TOLERANCE:
+            if not finite or not rel <= TOLERANCE or not cos >= COSINE:
                 raise RuntimeError(f"{name} at {shape} x {n_k} disagrees with its plain "
-                                   f"version: max_abs_err {err} (finite={finite})")
-            if extra and not extra["cosine_to_exact"] > INT8_COSINE:
+                                   f"version: max_abs_err {err}, relative {rel}, cosine "
+                                   f"{cos} (finite={finite})")
+            if not extra.get("lse_max_abs_err", 0.0) <= LSE_TOLERANCE:
+                raise RuntimeError(f"{name} at {shape}: its lse is off by "
+                                   f"{extra['lse_max_abs_err']} (tol {LSE_TOLERANCE})")
+            if "cosine_to_exact" in extra and not extra["cosine_to_exact"] > INT8_COSINE:
                 raise RuntimeError(f"{name} at {shape} x {n_k}: cosine to exact kernel 1 "
                                    f"{extra['cosine_to_exact']} <= {INT8_COSINE}")
             per_shape.append(dict(shape=list(shape), n_k=n_k, compare_shape=list(cmp_shape),
-                                  max_abs_err=err, compared_ms=ms, plain_ms=plain_ms,
+                                  max_abs_err=err, max_rel_err=rel, cosine=cos,
+                                  compared_ms=ms, plain_ms=plain_ms,
                                   ms=full_ms, library_ms=library_ms,
                                   library=f"scaled_dot_product_attention [{backend}]",
                                   **bound, **extra))
@@ -352,21 +435,27 @@ def run_probes(device):
     ``kv_resident_attn.run`` runs kernel 5's seven variants at (272, 6144,
     40) and holds each one's first rows to ``plain_probe``;
     ``int8_probe.part_kernel`` runs kernel 6 at 1024x512x1024 and 4096^3
-    against ``plain_gemm`` (the int8 product exactly).  Then the probes that
-    read the logits scale run with log2 e left out of it (a softmax
-    temperature off by ln 2), a planted fault that ``kr.compare`` must
-    refuse.  Returns the probes' records and their launch counts by
+    against ``plain_gemm`` (the int8 product exactly); ``profile_blocks.sweep``
+    runs kernel 7's nine tile pairs at (34, 8, 6144, 40) against the plain
+    attention (``kr.compare``'s full-attention limits).  Then the probes
+    that read the logits scale, and every kernel-7 tile pair, run with log2
+    e left out of it (a softmax temperature off by ln 2), a planted fault
+    that ``kr.compare`` must refuse.  Returns the probes' records and their launch counts by
     variant, as one stage ("probes")."""
+    from ccedit_tpu_torch.ops import flash_attention as fa
     from ccedit_tpu_torch.scripts import int8_probe as ip
     from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+    from ccedit_tpu_torch.scripts import profile_blocks as pb
 
     reset_launches()
     split = kr.run(device, iters=5)
     gemms = ip.part_kernel(device, iters=5)
+    sweep = pb.sweep(device, iters=5)
     counts = {f"attention_probe[{k}]": n for k, n in kr.probe.variant_launches.items()}
     for label, _ in GEMM_VARIANTS:
         counts[f"int8_gemm[{label}]"] = sum(n for k, n in ip.gemm.variant_launches.items()
                                             if k.startswith(label))
+    counts.update({f"flash_attention_tiles[{k}]": n for k, n in pb.tiles.variant_launches.items()})
     print(f"[probes] launches {json.dumps(counts)}", flush=True)
     print(f"[probes] kv_resident_attn.run: kernel 1 {split['kernel1_ms']:.4f} ms exact, "
           f"{split['kernel1_int8_ms']:.4f} ms int8 (1c); split "
@@ -406,6 +495,19 @@ def run_probes(device):
                                    f"softmax temperature off by ln 2: {fault}")
     finally:
         kr._LOG2E = log2e
+    qs, ks, vs = pb.compare_inputs(device)
+    ref = fa.plain_flash_attention(qs, ks, vs, pb.SCALE)
+    pb._LOG2E = 1.0  # the same planted fault in kernel 7's scale
+    try:
+        for bm, bn in pb.TILES:
+            fault = kr.compare("full", pb.tiles(qs, ks, vs, pb.SCALE, bm, bn), ref)
+            print(f"[probes] kernel 7 {pb.variant_name(bm, bn)} without log2 e in its scale: "
+                  f"relative {fault['max_rel_err']:.3e}, cosine {fault['cosine']:.7f}", flush=True)
+            if fault["ok"]:
+                raise RuntimeError(f"the sweep check passes {pb.variant_name(bm, bn)} with its "
+                                   f"softmax temperature off by ln 2: {fault}")
+    finally:
+        pb._LOG2E = log2e
     for label, _ in GEMM_VARIANTS:
         per_shape = []
         for g in gemms:
@@ -424,6 +526,22 @@ def run_probes(device):
                                    source="ccedit_tpu_torch/csrc/int8_gemm.cu",
                                    replaces="scripts/int8_probe.py:"
                                    + ("142" if label == "int8" else "159")), per_shape))
+    for r in sweep:
+        print(f"[probes] kernel 7 {r['variant']} {tuple(r['shape'])}: {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_what']}; {r['library']} {r['library_ms']} ms); "
+              f"on {r['plain_shape']}: max_abs_err {r['max_abs_err']:.3e}, relative "
+              f"{r['max_rel_err']:.3e}, cosine {r['cosine']:.7f} (max|err|/max|plain| <= "
+              f"{kr.FULL_TOLERANCE}, cosine >= {kr.FULL_COSINE}), kernel "
+              f"{r['compared_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+        if not r["ok"]:
+            raise RuntimeError(f"kernel 7 at {r['variant']} disagrees with its plain version: {r}")
+        records.append(dict(
+            name=f"flash_attention_tiles[{r['variant']}]", route="cuda",
+            source="ccedit_tpu_torch/csrc/flash_attention.cu",
+            replaces="scripts/profile_blocks.py:36", launches=0,
+            **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "compared_ms",
+                                 "plain_ms", "plain_shape", "bound_ms", "bound_by",
+                                 "bound_what", "library_ms", "library")}))
     return records, {"probes": counts}
 
 
@@ -574,6 +692,47 @@ def grad_errors(g, ref) -> dict:
                 leaves=len(ref))
 
 
+def grads_three_ways(params, backward, function):
+    """The gradients of ``params`` (a dict by name) that ``backward()``
+    accumulates: through the kernels, with every attention on its plain
+    version, and with a planted fault in the autograd ``function``'s
+    backward (kernel 4's dq and dk zeroed, dv kept).  Returns the three
+    dicts of fp32 gradients and the launch counts of the first run."""
+    import torch
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    def grads():
+        for p in params.values():
+            p.grad = None
+        backward()
+        return {n: p.grad.float() for n, p in params.items()}
+
+    att.reset_launch_counts()
+    g_kernels = grads()
+    counts = att.launch_counts()
+    saved = dict(att._ROUTES)
+    att._ROUTES.update({k: att.plain_attention for k in saved})
+    try:
+        g_plain = grads()
+    finally:
+        att._ROUTES.update(saved)
+    kernel_bwd = function.backward
+
+    def faulty_bwd(ctx, do):
+        dq, dk, dv, _ = kernel_bwd(ctx, do)
+        return torch.zeros_like(dq), torch.zeros_like(dk), dv, None
+
+    function.backward = staticmethod(faulty_bwd)
+    try:
+        g_fault = grads()
+    finally:
+        function.backward = staticmethod(kernel_bwd)
+    for p in params.values():
+        p.grad = None
+    return g_kernels, g_plain, g_fault, counts
+
+
 def check_train_grads(engine, device, seed: int) -> dict:
     """The trainable parameters' gradients of one bf16-autocast training
     step through the kernels against the same step with every attention on
@@ -586,7 +745,6 @@ def check_train_grads(engine, device, seed: int) -> dict:
     import numpy as np
     import torch
 
-    from ccedit_tpu_torch.ops import attention as att
     from ccedit_tpu_torch.ops import spatial_attention as sa
 
     t = GRAD_CHECK_T
@@ -600,34 +758,10 @@ def check_train_grads(engine, device, seed: int) -> dict:
         vae_noise=torch.randn((1, t, 32, 64, 4), generator=gen, device=device))
     params = engine.trainable_parameters()
 
-    def grads():
-        for p in params.values():
-            p.grad = None
+    def backward():
         engine.backward_step(batch, gen.manual_seed(seed + 1), torch.bfloat16, **overrides)
-        return {n: p.grad.float() for n, p in params.items()}
 
-    att.reset_launch_counts()
-    g_kernels = grads()
-    counts = att.launch_counts()
-    saved = dict(att._ROUTES)
-    att._ROUTES.update({k: att.plain_attention for k in saved})
-    try:
-        g_plain = grads()
-    finally:
-        att._ROUTES.update(saved)
-    kernel_bwd = sa.SpatialAttention.backward
-
-    def faulty_bwd(ctx, do):
-        dq, dk, dv, _ = kernel_bwd(ctx, do)
-        return torch.zeros_like(dq), torch.zeros_like(dk), dv, None
-
-    sa.SpatialAttention.backward = staticmethod(faulty_bwd)
-    try:
-        g_fault = grads()
-    finally:
-        sa.SpatialAttention.backward = staticmethod(kernel_bwd)
-    for p in params.values():
-        p.grad = None
+    g_kernels, g_plain, g_fault, counts = grads_three_ways(params, backward, sa.SpatialAttention)
     for key in ("spatial_attention_bwd[d40 n_k=n_q]", "spatial_attention_bwd[d80 n_k=n_q]"):
         if counts.get(key, 0) <= 0:
             raise RuntimeError(f"the gradient check never launched {key}: {counts}")
@@ -755,14 +889,136 @@ def run_train(device, seed: int) -> dict:
     return {"train": counts}
 
 
+def check_vae_grads(engine, x, noise) -> dict:
+    """The generator parameters' gradients of one bf16-autocast generator
+    pass through kernels 3 and 4 (d = 512) against the same pass with every
+    attention on its plain version, with the same images and posterior
+    noise; then the same pass with a planted fault in kernel 4 (its dq and
+    dk zeroed, dv kept), which the check must refuse: the mid blocks' q and
+    k projections get their gradient only through dq and dk.  Returns
+    ``grad_errors`` of both, and the launch counts of the first pass."""
+    import torch
+
+    from ccedit_tpu_torch.ops import flash_attention as fa
+
+    params = engine.generator_parameters()
+
+    def backward():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss, _ = engine.generator_loss(x, 0, noise=noise)
+        loss.backward(inputs=list(params.values()))
+
+    g_kernels, g_plain, g_fault, counts = grads_three_ways(params, backward, fa.FlashAttention)
+    if not all(bool(torch.isfinite(g).all()) for g in g_kernels.values()):
+        raise FloatingPointError("VAE gradients through the kernels are not finite")
+    qk = {n: (g_kernels[n] - g_plain[n]).norm().item() / g_plain[n].norm().item()
+          for n in g_plain if ".attn_1.q.weight" in n or ".attn_1.k.weight" in n}
+    return dict(kernels=grad_errors(g_kernels, g_plain), fault=grad_errors(g_fault, g_plain),
+                qk=qk, counts=counts)
+
+
+def run_vae_train(device, seed: int) -> dict:
+    """Phase 7: VAE GAN training at the sd-vae-ft-mse fine-tune's 12 images
+    of 256x256.  Returns its launch counts, as one stage."""
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import VAE_BATCH, VAE_SIZE
+    from ccedit_tpu_torch.config import VAE_TRAIN_CONFIG
+    from ccedit_tpu_torch.models.autoencoder_engine import build_vae_trainer
+    from ccedit_tpu_torch.ops import attention as att
+
+    t0 = time.perf_counter()
+    engine, trainer = build_vae_trainer(VAE_TRAIN_CONFIG, device, seed, disc_start=0)
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(engine, name).parameters())
+                for name in ("ae", "disc", "lpips")}
+    print(f"[vae_train] engine built in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v / 1e6:.2f} M" for k, v in n_params.items())
+          + f" parameters; fp32 masters, bf16 autocast; {engine.cfg}", flush=True)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def images():
+        return torch.rand((VAE_BATCH, VAE_SIZE, VAE_SIZE, 3), generator=gen, device=device) * 2 - 1
+
+    x = images()
+    latent = VAE_SIZE // 2 ** (len(engine.ae.ch_mult) - 1)
+    noise = torch.randn((VAE_BATCH, latent, latent, 4), generator=gen, device=device)
+    errs = check_vae_grads(engine, x, noise)
+    for which in ("kernels", "fault"):
+        e = errs[which]
+        print(f"[vae_train] generator gradients ({which}) vs plain attention at {VAE_BATCH}x"
+              f"{VAE_SIZE}x{VAE_SIZE}: ||diff||/||plain|| of the worst of {e['leaves_compared']} "
+              f"of {e['leaves']} tensors {e['worst_leaf']:.3e} ({e['worst_leaf_name']}; tol "
+              f"{VAE_GRAD_TOLERANCE:.0e}), of the whole gradient {e['whole']:.3e}", flush=True)
+    print(f"[vae_train] mid-attention q/k projections, kernels vs plain: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in errs["qk"].items())
+          + f"; launches {json.dumps(errs['counts'])}", flush=True)
+    if (errs["counts"].get("flash_attention_bwd", 0) != 2
+            or errs["counts"].get("flash_attention[lse]", 0) != 2):
+        raise RuntimeError(f"the gradient check did not launch kernel 3 with its lse and kernel 4 "
+                           f"twice each: {errs['counts']}")
+    if not errs["kernels"]["worst_leaf"] <= VAE_GRAD_TOLERANCE:
+        raise RuntimeError(f"VAE gradients through the kernels disagree with plain attention: "
+                           f"{errs['kernels']}")
+    if not errs["fault"]["worst_leaf"] > VAE_GRAD_TOLERANCE:
+        raise RuntimeError(f"the gradient check passes a kernel 4 with dq = dk = 0: {errs['fault']}")
+
+    trained = {f"{m}.{n}": p for m in ("ae", "disc")
+               for n, p in getattr(engine, m).named_parameters()}
+    before = {n: p.detach().clone() for n, p in engine.named_parameters()}
+    moved_grad = {n: False for n in trained}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    seconds, logs, per_step = [], [], []
+    for _ in range(VAE_STEPS):
+        counts0 = att.launch_counts()
+        t1 = time.perf_counter()
+        step_logs = trainer.train_step(images(), gen)
+        logs.append({k: float(v) for k, v in step_logs.items()})  # waits for the step
+        seconds.append(time.perf_counter() - t1)
+        counts1 = att.launch_counts()
+        per_step.append({k: counts1.get(k, 0) - counts0.get(k, 0) for k in VAE_LAUNCHES_PER_STEP})
+        for n, p in trained.items():
+            moved_grad[n] |= p.grad is not None and bool(p.grad.any())
+    torch.cuda.synchronize()
+    counts = att.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_s = sum(seconds[1:]) / len(seconds[1:])
+    print(f"[vae_train] VAETrainer {VAE_BATCH} x {VAE_SIZE}x{VAE_SIZE}, {VAE_STEPS} steps: step "
+          f"seconds {[round(t, 4) for t in seconds]} (first is the warm-up); {step_s:.4f} s per "
+          f"step, {VAE_BATCH / step_s:.2f} images/s; peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"[vae_train] logs of the last step {json.dumps(logs[-1])}", flush=True)
+    print(f"[vae_train] kernel launches a step {json.dumps(per_step)}", flush=True)
+    if any(st != VAE_LAUNCHES_PER_STEP for st in per_step):
+        raise RuntimeError(f"expected {VAE_LAUNCHES_PER_STEP} launches a step, got {per_step}")
+    if not all(math.isfinite(v) for step_logs in logs for v in step_logs.values()):
+        raise FloatingPointError(f"VAE training logs are not finite: {logs}")
+    changed_lpips = [n for n, p in engine.lpips.named_parameters()
+                     if not torch.equal(p, before[f"lpips.{n}"])]
+    unmoved = [n for n, p in trained.items() if moved_grad[n] and torch.equal(p, before[n])]
+    print(f"[vae_train] {sum(moved_grad.values())} of {len(trained)} trained tensors had a "
+          f"nonzero gradient, {len(unmoved)} of them unmoved; {len(changed_lpips)} LPIPS tensors "
+          f"changed", flush=True)
+    if changed_lpips or unmoved:
+        raise RuntimeError(f"LPIPS tensors changed: {changed_lpips[:5]}; tensors with a gradient "
+                           f"that did not move: {unmoved[:5]}")
+    del engine, trainer, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"vae_train": counts}
+
+
 def reset_launches():
-    """Every launch count to 0: the attention kernels' and the probes'."""
+    """Every launch count to 0: the attention kernels' and the probes' (kernel
+    7's tile sweep among them)."""
     from ccedit_tpu_torch.ops import attention as att
     from ccedit_tpu_torch.scripts import int8_probe as ip
     from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+    from ccedit_tpu_torch.scripts import profile_blocks as pb
 
     att.reset_launch_counts()
-    for wrapper in (kr.probe, ip.gemm):
+    for wrapper in (kr.probe, ip.gemm, pb.tiles):
         wrapper.launches = 0
         wrapper.variant_launches.clear()
 
@@ -802,11 +1058,12 @@ def main() -> int:
     probe_records, probe_counts = run_probes(device)
 
     # phases 4 and 5: the TV2V and TVI2V edits, exact and quantized; phase
-    # 6: training; with the launch counts of each
+    # 6: training; phase 7: VAE training; with the launch counts of each
     by_path = {"probes": probe_counts}
     for p in ("tv2v", "tvi2v"):
         by_path.update(run_path(p, device, steps=STEPS, seed=SEED))
     by_path["train"] = run_train(device, SEED)
+    by_path["vae_train"] = run_vae_train(device, SEED)
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
         rec["launches"] = rec["launches_by_path"][spec["path"]]

@@ -1,5 +1,6 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
-included), its training modules and ``chip_smoke.py``'s imports pulls in
+included), its training modules (VAE training's too), the kernel-7 sweep
+script and ``chip_smoke.py``'s imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
 the GPU machine may not have."""
 
@@ -30,8 +31,13 @@ import ccedit_tpu_torch.train.lr_schedule
 import ccedit_tpu_torch.train.trainer
 import ccedit_tpu_torch.conditioning.annotators.dpt_midas
 import ccedit_tpu_torch.io.jax_params
+import ccedit_tpu_torch.models.autoencoder_engine
+import ccedit_tpu_torch.modules.discriminator
+import ccedit_tpu_torch.modules.lpips
 import ccedit_tpu_torch.ops.attention
 import ccedit_tpu_torch.ops.build
+import ccedit_tpu_torch.ops.flash_attention
+import ccedit_tpu_torch.scripts.profile_blocks
 import chip_smoke
 chip_smoke.reset_launches()
 print(sorted(m for m in ("jax", "flax", "ccedit_tpu", "cv2", "PIL", "imageio", "yaml")

@@ -7,10 +7,13 @@ bucket grid, goes to a wrapper whose kernel has that head dim.
 
 The shapes are recorded from forwards of the full-width modules on the
 ``meta`` device (no memory, no arithmetic), with every route replaced by a
-recorder.  Tolerances: 3e-5 absolute for the multi-chunk online softmax (as
+recorder; likewise the VAE-training autoencoder at its 12x256x256 batch,
+with and without ``attn_resolutions`` blocks.  Tolerances: 3e-5 absolute for the multi-chunk online softmax (as
 ``tests/test_spatial_attention.py`` holds the Pallas kernel to
 ``_xla_attention``), 2e-5 for the one-pass d = 160 softmax; fp32 both sides.
 """
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,3 +134,40 @@ def test_the_route_reaches_1b_and_d160(recorded_shapes):
     d160 = [c for c in big if c[0] == "spatial" and c[1][-1] == 160]
     assert d160 and all(c[1][2] == 1024 for c in d160)
     assert 160 not in fa.HEAD_DIMS
+
+
+@pytest.mark.parametrize("attn_resolutions,expected", [
+    ((), {("flash", (12, 1, 1024, 512))}),
+    # attention blocks at 32x32 (d = 512, 1024 tokens: kernel 3) and at
+    # 128x128 (d = 256: no kernel has that head dim, plain math)
+    ((32, 128), {("flash", (12, 1, 1024, 512)), ("plain", (12, 1, 16384, 256))}),
+])
+def test_vae_training_shapes_route_to_kernel_3(attn_resolutions, expected):
+    """The VAE of ``VAE_TRAIN_CONFIG`` at its 12 images of 256x256, recorded
+    on the meta device: the mid blocks' (12, 1, 1024, 512) attention goes to
+    kernel 3 (and, under a grad, kernel 4 at d = 512); with
+    ``attn_resolutions``, every routed shape has its kernel's head dim."""
+    calls = []
+
+    def recorder(route):
+        def record(q, k, v, scale):
+            calls.append((route, tuple(q.shape)))
+            return torch.empty_like(q)
+        return record
+
+    cfg = copy.deepcopy(config.VAE_TRAIN_CONFIG)
+    cfg["model"]["params"]["encoder_config"]["params"]["attn_resolutions"] = list(attn_resolutions)
+    with torch.device("meta"):
+        vae = config.build_autoencoder_engine(cfg).ae
+    saved = dict(att._ROUTES)
+    att._ROUTES.update({name: recorder(name) for name in saved})
+    try:
+        with torch.no_grad(), torch.device("meta"):
+            vae(torch.empty(12, 256, 256, 3), noise=torch.empty(12, 32, 32, 4))
+    finally:
+        att._ROUTES.update(saved)
+    assert set(calls) == expected
+    assert sum(c == ("flash", (12, 1, 1024, 512)) for c in calls) == 2 + 5 * (32 in attn_resolutions)  # mid; 2 encoder + 3 decoder blocks
+    for route, q_shape in calls:
+        if route != "plain":
+            assert q_shape[-1] in _KERNEL_HEAD_DIMS[route]
