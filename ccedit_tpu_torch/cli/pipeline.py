@@ -69,7 +69,7 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--sdedit_denoise_strength", type=float, default=0.0)
     p.add_argument("--num_samples", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=4,
-                   help="accepted for compatibility; samples run one per call")
+                   help="samples drawn per sampler call; --num_samples runs in chunks of it")
     p.add_argument("--disable_check_repeat", action="store_true")
     p.add_argument("--save_type", type=str, default="mp4", choices=["gif", "mp4"])
     p.add_argument("--inpainting_mode", action="store_true")
@@ -171,7 +171,6 @@ class _Stopwatch:
             self.counts = counts
 
 
-@torch.no_grad()
 def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               cfg_scale: float, num_steps: int, generator: torch.Generator,
               stage_seconds: Optional[Dict[str, float]] = None,
@@ -181,6 +180,38 @@ def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               return_latents: bool = False):
     """Edit one clip: (T, H, W, 3) uint8 -> (T, H, W, 3) uint8 (and, with
     ``return_latents``, the sampled latents (1, T, h, w, 4) before decoding).
+    One draw of ``edit_clips``; the arguments are its."""
+    out, latents = edit_clips(engine, frames_u8, prompt, negative_prompt, cfg_scale,
+                              num_steps, generator, stage_seconds=stage_seconds,
+                              reference=reference, prior_type=prior_type,
+                              prior_coefficient_x=prior_coefficient_x,
+                              prior_coefficient_noise=prior_coefficient_noise,
+                              stage_launches=stage_launches)
+    return (out[0], latents) if return_latents else out[0]
+
+
+def _repeat_batch(tree: Dict, n: int) -> Dict:
+    """Every tensor of a conditioning dict with a batch axis of 1 repeated
+    to ``n`` along it (the JAX pipeline's ``rep``)."""
+    return {k: v.repeat_interleave(n, dim=0) if torch.is_tensor(v) and v.dim() > 0
+            and v.shape[0] == 1 else v for k, v in tree.items()}
+
+
+@torch.no_grad()
+def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
+               cfg_scale: float, num_steps: int, generator: torch.Generator,
+               stage_seconds: Optional[Dict[str, float]] = None,
+               reference: Optional[np.ndarray] = None, prior_type: str = "ref",
+               prior_coefficient_x: float = 0.0, prior_coefficient_noise: float = 1.0,
+               stage_launches: Optional[Dict[str, Dict[str, int]]] = None,
+               batch_size: int = 1, init_noise: Optional[torch.Tensor] = None,
+               loop_noise: Optional[torch.Tensor] = None):
+    """Edit one clip ``batch_size`` times in one sampler call: (T, H, W, 3)
+    uint8 -> (batch_size, T, H, W, 3) uint8 and the sampled latents
+    (batch_size, T, h, w, 4) before decoding.  The conditioning is computed
+    once and repeated along the batch axis, as the JAX pipeline does;
+    ``init_noise`` and ``loop_noise`` replace the sampler's draws
+    (``CCEditEngine.sample``).
 
     ``reference`` (H, W, 3), uint8 or in [-1, 1], is the edited reference
     frame of a TVI2V edit: its VAE latent conditions the appearance branch
@@ -226,17 +257,22 @@ def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
                 x_prior = z_ref if x_prior is None else 0.5 * (x_prior + z_ref)
         watch.lap("encode")
     f = engine.latent_factor
-    latents = engine.sample(c, uc, (1, t, h // f, w // f, 4), num_steps=num_steps,
-                            generator=generator, guider_scale=cfg_scale, x_prior=x_prior,
+    if batch_size > 1:
+        c, uc = _repeat_batch(c, batch_size), _repeat_batch(uc, batch_size)
+        if x_prior is not None:
+            x_prior = x_prior.repeat_interleave(batch_size, dim=0)
+    latents = engine.sample(c, uc, (batch_size, t, h // f, w // f, 4), num_steps=num_steps,
+                            generator=generator, init_noise=init_noise, loop_noise=loop_noise,
+                            guider_scale=cfg_scale, x_prior=x_prior,
                             prior_coefficient=prior_coefficient_x,
                             prior_noise_coefficient=prior_coefficient_noise)
     watch.lap("sample")
-    decoded = engine.decode_first_stage(latents)[0].float()
+    decoded = engine.decode_first_stage(latents).float()
     if not bool(torch.isfinite(decoded).all()):
         raise FloatingPointError("the decoded clip has non-finite values")
     out = ((decoded + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
     watch.lap("decode")
-    return (out, latents) if return_latents else out
+    return out, latents
 
 
 def _ledger(save_dir: Path) -> Dict:
@@ -274,8 +310,14 @@ def run_pipeline(args, reference_mode: bool = False) -> None:
             extra.update(reference=load_image(args.reference_path, (args.H, args.W)),
                          prior_type=args.prior_type)
         t0 = time.time()
-        outputs = [edit_clip(engine, frames, prompt, args.negative_prompt, args.cfg_scale,
-                             args.sample_steps, gen, **extra) for _ in range(args.num_samples)]
+        # num_samples drawn in chunks of batch_size (the JAX pipeline's loop)
+        bs = max(1, min(args.batch_size, args.num_samples))
+        outputs, remaining = [], args.num_samples
+        while remaining > 0:
+            out, _ = edit_clips(engine, frames, prompt, args.negative_prompt, args.cfg_scale,
+                                args.sample_steps, gen, batch_size=bs, **extra)
+            outputs.extend(out[:min(bs, remaining)])
+            remaining -= bs
         dt = time.time() - t0
         ext = "." + args.save_type
         for i, out in enumerate(outputs):

@@ -251,11 +251,11 @@ def _expect(cfg: Optional[Dict], *names: str) -> str:
 
 def _unet_kwargs(p: Dict, video: bool) -> Dict:
     unported = ["use_linear_in_transformer", "legacy", "use_scale_shift_norm",
-                "use_learnable_alpha", "enable_ref_attn"]
+                "use_learnable_alpha", "enable_ref_attn", "adm_in_channels"]
     unported += ["disable_text_ca"] if video else ["enable_attention3d_crossframe"]
     for flag in unported:
         if p.get(flag):
-            raise KeyError(f"network option {flag}=True is not implemented by the port "
+            raise KeyError(f"network option {flag}={p[flag]!r} is not implemented by the port "
                            f"for a {'pseudo-3D UNet' if video else '2-D ControlNet'}")
     kw = {k: p[k] for k in ("in_channels", "model_channels", "out_channels",
                             "num_res_blocks", "num_heads", "num_head_channels",
@@ -414,6 +414,32 @@ def freeze_policy(model_params: Dict) -> str:
     return _TV2V_FREEZE.get(freeze, freeze)
 
 
+def build_sampler(cfg: Optional[Dict], num_steps: Optional[int] = None
+                  ) -> DPMPP2SAncestralSampler:
+    """The sampler of a ``sampler_config`` (the JAX ``build_sampler``):
+    DPM++2S-ancestral with its ``eta``, ``s_noise`` and its
+    ``discretization_config``'s params; ``num_steps`` when given, else the
+    config's, else 30.  Raises on the options and discretizations the port
+    does not have (the EDM samplers' ``s_churn``/``s_tmin``/``s_tmax``, the
+    linear-multistep ``order``, img2img strength below 1)."""
+    sp = _params(cfg)
+    if cfg is not None:
+        _expect(cfg, "DPMPP2SAncestralSampler")
+    unported = [k for k in ("s_churn", "s_tmin", "s_tmax", "order") if k in sp]
+    if unported:
+        raise KeyError(f"sampler option(s) {', '.join(unported)} are not implemented by the "
+                       f"port's DPMPP2SAncestralSampler")
+    disc_cfg = sp.get("discretization_config", {"target": "LegacyDDPMDiscretization"})
+    _expect(disc_cfg, "LegacyDDPMDiscretization")
+    disc = _params(disc_cfg)
+    if disc.pop("img2img_strength", 1.0) < 1.0:
+        raise KeyError("img2img_strength < 1 (Img2ImgDiscretizationWrapper) is not "
+                       "implemented by the port")
+    kwargs = {k: float(sp[k]) for k in ("eta", "s_noise") if k in sp}
+    return DPMPP2SAncestralSampler(LegacyDDPMDiscretization(**disc),
+                                   num_steps=num_steps or sp.get("num_steps") or 30, **kwargs)
+
+
 def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
                  guider_scale: float = 7.5, num_steps: Optional[int] = None,
                  fake_annotator: bool = False) -> CCEditEngine:
@@ -435,17 +461,13 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
                                     **_params(dcfg.get("discretization_config"))),
                                 weighting=build_weighting(dcfg.get("weighting_config")))
     guider = VanillaCFG(scale=guider_scale)
+    sampler = build_sampler(p.get("sampler_config"), num_steps)
     if "sampler_config" in p:
-        scfg = p["sampler_config"]
-        _expect(scfg, "DPMPP2SAncestralSampler")
-        sp = _params(scfg)
-        num_steps = num_steps or sp.get("num_steps")
-        gcfg = sp.get("guider_config")
+        gcfg = _params(p["sampler_config"]).get("guider_config")
         if gcfg is not None:
             name = _expect(gcfg, "VanillaCFG", "VanillaCFGTV2V", "IdentityGuider")
             guider = (IdentityGuider() if name == "IdentityGuider"
                       else VanillaCFG(scale=_params(gcfg).get("scale", guider_scale)))
-    sampler = DPMPP2SAncestralSampler(LegacyDDPMDiscretization(), num_steps=num_steps or 30)
     return CCEditEngine(
         network=build_network(p["network_config"]),
         denoiser=denoiser,

@@ -90,7 +90,8 @@ def quantizes(q, k) -> bool:
     """Whether the switch sends this attention to kernel 1c: the spatial
     route, and the JAX kernel's gate at k's element size."""
     return (quantized_qk_enabled() and attention_route(q, k) == "spatial"
-            and sa.supported(q.shape[-2], k.shape[-2], q.shape[-1], k.element_size()))
+            and sa.supported(q.shape[-2], k.shape[-2], q.shape[-1],
+                             itemsize=k.element_size()))
 
 
 def _spatial(q, k, v, scale: float) -> torch.Tensor:

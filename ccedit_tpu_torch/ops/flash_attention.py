@@ -5,13 +5,15 @@ and launch counts.
 Port of the stock Pallas TPU flash attention forward that
 ``ccedit_tpu/ops/attention.py::_flash_diff`` calls, and of the stock flash
 backward that ``_xla_attention_bwd`` runs at its shapes.  The CUDA sources,
-with their design notes, are ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``.  When autograd needs the attention's
-gradient (VAE training), ``flash_attention`` goes through ``FlashAttention``:
+with their design notes, are ``csrc/flash_attention.cu`` (TMA, wgmma,
+register accumulators for Hopper) and ``csrc/flash_attention_bwd.cu``.
+When autograd needs the attention's gradient (VAE training),
+``flash_attention`` goes through ``FlashAttention``:
 its forward launches kernel 3 with the row log-sum-exp saved, its backward
 launches kernel 4 at d = 512; on the CPU both are the plain versions.  The
-same CUDA template at head_dim 40 and swept tiles is kernel 7, which only
-``scripts/profile_blocks.py`` launches.
+first port's simple template, at head_dim 40 and swept tiles, is kernel 7
+(``csrc/flash_tiles.cu``), which only ``scripts/profile_blocks.py``
+launches.
 """
 
 from __future__ import annotations

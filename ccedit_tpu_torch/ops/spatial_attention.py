@@ -7,9 +7,11 @@ its one-chunk branch (self-attention, n_k = n_q) and its multi-chunk branch
 (the CFCA cross-frame attention, n_k = 2 * n_q), and of the stock Pallas
 flash-attention backward that ``ccedit_tpu/ops/attention.py::
 _xla_attention_bwd`` runs at kernel 1's shapes.  The CUDA sources, with
-their design notes, are ``csrc/spatial_attention.cu`` and
-``csrc/spatial_attention_bwd.cu``.  When autograd needs the attention's
-gradient, ``kv_resident_attention`` goes through ``SpatialAttention``: its
+their design notes, are ``csrc/spatial_attention.cu`` (kernel 1: TMA,
+wgmma, warp-specialised for Hopper), ``csrc/spatial_attention_int8.cu``
+(kernel 1c) and ``csrc/spatial_attention_bwd.cu``.  When autograd needs
+the attention's gradient, ``kv_resident_attention`` goes through
+``SpatialAttention``: its
 forward launches kernel 1 with the row log-sum-exp saved, its backward
 launches kernel 4; on the CPU both are the plain versions.  ``launches``
 counts every launch of a wrapper; ``variant_launches`` splits them by
@@ -57,10 +59,12 @@ def _pick_qb(n_q: int, n_k: int) -> int:
     return 0
 
 
-def supported(n_q: int, n_k: int, d: int, itemsize: int = 2) -> bool:
+def supported(n_q: int, n_k: int, d: int, *, itemsize: int) -> bool:
     """The JAX package's gate for its Pallas kernel (``supported`` there),
     with ``itemsize`` k's element size in bytes: where it holds, the JAX
-    dispatch runs the kernel, and with the int8 switch on, quantizes."""
+    dispatch runs the kernel, and with the int8 switch on, quantizes.
+    ``itemsize`` has no default (the JAX gate's bf16 default would size an
+    fp32 k's VMEM at half its bytes)."""
     n_chunks = _n_chunks(n_k)
     return (n_q >= 512 and d % 8 == 0 and d <= 128 and n_k % n_chunks == 0
             and (n_k // n_chunks) % 128 == 0 and n_k * d * 2 * itemsize <= 4.0e6

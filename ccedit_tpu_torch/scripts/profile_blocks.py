@@ -1,12 +1,13 @@
-"""Kernel 7: kernel 3's CUDA template at swept tile sizes, and per-block
-timings, on one GPU.
+"""Kernel 7: the first port's flash-attention template at swept tile sizes,
+and per-block timings, on one GPU.
 
     python -m ccedit_tpu_torch.scripts.profile_blocks [sweep] [blocks]
 
 Port of ``scripts/profile_blocks.py``.  ``sweep`` (the default) times the
-stock flash forward's counterpart, kernel 3's template
-(``csrc/flash_attention.cu``) instantiated at head_dim 40 (rows staged 48
-wide), at (34, 8, 6144, 40) with q = k = v and scale 0.158, as the TPU
+stock flash forward's counterpart, the simple mma.sync template of kernel
+3's first port (``csrc/flash_tiles.cu``; kernel 3 itself is now the Hopper
+design of ``csrc/flash_attention.cu``) instantiated at head_dim 40 (rows
+staged 48 wide), at (34, 8, 6144, 40) with q = k = v and scale 0.158, as the TPU
 script does, over the Hopper tiles BM (query rows a block, BM / 16 warps)
 in {32, 64, 128} and BN (keys a staged tile) in {32, 64, 128}: one JSON line
 a tile pair with its CUDA-event ms, its bound (``scripts/roofline.py``),

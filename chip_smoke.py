@@ -10,11 +10,15 @@ Phases:
      bf16 (max|err| / max|plain| and cosine) at the shapes the TV2V, TVI2V and training paths give it (17
      frames at 512x768, CFG-doubled; training: 4 clips of 12 frames at
      384x512), plus kernel 1's head_dim 160 instantiation at level 2 of
-     1024x1024, with the error tolerance and CUDA-event times.  The backward
+     1024x1024 and ragged rows (kernel 1 at (2,8,600,40) x 600 and x 1200
+     and (2,8,600,80) x 600, kernel 3 at (2,1,600,512) x 600), with the error
+     tolerance and CUDA-event times.  Each forward row is compared on its
+     first and its last batch slice, and kernels 1 and 3 also have their
+     log-sum-exp (the forward kernel 4 needs) held to the plain
+     ``logsumexp``.  The backward
      kernel (4) is held to ``plain_spatial_attention_bwd`` on dq, dk and dv,
      and at d = 512 (VAE training: (12,1,1024,512), the 512x512 fine-tune's
-     (4,1,4096,512) and a ragged (2,1,600,512)) likewise; kernel 3 with its log-sum-exp (the
-     forward kernel 4 needs) has its lse held to the plain ``logsumexp``.
+     (4,1,4096,512) and a ragged (2,1,600,512)) likewise.
      Kernel 1c (the int8 QK^T path) is held to
      ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1.
      Every shape also gets its bound (``scripts/roofline.py``: the largest of
@@ -136,8 +140,8 @@ TRAIN_STEPS = 4  # 1 warm-up + 3 timed
 # backward launches a training step: the UNet's spatial self-attentions at
 # level 0 (input blocks 1, 2; output blocks 9-11) and level 1 (4, 5; 6-8)
 BWD_PER_STEP = {"d40": 5, "d80": 5}
-# kernel 3's lse: max |lse - log2(sum exp(scale q.k))| (fp32 sums in
-# another order)
+# kernels 1 and 3's lse: max |lse - log2(sum exp(scale q.k))| (fp32 sums
+# in another order)
 LSE_TOLERANCE = 1e-3
 # VAE training: the generator pass's gradients through kernels 3 and 4 at
 # d = 512 against plain attention, ||g_kernels - g_plain|| / ||g_plain|| of
@@ -168,15 +172,17 @@ KERNELS = (
          replaces="ccedit_tpu/ops/spatial_attention.py:113",
          shapes=(((34, 8, 6144, 40), 6144, 1), ((34, 8, 1536, 80), 1536, 34),
                  ((34, 8, 1024, 160), 1024, 34), ((48, 8, 3072, 40), 3072, 4),
-                 ((48, 8, 768, 80), 768, 48)),
+                 ((48, 8, 768, 80), 768, 48), ((2, 8, 600, 40), 600, 1),
+                 ((2, 8, 600, 80), 600, 1)),
          count=lambda st: _variant_sum(st, "d", "n_k=n_q")),
     dict(name="spatial_attention_1b", kernel="spatial", path="tvi2v",
          source="ccedit_tpu_torch/csrc/spatial_attention.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:93",
-         shapes=(((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34)),
+         shapes=(((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34),
+                 ((2, 8, 600, 40), 1200, 1)),
          count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
     dict(name="spatial_attention_1c", kernel="spatial_int8", path="tvi2v_int8",
-         source="ccedit_tpu_torch/csrc/spatial_attention.cu",
+         source="ccedit_tpu_torch/csrc/spatial_attention_int8.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:190",
          shapes=(((34, 8, 6144, 40), 6144, 1), ((34, 8, 1536, 80), 1536, 34),
                  ((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34)),
@@ -208,7 +214,7 @@ KERNELS = (
     dict(name="flash_attention_lse", kernel="flash_lse", path="vae_train",
          source="ccedit_tpu_torch/csrc/flash_attention.cu",
          replaces="ccedit_tpu/ops/attention.py:203",
-         shapes=(((12, 1, 1024, 512), 1024, 12),),
+         shapes=(((12, 1, 1024, 512), 1024, 12), ((2, 1, 600, 512), 600, 1)),
          count=lambda st: sum(c.get("flash_attention[lse]", 0) for c in st.values())),
     dict(name="flash_attention_bwd", kernel="flash_bwd", path="vae_train",
          source="ccedit_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -360,26 +366,37 @@ def check_kernels(device) -> list:
             library_ms, backend = roofline.sdpa_ms(q, k, v, scale, 5)
             bound = roofline.attention_bound(*shape[:3], n_k, shape[3],
                                              qk_int8=spec["kernel"] == "spatial_int8")
-            qs, ks, vs = q[:nb], k[:nb], v[:nb]
-            out = kernel(qs, ks, vs, scale)
-            ref = plain(qs, ks, vs, scale)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            cos = cosine(out, ref)
-            finite = bool(torch.isfinite(out.float()).all().item())
-            extra, note = {}, ""
-            if spec["kernel"] == "flash_lse":  # the lse against log2 of the plain logsumexp
-                b, h, n_q, _ = qs.shape
-                lse = torch.empty((b * h, n_q), device=device)
-                fa._forward(qs, ks, vs, scale, lse)
-                s_ = torch.matmul(qs.float(), ks.float().transpose(-1, -2)) * scale
-                want = (torch.logsumexp(s_, dim=-1) / math.log(2.0)).reshape(b * h, n_q)
-                extra["lse_max_abs_err"] = (lse - want).abs().max().item()
-                note = f", lse max_abs_err {extra['lse_max_abs_err']:.3e} (tol {LSE_TOLERANCE:.0e})"
-                del s_, want
-            if spec["kernel"] == "spatial_int8":  # against exact kernel 1 on the same slice
-                extra["cosine_to_exact"] = cosine(out, sa.kv_resident_attention(qs, ks, vs, scale))
+            # the first and the last nb batch rows: a tile schedule can go
+            # wrong only at the far end of the grid
+            slices = [slice(0, nb)] + ([slice(shape[0] - nb, shape[0])] if nb < shape[0] else [])
+            err = rel = lse_err = 0.0
+            cos, finite, extra, note = 1.0, True, {}, ""
+            for sl in slices:
+                qs, ks, vs = q[sl], k[sl], v[sl]
+                out = kernel(qs, ks, vs, scale)
+                ref = plain(qs, ks, vs, scale)
+                torch.cuda.synchronize()
+                e = (out.float() - ref.float()).abs().max().item()
+                err, rel = max(err, e), max(rel, e / ref.float().abs().max().item())
+                cos = min(cos, cosine(out, ref))
+                finite &= bool(torch.isfinite(out.float()).all().item())
+                if spec["kernel"] in ("spatial", "flash_lse"):
+                    # the lse kernel 4 reads, against log2 of the plain logsumexp
+                    b, h, n_q, _ = qs.shape
+                    lse = torch.empty((b * h, n_q), device=device)
+                    forward = sa._forward if spec["kernel"] == "spatial" else fa._forward
+                    forward(qs, ks, vs, scale, lse)
+                    s_ = torch.matmul(qs.float(), ks.float().transpose(-1, -2)) * scale
+                    want = (torch.logsumexp(s_, dim=-1) / math.log(2.0)).reshape(b * h, n_q)
+                    lse_err = max(lse_err, (lse - want).abs().max().item())
+                    del s_, want
+                if spec["kernel"] == "spatial_int8":  # against exact kernel 1 on the same slice
+                    extra["cosine_to_exact"] = min(extra.get("cosine_to_exact", 1.0), cosine(
+                        out, sa.kv_resident_attention(qs, ks, vs, scale)))
+            if spec["kernel"] in ("spatial", "flash_lse"):
+                extra["lse_max_abs_err"] = lse_err
+                note = f", lse max_abs_err {lse_err:.3e} (tol {LSE_TOLERANCE:.0e})"
+            if spec["kernel"] == "spatial_int8":
                 extra["prepass_ms"] = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
                 note = (f", cosine to exact kernel 1 {extra['cosine_to_exact']:.6f} (> "
                         f"{INT8_COSINE}), its pre-pass (quantize_qk) at the full shape "
@@ -387,9 +404,11 @@ def check_kernels(device) -> list:
             ms = cuda_time_ms(lambda: kernel(qs, ks, vs, scale), 5)
             plain_ms = cuda_time_ms(lambda: plain(qs, ks, vs, scale), 3)
             cmp_shape = (nb,) + tuple(shape[1:])
+            rows = " and ".join(f"[{sl.start}:{sl.stop}]" for sl in slices)
             print(f"[kernels] {name} q {shape} n_k {n_k}: full {full_ms:.4f} ms (bound "
                   f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}; SDPA {library_ms} ms "
-                  f"[{backend}]); compared on {cmp_shape}: max_abs_err {err:.3e}, relative "
+                  f"[{backend}]); compared on {cmp_shape}, batch rows {rows}: max_abs_err "
+                  f"{err:.3e}, relative "
                   f"{rel:.3e}, cosine {cos:.7f} (max|err|/max|plain| <= {TOLERANCE:.0e}, "
                   f"cosine >= {COSINE}){note}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
                   flush=True)
@@ -537,7 +556,7 @@ def run_probes(device):
             raise RuntimeError(f"kernel 7 at {r['variant']} disagrees with its plain version: {r}")
         records.append(dict(
             name=f"flash_attention_tiles[{r['variant']}]", route="cuda",
-            source="ccedit_tpu_torch/csrc/flash_attention.cu",
+            source="ccedit_tpu_torch/csrc/flash_tiles.cu",
             replaces="scripts/profile_blocks.py:36", launches=0,
             **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "compared_ms",
                                  "plain_ms", "plain_shape", "bound_ms", "bound_by",

@@ -80,3 +80,51 @@ def test_config_rejects_targets_outside_the_slice(key, value, match):
     (net if key == "target" else net["params"])[key] = value
     with pytest.raises(KeyError, match=match):
         config.build_engine(cfg)
+
+
+def test_batched_draw_equals_single_draws(tiny_config):
+    """``edit_clips`` with batch_size 2 repeats the conditioning along the
+    batch axis: with injected noise, each of its two draws equals a single
+    draw with that sample's noise."""
+    args = pipeline.base_parser().parse_args(["--device", "cpu", "--config_path", tiny_config,
+                                              "--fake_annotator", "--seed", "0"])
+    engine, _ = pipeline.load_engine(args, 2)
+    rs = np.random.RandomState(3)
+    frames = rs.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8)
+    shape, steps = (2, 3, 8, 8, 4), 2
+    init = torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+    loop = torch.from_numpy(rs.standard_normal((steps,) + shape).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    edit = dict(prompt="a brown bear", negative_prompt="ugly", cfg_scale=7.5, num_steps=steps,
+                generator=gen)
+    both, latents = pipeline.edit_clips(engine, frames, batch_size=2, init_noise=init,
+                                        loop_noise=loop, **edit)
+    assert both.shape == (2, 3, 64, 64, 3) and latents.shape == shape
+    assert not torch.allclose(latents[0], latents[1])
+    for i in range(2):
+        one, single = pipeline.edit_clips(engine, frames, init_noise=init[i:i + 1],
+                                          loop_noise=loop[:, i:i + 1], **edit)
+        np.testing.assert_allclose(latents[i:i + 1].numpy(), single.numpy(), rtol=1e-4, atol=1e-4)
+        assert np.abs(both[i].astype(int) - one[0].astype(int)).max() <= 1
+
+
+def test_num_samples_run_in_chunks_of_batch_size(tiny_config, tmp_path, monkeypatch):
+    """``--num_samples 3 --batch_size 2`` draws 2 + 2 samples in two sampler
+    calls (the JAX pipeline's loop) and writes the first 3."""
+    calls = []
+    edit_clips = pipeline.edit_clips
+
+    def counted(*a, **kw):
+        calls.append(kw["batch_size"])
+        return edit_clips(*a, **kw)
+
+    monkeypatch.setattr(pipeline, "edit_clips", counted)
+    out_dir = tmp_path / "out"
+    argv = ["--device", "cpu", "--config_path", tiny_config, "--video_path", str(BEAR),
+            "--prompt", "a brown bear walking", "--H", "64", "--W", "64",
+            "--num_keyframes", "3", "--sample_steps", "2", "--fake_annotator",
+            "--num_samples", "3", "--batch_size", "2", "--save_path", str(out_dir)]
+    pipeline.run_pipeline(pipeline.base_parser().parse_args(argv))
+    assert calls == [2, 2]
+    written = sorted(p.name for p in out_dir.glob("bear_original_0*.mp4"))
+    assert written == [f"bear_original_{i:02d}.mp4" for i in range(3)]

@@ -1,0 +1,117 @@
+"""Config and gate parity of the port against the JAX package, on the CPU:
+the sampler a ``sampler_config`` builds (its eta, s_noise and
+discretization params, and the options the port refuses), the UNet options
+the port refuses (``adm_in_channels``), and kernel 1's dispatch gate
+``supported`` with its element size a required keyword."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccedit_tpu import config as jax_config
+from ccedit_tpu.ops import spatial_attention as jax_sa
+from ccedit_tpu_torch import config
+from ccedit_tpu_torch.modules.clip import CLIPTextModel
+from ccedit_tpu_torch.ops import spatial_attention as sa
+
+TINY = dict(in_channels=4, out_channels=4, model_channels=32, attention_resolutions=[2, 1],
+            num_res_blocks=1, channel_mult=[1, 2], num_heads=2, transformer_depth=1,
+            context_dim=16)
+SAMPLER = {"target": "sgm.modules.diffusionmodules.sampling.DPMPP2SAncestralSampler",
+           "params": {"num_steps": 3, "eta": 0.5, "s_noise": 0.9, "discretization_config": {
+               "target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization",
+               "params": {"linear_start": 0.001, "linear_end": 0.015}}}}
+
+
+def _tiny_config(sampler_config=None, **unet):
+    """The built-in TV2V config at tiny widths, with a sampler config and
+    extra UNet params."""
+    cfg = json.loads(json.dumps(config.TV2V_CONFIG))
+    p = cfg["model"]["params"]
+    p["network_config"]["params"] = dict(TINY, disable_temporal_text_ca=True, **unet,
+                                         controlnet_config={
+        "target": "sgm.modules.diffusionmodules.controlmodel.ControlNet2D",
+        "params": dict(TINY, hint_channels=3)})
+    p["first_stage_config"]["params"]["ddconfig"].update(ch=32, ch_mult=[1, 2, 2, 2],
+                                                         num_res_blocks=1)
+    if sampler_config is not None:
+        p["sampler_config"] = sampler_config
+    return cfg
+
+
+@pytest.fixture
+def tiny_clip(monkeypatch):
+    monkeypatch.setattr(config, "CLIPTextModel", lambda: CLIPTextModel(width=16, heads=2, layers=1))
+
+
+def test_sampler_config_params_reach_the_sampler(tiny_clip):
+    """eta, s_noise and the discretization params of a ``sampler_config``
+    give the port the JAX engine's sigmas, ancestral split and chain: the
+    same toy denoiser and injected noise through both samplers agree."""
+    cfg = _tiny_config(SAMPLER)
+    ours = config.build_engine(cfg, fake_annotator=True).sampler
+    theirs = jax_config.build_engine(cfg).sampler
+    assert (ours.eta, ours.s_noise, ours.num_steps) == (0.5, 0.9, 3)
+    sigmas = ours.get_sigmas()
+    np.testing.assert_array_equal(sigmas, theirs.get_sigmas())
+    sig, nxt, down, up = theirs._ancestral_tables(sigmas, 0)
+    table = ours.step_table(sigmas)
+    for key, want in (("sigma", sig), ("next_sigma", nxt), ("sigma_down", down),
+                      ("sigma_up", up)):
+        np.testing.assert_array_equal([row[key] for row in table], want.astype(np.float32))
+    assert up[0] > 0 and not np.allclose(down, nxt)  # eta < 1 splits the step
+
+    rs = np.random.RandomState(5)
+    shape = (1, 2, 4, 4, 4)
+    x0 = rs.standard_normal(shape).astype(np.float32)
+    noise = rs.standard_normal((3,) + shape).astype(np.float32)
+
+    def denoise(x, sigma):  # works on jax arrays and torch tensors alike
+        return 0.5 * x / (1.0 + sigma)
+
+    ref = theirs(denoise, jnp.asarray(x0), jax.random.PRNGKey(0), noise_override=jnp.asarray(noise))
+    out = ours(denoise, torch.from_numpy(x0), noise_override=torch.from_numpy(noise))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+    # the same chain at the defaults moves elsewhere: the params matter
+    plain = config.build_sampler(None, 3)(denoise, torch.from_numpy(x0),
+                                         noise_override=torch.from_numpy(noise))
+    assert not np.allclose(plain.numpy(), np.asarray(ref), atol=1e-3)
+
+
+@pytest.mark.parametrize("params,match", [
+    ({"s_churn": 0.5}, "s_churn"),
+    ({"order": 4}, "order"),
+    ({"discretization_config": {"target": "EDMDiscretization"}}, "EDMDiscretization"),
+    ({"discretization_config": {"target": "LegacyDDPMDiscretization",
+                                "params": {"img2img_strength": 0.5}}}, "img2img_strength"),
+])
+def test_unported_sampler_options_raise(params, match):
+    with pytest.raises(KeyError, match=match):
+        config.build_sampler({"target": "DPMPP2SAncestralSampler", "params": params})
+
+
+def test_adm_in_channels_raises(tiny_clip):
+    """The JAX package builds ``label_emb`` from ``adm_in_channels``; the
+    port has no vector conditioning and refuses the config instead of
+    dropping the option."""
+    cfg = _tiny_config(adm_in_channels=32)
+    assert jax_config.build_engine(cfg).network.unet.adm_in_channels == 32
+    with pytest.raises(KeyError, match="adm_in_channels"):
+        config.build_engine(cfg, fake_annotator=True)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_supported_matches_the_jax_gate(itemsize):
+    shapes = [(n_q, n_k, d) for n_q in (256, 512, 1536, 6144) for n_k in (n_q, 2 * n_q, 100)
+              for d in (40, 80, 160)]
+    for n_q, n_k, d in shapes:
+        assert (sa.supported(n_q, n_k, d, itemsize=itemsize)
+                == jax_sa.supported(n_q, n_k, d, itemsize=itemsize)), (n_q, n_k, d)
+    with pytest.raises(TypeError):
+        sa.supported(6144, 6144, 40)  # no default element size
+    with pytest.raises(TypeError):
+        sa.supported(6144, 6144, 40, itemsize)  # keyword only

@@ -77,6 +77,38 @@ def test_kernel_matches_plain(cuda, kernel, plain, shape, n_k):
     assert _agrees(out, plain(q, k, v, scale))
 
 
+@pytest.mark.parametrize("layout", ["head_split", "contiguous"])
+@pytest.mark.parametrize("kernel,shape,n_k", [
+    ("spatial", (2, 8, 600, 40), 600),
+    ("spatial", (2, 8, 600, 40), 1200),
+    ("spatial", (2, 8, 600, 80), 600),
+    ("flash", (2, 1, 600, 512), 600),
+])
+def test_ragged_rows_and_lse_on_both_layouts(cuda, kernel, shape, n_k, layout):
+    """Kernels 1 and 3 at ragged n_q and n_k (the last query and key tiles
+    part empty: TMA's zero fill, the -inf key mask), on the head-split view
+    of a (B, N, H*D) projection and on a contiguous (B, H, N, D) tensor
+    (their tensor maps order the token and head dimensions apart): the
+    output on the first and the last batch row, and the log-sum-exp that
+    kernel 4 reads, within 1e-3 of log2 of the plain logsumexp."""
+    forward, plain = {"spatial": (sa._forward, sa.plain_spatial_attention),
+                      "flash": (fa._forward, fa.plain_flash_attention)}[kernel]
+    q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    b, h, n_q, d = shape
+    scale = d ** -0.5
+    lse = torch.empty((b * h, n_q), device=cuda, dtype=torch.float32)
+    out = forward(q, k, v, scale, lse)
+    ref = plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    for row in (0, b - 1):
+        assert _agrees(out[row], ref[row])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    want = (torch.logsumexp(s, dim=-1) / math.log(2.0)).reshape(b * h, n_q)
+    assert (lse - want).abs().max().item() <= 1e-3
+
+
 def test_dispatch_launches_the_routed_kernel(cuda):
     q, k, v = _qkv((1, 8, 1024, 40), 1024, cuda, seed=1)
     before = sa.kv_resident_attention.launches
