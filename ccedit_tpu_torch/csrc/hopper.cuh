@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned attention kernels
-// (spatial_attention.cu, flash_attention.cu), as raw PTX: they compile in
-// seconds, where CuTe's templates take minutes (cuda_guide.md: cp.async.bulk
-// :391, wgmma :519, mbarrier :617, setmaxnreg :701).
+// (spatial_attention.cu, flash_attention.cu, spatial_attention_bwd.cu), as
+// raw PTX: they compile in seconds, where CuTe's templates take minutes
+// (cuda_guide.md: cp.async.bulk :391, wgmma :519, mbarrier :617, setmaxnreg
+// :701).
 //
 // Shared-memory tiles.  Every TMA-loaded tile is a run of "chunks": 64
 // bf16 columns (128 bytes) of `rows` rows, stored [rows][128 B] with the
@@ -11,7 +12,8 @@
 // map D wide).  wgmma reads such a chunk
 //   K-major (the contraction along the 128-byte rows: Q and K for Q.K^T):
 //     SBO = 1024 (one 8-row group to the next), a 16-deep step 32 bytes on;
-//   MN-major (the contraction down the rows: V for P.V, imm-trans-b = 1):
+//   MN-major (the contraction down the rows: V for P.V, imm-trans-b = 1;
+//   an A operand so, imm-trans-a = 1, likewise along M):
 //     LBO = rows * 128 (one 64-column chunk to the next along N),
 //     SBO = 1024 (8 keys to the next 8), a 16-key step 2048 bytes on.
 // A tile written by threads (kernel 3's P) has no swizzle: 8 x 16-byte core
@@ -94,6 +96,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory; completion adds them to `bar`'s
+// transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Chunk c (columns 64c ..) of tokens n0 .. n0 + rows of head h, batch b,
 // from a tensor_map().
 __device__ __forceinline__ void load_chunk(void* dst, const CUtensorMap* map, bool tokens_inner,
@@ -169,11 +182,11 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // d[N/2] (+)= A * B, m64nNk16, bf16 in, fp32 accumulate; scale_d = 0
-// overwrites d.  SS: A and B from shared memory (A K-major; B K-major, or
-// MN-major with TB = 1).  RS: A from registers (the A fragment of
-// p_fragment), B from shared memory.  One specialisation per shape used;
-// the operand lists are PTX's, written out.
-template <int N, int TB>
+// overwrites d.  SS: A and B from shared memory (A K-major, or MN-major with
+// TA = 1; B K-major, or MN-major with TB = 1).  RS: A from registers (the A
+// fragment of p_fragment), B from shared memory.  One specialisation per
+// shape used; the operand lists are PTX's, written out.
+template <int N, int TB, int TA = 0>
 struct WgmmaSS;
 template <int N, int TB>
 struct WgmmaRS;
@@ -265,6 +278,91 @@ template <> struct WgmmaSS<256, 1> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<32, 0> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<32, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<40, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[20], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<64, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaSS<80, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "l"(da), "l"(db), "r"(scale_d)
         : "memory");
   }

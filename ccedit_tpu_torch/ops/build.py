@@ -44,10 +44,10 @@ _SIGNATURES = {
                                ctypes.c_float, _P),
     # int8, a, b, c, m, n, k, stream
     "ccedit_gemm": (_I, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, dout, lse, delta, dq, dk, dv, batch, heads, n_q, n_k, head_dim,
-    # strides, scale_log2, scale, stream
-    "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _STRIDES, ctypes.c_float, ctypes.c_float,
+    # q, k, v, out, dout, lse, stats, dq_acc, dq, dk, dv, batch, heads, n_q, n_k,
+    # head_dim, strides, scale_log2, scale, stream
+    "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _STRIDES, ctypes.c_float, ctypes.c_float,
                                      _P),
     # q, k, v, o, lse, batch, heads, n_q, n_k, head_dim, strides, scale_log2, stream
     "ccedit_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,

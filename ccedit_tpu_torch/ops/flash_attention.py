@@ -24,7 +24,7 @@ import math
 import torch
 
 from . import build
-from .spatial_attention import attention_function, launch_backward, plain_spatial_attention_bwd
+from .spatial_attention import attention_function, grad_operand, plain_spatial_attention_bwd
 
 HEAD_DIMS = (512,)
 _LOG2E = 1.0 / math.log(2.0)
@@ -61,10 +61,19 @@ def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
     tensor launches the kernel or raises."""
     if not q.is_cuda:
         return plain_spatial_attention_bwd(q, k, v, do, scale)
-    grads = launch_backward("ccedit_flash_attention_bwd", HEAD_DIMS, q, k, v, out, do, lse,
-                            scale)
+    do = grad_operand(do, q, lse)
+    b, h, n_q, d = q.shape
+    # delta = rowsum(dO * O) in fp32, a torch reduction outside the kernels
+    # (as the stock Pallas backward computes its `di`)
+    delta = (do.float() * out.float()).sum(-1).reshape(b * h, n_q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    strides = build.attention_operand_strides(q, k, v, do, HEAD_DIMS, dq=dq, dk=dk, dv=dv)
+    build.launch("ccedit_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, n_q, k.shape[2], d, strides, float(scale) * _LOG2E,
+                 float(scale), build.stream_of(q))
     flash_attention_bwd.launches += 1
-    return grads
+    return dq, dk, dv
 
 
 # kernel 3 forward with its lse, kernel 4 (d = 512) backward; plain versions

@@ -9,13 +9,14 @@ flash-attention backward that ``ccedit_tpu/ops/attention.py::
 _xla_attention_bwd`` runs at kernel 1's shapes.  The CUDA sources, with
 their design notes, are ``csrc/spatial_attention.cu`` (kernel 1: TMA,
 wgmma, warp-specialised for Hopper), ``csrc/spatial_attention_int8.cu``
-(kernel 1c) and ``csrc/spatial_attention_bwd.cu``.  When autograd needs
-the attention's gradient, ``kv_resident_attention`` goes through
-``SpatialAttention``: its
-forward launches kernel 1 with the row log-sum-exp saved, its backward
-launches kernel 4; on the CPU both are the plain versions.  ``launches``
-counts every launch of a wrapper; ``variant_launches`` splits them by
-``variant(q, k)`` (``int8 `` before it for kernel 1c).
+(kernel 1c) and ``csrc/spatial_attention_bwd.cu`` (kernel 4: one TMA +
+wgmma pass over the key tiles, delta from its own pre-kernel).  When
+autograd needs the attention's gradient, ``kv_resident_attention`` goes
+through ``SpatialAttention``: its forward launches kernel 1 with the row
+log-sum-exp saved, its backward launches kernel 4; on the CPU both are the
+plain versions.  ``launches`` counts every launch of a wrapper;
+``variant_launches`` splits them by ``variant(q, k)`` (``int8 `` before it
+for kernel 1c).
 
 ``quantized_qk=True`` is the JAX function's int8 path: ``quantize_qk``, the
 JAX pre-pass bit for bit (plain torch, as JAX leaves it to XLA), quantizes q
@@ -23,7 +24,10 @@ and k per (batch, head); kernel 1c computes int32 QK^T and the fp32 softmax
 with the dequant factor folded into each (batch, head)'s logits scale, which
 stays on the device.  ``supported`` is the port's copy of the JAX gate that
 decides where the JAX package runs its Pallas kernel, and so where it
-quantizes (``ops/attention.py::quantizes``).  The int8 path has no gradient.
+quantizes (``ops/attention.py::quantizes``).  Its gradient is the JAX
+package's (``_kv_resident_diff``): ``QuantizedSpatialAttention`` runs
+kernel 1c forward and differentiates the exact attention, recomputed by
+kernel 1 for its lse and output, with kernel 4.
 """
 
 from __future__ import annotations
@@ -173,41 +177,50 @@ def _forward_int8(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
+# csrc/spatial_attention_bwd.cu's query tile: kernel 4's scratch rows are
+# padded to it
+_BWD_ROWS = 64
+
+
 def spatial_attention_bwd(q, k, v, out, do, lse, scale: float):
     """Kernel 4: dq, dk, dv of kernel 1's attention from its inputs, its
     output, the output's gradient ``do`` and kernel 1's ``lse``.  A CPU
     tensor takes the plain version (which recomputes from q, k, v); a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel or raises.  Its pre-kernel computes delta =
+    rowsum(dO * O) from ``out`` and ``do``; its fp32 scratch, the rows' lse
+    and delta and the dQ accumulator, is allocated here."""
     if not q.is_cuda:
         return plain_spatial_attention_bwd(q, k, v, do, scale)
-    grads = launch_backward("ccedit_spatial_attention_bwd", HEAD_DIMS, q, k, v, out, do,
-                            lse, scale)
+    do = grad_operand(do, q, lse)
+    b, h, n_q, d = q.shape
+    n_q_pad = -(-n_q // _BWD_ROWS) * _BWD_ROWS
+    stats = torch.empty((b * h, n_q_pad // _BWD_ROWS, 2, _BWD_ROWS), device=q.device,
+                        dtype=torch.float32)
+    dq_acc = torch.empty((b * h, n_q_pad, d), device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    strides = build.attention_operand_strides(q, k, v, out, HEAD_DIMS, do=do, dq=dq, dk=dk,
+                                              dv=dv)
+    build.launch("ccedit_spatial_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n_q,
+                 k.shape[2], d, strides, float(scale) * _LOG2E, float(scale),
+                 build.stream_of(q))
     spatial_attention_bwd.launches += 1
     spatial_attention_bwd.variant_launches[variant(q, k)] += 1
-    return grads
+    return dq, dk, dv
 
 
-def launch_backward(entry: str, head_dims, q, k, v, out, do, lse, scale: float):
-    """Launch a flash backward C entry (kernel 4: ``entry`` is
-    ``ccedit_spatial_attention_bwd`` or, at d = 512,
-    ``ccedit_flash_attention_bwd``) on CUDA tensors; returns dq, dk, dv."""
-    do = do.to(q.dtype)
-    if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
-        do = do.contiguous()
-    b, h, n_q, d = q.shape
+def grad_operand(do, q, lse):
+    """``do`` in q's dtype as a backward kernel's operand (kernel 4 at every
+    d), after checking ``lse``."""
+    b, h, n_q, _ = q.shape
     if lse.shape != (b * h, n_q) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {(b * h, n_q)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    # delta = rowsum(dO * O) in fp32, outside the kernels (as the stock
-    # Pallas backward computes its `di`)
-    delta = (do.float() * out.float()).sum(-1).reshape(b * h, n_q)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    strides = build.attention_operand_strides(q, k, v, do, head_dims, dq=dq, dk=dk, dv=dv)
-    build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, h, n_q, k.shape[2], d, strides, float(scale) * _LOG2E,
-                 float(scale), build.stream_of(q))
-    return dq, dk, dv
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()
+    return do
 
 
 def attention_function(name: str, forward, plain, backward) -> type:
@@ -245,19 +258,45 @@ SpatialAttention = attention_function("SpatialAttention", _forward, plain_spatia
                                       spatial_attention_bwd)
 
 
+class QuantizedSpatialAttention(torch.autograd.Function):
+    """The int8 QK^T attention with the JAX package's gradient
+    (``ccedit_tpu/ops/attention.py::_kv_resident_diff``): kernel 1c
+    forward; backward the exact attention's, as ``_xla_attention_bwd``
+    differentiates an exact recompute.  On a CUDA tensor the backward runs
+    kernel 1 again for the exact output and lse, then kernel 4; on the CPU
+    both passes are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if not q.is_cuda:
+            return plain_spatial_attention_int8(q, k, v, scale)
+        return _forward_int8(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if not q.is_cuda:
+            return (*plain_spatial_attention_bwd(q, k, v, do, ctx.scale), None)
+        b, h, n_q, _ = q.shape
+        lse = torch.empty((b * h, n_q), device=q.device, dtype=torch.float32)
+        out = _forward(q, k, v, ctx.scale, lse)
+        return (*spatial_attention_bwd(q, k, v, out, do, lse, ctx.scale), None)
+
+
 def kv_resident_attention(q, k, v, scale: float, quantized_qk: bool = False) -> torch.Tensor:
     """Exact attention over (B, H, N, D), or with ``quantized_qk`` the int8
     QK^T attention (kernel 1c).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  The exact path is
-    differentiable: when autograd needs the gradient, it goes through
-    ``SpatialAttention``.  The int8 path raises there instead: kernel 4
-    needs the exact log-sum-exp, and the JAX package's trainer refuses the
-    mode too."""
+    CUDA tensor launches the kernel or raises.  Both are differentiable:
+    when autograd needs the gradient, the exact path goes through
+    ``SpatialAttention`` and the int8 path through
+    ``QuantizedSpatialAttention``, whose gradient is the exact attention's,
+    as in the JAX package.  The trainers still refuse the int8 mode
+    (``train/trainer.py::assert_exact_arithmetic``)."""
     if quantized_qk:
         if build.needs_grad(q, k, v):
-            raise RuntimeError("the int8 QK^T attention has no gradient: turn it off "
-                               "(set_quantized_qk(False), unset CCEDIT_QUANT_QK/CCEDIT_INT8) "
-                               "to train")
+            return QuantizedSpatialAttention.apply(q, k, v, scale)
         if not q.is_cuda:
             return plain_spatial_attention_int8(q, k, v, scale)
         return _forward_int8(q, k, v, scale)

@@ -73,10 +73,12 @@ def sdpa_backend(q, k, v, scale: float) -> str:
         return "unknown"
 
 
-def sdpa_ms(q, k, v, scale: float, iters: int,
-            grad_out: Optional[torch.Tensor] = None) -> Tuple[Optional[float], str]:
+def sdpa_ms(q, k, v, scale: float, iters: int, grad_out: Optional[torch.Tensor] = None,
+            backward_only: bool = False) -> Tuple[Optional[float], str]:
     """The time of PyTorch's own ``scaled_dot_product_attention`` on these
-    inputs (forward, or forward and backward given ``grad_out``), and the
+    inputs (forward, or forward and backward given ``grad_out``; with
+    ``backward_only`` as well, the backward alone: one forward kept with
+    ``retain_graph``, then only ``torch.autograd.grad`` timed), and the
     backend it took: a yardstick beside a kernel, never called by the port.
     (None, "out of memory") where it does not fit beside the caller's
     tensors."""
@@ -91,6 +93,11 @@ def sdpa_ms(q, k, v, scale: float, iters: int,
             return ms, backend
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
         backend = sdpa_backend(qg, kg, vg, scale)
+        if backward_only:
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), grad_out,
+                                                          retain_graph=True), iters)
+            return ms, backend
 
         def step():
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)

@@ -38,9 +38,10 @@ from ..ops.attention import quantized_qk_enabled
 def assert_exact_arithmetic() -> None:
     """Refuse to train with the int8 QK^T attention on (the JAX trainer's
     guard, QK half only: the port has no W8A8 path).  round() has zero
-    gradient almost everywhere, and the quantized forward has no backward
-    kernel, so ``kv_resident_attention`` would raise inside the first step
-    anyway; this says why before any work is done."""
+    gradient almost everywhere, so the quantized attention's gradient is
+    the exact recompute's (``QuantizedSpatialAttention``, as in the JAX
+    package): an int8 forward under an exact backward is an inconsistent
+    pair to train on."""
     if quantized_qk_enabled():
         raise RuntimeError("training requires exact arithmetic: unset CCEDIT_QUANT_QK/"
                            "CCEDIT_INT8 or call set_quantized_qk(False) before fit()")

@@ -146,6 +146,9 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
     ((1, 2, 512, 80), 512),
     ((1, 2, 300, 160), 250),
     ((1, 2, 256, 40), 512),   # n_k = 2 * n_q
+    ((2, 8, 600, 40), 1200),  # ragged, n_k = 2 * n_q
+    ((2, 8, 600, 80), 600),
+    ((1, 2, 700, 160), 1000),  # ragged, several query tiles of the d = 160 halves
 ])
 def test_backward_kernel_matches_plain(cuda, shape, n_k):
     q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
@@ -162,6 +165,22 @@ def test_backward_kernel_matches_plain(cuda, shape, n_k):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
         assert torch.isfinite(got.float()).all() and rel <= TOL
+
+
+def test_backward_check_refuses_delta_left_out(cuda):
+    """Kernel 4 handed a zero output computes delta = rowsum(dO * O) = 0,
+    so dS = P * dP: the tolerance above must refuse it."""
+    shape = (1, 8, 768, 80)
+    q, k, v = _qkv(shape, 768, cuda, seed=11)
+    do = _qkv(shape, 768, cuda, seed=12)[0]
+    scale = 80 ** -0.5
+    lse = torch.empty((8, 768), device=cuda, dtype=torch.float32)
+    out = sa._forward(q, k, v, scale, lse)
+    grads = sa.spatial_attention_bwd(q, k, v, torch.zeros_like(out), do, lse, scale)
+    refs = sa.plain_spatial_attention_bwd(q, k, v, do, scale)
+    rels = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            for g, r in zip(grads, refs)]
+    assert max(rels) > TOL
 
 
 def test_autograd_through_the_dispatch_launches_kernels_1_and_4(cuda):
@@ -361,7 +380,8 @@ def test_int8_prepass_on_the_card_equals_the_cpu_one(cuda, d):
 
 def test_int8_switch_routes_to_kernel_1c(cuda):
     """With the switch on, a gated shape launches the int8 variant; d = 160
-    and n_q not a multiple of 128 stay exact; a tensor needing a grad raises."""
+    and n_q not a multiple of 128 stay exact; a tensor needing a grad still
+    takes kernel 1c forward (its gradient is the exact one, below)."""
     shapes = (((1, 8, 1024, 40), 2048, "int8 d40 n_k!=n_q"),
               ((1, 8, 1024, 160), 1024, "d160 n_k=n_q"),
               ((1, 8, 1000, 40), 1000, "d40 n_k=n_q"))
@@ -373,10 +393,39 @@ def test_int8_switch_routes_to_kernel_1c(cuda):
             att.dot_product_attention(q, k, v)
             assert att.launch_counts()[f"spatial_attention[{variant}]"] == before + 1
         q, k, v = _qkv((1, 8, 1024, 40), 1024, cuda, seed=7)
-        with pytest.raises(RuntimeError, match="no gradient"):
-            att.dot_product_attention(q.requires_grad_(True), k, v)
+        before = att.launch_counts().get("spatial_attention[int8 d40 n_k=n_q]", 0)
+        att.dot_product_attention(q.requires_grad_(True), k, v)
+        assert att.launch_counts()["spatial_attention[int8 d40 n_k=n_q]"] == before + 1
     finally:
         att.set_quantized_qk(False)
+
+
+@pytest.mark.parametrize("shape,n_k", [((1, 8, 1024, 40), 1024), ((2, 8, 512, 80), 1024)])
+def test_int8_gradient_is_the_exact_paths(cuda, shape, n_k):
+    """With the switch on, the gradient through the int8 QK^T attention is
+    the exact attention's (the JAX package's ``_kv_resident_diff``): within
+    2e-2 of max|exact| on dq, dk and dv, from one launch of kernel 1c, one
+    of kernel 1 (the exact recompute) and one of kernel 4."""
+    q, k, v = _qkv(shape, n_k, cuda, seed=13)
+    do = _qkv(shape, shape[2], cuda, seed=14)[0]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    exact = torch.autograd.grad(att.dot_product_attention(*leaves), leaves, do)
+    try:
+        att.set_quantized_qk(True)
+        counts = att.launch_counts()
+        out = att.dot_product_attention(*leaves)
+        quant = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        after = att.launch_counts()
+    finally:
+        att.set_quantized_qk(False)
+    variant = sa.variant(q, k)
+    assert after[f"spatial_attention[int8 {variant}]"] == counts.get(f"spatial_attention[int8 {variant}]", 0) + 1
+    assert after[f"spatial_attention[{variant}]"] == counts.get(f"spatial_attention[{variant}]", 0) + 1
+    assert after["spatial_attention_bwd"] == counts["spatial_attention_bwd"] + 1
+    for got, want in zip(quant, exact):
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        assert torch.isfinite(got.float()).all() and rel <= TOL
 
 
 @pytest.mark.parametrize("stage,transposed,int8", [

@@ -13,7 +13,9 @@
 - A narrow TVI2V ``CCEditNetwork`` (level-0 head_dim 40 over 512 tokens,
   CFCA over 1024 keys) matches the JAX network with the switch on in both
   packages, and differs from the exact network with cosine > 0.99.
-- The trainer's guard and the raise of a quantized call that needs a grad.
+- The trainer's guard; a quantized call that needs a grad takes kernel
+  1c's forward and the exact attention's gradient (its parity with the
+  JAX VJP is in ``test_torch_port_int8_grad.py``).
 """
 
 import functools
@@ -286,10 +288,22 @@ def test_trainer_refuses_the_switch(quantized, tmp_path):
 
 
 def test_a_quantized_call_that_needs_a_grad_raises(quantized):
+    """A quantized call that needs a grad does not raise: through the
+    dispatch and directly, it returns kernel 1c's plain forward and
+    differentiates the exact attention, as the JAX package's
+    ``_kv_resident_diff`` does."""
     q, k, v = map(torch.from_numpy, _qkv((1, 2, 512, 40), 512, seed=4))
+    do = torch.from_numpy(_qkv((1, 2, 512, 40), 512, seed=5)[0])
+    scale = 40 ** -0.5
     with torch.no_grad():
         att.dot_product_attention(q.requires_grad_(True), k, v)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        att.dot_product_attention(q, k, v)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        sa.kv_resident_attention(q, k, v, 0.1, quantized_qk=True)
+    want = sa.plain_spatial_attention_bwd(q.detach(), k, v, do, scale)
+    for call in (lambda: att.dot_product_attention(q, k, v),
+                 lambda: sa.kv_resident_attention(q, k, v, scale, quantized_qk=True)):
+        q.grad = None
+        out = call()
+        assert out.grad_fn is not None
+        torch.testing.assert_close(out.detach(), _PLAIN_INT8(q.detach(), k, v, scale),
+                                   rtol=0, atol=0)
+        out.backward(do)
+        torch.testing.assert_close(q.grad, want[0], rtol=0, atol=1e-6)

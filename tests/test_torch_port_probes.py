@@ -9,7 +9,8 @@ variants): row sums within 1e-5 of max|JAX| (fp32 sums of 256 terms in
 another order), attention within 1e-5 abs.  Kernel 6's plain version is
 exact against numpy's int64 product, and within fp32 rounding of float64
 for bf16.  Also the bounds of ``scripts/roofline.py`` at the shapes
-``PERF.md`` quotes.
+``PERF.md`` quotes, and that each variant of ``scripts/bwd_breakdown.py``
+still patches kernel 4's source (it runs only on the card).
 """
 
 import functools
@@ -23,6 +24,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from ccedit_tpu_torch.scripts import bwd_breakdown as bb
 from ccedit_tpu_torch.scripts import int8_probe as ip
 from ccedit_tpu_torch.scripts import kv_resident_attn as kr
 from ccedit_tpu_torch.scripts import roofline
@@ -178,3 +180,11 @@ def test_probe_and_gemm_bounds():
     assert ip.gemm_bound(1024, 512, 1024, True)["bound_what"] == "bytes"
     assert ip.gemm_bound(4096, 4096, 4096, True)["bound_ms"] == pytest.approx(0.06945, rel=1e-3)
     assert ip.gemm_bound(4096, 4096, 4096, False)["bound_ms"] == pytest.approx(0.13897, rel=1e-3)
+
+
+@pytest.mark.parametrize("name", sorted(bb.VARIANTS))
+def test_bwd_breakdown_variant_patches_the_kernel_source(name):
+    """Every substitution of the variant finds its text in
+    ``csrc/spatial_attention_bwd.cu`` (``patched`` raises otherwise)."""
+    src = (bb.build.CSRC / "spatial_attention_bwd.cu").read_text()
+    assert bb.patched(name) != src
