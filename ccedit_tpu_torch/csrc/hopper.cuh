@@ -16,6 +16,10 @@
 //   an A operand so, imm-trans-a = 1, likewise along M):
 //     LBO = rows * 128 (one 64-column chunk to the next along N),
 //     SBO = 1024 (8 keys to the next 8), a 16-key step 2048 bytes on.
+// An int8 operand (kernel 1c's q8 and k8) is tiled the same way in bytes:
+// a chunk is 128 int8 columns, and an s8 wgmma reads it K-major with the
+// same descriptor, SBO = 1024, a 32-deep step 32 bytes on; 8-bit wgmma
+// takes only K-major operands.
 // A tile written by threads (kernel 3's P) has no swizzle: 8 x 16-byte core
 // matrices, [row / 8][k / 8][row % 8][k % 8], LBO = 128 (next core matrix
 // along K), SBO = (K / 8) * 128 (next 8 rows).
@@ -173,6 +177,12 @@ template <int K>
 __device__ __forceinline__ void fence_regs(float (&r)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int K>
+__device__ __forceinline__ void fence_regs(int (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -459,15 +469,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, H, N, D) bf16 operand with element strides `s` (unit D stride) as a
-// 4-D tensor map whose box is one 128-byte-swizzled chunk: 64 columns of
-// `rows` tokens of one head.  Its dimensions go by increasing stride: (D,
+// A (B, H, N, D) bf16 operand (or, with `int8`, an int8 one) with element
+// strides `s` (unit D stride) as a 4-D tensor map whose box is one
+// 128-byte-swizzled chunk: 64 bf16 (128 int8) columns of `rows` tokens of
+// one head.  Its dimensions go by increasing stride: (D,
 // H, N, B) for the head-split view of a (B, N, H*D) projection, (D, N, H,
 // B) for a contiguous (B, H, N, D) tensor (`*tokens_inner` says which; see
 // load_chunk).  Columns past D and tokens past N read as zeros.  Returns a
 // cudaError_t (0 = success).
 inline int tensor_map(CUtensorMap* map, bool* tokens_inner, const void* base, int batch,
-                      int heads, int n, int d, Strides s, int rows) {
+                      int heads, int n, int d, Strides s, int rows, bool int8 = false) {
+  const cuuint64_t esize = int8 ? 1 : 2;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   *tokens_inner = s.n < s.h;
@@ -476,13 +488,15 @@ inline int tensor_map(CUtensorMap* map, bool* tokens_inner, const void* base, in
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(mid[a][0]),
                               static_cast<cuuint64_t>(mid[1 - a][0]),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(mid[a][1]) * 2,
-                                 static_cast<cuuint64_t>(mid[1 - a][1]) * 2,
-                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(mid[a][1]) * esize,
+                                 static_cast<cuuint64_t>(mid[1 - a][1]) * esize,
+                                 static_cast<cuuint64_t>(s.b) * esize};
   const cuuint32_t r = static_cast<cuuint32_t>(rows);
-  const cuuint32_t box[4] = {64, *tokens_inner ? r : 1u, *tokens_inner ? 1u : r, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize), *tokens_inner ? r : 1u,
+                             *tokens_inner ? 1u : r, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult res = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          4, const_cast<void*>(base),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

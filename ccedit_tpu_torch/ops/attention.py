@@ -114,6 +114,7 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None) -> torch.Tenso
 
 
 _COUNTED = {"spatial_attention": sa.kv_resident_attention,
+            "quantize_qk": sa.prepass,
             "spatial_attention_bwd": sa.spatial_attention_bwd,
             "temporal_attention": ta.small_seq_attention,
             "flash_attention": fa.flash_attention,

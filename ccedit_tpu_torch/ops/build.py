@@ -39,6 +39,9 @@ _SIGNATURES = {
                                  ctypes.c_float, _P),
     # q8, k8, v, o, scales, batch, heads, n_q, n_k, head_dim, strides, stream
     "ccedit_spatial_attention_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _P),
+    # q, k, q8, k8, amax, scales, batch, heads, n_q, n_k, head_dim, strides, scale, stream
+    "ccedit_quantize_qk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+                           ctypes.c_float, _P),
     # stage, int8, transposed, q, k, v, out, batch, n, strides, scale_log2, stream
     "ccedit_attention_probe": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _STRIDES,
                                ctypes.c_float, _P),
@@ -183,6 +186,19 @@ def attention_operand_strides(q, k, v, out, head_dims: Sequence[int], **more):
         raise ValueError(f"mismatched q/k/v shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     return _strides([x for _, x in operands])
+
+
+def prepass_operand_strides(q, k, head_dims: Sequence[int]):
+    """Validate the bf16 (B, H, N, D) q and k of kernel 1c's pre-pass and
+    return their (batch, head, token) strides as the C array it takes."""
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"head_dim {q.shape[-1]} has no int8 kernel instantiation "
+                         f"(supported: {tuple(head_dims)})")
+    for name, x in (("q", q), ("k", k)):
+        _check_operand(name, x, torch.bfloat16, q.device)
+    if q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"mismatched q/k shapes {tuple(q.shape)}, {tuple(k.shape)}")
+    return _strides((q, k))
 
 
 def int8_attention_operand_strides(q8, k8, v, out, head_dims: Sequence[int]):

@@ -7,9 +7,10 @@ its one-chunk branch (self-attention, n_k = n_q) and its multi-chunk branch
 (the CFCA cross-frame attention, n_k = 2 * n_q), and of the stock Pallas
 flash-attention backward that ``ccedit_tpu/ops/attention.py::
 _xla_attention_bwd`` runs at kernel 1's shapes.  The CUDA sources, with
-their design notes, are ``csrc/spatial_attention.cu`` (kernel 1: TMA,
-wgmma, warp-specialised for Hopper), ``csrc/spatial_attention_int8.cu``
-(kernel 1c) and ``csrc/spatial_attention_bwd.cu`` (kernel 4: one TMA +
+their design notes, are ``csrc/spatial_attention.cu`` (kernel 1: TMA, wgmma,
+warp-specialised for Hopper), ``csrc/spatial_attention_int8.cu`` (kernel
+1c, the same design with an s8 wgmma Q.K^T), ``csrc/quantize_qk.cu`` (kernel
+1c's pre-pass) and ``csrc/spatial_attention_bwd.cu`` (kernel 4: one TMA +
 wgmma pass over the key tiles, delta from its own pre-kernel).  When
 autograd needs the attention's gradient, ``kv_resident_attention`` goes
 through ``SpatialAttention``: its forward launches kernel 1 with the row
@@ -18,16 +19,18 @@ plain versions.  ``launches`` counts every launch of a wrapper;
 ``variant_launches`` splits them by ``variant(q, k)`` (``int8 `` before it
 for kernel 1c).
 
-``quantized_qk=True`` is the JAX function's int8 path: ``quantize_qk``, the
-JAX pre-pass bit for bit (plain torch, as JAX leaves it to XLA), quantizes q
-and k per (batch, head); kernel 1c computes int32 QK^T and the fp32 softmax
-with the dequant factor folded into each (batch, head)'s logits scale, which
-stays on the device.  ``supported`` is the port's copy of the JAX gate that
-decides where the JAX package runs its Pallas kernel, and so where it
-quantizes (``ops/attention.py::quantizes``).  Its gradient is the JAX
-package's (``_kv_resident_diff``): ``QuantizedSpatialAttention`` runs
-kernel 1c forward and differentiates the exact attention, recomputed by
-kernel 1 for its lse and output, with kernel 4.
+``quantized_qk=True`` is the JAX function's int8 path: ``prepass`` quantizes
+q and k per (batch, head), the JAX pre-pass bit for bit (on a CUDA tensor
+``csrc/quantize_qk.cu``; its plain version is ``quantize_qk``, plain torch
+as JAX leaves it to XLA, with the kernel's padded rows); kernel 1c computes
+int32 QK^T and the fp32 softmax with the dequant factor folded into each
+(batch, head)'s logits scale, which stays on the device.  ``supported`` is
+the port's copy of the JAX gate that decides where the JAX package runs its
+Pallas kernel, and so where it quantizes (``ops/attention.py::quantizes``).
+Its gradient is the JAX package's (``_kv_resident_diff``):
+``QuantizedSpatialAttention`` runs kernel 1c forward and differentiates the
+exact attention, recomputed by kernel 1 for its lse and output, with kernel
+4.
 """
 
 from __future__ import annotations
@@ -106,6 +109,45 @@ def _quantize(x):
     return x8.round_().clamp_(-127, 127).to(torch.int8), amax
 
 
+def plain_prepass(q, k, scale: float):
+    """The pre-pass kernel's plain version: ``quantize_qk`` with q8's and
+    k8's rows zero-padded to ``int8_width`` columns, the layout kernel 1c
+    reads."""
+    q8, k8, scales = quantize_qk(q, k, scale)
+    pad = int8_width(q.shape[-1]) - q.shape[-1]
+    if pad:
+        q8, k8 = (torch.nn.functional.pad(x, (0, pad)) for x in (q8, k8))
+    return q8, k8, scales
+
+
+def prepass(q, k, scale: float):
+    """Kernel 1c's pre-pass: int8 q8 and k8, contiguous (B, H, N,
+    ``int8_width``) with zero columns past head_dim, and the fp32 (B * H,)
+    folded logits scales.  A CPU tensor takes ``plain_prepass``; a CUDA
+    tensor launches ``csrc/quantize_qk.cu`` (amax, then quantize) or
+    raises.  ``_forward_int8`` looks this function up at each call, which is
+    where ``chip_smoke.py`` plants its dequant fault; the launch count stays
+    on this function (``_PREPASS``) whatever replaces the module's name."""
+    if not q.is_cuda:
+        return plain_prepass(q, k, scale)
+    strides = build.prepass_operand_strides(q, k, INT8_HEAD_DIMS)
+    b, h, n_q, d = q.shape
+    n_k = k.shape[2]
+    width = int8_width(d)
+    q8 = torch.empty((b, h, n_q, width), device=q.device, dtype=torch.int8)
+    k8 = torch.empty((b, h, n_k, width), device=q.device, dtype=torch.int8)
+    amax = torch.empty((2, b * h), device=q.device, dtype=torch.int32)
+    scales = torch.empty((b * h,), device=q.device, dtype=torch.float32)
+    build.launch("ccedit_quantize_qk", q.data_ptr(), k.data_ptr(), q8.data_ptr(),
+                 k8.data_ptr(), amax.data_ptr(), scales.data_ptr(), b, h, n_q, n_k, d,
+                 strides, float(scale), build.stream_of(q))
+    _PREPASS.launches += 1
+    return q8, k8, scales
+
+
+_PREPASS = prepass
+
+
 def plain_spatial_attention(q, k, v, scale: float) -> torch.Tensor:
     """Matmul + fp32 softmax; probabilities cast to v's dtype for P.V, as the
     TPU kernel does."""
@@ -160,13 +202,9 @@ def _forward(q, k, v, scale: float, lse=None) -> torch.Tensor:
 
 
 def _forward_int8(q, k, v, scale: float) -> torch.Tensor:
-    """Quantize q and k (``quantize_qk``, zero-padded to ``int8_width``
-    columns where head_dim is not a whole 16 bytes) and launch kernel 1c."""
+    """Launch kernel 1c's pre-pass (``prepass``) and kernel 1c."""
     b, h, n_q, d = q.shape
-    q8, k8, scales = quantize_qk(q, k, scale)
-    pad = int8_width(d) - d
-    if pad:
-        q8, k8 = (torch.nn.functional.pad(x, (0, pad)) for x in (q8, k8))
+    q8, k8, scales = prepass(q, k, scale)
     out = torch.empty_like(q)
     strides = build.int8_attention_operand_strides(q8, k8, v, out, INT8_HEAD_DIMS)
     build.launch("ccedit_spatial_attention_int8", q8.data_ptr(), k8.data_ptr(),
@@ -309,5 +347,6 @@ def kv_resident_attention(q, k, v, scale: float, quantized_qk: bool = False) -> 
 
 kv_resident_attention.launches = 0
 kv_resident_attention.variant_launches = collections.Counter()
+_PREPASS.launches = 0
 spatial_attention_bwd.launches = 0
 spatial_attention_bwd.variant_launches = collections.Counter()

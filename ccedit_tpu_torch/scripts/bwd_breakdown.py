@@ -96,36 +96,40 @@ VARIANTS = {
 }
 
 
-def patched(name: str) -> str:
-    """The kernel's source with variant ``name``'s substitutions; each must
+def patched(name: str, variants: dict = VARIANTS,
+            source: str = "spatial_attention_bwd.cu") -> str:
+    """``csrc/<source>`` with variant ``name``'s substitutions; each must
     apply."""
-    src = (build.CSRC / "spatial_attention_bwd.cu").read_text()
-    for old, new in VARIANTS[name]:
+    src = (build.CSRC / source).read_text()
+    for old, new in variants[name]:
         if old not in src:
-            raise ValueError(f"variant {name}: {old[:60]!r} is not in the kernel's source")
+            raise ValueError(f"variant {name}: {old[:60]!r} is not in {source}")
         src = src.replace(old, new)
     return src
 
 
-def build_variants() -> dict:
-    """Compile every variant in parallel; their C entries by name."""
+def build_variants(variants: dict = VARIANTS, source: str = "spatial_attention_bwd.cu",
+                   entry: str = "ccedit_spatial_attention_bwd", out=OUT) -> dict:
+    """Compile a patched copy of ``csrc/<source>`` for every variant, in
+    parallel, each into its own library under ``out``; their C entries
+    ``entry`` by name."""
     jobs = {}
-    for name in VARIANTS:
-        d = OUT / name
+    for name in variants:
+        d = out / name
         d.mkdir(parents=True, exist_ok=True)
         for header in build.CSRC.glob("*.cuh"):
             shutil.copy(header, d)
-        (d / "kernel.cu").write_text(patched(name))
+        (d / "kernel.cu").write_text(patched(name, variants, source))
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "kernel.cu")]
         jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
     fns = {}
     for name, (d, proc) in jobs.items():
-        out, _ = proc.communicate()
+        out_, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        fn = ctypes.CDLL(str(d / "lib.so")).ccedit_spatial_attention_bwd
-        fn.argtypes = build._SIGNATURES["ccedit_spatial_attention_bwd"]
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{out_}")
+        fn = getattr(ctypes.CDLL(str(d / "lib.so")), entry)
+        fn.argtypes = build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

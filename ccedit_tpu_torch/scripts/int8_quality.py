@@ -8,9 +8,9 @@ TV2V at 30 steps, CFG 7.5 by default; TVI2V at 50 steps, CFG 7) twice with
 the same seed, weights and noise, exact and then with ``set_quantized_qk
 (True)``, and reports the divergence: latent cosine and PSNR, per-frame
 pixel PSNR and SSIM, each edit's seconds and the quantized edit's kernel-1
-launches by variant.  The weights are seeded random, so the numbers measure
-the int8 arithmetic's divergence, not the perceptual quality of a trained
-model.  Prints one JSON line.
+and pre-pass launches.  The weights are seeded random, so the numbers
+measure the int8 arithmetic's divergence, not the perceptual quality of a
+trained model.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ def main(argv=None) -> None:
         "weights": "seeded random: measures the int8 arithmetic's divergence",
         "exact_seconds": runs[False]["seconds"], "qk8_seconds": runs[True]["seconds"],
         "qk8_launches": {k: n for k, n in runs[True]["launches"].items()
-                         if k.startswith("spatial_attention[")},
+                         if k.startswith(("spatial_attention[", "quantize_qk"))},
         "qk8": divergence(runs[False]["latents"], runs[True]["latents"],
                           runs[False]["frames"], runs[True]["frames"]),
     }))

@@ -16,6 +16,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..ops.spatial_attention import int8_width
+
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 EXP2_PER_S = 3.9e12
@@ -37,17 +39,25 @@ def bound(bf16_flops: float = 0.0, int8_ops: float = 0.0, exps: float = 0.0,
 def attention_bound(b: int, h: int, n_q: int, n_k: int, d: int, qk_int8: bool = False,
                     backward: bool = False) -> dict:
     """Softmax attention over (b, h, n_q | n_k, d) bf16 operands: QK^T and
-    P.V (QK^T in int8 with ``qk_int8``), one exp2 a score, q, k, v read and
-    o written.  ``backward``: the five products of the flash backward (S
-    recomputed, dV, dP, dQ, dK), one exp2 a score, q, k, v, o, dO read and
-    dQ, dK, dV written."""
+    P.V (QK^T in int8 with ``qk_int8``, whose q and k are then the int8
+    rows kernel 1c reads, ``int8_width(d)`` bytes), one exp2 a score, q, k,
+    v read and o written.  ``backward``: the five products of the flash
+    backward (S recomputed, dV, dP, dQ, dK), one exp2 a score, q, k, v, o,
+    dO read and dQ, dK, dV written."""
     product = 2.0 * b * h * n_q * n_k * d
     exps = float(b * h * n_q * n_k)
     if backward:
         return bound(bf16_flops=5 * product, exps=exps,
                      nbytes=2.0 * b * h * d * (4 * n_q + 4 * n_k))
+    qk_bytes = float(b * h * (n_q + n_k)) * (int8_width(d) if qk_int8 else 2 * d)
     return bound(bf16_flops=product * (1 if qk_int8 else 2), int8_ops=product if qk_int8 else 0.0,
-                 exps=exps, nbytes=2.0 * b * h * d * (2 * n_q + 2 * n_k))
+                 exps=exps, nbytes=qk_bytes + 2.0 * b * h * d * (n_q + n_k))
+
+
+def prepass_bound(b: int, h: int, n_q: int, n_k: int, d: int) -> dict:
+    """Kernel 1c's pre-pass: bf16 q and k read once, their int8 rows
+    (``int8_width(d)`` bytes) and the fp32 (b * h) scales written once."""
+    return bound(nbytes=float(b * h * (n_q + n_k)) * (2 * d + int8_width(d)) + 4.0 * b * h)
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int) -> float:

@@ -23,8 +23,12 @@ Phases:
      out at the training shapes, which it must fail; at d = 512 (VAE
      training: (12,1,1024,512), the 512x512 fine-tune's (4,1,4096,512) and a
      ragged (2,1,600,512)) likewise.
-     Kernel 1c (the int8 QK^T path) is held to
-     ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1.
+     Kernel 1c (the int8 QK^T path, with its pre-pass) is held to
+     ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1, at
+     the level-0/1 shapes and ragged rows ((2,8,600,40) x 600 and x 1200,
+     (2,8,600,80) x 600); its pre-pass (``csrc/quantize_qk.cu``) is held
+     bit for bit to its plain version (``quantize_qk``, padded) at the four
+     level-0/1 shapes, on inputs planted with exact .5 ties.
      Every shape also gets its bound (``scripts/roofline.py``: the largest of
      the tensor, exponential and memory times on the H100's published peaks)
      and the time of PyTorch's ``scaled_dot_product_attention`` on the same
@@ -49,7 +53,8 @@ Phases:
      noise): it must launch only kernel 1c at d 40/80, and its final latents
      must stay within LATENT_COSINE of the exact edit's, while the same edit
      with a planted fault (the dequant factor left out of the folded logits
-     scale) must not.
+     scale, planted in the pre-pass wrapper that kernel 1c's forward calls,
+     ``without_dequant``) must not.
   5. TVI2V: the full-width TVI2V engine (CFCA centre+self, structure and
      appearance ControlNets, seeded random weights, bf16, a seeded random
      full-size DPT-Hybrid depth annotator), its network check, then one
@@ -191,10 +196,18 @@ KERNELS = (
          count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
     dict(name="spatial_attention_1c", kernel="spatial_int8", path="tvi2v_int8",
          source="ccedit_tpu_torch/csrc/spatial_attention_int8.cu",
-         replaces="ccedit_tpu/ops/spatial_attention.py:190",
+         replaces="ccedit_tpu/ops/spatial_attention.py:202",
          shapes=(((34, 8, 6144, 40), 6144, 1), ((34, 8, 1536, 80), 1536, 34),
-                 ((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34)),
+                 ((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34),
+                 ((2, 8, 600, 40), 600, 1), ((2, 8, 600, 40), 1200, 1),
+                 ((2, 8, 600, 80), 600, 1)),
          count=lambda st: _variant_sum(st, "int8 d", "n_k")),
+    dict(name="quantize_qk", kernel="prepass", path="tvi2v_int8",
+         source="ccedit_tpu_torch/csrc/quantize_qk.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:191",
+         shapes=(((34, 8, 6144, 40), 6144, 34), ((34, 8, 1536, 80), 1536, 34),
+                 ((34, 8, 6144, 40), 12288, 34), ((34, 8, 1536, 80), 3072, 34)),
+         count=lambda st: sum(c.get("quantize_qk", 0) for c in st.values())),
     dict(name="temporal_attention", kernel="temporal", path="train",
          source="ccedit_tpu_torch/csrc/temporal_attention.cu",
          replaces="ccedit_tpu/ops/temporal_attention.py:48",
@@ -240,9 +253,10 @@ PATH_KERNELS = {
     "tv2v": ("spatial_attention", "temporal_attention", "flash_attention"),
     "tvi2v": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
               "flash_attention", "flash_attention_encoder"),
-    "tv2v_int8": ("spatial_attention_1c", "temporal_attention", "flash_attention"),
-    "tvi2v_int8": ("spatial_attention_1c", "temporal_attention", "flash_attention",
-                   "flash_attention_encoder"),
+    "tv2v_int8": ("spatial_attention_1c", "quantize_qk", "temporal_attention",
+                  "flash_attention"),
+    "tvi2v_int8": ("spatial_attention_1c", "quantize_qk", "temporal_attention",
+                   "flash_attention", "flash_attention_encoder"),
     "train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
               "spatial_attention_bwd"),
     "vae_train": ("flash_attention_lse", "flash_attention_bwd"),
@@ -364,6 +378,59 @@ def check_backward(kind, shape, n_k, nb, gen, device) -> dict:
                 library=f"scaled_dot_product_attention backward [{backend}]", **bound)
 
 
+def tie_inputs(shape, n_k, gen, device):
+    """q and k in the model's layout for the pre-pass check, each with a
+    head of exact half-integers whose amax is 127 (so x * 127 / amax is x
+    itself and round-half-even decides every one of them): q's first head
+    of its first batch row, k's last head of its last."""
+    import torch
+
+    q = model_layout(shape, gen, device)
+    k = model_layout(shape[:2] + (n_k, shape[3]), gen, device)
+    for x, (b, h) in ((q, (0, 0)), (k, (-1, -1))):
+        x[b, h] = torch.round(x[b, h].float() * 20).div(2).to(x.dtype)
+        x[b, h, 0, 0] = 127.0
+    return q, k
+
+
+def check_prepass(shape, n_k, gen, device) -> dict:
+    """Kernel 1c's pre-pass (``csrc/quantize_qk.cu``) at one shape: q8, k8
+    and the folded scales equal, bit for bit, to its plain version on the
+    same tensors (``plain_prepass``: ``quantize_qk``, the JAX pre-pass bit
+    for bit, with the kernel's padded rows), on inputs planted with exact .5
+    ties (``tie_inputs``); its time beside ``quantize_qk``'s and the plain
+    version's."""
+    import torch
+
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+    from ccedit_tpu_torch.scripts import roofline
+
+    q, k = tie_inputs(shape, n_k, gen, device)
+    scale = shape[-1] ** -0.5
+    got, want = sa.prepass(q, k, scale), sa.plain_prepass(q, k, scale)
+    torch.cuda.synchronize()
+    same = [a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want)]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    ties = int(((q[0, 0].float() - q[0, 0].float().trunc()).abs() == 0.5).sum().item())
+    ms = cuda_time_ms(lambda: sa.prepass(q, k, scale), 10)
+    quantize_ms = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
+    plain_ms = cuda_time_ms(lambda: sa.plain_prepass(q, k, scale), 5)
+    bound = roofline.prepass_bound(*shape[:3], n_k, shape[3])
+    print(f"[kernels] quantize_qk (pre-pass) q {shape} n_k {n_k}: {ms:.4f} ms (bound "
+          f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}); quantize_qk {quantize_ms:.4f} ms, "
+          f"plain (quantize_qk + pad) {plain_ms:.4f} ms; q8/k8/scales bit-identical to the "
+          f"plain version: {same} ({ties} ties in q's planted head), max_abs_err {err:.3e}",
+          flush=True)
+    if not all(same) or ties < 100:
+        raise RuntimeError(f"the pre-pass at {shape} x {n_k} differs from quantize_qk: "
+                           f"equal {same}, max_abs_err {err}, {ties} ties planted")
+    return dict(shape=list(shape), n_k=n_k, compare_shape=list(shape), max_abs_err=err,
+                max_rel_err=0.0, bit_identical=True, ties=ties, compared_ms=ms,
+                plain_ms=plain_ms, quantize_qk_ms=quantize_ms, ms=ms, library_ms=None,
+                library="none (no single PyTorch call quantizes per (batch, head))", **bound)
+
+
 def cosine(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return (a @ b / (a.norm() * b.norm())).item()
@@ -399,6 +466,10 @@ def check_kernels(device) -> list:
         for shape, n_k, nb in spec["shapes"]:
             if spec["kernel"] in ("spatial_bwd", "flash_bwd"):
                 per_shape.append(check_backward(spec["kernel"], shape, n_k, nb, gen, device))
+                torch.cuda.empty_cache()
+                continue
+            if spec["kernel"] == "prepass":
+                per_shape.append(check_prepass(shape, n_k, gen, device))
                 torch.cuda.empty_cache()
                 continue
             kernel, plain = fns[spec["kernel"]]
@@ -440,10 +511,12 @@ def check_kernels(device) -> list:
                 extra["lse_max_abs_err"] = lse_err
                 note = f", lse max_abs_err {lse_err:.3e} (tol {LSE_TOLERANCE:.0e})"
             if spec["kernel"] == "spatial_int8":
-                extra["prepass_ms"] = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
+                extra["prepass_ms"] = cuda_time_ms(lambda: sa.prepass(q, k, scale), 5)
+                extra["quantize_qk_ms"] = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
                 note = (f", cosine to exact kernel 1 {extra['cosine_to_exact']:.6f} (> "
-                        f"{INT8_COSINE}), its pre-pass (quantize_qk) at the full shape "
-                        f"{extra['prepass_ms']:.4f} ms")
+                        f"{INT8_COSINE}), its pre-pass at the full shape "
+                        f"{extra['prepass_ms']:.4f} ms (quantize_qk {extra['quantize_qk_ms']:.4f} "
+                        f"ms)")
             ms = cuda_time_ms(lambda: kernel(qs, ks, vs, scale), 5)
             plain_ms = cuda_time_ms(lambda: plain(qs, ks, vs, scale), 3)
             cmp_shape = (nb,) + tuple(shape[1:])
@@ -672,6 +745,20 @@ def edit_counted(edit, device, steps: int, seed: int, label: str):
     return out, latents, launches
 
 
+def without_dequant(prepass):
+    """``prepass`` (``ops/spatial_attention.py``, the pre-pass wrapper that
+    kernel 1c's forward calls) with the planted fault of phases 4 and 5: the
+    dequant factor left out of the folded scales, each (batch, head)'s
+    scale overwritten with the bare logits scale."""
+    import torch
+
+    def faulty(q, k, scale):
+        q8, k8, scales = prepass(q, k, scale)
+        return q8, k8, torch.full_like(scales, scale)
+
+    return faulty
+
+
 def run_path(path: str, device, steps: int, seed: int) -> dict:
     """Build the path's full-width engine, check its network's routes, edit
     one synthetic 17x512x768 clip exactly, then with the int8 switch on
@@ -703,20 +790,17 @@ def run_path(path: str, device, steps: int, seed: int) -> dict:
                            f"attention: {rel}")
 
     _, exact, launches = edit_counted(edit, device, steps, seed, path)
-    quantize = sa.quantize_qk
-
-    def without_dequant(q, k, scale):  # the planted fault
-        q8, k8, scales = quantize(q, k, scale)
-        return q8, k8, torch.full_like(scales, scale)
-
+    prepass = sa.prepass
     try:
         att.set_quantized_qk(True)
         _, quant, launches_int8 = edit_counted(edit, device, steps, seed, f"{path}_int8")
-        sa.quantize_qk = without_dequant
-        _, fault, _ = edit_counted(edit, device, steps, seed, f"{path}_int8 fault")
+        sa.prepass = without_dequant(prepass)
+        _, fault, launches_fault = edit_counted(edit, device, steps, seed, f"{path}_int8 fault")
     finally:
-        sa.quantize_qk = quantize
+        sa.prepass = prepass
         att.set_quantized_qk(False)
+    if sum(c.get("quantize_qk", 0) for c in launches_fault.values()) <= 0:
+        raise RuntimeError(f"the {path} edit with the planted fault never ran the pre-pass")
     cos_quant, cos_fault = cosine(quant, exact), cosine(fault, exact)
     print(f"[{path}_int8] final latents vs the exact edit's: cosine {cos_quant:.6f}, with the "
           f"dequant factor left out {cos_fault:.6f} (limit {LATENT_COSINE})", flush=True)

@@ -57,6 +57,10 @@ def _agrees(out, ref) -> bool:
     (ta.small_seq_attention, ta.plain_temporal_attention, (4096, 8, 17, 40), 17),
     (ta.small_seq_attention, ta.plain_temporal_attention, (768, 8, 17, 160), 17),
     (ta.small_seq_attention, ta.plain_temporal_attention, (7, 2, 32, 256), 32),
+    # kernel 2's padded key loops (T 5 -> 8, 20 -> 24) and split columns (d 256)
+    (ta.small_seq_attention, ta.plain_temporal_attention, (300, 8, 5, 8), 5),
+    (ta.small_seq_attention, ta.plain_temporal_attention, (301, 5, 20, 256), 20),
+    (ta.small_seq_attention, ta.plain_temporal_attention, (3072, 8, 12, 80), 12),
     (fa.flash_attention, fa.plain_flash_attention, (2, 1, 6144, 512), 6144),
     (fa.flash_attention, fa.plain_flash_attention, (2, 1, 100, 512), 70),
     # kernel 1 at n_k = 2 * n_q (the CFCA centre+self attention) and at d = 160
@@ -347,6 +351,10 @@ def _cosine(a, b):
     ((1, 8, 6144, 40), 12288),   # CFCA, n_k = 2 * n_q
     ((2, 8, 1536, 80), 3072),
     ((2, 3, 1000, 40), 777),     # ragged n_q and n_k
+    ((2, 8, 600, 40), 600),      # chip_smoke.py's ragged rows
+    ((2, 8, 600, 40), 1200),
+    ((2, 8, 600, 80), 600),
+    ((1, 2, 100, 80), 70),       # one partial query tile, one partial key tile
 ])
 def test_int8_kernel_matches_plain(cuda, shape, n_k):
     """Kernel 1c against its plain version (2e-2 abs in bf16) and against
@@ -376,6 +384,28 @@ def test_int8_prepass_on_the_card_equals_the_cpu_one(cuda, d):
     scale = d ** -0.5
     for got, want in zip(sa.quantize_qk(q, k, scale), sa.quantize_qk(q.cpu(), k.cpu(), scale)):
         assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape,n_k", [((2, 8, 1536, 80), 3072), ((2, 8, 6144, 40), 6144),
+                                         ((2, 3, 1000, 40), 777)])
+def test_int8_prepass_kernel_equals_its_plain_version(cuda, shape, n_k):
+    """The CUDA pre-pass (``csrc/quantize_qk.cu``) bit for bit against
+    ``plain_prepass`` (``quantize_qk``, padded), on the model's layout and
+    on contiguous tensors, with exact .5 ties planted (a head of halves
+    whose amax is 127 in q and in k); one launch a call."""
+    q, k, _ = _qkv(shape, n_k, cuda, seed=sum(shape))
+    for x, (b, h) in ((q, (0, 0)), (k, (-1, -1))):
+        x[b, h] = torch.round(x[b, h].float() * 20).div(2).to(x.dtype)
+        x[b, h, 0, 0] = 127.0
+    scale = shape[-1] ** -0.5
+    for qq, kk in ((q, k), (q.contiguous(), k.contiguous())):
+        before = sa.prepass.launches
+        got = sa.prepass(qq, kk, scale)
+        assert sa.prepass.launches == before + 1
+        want = sa.plain_prepass(qq, kk, scale)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    assert int(((q[0, 0].float() - q[0, 0].float().trunc()).abs() == 0.5).sum()) > 100
 
 
 def test_int8_switch_routes_to_kernel_1c(cuda):

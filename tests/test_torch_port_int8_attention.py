@@ -2,7 +2,10 @@
 
 - The pre-pass (``quantize_qk``) is bit-identical to the one inside the JAX
   ``kv_resident_attention(quantized_qk=True)``, captured at its ``_run``
-  call, rounding ties included.
+  call, rounding ties included; so is ``plain_prepass``, the CUDA
+  pre-pass's plain version, in the padded layout kernel 1c reads.
+- ``chip_smoke.py``'s planted dequant fault changes the folded scales, and
+  kernel 1c's forward launches what the module's ``prepass`` returns.
 - ``plain_spatial_attention_int8`` matches the JAX function run through its
   Pallas kernel in interpret mode: fp32 within 1e-5 abs (the integer scores
   are exact on both sides; exp vs exp2 and summation order differ), bf16
@@ -98,6 +101,102 @@ def test_prepass_is_bit_identical_to_jax(dtype, monkeypatch):
     np.testing.assert_array_equal(scales.numpy(), scales_j)
     ties = q8.numpy()[0, 0][np.abs(q[0, 0] - np.trunc(q[0, 0])) == 0.5]
     assert ties.size > 100 and np.any(ties % 2 == 0)  # half-even, not half-up
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_prepass_is_bit_identical_to_jax(d, dtype, monkeypatch):
+    """``plain_prepass``, the CUDA pre-pass's plain version: the JAX int8
+    rows zero-padded to ``int8_width`` columns (48 at d = 40, none at 80),
+    contiguous, the scales the JAX ones, ties planted as above (q's head
+    of halves, k's half-integers at its amax of 127)."""
+    q, k, _ = _qkv((2, 3, 512, d), 640, seed=d + 7)
+    q[1, 2] = np.round(q[1, 2] * 20) / 2
+    q[1, 2, 5, 3] = -127.0
+    k[0, 1, :, :8] = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5], np.float32)
+    k[0, 1, 3, 9] = 127.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    scale = d ** -0.5
+    scales_j, q8_j, k8_j = _jax_prepass(jnp.asarray(q, jdt), jnp.asarray(k, jdt), scale,
+                                        monkeypatch)
+    q8, k8, scales = sa.plain_prepass(torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+                                      scale)
+    width = sa.int8_width(d)
+    assert width == (48 if d == 40 else 80)
+    for got, want in ((q8, q8_j), (k8, k8_j)):
+        assert got.dtype == torch.int8 and got.is_contiguous()
+        assert got.shape == want.shape[:3] + (width,)
+        np.testing.assert_array_equal(got[..., :d].numpy(), want)
+        assert not got[..., d:].any()
+    np.testing.assert_array_equal(scales.numpy(), scales_j)
+    ties = q8.numpy()[1, 2, :, :d][np.abs(q[1, 2] - np.trunc(q[1, 2])) == 0.5]
+    assert ties.size > 100 and np.any(ties % 2 == 0)
+
+
+def test_planted_dequant_fault_changes_the_folded_scales():
+    """chip_smoke.py's phase-4 fault (``without_dequant`` around the
+    pre-pass wrapper): the same int8 rows, every folded scale the bare
+    logits scale in place of scale * amax_q * amax_k / 127^2."""
+    import chip_smoke
+
+    q, k, _ = map(torch.from_numpy, _qkv((2, 3, 512, 40), 512, seed=11))
+    scale = 40 ** -0.5
+    sound = sa.prepass(q, k, scale)
+    fault = chip_smoke.without_dequant(sa.prepass)(q, k, scale)
+    assert torch.equal(sound[0], fault[0]) and torch.equal(sound[1], fault[1])
+    assert torch.equal(fault[2], torch.full_like(sound[2], scale))
+    assert (sound[2] - fault[2]).abs().min() > 0.1 * scale
+
+
+def test_int8_forward_launches_the_prepass_wrappers_output(monkeypatch):
+    """Kernel 1c's forward takes q8, k8 and the scales from the module's
+    ``prepass`` at each call, where the planted fault replaces it: the
+    launch gets that function's tensors (the launch itself recorded, not
+    run, on the CPU)."""
+    import chip_smoke
+    from ccedit_tpu_torch.ops import build
+
+    launched, made = [], []
+    monkeypatch.setattr(build, "int8_attention_operand_strides", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(build, "launch", lambda name, *args: launched.append((name, args)))
+    faulty = chip_smoke.without_dequant(sa.prepass)
+    monkeypatch.setattr(sa, "prepass", lambda *a: made.append(faulty(*a)) or made[-1])
+    q, k, v = map(torch.from_numpy, _qkv((1, 2, 512, 40), 512, seed=12))
+    sa._forward_int8(q, k, v, 40 ** -0.5)
+    (name, args), = launched
+    q8, k8, scales = made[0]
+    assert name == "ccedit_spatial_attention_int8"
+    assert args[:2] == (q8.data_ptr(), k8.data_ptr()) and args[4] == scales.data_ptr()
+    assert torch.equal(scales, torch.full_like(scales, 40 ** -0.5))
+
+
+def test_planted_fault_keeps_the_prepass_launch_count(monkeypatch):
+    """With ``chip_smoke.without_dequant`` installed as the module's
+    ``prepass``, the wrapped pre-pass still counts its launch where the
+    launch counts read it (its card branch run on stand-ins of CUDA tensors,
+    the launch recorded, not run)."""
+    import chip_smoke
+    from ccedit_tpu_torch.ops import build
+
+    class OnCard:
+        def __init__(self, t):
+            self.t, self.is_cuda, self.shape, self.device = t, True, t.shape, t.device
+
+        def data_ptr(self):
+            return self.t.data_ptr()
+
+    launched = []
+    monkeypatch.setattr(build, "prepass_operand_strides", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(build, "launch", lambda name, *args: launched.append(name))
+    monkeypatch.setattr(sa, "prepass", chip_smoke.without_dequant(sa.prepass))
+    q, k, _ = map(torch.from_numpy, _qkv((1, 2, 512, 40), 512, seed=13))
+    before = att.launch_counts()["quantize_qk"]
+    _, _, scales = sa.prepass(OnCard(q), OnCard(k), 0.5)
+    assert launched == ["ccedit_quantize_qk"]
+    assert att.launch_counts()["quantize_qk"] == before + 1
+    assert torch.equal(scales, torch.full_like(scales, 0.5))
 
 
 @pytest.mark.parametrize("q_shape,n_k", [((2, 4, 512, 40), 512), ((1, 2, 512, 80), 512),

@@ -9,8 +9,9 @@ variants): row sums within 1e-5 of max|JAX| (fp32 sums of 256 terms in
 another order), attention within 1e-5 abs.  Kernel 6's plain version is
 exact against numpy's int64 product, and within fp32 rounding of float64
 for bf16.  Also the bounds of ``scripts/roofline.py`` at the shapes
-``PERF.md`` quotes, and that each variant of ``scripts/bwd_breakdown.py``
-still patches kernel 4's source (it runs only on the card).
+``PERF.md`` quotes (the pre-pass's among them), and that each variant of
+``scripts/bwd_breakdown.py`` and ``scripts/temporal_breakdown.py`` still
+patches its kernel's source (they run only on the card).
 """
 
 import functools
@@ -25,6 +26,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from ccedit_tpu_torch.scripts import bwd_breakdown as bb
+from ccedit_tpu_torch.scripts import temporal_breakdown as tb
 from ccedit_tpu_torch.scripts import int8_probe as ip
 from ccedit_tpu_torch.scripts import kv_resident_attn as kr
 from ccedit_tpu_torch.scripts import roofline
@@ -180,6 +182,25 @@ def test_probe_and_gemm_bounds():
     assert ip.gemm_bound(1024, 512, 1024, True)["bound_what"] == "bytes"
     assert ip.gemm_bound(4096, 4096, 4096, True)["bound_ms"] == pytest.approx(0.06945, rel=1e-3)
     assert ip.gemm_bound(4096, 4096, 4096, False)["bound_ms"] == pytest.approx(0.13897, rel=1e-3)
+
+
+@pytest.mark.parametrize("shape,n_k,ms", [
+    ((34, 8, 6144, 40), 6144, 0.12771), ((34, 8, 1536, 80), 1536, 0.05986),
+    ((34, 8, 6144, 40), 12288, 0.19156), ((34, 8, 1536, 80), 3072, 0.08979),
+])
+def test_prepass_bounds(shape, n_k, ms):
+    """Kernel 1c's pre-pass: bf16 q and k read once, their int8 rows
+    (48 or 80 bytes) and the scales written once, at 3.35 TB/s."""
+    got = roofline.prepass_bound(*shape[:3], n_k, shape[3])
+    assert got["bound_what"] == "bytes" and got["bound_ms"] == pytest.approx(ms, rel=1e-3)
+
+
+@pytest.mark.parametrize("name", sorted(tb.VARIANTS))
+def test_temporal_breakdown_variant_patches_the_kernel_source(name):
+    """Every substitution of the variant finds its text in
+    ``csrc/temporal_attention.cu``."""
+    src = (bb.build.CSRC / tb.SOURCE).read_text()
+    assert bb.patched(name, tb.VARIANTS, tb.SOURCE) != src
 
 
 @pytest.mark.parametrize("name", sorted(bb.VARIANTS))
