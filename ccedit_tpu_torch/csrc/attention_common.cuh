@@ -9,14 +9,6 @@
 //   C (16x8), 4 x f32:              c0,c1 = C[g][2t..2t+1]   c2,c3 = C[g+8][2t..2t+1]
 // Two neighbouring 8-column C tiles of a score block therefore form one A
 // fragment of the following P.V product, so probabilities never leave registers.
-//
-// The int8 products (mma.sync.m16n8k32 / m16n8k16 .s32.s8.s8.s32) take their
-// fragments from the same BYTES: A a0 = A[g][4t..4t+3], a1 = A[g+8][4t..4t+3],
-// a2/a3 the same 16 bytes further on; B b0 = B[4t..4t+3][g], b1 16 bytes on;
-// C as above in s32.  So a 32-byte step along a row of a tile in shared memory
-// feeds one bf16 m16n8k16 or one s8 m16n8k32 with identical 32-bit loads at
-// byte offsets 4t and 16 + 4t, and a row-major K tile is the "col" B operand
-// of either type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,35 +29,7 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// s8 x s8 -> s32, 32-deep (a: 4 x b32 of 4 int8 each, b: 2 x b32)
-__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// s8 x s8 -> s32, 16-deep (a: a0, a1 of the 32-deep layout; b: b0)
-__device__ __forceinline__ void mma_s8_16816(int c[4], const uint32_t a[2],
-                                             uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-// byte-addressed loads and stores (int8 tiles, and bf16 tiles addressed in bytes)
-__device__ __forceinline__ uint32_t ld32b(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint4 ld128b(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
+// a byte-addressed 16-byte store
 __device__ __forceinline__ void st128b(void* p, uint4 v) {
   *reinterpret_cast<uint4*>(p) = v;
 }

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the redesigned attention kernels
-// (spatial_attention.cu, flash_attention.cu, spatial_attention_bwd.cu), as
-// raw PTX: they compile in seconds, where CuTe's templates take minutes
-// (cuda_guide.md: cp.async.bulk :391, wgmma :519, mbarrier :617, setmaxnreg
-// :701).
+// Hopper (sm_90a) building blocks of the redesigned kernels
+// (spatial_attention.cuh and its instantiations, flash_attention.cu,
+// spatial_attention_bwd.cu, int8_gemm.cu), as raw PTX: they compile in
+// seconds, where CuTe's templates take minutes (cuda_guide.md:
+// cp.async.bulk :391, wgmma :519, mbarrier :617, setmaxnreg :701).
 //
 // Shared-memory tiles.  Every TMA-loaded tile is a run of "chunks": 64
 // bf16 columns (128 bytes) of `rows` rows, stored [rows][128 B] with the
@@ -16,6 +16,12 @@
 //   an A operand so, imm-trans-a = 1, likewise along M):
 //     LBO = rows * 128 (one 64-column chunk to the next along N),
 //     SBO = 1024 (8 keys to the next 8), a 16-key step 2048 bytes on.
+// A tile whose tokens are innermost ((B, D, N), kernel 5's tr layout) is a
+// run of chunks of 64 tokens (128 bytes) by R d-rows, R rounded up to the
+// 16-deep step (the rows past D arrive as zeros): Q and K so are MN-major
+// operands of Q.K^T (LBO = R * 128 from one 64-token chunk to the next,
+// SBO = 1024, a 16-deep step 2048 bytes on), V^T so a K-major B of P.V
+// (the keys along the 128-byte rows, chunk to chunk R * 128 bytes).
 // An int8 operand (kernel 1c's q8 and k8) is tiled the same way in bytes:
 // a chunk is 128 int8 columns, and an s8 wgmma reads it K-major with the
 // same descriptor, SBO = 1024, a 32-deep step 32 bytes on; 8-bit wgmma
@@ -97,6 +103,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (column, row) into shared memory.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -257,6 +273,30 @@ template <> struct WgmmaSS<128, 0> {
   }
 };
 
+template <> struct WgmmaSS<128, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
 template <> struct WgmmaSS<256, 1> {
   static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
@@ -378,6 +418,23 @@ template <> struct WgmmaSS<80, 1, 1> {
   }
 };
 
+template <> struct WgmmaRS<40, 0> {
+  static __device__ __forceinline__ void run(float (&d)[20], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
 template <> struct WgmmaRS<40, 1> {
   static __device__ __forceinline__ void run(float (&d)[20], const uint32_t (&a)[4], uint64_t db, int scale_d) {
     asm volatile(
@@ -443,6 +500,73 @@ template <> struct WgmmaRS<160, 1> {
 };
 
 
+// d[N/2] (+)= A * B, m64nNk32, s8 in, s32 accumulate, A and B from shared
+// memory, both K-major (8-bit wgmma has no transposed operands); scale_d =
+// 0 overwrites d.  The accumulator's layout is the fp32 one.
+template <int N>
+struct WgmmaS8;
+
+template <> struct WgmmaS8<128> {
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaS8<256> {
+  static __device__ __forceinline__ void run(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+
 // ---- host: tensor maps ----
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -469,6 +593,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A `rank`-D tensor map of `dims` (innermost first) with byte `strides`
+// (of dimensions 1 .., each a multiple of 16), whose box `box` lands
+// 128-byte-swizzled; its inner box is 128 bytes.  Elements past `dims` read
+// as zeros.  Returns a cudaError_t (0 = success).
+inline int tiled_map(CUtensorMap* map, bool int8, int rank, const void* base,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          rank, const_cast<void*>(base), dims, strides, box, unit,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A (B, H, D, N) bf16 operand with unit token stride (kernel 5's tr layout;
+// `s.n` holds the d-row stride here) as a 4-D tensor map (N, D, H, B) whose
+// box is one chunk: 64 tokens of `rows` d-rows of one head.  Rows past D
+// and tokens past N read as zeros.
+inline int tensor_map_tr(CUtensorMap* map, const void* base, int batch, int heads, int n, int d,
+                         Strides s, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.n) * 2, static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return tiled_map(map, false, 4, base, dims, strides, box);
+}
+
 // A (B, H, N, D) bf16 operand (or, with `int8`, an int8 one) with element
 // strides `s` (unit D stride) as a 4-D tensor map whose box is one
 // 128-byte-swizzled chunk: 64 bf16 (128 int8) columns of `rows` tokens of
@@ -480,8 +634,6 @@ inline EncodeTiled encode_tiled() {
 inline int tensor_map(CUtensorMap* map, bool* tokens_inner, const void* base, int batch,
                       int heads, int n, int d, Strides s, int rows, bool int8 = false) {
   const cuuint64_t esize = int8 ? 1 : 2;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   *tokens_inner = s.n < s.h;
   const long long mid[2][2] = {{heads, s.h}, {n, s.n}};
   const int a = *tokens_inner ? 1 : 0;  // the inner of the two middle dimensions
@@ -494,13 +646,7 @@ inline int tensor_map(CUtensorMap* map, bool* tokens_inner, const void* base, in
   const cuuint32_t r = static_cast<cuuint32_t>(rows);
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize), *tokens_inner ? r : 1u,
                              *tokens_inner ? 1u : r, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                          4, const_cast<void*>(base),
-                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return tiled_map(map, int8, 4, base, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -4,7 +4,8 @@
 // any n_k: the CFCA "center_self" cross-frame attention of the TVI2V
 // network attends 6144 queries to 12288 keys (row 1b).  Redesigned for
 // Hopper; the kernel itself is spatial_attention.cuh's template, shared
-// with kernel 1c (spatial_attention_int8.cu), here with a bf16 Q.K^T.
+// with kernel 1c (spatial_attention_int8.cu) and kernel 5's probes
+// (attention_probe.cu), here with a bf16 Q.K^T (Bf16QK).
 //
 // Replaces: ccedit_tpu/ops/spatial_attention.py `_run` :113 (`pallas_call`
 // :127, `_kernel` :59, `kv_resident_attention` :169), its one-chunk path
@@ -25,38 +26,6 @@
 //
 // The design, tiles and budgets: spatial_attention.cuh.
 #include "spatial_attention.cuh"
-
-namespace ccedit {
-
-namespace {
-
-// Q.K^T in bf16: m64nBNk16 steps over D rounded up to 16, chunk kk / 4 and
-// 32-byte step kk % 4 within it; the scalar scale.
-template <int D>
-struct Bf16QK {
-  using Acc = float;
-  static constexpr bool kInt8 = false;
-  static constexpr int kChunks = (D + 63) / 64;
-  static constexpr int kWidth = D;
-  static constexpr int kStages = D <= 64 ? 4 : 3;
-
-  template <int BM, int BN>
-  static __device__ __forceinline__ void scores(float (&s)[BN / 2], const unsigned char* q,
-                                                const unsigned char* k) {
-#pragma unroll
-    for (int kk = 0; kk < (D + 15) / 16; ++kk)
-      WgmmaSS<BN, 0>::run(s, desc(q + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024, 1),
-                          desc(k + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024, 1), kk > 0);
-  }
-
-  static __device__ __forceinline__ float scale_log2(float scalar, const float*, int) {
-    return scalar;
-  }
-};
-
-}  // namespace
-
-}  // namespace ccedit
 
 // C entry point.  Strides are (batch, head, token) element strides of the
 // (B, H, N, D) operands; the D stride is 1.  `lse` is null or a contiguous

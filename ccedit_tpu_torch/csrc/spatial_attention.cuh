@@ -1,14 +1,28 @@
 // The Hopper forward of kernels 1 and 1c (spatial_attention.cu: exact,
-// bf16 Q.K^T; spatial_attention_int8.cu: int8 Q.K^T), one template over the
-// Q.K^T operand type `QK`, a policy that each source defines:
-//   QK::Acc          the S accumulator's element type (float, or int for s8)
-//   QK::kInt8        whether q and k are int8 (their tensor maps)
-//   QK::kChunks      128-byte chunks of a Q or K row in shared memory
-//   QK::kWidth       q's and k's row width in elements (the tensor maps' D)
-//   QK::kStages      stages of the K/V ring
-//   QK::scores<BM, BN>(s, q, k)   issues S = Q.K^T of a warpgroup's 64 rows
-//                    and a BN-key tile as wgmma, without committing
-//   QK::scale_log2(scalar, scales, bh)   the factor of S in the exp2
+// bf16 Q.K^T; spatial_attention_int8.cu: int8 Q.K^T) and of kernel 5, the
+// probes of kernel 1's phases (attention_probe.cu), one template over
+//   - the Q.K^T policy `QK` (below: Bf16QK, Int8QK, Bf16QKTr):
+//       QK::Acc          the S accumulator's element type (float, or int for s8)
+//       QK::kInt8        whether q and k are int8 (their tensor maps)
+//       QK::kWidth       q's and k's row width in elements (the row policies'
+//                        tensor maps' D)
+//       QK::kStages      stages of the K/V ring
+//       QK::tile_bytes(rows)        shared bytes of a Q or K tile of `rows` tokens
+//       QK::load<ROWS>(...)         the TMA loads of such a tile
+//       QK::rows(q, w)              warpgroup w's 64 rows of the Q tile
+//       QK::scores<BM, BN>(s, q, k) issues S = Q.K^T of a warpgroup's 64 rows
+//                        and a BN-key tile as wgmma, without committing
+//       QK::scale_log2(scalar, scales, bh)   the factor of S in the exp2
+//   - the stage `ST` the work stops after (kernel 5's probes): kQKT sums the
+//     raw S rows (no V is loaded), kSoftmax writes the rows' l = sum
+//     exp2(s * scale_log2 - m) (no V, no P.V), kFull (the default) is
+//     kernels 1 and 1c;
+//   - the layout `L` of V and O: RowLayout (the default; (B, H, N, D), unit
+//     d stride) or TrLayout ((B, H, D, N), unit token stride: V^T tiles are
+//     K-major B operands of P.V, and each warpgroup's O^T is staged through
+//     its half of the Q tile so the stores run along the tokens).
+// Kernels 1 and 1c instantiate the defaults, for which the stage's and the
+// layout's branches compile away.
 //
 // Design (FlashAttention-3's shape): one block of three warpgroups per
 // (batch*head, 128-query tile).
@@ -50,6 +64,9 @@
 //   bf16 d = 160: BN 64,  3 stages: 48 KB + 3 x 48 KB = 192 KB
 //   s8 d = 40:    BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB
 //   s8 d = 80:    BN 128, 4 stages: 16 KB + 4 x 48 KB = 208 KB
+//   kernel 5, d = 40, 4 stages: qkt and softmax 16 KB + 4 x 16 KB (K only);
+//     tr bf16 Q 2 x 48 x 128 B = 12 KB, a stage K 12 KB + V^T 2 x 40 x 128
+//     B = 10 KB (qkt 12 + 4 x 12 KB, full 12 + 4 x 22 KB)
 // Registers of a consumer thread: S BN/2 (64 at BN = 128), P BN/4 (32), O
 // D/2 (20 / 40 / 80): under the 232 that setmaxnreg gives it.  One block of
 // 384 threads an SM; (34, 8, 6144, 40) is 48 x 272 blocks.
@@ -68,26 +85,179 @@ namespace {
 
 using namespace hopper;
 
-template <int D, class QK>
+enum Stage { kQKT = 0, kSoftmax = 1, kFull = 2 };
+
+struct RowLayout {
+  static constexpr bool kTr = false;
+
+  // O += P.V, P from registers, V an MN-major B read in its row-major layout
+  template <int D, int BN>
+  static __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&pa)[BN / 16][4],
+                                            const unsigned char* sv) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      WgmmaRS<D, 1>::run(acc, pa[kk], desc(sv + kk * 2048, BN * 128, 1024, 1), 1);
+  }
+};
+
+struct TrLayout {
+  static constexpr bool kTr = true;
+
+  // O += P.V with V^T's tile K-major (the keys along its 128-byte rows):
+  // chunk kk / 4 of 64 keys, 32-byte step kk % 4 within it
+  template <int D, int BN>
+  static __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&pa)[BN / 16][4],
+                                            const unsigned char* sv) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      WgmmaRS<D, 0>::run(acc, pa[kk], desc(sv + (kk / 4) * D * 128 + (kk % 4) * 32, 16, 1024, 1), 1);
+  }
+};
+
+// Q.K^T in bf16 over (B, H, N, D) rows: m64nBNk16 steps over D rounded up to
+// 16, chunk kk / 4 and 32-byte step kk % 4 within it; the scalar scale.
+template <int D>
+struct Bf16QK {
+  using Acc = float;
+  static constexpr bool kInt8 = false;
+  static constexpr int kChunks = (D + 63) / 64;
+  static constexpr int kWidth = D;
+  static constexpr int kStages = D <= 64 ? 4 : 3;
+
+  static constexpr int tile_bytes(int rows) { return rows * kChunks * 128; }
+
+  template <int ROWS>
+  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map,
+                                              bool inner, uint64_t* bar, int h, int n0, int b) {
+    for (int c = 0; c < kChunks; ++c) load_chunk(dst + c * ROWS * 128, map, inner, bar, c, h, n0, b);
+  }
+
+  static __device__ __forceinline__ const unsigned char* rows(const unsigned char* q, int w) {
+    return q + w * 64 * 128;
+  }
+
+  template <int BM, int BN>
+  static __device__ __forceinline__ void scores(float (&s)[BN / 2], const unsigned char* q,
+                                                const unsigned char* k) {
+#pragma unroll
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
+      WgmmaSS<BN, 0>::run(s, desc(q + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024, 1),
+                          desc(k + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024, 1), kk > 0);
+  }
+
+  static __device__ __forceinline__ float scale_log2(float scalar, const float*, int) {
+    return scalar;
+  }
+};
+
+// Q.K^T in int8 (kernel 1c, kernel 5's tr int8 probes): q8 and k8 are
+// contiguous int8 (B, H, N, DK) rows, DK = D rounded up to 16 bytes (40 ->
+// 48, 80 -> 80) with zero columns past D, loaded as one 128-byte-swizzled
+// chunk a row (the box's columns past DK arrive as zeros); S = Q.K^T is
+// wgmma m64n128k32 .s32.s8.s8 over D rounded up to 32 bytes (2 steps at d =
+// 40, 3 at d = 80).  The exp2's factor is each (batch, head)'s folded scale
+// scales[b*h] times log2(e) (kernel 1c), or, with kScalar, the scalar
+// (kernel 5: one per-tensor scale each for q and k, folded by the caller).
+template <int D, bool kScalar = false>
+struct Int8QK {
+  using Acc = int;
+  static constexpr bool kInt8 = true;
+  static constexpr int kWidth = (D + 15) / 16 * 16;
+  static constexpr int kStages = 4;
+  static_assert(kWidth <= 128, "an int8 row is one 128-byte chunk");
+
+  static constexpr int tile_bytes(int rows) { return rows * 128; }
+
+  template <int ROWS>
+  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map,
+                                              bool inner, uint64_t* bar, int h, int n0, int b) {
+    load_chunk(dst, map, inner, bar, 0, h, n0, b);
+  }
+
+  static __device__ __forceinline__ const unsigned char* rows(const unsigned char* q, int w) {
+    return q + w * 64 * 128;
+  }
+
+  template <int BM, int BN>
+  static __device__ __forceinline__ void scores(int (&s)[BN / 2], const unsigned char* q,
+                                                const unsigned char* k) {
+    static_assert(BN == 128, "the s8 product is m64n128k32");
+#pragma unroll
+    for (int kk = 0; kk < (D + 31) / 32; ++kk)
+      WgmmaS8<128>::run(s, desc(q + kk * 32, 16, 1024, 1), desc(k + kk * 32, 16, 1024, 1),
+                        kk > 0);
+  }
+
+  static __device__ __forceinline__ float scale_log2(float scalar, const float* scales, int bh) {
+    if constexpr (kScalar) return scalar;
+    return scales[bh] * kLog2e;
+  }
+};
+
+// Q.K^T in bf16 over (B, H, D, N) operands, tokens innermost (kernel 5's tr
+// probes): a tile is chunks of 64 tokens by kRows d-rows (40 -> 48, the rows
+// past D zero-filled by TMA), so Q^T and K^T are both MN-major and S is
+// m64nBNk16 with the transpose bits set (hopper.cuh's header), 16 d-rows a
+// step; the scalar scale.
+template <int D>
+struct Bf16QKTr {
+  using Acc = float;
+  static constexpr bool kInt8 = false;
+  static constexpr int kRows = (D + 15) / 16 * 16;
+  static constexpr int kStages = 4;
+
+  static constexpr int tile_bytes(int rows) { return rows / 64 * kRows * 128; }
+
+  template <int ROWS>
+  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map, bool,
+                                              uint64_t* bar, int h, int n0, int b) {
+    static_assert(ROWS % 64 == 0, "a tile is whole 64-token chunks");
+    for (int c = 0; c < ROWS / 64; ++c) tma_load_4d(dst + c * kRows * 128, map, bar, n0 + 64 * c, 0, h, b);
+  }
+
+  static __device__ __forceinline__ const unsigned char* rows(const unsigned char* q, int w) {
+    return q + w * kRows * 128;
+  }
+
+  template <int BM, int BN>
+  static __device__ __forceinline__ void scores(float (&s)[BN / 2], const unsigned char* q,
+                                                const unsigned char* k) {
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      WgmmaSS<BN, 1, 1>::run(s, desc(q + kk * 2048, kRows * 128, 1024, 1),
+                             desc(k + kk * 2048, kRows * 128, 1024, 1), kk > 0);
+  }
+
+  static __device__ __forceinline__ float scale_log2(float scalar, const float*, int) {
+    return scalar;
+  }
+};
+
+template <int D, class QK, int ST = kFull, class L = RowLayout>
 struct SpatialTiles {
   static constexpr int kVChunks = (D + 63) / 64;  // 128-byte chunks of a V row
   static constexpr int kBM = 128;                 // two consumer warpgroups of 64 rows
   static constexpr int kBN = D > 128 ? 64 : 128;
   static constexpr int kStages = QK::kStages;
-  static constexpr int kQBytes = kBM * QK::kChunks * 128;
-  static constexpr int kKBytes = kBN * QK::kChunks * 128;  // K of one stage
-  static constexpr int kVBytes = kBN * kVChunks * 128;     // V of one stage
+  static constexpr int kQBytes = QK::tile_bytes(kBM);
+  static constexpr int kKBytes = QK::tile_bytes(kBN);  // K of one stage
+  // V of one stage (none before the full stage); a V^T tile is kBN / 64
+  // chunks of D d-rows
+  static constexpr int kVBytes = ST != kFull ? 0 : L::kTr ? kBN / 64 * D * 128 : kBN * kVChunks * 128;
   static constexpr int kStageBytes = kKBytes + kVBytes;
   // + 1024: the dynamic buffer is aligned up to the swizzle atom by hand
   static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes;
   static constexpr int kThreads = 384;
+  static constexpr int kPitchTr = 144;  // bytes of a staged O^T row: 64 tokens + 16, conflict-free
   static_assert(D % 8 == 0 && D <= 256, "P.V writes D columns in blocks of 8, at most 256");
   static_assert(kSmemBytes + 64 <= 232448, "the tiles do not fit in a block's shared memory");
+  static_assert(!L::kTr || (D * kPitchTr <= kQBytes / 2 && kBN % 64 == 0),
+                "a warpgroup's O^T is staged in its half of the Q tile");
 };
 
 constexpr int kTurn = 1;  // named barriers kTurn + w: warpgroup w's turn at the tensor cores
 
-template <int D, class QK>
+template <int D, class QK, int ST = kFull, class L = RowLayout>
 __global__ void __launch_bounds__(384, 1)
 spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
@@ -95,7 +265,7 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                          bf16* __restrict__ o, float* __restrict__ lse,
                          const float* __restrict__ scales, int heads, int n_q, int n_k,
                          Strides so, float scale_log2) {
-  using T = SpatialTiles<D, QK>;
+  using T = SpatialTiles<D, QK, ST, L>;
   constexpr int BM = T::kBM, BN = T::kBN, S = T::kStages, NS = BN / 2;
   extern __shared__ unsigned char raw[];
   unsigned char* s_q = reinterpret_cast<unsigned char*>(
@@ -122,17 +292,22 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     if (tid == 0) {
       const bool iq = tokens_inner & 1, ik = tokens_inner & 2, iv = tokens_inner & 4;
       mbar_expect_tx(&q_full, T::kQBytes);
-      for (int c = 0; c < QK::kChunks; ++c)
-        load_chunk(s_q + c * BM * 128, &map_q, iq, &q_full, c, h, q0, b);
+      QK::template load<BM>(s_q, &map_q, iq, &q_full, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % S;
         if (j >= S) mbar_wait(&empty[s], (j / S - 1) & 1);
         mbar_expect_tx(&full[s], T::kStageBytes);
         unsigned char* sk = s_kv + s * T::kStageBytes;
-        for (int c = 0; c < QK::kChunks; ++c)
-          load_chunk(sk + c * BN * 128, &map_k, ik, &full[s], c, h, j * BN, b);
-        for (int c = 0; c < T::kVChunks; ++c)
-          load_chunk(sk + T::kKBytes + c * BN * 128, &map_v, iv, &full[s], c, h, j * BN, b);
+        QK::template load<BN>(sk, &map_k, ik, &full[s], h, j * BN, b);
+        if constexpr (ST == kFull) {
+          if constexpr (L::kTr) {  // V^T: chunks of 64 keys by D d-rows
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_4d(sk + T::kKBytes + c * D * 128, &map_v, &full[s], j * BN + 64 * c, 0, h, b);
+          } else {
+            for (int c = 0; c < T::kVChunks; ++c)
+              load_chunk(sk + T::kKBytes + c * BN * 128, &map_v, iv, &full[s], c, h, j * BN, b);
+          }
+        }
       }
     }
     return;
@@ -141,7 +316,7 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   // consumers: warpgroup w owns query rows 64w .. 64w + 63 of the tile
   regs_inc<232>();
   const int w = wg - 1, warp = tid / 32, lane = tid % 32, t = lane & 3;
-  const unsigned char* q_w = s_q + w * 64 * 128;
+  const unsigned char* q_w = QK::rows(s_q, w);
   const float sl2 = QK::scale_log2(scale_log2, scales, bh);
   float acc[D / 2], sc[NS];
   typename QK::Acc si[NS];
@@ -157,23 +332,36 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(&full[s], (j / S) & 1);
     const unsigned char* sk = s_kv + s * T::kStageBytes;
     named_sync(kTurn + w, 256);
-    fence_regs(acc);
+    if constexpr (ST == kFull) fence_regs(acc);
     wgmma_fence();
-    if (j > 0) {  // O += P.V of the previous tile
-      const unsigned char* sv = s_kv + ((j - 1) % S) * T::kStageBytes + T::kKBytes;
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        WgmmaRS<D, 1>::run(acc, pa[kk], desc(sv + kk * 2048, BN * 128, 1024, 1), 1);
+    if constexpr (ST == kFull) {
+      if (j > 0) {  // O += P.V of the previous tile
+        const unsigned char* sv = s_kv + ((j - 1) % S) * T::kStageBytes + T::kKBytes;
+        L::template pv<D, BN>(acc, pa, sv);
+      }
     }
     QK::template scores<BM, BN>(si, q_w, sk);
     wgmma_commit();
     if (!(w == 1 && j == n_tiles - 1)) named_arrive(kTurn + 1 - w, 256);  // the other's turn
     wgmma_wait<0>();
     fence_regs(si);
-    fence_regs(acc);
-    if (j > 0 && lane == 0) mbar_arrive(&empty[(j - 1) % S]);  // its K and V are consumed
+    if constexpr (ST == kFull) {
+      fence_regs(acc);
+      if (j > 0 && lane == 0) mbar_arrive(&empty[(j - 1) % S]);  // its K and V are consumed
+    } else if (lane == 0) {
+      mbar_arrive(&empty[s]);  // no V: the K tile is consumed
+    }
 #pragma unroll
     for (int i = 0; i < NS; ++i) sc[i] = static_cast<float>(si[i]);
+
+    if constexpr (ST == kQKT) {  // this thread's share of the raw row sums (keys past n_k are 0)
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        l0 += sc[i] + sc[i + 1];
+        l1 += sc[i + 2] + sc[i + 3];
+      }
+      continue;
+    }
 
     // online softmax of the tile: this thread's rows g and g + 8
     if ((j + 1) * BN > n_k) {
@@ -208,23 +396,23 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     l0 = l0 * corr0 + rs0;  // this thread's share of the row sum
     l1 = l1 * corr1 + rs1;
+    if constexpr (ST == kFull) {
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 4) {
-      acc[i] *= corr0;
-      acc[i + 1] *= corr0;
-      acc[i + 2] *= corr1;
-      acc[i + 3] *= corr1;
+      for (int i = 0; i < D / 2; i += 4) {
+        acc[i] *= corr0;
+        acc[i + 1] *= corr0;
+        acc[i + 2] *= corr1;
+        acc[i + 3] *= corr1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) p_fragment(pa[kk], sc + 8 * kk, sc + 8 * kk + 4);
     }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) p_fragment(pa[kk], sc + 8 * kk, sc + 8 * kk + 4);
   }
-  {  // O += P.V of the last tile
+  if constexpr (ST == kFull) {  // O += P.V of the last tile
     const unsigned char* sv = s_kv + ((n_tiles - 1) % S) * T::kStageBytes + T::kKBytes;
     fence_regs(acc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      WgmmaRS<D, 1>::run(acc, pa[kk], desc(sv + kk * 2048, BN * 128, 1024, 1), 1);
+    L::template pv<D, BN>(acc, pa, sv);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -234,24 +422,80 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (ST != kFull) {  // the probes' row sums, to lse[b*h, row]
+    const int row0 = q0 + 64 * w + 16 * warp + lane / 4, row1 = row0 + 8;
+    if (t == 0) {
+      float* rows = lse + static_cast<long long>(bh) * n_q;
+      if (row0 < n_q) rows[row0] = l0;
+      if (row1 < n_q) rows[row1] = l1;
+    }
+    return;
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int row0 = q0 + 64 * w + 16 * warp + lane / 4, row1 = row0 + 8;
   o += b * so.b + h * so.h;
+  if constexpr (L::kTr) {
+    // O^T through this warpgroup's half of the Q tile (its last Q.K^T is
+    // done): [d][64 tokens] at kPitchTr bytes a d-row, then 16-byte stores
+    // along the tokens of each d-row (so.n is the d-row stride here)
+    unsigned char* ot = const_cast<unsigned char*>(q_w);
+    const int r0 = 2 * (16 * warp + lane / 4), r1 = r0 + 16;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = 8 * i + 2 * t;
-    if (row0 < n_q)
-      *reinterpret_cast<uint32_t*>(o + row0 * so.n + col) =
-          pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
-    if (row1 < n_q)
-      *reinterpret_cast<uint32_t*>(o + row1 * so.n + col) =
-          pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = 8 * i + 2 * t;
+      *reinterpret_cast<bf16*>(ot + col * T::kPitchTr + r0) = __float2bfloat16(acc[4 * i] * inv0);
+      *reinterpret_cast<bf16*>(ot + (col + 1) * T::kPitchTr + r0) =
+          __float2bfloat16(acc[4 * i + 1] * inv0);
+      *reinterpret_cast<bf16*>(ot + col * T::kPitchTr + r1) = __float2bfloat16(acc[4 * i + 2] * inv1);
+      *reinterpret_cast<bf16*>(ot + (col + 1) * T::kPitchTr + r1) =
+          __float2bfloat16(acc[4 * i + 3] * inv1);
+    }
+    named_sync(kTurn + 2 + w, 128);
+    const int tok0 = q0 + 64 * w;
+    for (int i = tid; i < D * 8; i += 128) {
+      const int r = i / 8, p = i % 8;
+      if (tok0 + 8 * p + 8 <= n_q)
+        st128(o + r * so.n + tok0 + 8 * p, ld128(reinterpret_cast<const bf16*>(ot + r * T::kPitchTr) + 8 * p));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = 8 * i + 2 * t;
+      if (row0 < n_q)
+        *reinterpret_cast<uint32_t*>(o + row0 * so.n + col) =
+            pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+      if (row1 < n_q)
+        *reinterpret_cast<uint32_t*>(o + row1 * so.n + col) =
+            pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+    }
   }
   if (lse != nullptr && t == 0) {  // m and l are full-row values in every lane of the quad
     float* row_lse = lse + static_cast<long long>(bh) * n_q;
     if (row0 < n_q) row_lse[row0] = m0 + log2f(l0);
     if (row1 < n_q) row_lse[row1] = m1 + log2f(l1);
   }
+}
+
+// Launch the kernel on prepared tensor maps (bit c of `tokens_inner`: map c
+// of q, k, v has the tokens inside the heads, load_chunk's flag).  `lse`
+// takes kernel 1's log-sum-exp (null: none) or, before the full stage, the
+// probes' (B*H, n_q) row sums.
+template <int D, class QK, int ST = kFull, class L = RowLayout>
+int launch_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                  int tokens_inner, void* o, float* lse, const float* scales, int batch,
+                  int heads, int n_q, int n_k, Strides so, float scale_log2, cudaStream_t stream) {
+  using T = SpatialTiles<D, QK, ST, L>;
+  if (n_q <= 0 || n_k <= 0) return -1;  // the loop needs a key tile, the grid a row tile
+  // above 48 KB, dynamic shared memory needs an opt-in per kernel
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(spatial_attention_kernel<D, QK, ST, L>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((n_q + T::kBM - 1) / T::kBM, batch * heads);
+  spatial_attention_kernel<D, QK, ST, L><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      mq, mk, mv, tokens_inner, static_cast<bf16*>(o), lse, scales, heads, n_q, n_k, so,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the kernel over (B, H, N, D) operands: q and k of QK's type (row
@@ -263,12 +507,7 @@ int launch_spatial(const void* q, const void* k, const void* v, void* o, float* 
                    const float* scales, int batch, int heads, int n_q, int n_k, Strides sq,
                    Strides sk, Strides sv, Strides so, float scale_log2, cudaStream_t stream) {
   using T = SpatialTiles<D, QK>;
-  if (n_q <= 0 || n_k <= 0) return -1;  // the loop needs a key tile, the grid a row tile
-  // above 48 KB, dynamic shared memory needs an opt-in per kernel
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(spatial_attention_kernel<D, QK>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (n_q <= 0 || n_k <= 0) return -1;
   // the descriptors hold the data pointers, so they are built per launch
   CUtensorMap mq, mk, mv;
   bool iq, ik, iv;
@@ -276,11 +515,8 @@ int launch_spatial(const void* q, const void* k, const void* v, void* o, float* 
   if (err == 0) err = tensor_map(&mk, &ik, k, batch, heads, n_k, QK::kWidth, sk, T::kBN, QK::kInt8);
   if (err == 0) err = tensor_map(&mv, &iv, v, batch, heads, n_k, D, sv, T::kBN);
   if (err != 0) return err;
-  dim3 grid((n_q + T::kBM - 1) / T::kBM, batch * heads);
-  spatial_attention_kernel<D, QK><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      mq, mk, mv, (iq ? 1 : 0) | (ik ? 2 : 0) | (iv ? 4 : 0), static_cast<bf16*>(o), lse,
-      scales, heads, n_q, n_k, so, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<D, QK>(mq, mk, mv, (iq ? 1 : 0) | (ik ? 2 : 0) | (iv ? 4 : 0), o, lse,
+                              scales, batch, heads, n_q, n_k, so, scale_log2, stream);
 }
 
 }  // namespace

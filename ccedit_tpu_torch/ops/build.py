@@ -47,6 +47,8 @@ _SIGNATURES = {
                                ctypes.c_float, _P),
     # int8, a, b, c, m, n, k, stream
     "ccedit_gemm": (_I, _P, _P, _P, _I, _I, _I, _P),
+    # src, dst, batch, rows, cols, width, batch stride, row stride, stream
+    "ccedit_transpose_int8": (_P, _P, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P),
     # q, k, v, out, dout, lse, stats, dq_acc, dq, dk, dv, batch, heads, n_q, n_k,
     # head_dim, strides, scale_log2, scale, stream
     "ccedit_spatial_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

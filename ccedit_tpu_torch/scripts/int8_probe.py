@@ -2,22 +2,26 @@
 
     python -m ccedit_tpu_torch.scripts.int8_probe [peak] [qkt] [conv] [kernel]
 
-Port of ``scripts/int8_probe.py``.  Its Pallas part (``part_pallas``: an
-int8 x int8 -> int32 and a bf16 x bf16 -> fp32 dot at (1024, 512) @ (512,
-1024)) is a hand-written CUDA kernel, ``csrc/int8_gemm.cu`` (mma.sync over
-shared-memory tiles); ``kernel`` runs it at that shape and at 4096^3, holds
-the int32 result exactly to a float64 product, and times both types beside
-their bounds.  The parts the JAX package left to XLA (``part_peak``,
-``part_qkt``, ``part_conv``) time PyTorch's own calls as library yardsticks
-(``torch.matmul``, ``torch._int_mm``, ``torch.nn.functional.conv2d``);
-where PyTorch has no such call (a batched int8 product, an int8
-convolution) the script says so.  The TPU scripts' compile cache and
-``fori_loop`` slope timing are not ported: CUDA events time the launches.
-Prints one JSON line.
+Port of ``scripts/int8_probe.py``. Its Pallas part (``part_pallas``: an int8
+x int8 -> int32 and a bf16 x bf16 -> fp32 dot at (1024, 512) @ (512, 1024))
+is a hand-written CUDA kernel, ``csrc/int8_gemm.cu`` (a warp-specialised TMA
++ wgmma GEMM; for int8 after B's transposition, ``transpose_int8``, since
+8-bit wgmma reads only K-major operands); ``kernel`` runs it at that shape
+and at 4096^3, holds the int32 result exactly to a float64 product, and
+times both types beside their bounds.  The parts the JAX package left to XLA
+(``part_peak``, ``part_qkt``, ``part_conv``) time PyTorch's own calls as
+library yardsticks (``torch.matmul``, ``torch._int_mm``,
+``torch.nn.functional.conv2d``); where PyTorch has no such call (a batched
+int8 product, an int8 convolution) the script says so.  The TPU scripts'
+compile cache and ``fori_loop`` slope timing are not ported: CUDA events
+time the launches.  Prints one JSON line.
 
 ``gemm`` is the wrapper (a CPU tensor takes ``plain_gemm``, a CUDA tensor
 launches the kernel or raises); ``gemm.launches`` and
-``gemm.variant_launches`` count its launches.
+``gemm.variant_launches`` count its launches.  ``transpose_int8`` (plain
+version ``plain_transpose_int8``) is the transposing pre-kernel
+(``csrc/transpose_int8.cu``) of the int8 product and of kernel 5's tr int8
+probes.
 """
 
 from __future__ import annotations
@@ -44,10 +48,47 @@ def plain_gemm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def plain_transpose_int8(x, width=None):
+    """(..., rows, cols) -> (..., cols, width): x transposed, contiguous,
+    with zero columns past ``rows`` (``width`` defaults to ``rows``)."""
+    rows = x.shape[-2]
+    width = rows if width is None else width
+    return torch.nn.functional.pad(x.transpose(-1, -2), (0, width - rows)).contiguous()
+
+
+def transpose_int8(x, width=None):
+    """``plain_transpose_int8``'s function for a (rows, cols) or (batch,
+    rows, cols) int8 tensor with a unit last stride.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    if not x.is_cuda:
+        return plain_transpose_int8(x, width)
+    rows, cols = x.shape[-2:]
+    width = rows if width is None else width
+    if x.dtype != torch.int8 or x.dim() not in (2, 3):
+        raise ValueError(f"transpose_int8 takes a 2-D or 3-D int8 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if cols % 16 or width % 16 or width < rows:
+        raise ValueError(f"transpose_int8 takes cols and width multiples of 16, width >= rows; "
+                         f"got {rows}x{cols} to width {width}")
+    x3 = x if x.dim() == 3 else x[None]
+    if x3.stride(-1) != 1 or any(s % 16 for s in x3.stride()[:2]) or x3.data_ptr() % 16:
+        raise ValueError(f"transpose_int8 needs a unit last stride, other strides multiple of 16 "
+                         f"and 16-byte alignment; got strides {x.stride()}")
+    out = torch.empty(x.shape[:-2] + (cols, width), device=x.device, dtype=torch.int8)
+    build.launch("ccedit_transpose_int8", x3.data_ptr(), out.data_ptr(), x3.shape[0], rows, cols,
+                 width, x3.stride(0), x3.stride(1), build.stream_of(x))
+    transpose_int8.launches += 1
+    return out
+
+
+transpose_int8.launches = 0
+
+
 def gemm(a, b):
-    """Kernel 6: (M, K) @ (K, N), row-major, int8 -> int32 or bf16 -> fp32.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    """Kernel 6: (M, K) @ (K, N), row-major, int8 -> int32 or bf16 -> fp32;
+    for int8, B is transposed first (``transpose_int8``, looked up at each
+    call) and the kernel reads B^T.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
     if not a.is_cuda:
         return plain_gemm(a, b)
     int8 = a.dtype == torch.int8
@@ -62,6 +103,8 @@ def gemm(a, b):
         raise ValueError(f"gemm takes M, N % 128 == 0 and K % {64 if int8 else 32} == 0, "
                          f"got {m}x{k}x{n}")
     c = torch.empty((m, n), device=a.device, dtype=torch.int32 if int8 else torch.float32)
+    if int8:  # 8-bit wgmma reads only K-major operands: B^T (N, K)
+        b = transpose_int8(b)
     build.launch("ccedit_gemm", int(int8), a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                  build.stream_of(a))
     gemm.launches += 1
@@ -94,7 +137,9 @@ def part_kernel(device, iters: int) -> list:
     """Kernel 6 at each shape and type: its error against ``plain_gemm``
     (``ok``: the int8 product exact, the bf16 one within BF16_TOLERANCE of
     max|plain|), its time beside its bound, the plain version's and that of
-    the PyTorch call for the same product."""
+    the PyTorch call for the same product; for int8 also the device time of
+    B's transposition alone (``transpose_ms``, part of ``ms``; from a CUDA
+    graph, since its wrapper's host time exceeds it)."""
     out = []
     for m, k, n in SHAPES:
         for int8 in (True, False):
@@ -105,7 +150,9 @@ def part_kernel(device, iters: int) -> list:
             del c, ref
             ms = roofline.cuda_time_ms(lambda: gemm(a, b), iters)
             lib = (lambda: torch._int_mm(a, b)) if int8 else (lambda: torch.matmul(a, b))
-            out.append(dict(variant=f"{'int8' if int8 else 'bf16'} {m}x{k}x{n}", ms=ms,
+            extra = {"transpose_ms": roofline.cuda_graph_time_ms(lambda: transpose_int8(b), iters)
+                     } if int8 else {}
+            out.append(dict(variant=f"{'int8' if int8 else 'bf16'} {m}x{k}x{n}", ms=ms, **extra,
                             max_abs_err=err, max_rel_err=rel,
                             ok=err == 0 if int8 else rel <= BF16_TOLERANCE,
                             plain_ms=roofline.cuda_time_ms(lambda: plain_gemm(a, b), 3),

@@ -3,18 +3,23 @@
     python -m ccedit_tpu_torch.scripts.kv_resident_attn
 
 Port of ``scripts/kv_resident_attn.py``: its seven Pallas kernels
-(``make_call`` qkt / softmax / full in the (B, N, D) layout, ``make_tr_call``
-qkt / full in the (B, D, N) layout, ``make_tr8_call`` qkt / full on int8 q
-and k with one per-tensor scale each) are one templated CUDA kernel,
-``csrc/attention_probe.cu``, at the same B, N, D = 272, 6144, 40 (34 clips x
-8 heads, kernel 1's level-0 shape).  The script runs each variant once at
-that shape, holds its first rows to ``plain_probe`` (``compare``), times it
-beside its bound, its plain version and the PyTorch call for the same
-function (where one exists), times kernel 1 (exact and int8, 1c) on the
-same q, k, v, and prints one JSON line: qkt's time is kernel 1's QK^T phase
-with its staging, softmax - qkt the online softmax, full - softmax the P.V
-product.  The TPU scripts' compile cache and ``fori_loop`` slope timing are
-TPU scaffolding and are not ported: CUDA events time the launches.
+(``make_call`` qkt / softmax / full in the (B, N, D) layout,
+``make_tr_call`` qkt / full in the (B, D, N) layout, ``make_tr8_call`` qkt /
+full on int8 q and k with one per-tensor scale each) are instantiations of
+kernel 1's own Hopper template (``csrc/spatial_attention.cuh``, stopped
+after a stage, in one of two layouts; ``csrc/attention_probe.cu``), at the
+same B, N, D = 272, 6144, 40 (34 clips x 8 heads, kernel 1's level-0 shape).
+The tr int8 variants first turn q8^T and k8^T into kernel 1c's (B, N, 48)
+rows (``int8_probe.transpose_int8``, inside the call). The script runs each
+variant once at that shape, holds its first rows to ``plain_probe``
+(``compare``), times it beside its bound, its plain version and the PyTorch
+call for the same function (where one exists), times kernel 1 (exact and
+int8, 1c) on the same q, k, v, and prints one JSON line: qkt's time is
+kernel 1's QK^T phase with its loads, softmax minus qkt the online softmax,
+full minus softmax the P.V product, and full plain bf16 over kernel 1 (one
+design now) should be 1. The TPU scripts' compile cache and ``fori_loop``
+slope timing are TPU scaffolding and are not ported: CUDA events time the
+launches.
 
 ``probe`` is the wrapper (a CPU tensor takes ``plain_probe``, a CUDA tensor
 launches the kernel or raises); ``probe.launches`` and
@@ -34,8 +39,10 @@ import torch
 
 from ..ops import build
 from . import roofline
+from .int8_probe import transpose_int8
 
 B, N, D = 272, 6144, 40
+INT8_WIDTH = 48  # kernel 1c's int8 row: D rounded up to 16 bytes
 SCALE = D ** -0.5
 _LOG2E = 1.0 / math.log(2.0)
 _STAGES = {"qkt": 0, "softmax": 1, "full": 2}
@@ -127,7 +134,8 @@ def _check(name: str, x, dtype, shape, transposed: bool, device) -> None:
 
 def probe(stage: str, q, k, v=None, scale: float = SCALE, transposed: bool = False):
     """Kernel 5 (``plain_probe``'s function).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel (int8: after the transposition
+    of q and k) or raises."""
     if not q.is_cuda:
         return plain_probe(stage, q, k, v, scale, transposed)
     int8 = q.dtype == torch.int8
@@ -147,7 +155,11 @@ def probe(stage: str, q, k, v=None, scale: float = SCALE, transposed: bool = Fal
         v = q  # not read
         out = torch.empty((b, n), device=q.device, dtype=torch.float32)
         out_layout = (n, 1, 0)
-    layouts = _layout(q, transposed) + _layout(k, transposed) + (
+    qk_layout = transposed
+    if int8:  # 8-bit wgmma reads only K-major operands: kernel 1c's (B, N, 48) rows
+        q, k = (transpose_int8(x, INT8_WIDTH) for x in (q, k))
+        qk_layout = False
+    layouts = _layout(q, qk_layout) + _layout(k, qk_layout) + (
         _layout(v, transposed) if stage == "full" else (0, 0, 0)) + out_layout
     build.launch("ccedit_attention_probe", _STAGES[stage], int(int8), int(transposed),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
@@ -227,7 +239,8 @@ def run(device, iters: int = 5, b: int = B, n: int = N, rows: int = COMPARE_ROWS
     the full shape beside its bound and the library call, its and the plain
     version's time on those rows; then kernel 1 (exact and 1c) on the same
     inputs as (b / 8, 8, n, D): at the default (34, 8, 6144, 40), its
-    level-0 shape."""
+    level-0 shape; and the qkt probe on q and k rows 128 bytes apart beside
+    its time on the contiguous 80-byte rows (``qkt_by_row_pitch_ms``)."""
     from ..ops import spatial_attention as sa
 
     x = inputs(device, b=b, n=n)
@@ -246,6 +259,16 @@ def run(device, iters: int = 5, b: int = B, n: int = N, rows: int = COMPARE_ROWS
             plain_ms=roofline.cuda_time_ms(lambda: plain_probe(stage, *part), max(iters // 2, 1)),
             plain_shape=[rows] + list(q.shape[1:]), library_ms=lib_ms, library=library,
             **checked, **probe_bound(stage, int8, b, n)))
+    # the qkt probe again on rows 128 bytes apart (the first D columns of
+    # (b, n, 64) tensors): the same TMA box rows a key tile as on the
+    # contiguous 80-byte rows, a third more bytes
+    wide = [torch.zeros((b, n, 64), device=device, dtype=torch.bfloat16) for _ in range(2)]
+    for w, name in zip(wide, ("q", "k")):
+        w[..., :D] = x[name]
+    qw, kw = (w[..., :D] for w in wide)
+    qkt_by_row_pitch = {"80": records[0]["ms"],
+                        "128": roofline.cuda_time_ms(lambda: probe("qkt", qw, kw), iters)}
+    del wide, qw, kw
     heads = (b // 8, 8, n, D)
     q4, k4, v4 = (x[name].view(heads) for name in ("q", "k", "v"))
     kernel1 = {quant: roofline.cuda_time_ms(
@@ -256,7 +279,9 @@ def run(device, iters: int = 5, b: int = B, n: int = N, rows: int = COMPARE_ROWS
              "softmax": ms["softmax plain bf16"] - ms["qkt plain bf16"],
              "p.v and output": ms["full plain bf16"] - ms["softmax plain bf16"]}
     return dict(shape=[b, n, D], variants=records, kernel1_ms=kernel1[False],
-                kernel1_int8_ms=kernel1[True], kernel1_split_ms=split)
+                kernel1_int8_ms=kernel1[True], kernel1_split_ms=split,
+                full_over_kernel1=ms["full plain bf16"] / kernel1[False],
+                qkt_by_row_pitch_ms=qkt_by_row_pitch)
 
 
 def main(argv=None) -> None:

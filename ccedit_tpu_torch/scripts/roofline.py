@@ -73,6 +73,26 @@ def cuda_time_ms(fn: Callable[[], object], iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_time_ms(fn: Callable[[], object], iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured into one CUDA
+    graph and replayed at once, after one warm-up: for a kernel shorter than
+    its wrapper's host time, which ``cuda_time_ms`` would measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def sdpa_backend(q, k, v, scale: float) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these inputs."""
     from torch.nn.attention import SDPBackend

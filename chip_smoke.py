@@ -40,7 +40,8 @@ Phases:
      max|plain|, full attention within 2e-2 of it and at cosine >= 0.9999,
      limits that the full and softmax probes fail with log2 e left out of
      their exp2 scale), and the kernel-6 GEMMs (``scripts/int8_probe.py``)
-     at 1024x512x1024 and 4096^3 (the int8 product exactly), and the kernel-7
+     at 1024x512x1024 and 4096^3 (the int8 product exactly, which the int8
+     product with B's transposition skipped must fail), and the kernel-7
      tile sweep (``scripts/profile_blocks.py``: kernel 3's template at
      head_dim 40 over nine (BM, BN) tiles at (34, 8, 6144, 40)), each held
      as the full kernel-5 probes are, limits that every tile pair fails with
@@ -575,8 +576,10 @@ def run_probes(device):
     attention (``kr.compare``'s full-attention limits).  Then the probes
     that read the logits scale, and every kernel-7 tile pair, run with log2
     e left out of it (a softmax temperature off by ln 2), a planted fault
-    that ``kr.compare`` must refuse.  Returns the probes' records and their launch counts by
-    variant, as one stage ("probes")."""
+    that ``kr.compare`` must refuse, and kernel 6's int8 product runs with
+    B's transposition skipped (``skip_transposition``), which its exact
+    check must refuse.  Returns the probes' records and their launch counts
+    by variant, as one stage ("probes")."""
     from ccedit_tpu_torch.ops import flash_attention as fa
     from ccedit_tpu_torch.scripts import int8_probe as ip
     from ccedit_tpu_torch.scripts import kv_resident_attn as kr
@@ -593,8 +596,9 @@ def run_probes(device):
     counts.update({f"flash_attention_tiles[{k}]": n for k, n in pb.tiles.variant_launches.items()})
     print(f"[probes] launches {json.dumps(counts)}", flush=True)
     print(f"[probes] kv_resident_attn.run: kernel 1 {split['kernel1_ms']:.4f} ms exact, "
-          f"{split['kernel1_int8_ms']:.4f} ms int8 (1c); split "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in split["kernel1_split_ms"].items()),
+          f"{split['kernel1_int8_ms']:.4f} ms int8 (1c); kernel 5's split of it "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split["kernel1_split_ms"].items())
+          + f"; full plain bf16 / kernel 1 on the same tensors {split['full_over_kernel1']:.4f}",
           flush=True)
     records = []
     for r, key in zip(split["variants"], kr.VARIANTS):
@@ -643,6 +647,20 @@ def run_probes(device):
                                    f"softmax temperature off by ln 2: {fault}")
     finally:
         pb._LOG2E = log2e
+    transpose = ip.transpose_int8
+    ip.transpose_int8 = skip_transposition  # the planted fault, looked up by ip.gemm
+    try:
+        for m, k, n in ip.SHAPES:
+            a, b = ip.operands(m, k, n, True, device)
+            err = (ip.gemm(a, b).double() - ip.plain_gemm(a, b).double()).abs().max().item()
+            print(f"[probes] kernel 6 int8 {m}x{k}x{n} with B's transposition skipped: "
+                  f"max_abs_err {err:.3e} (exact required)", flush=True)
+            if err == 0:
+                raise RuntimeError(f"the gemm check passes int8 {m}x{k}x{n} with B's "
+                                   "transposition skipped")
+            del a, b
+    finally:
+        ip.transpose_int8 = transpose
     for label, _ in GEMM_VARIANTS:
         per_shape = []
         for g in gemms:
@@ -757,6 +775,13 @@ def without_dequant(prepass):
         return q8, k8, torch.full_like(scales, scale)
 
     return faulty
+
+
+def skip_transposition(x, width=None):
+    """``int8_probe.transpose_int8`` with the planted fault of phase 3b:
+    kernel 6's B passed on untransposed, its (K, N) bytes read as B^T (N,
+    K)."""
+    return x.reshape(x.shape[-1], x.shape[-2])
 
 
 def run_path(path: str, device, steps: int, seed: int) -> dict:

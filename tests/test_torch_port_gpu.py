@@ -458,17 +458,18 @@ def test_int8_gradient_is_the_exact_paths(cuda, shape, n_k):
         assert torch.isfinite(got.float()).all() and rel <= TOL
 
 
+@pytest.mark.parametrize("n", [1024, 960])  # 960: the last 128-key tile half past N
 @pytest.mark.parametrize("stage,transposed,int8", [
     ("qkt", False, False), ("softmax", False, False), ("full", False, False),
     ("qkt", True, False), ("full", True, False), ("qkt", True, True), ("full", True, True)])
-def test_probe_matches_plain(cuda, stage, transposed, int8):
-    """Kernel 5 at (8, 1024, 40) within ``kv_resident_attn.compare``'s
-    limits: row sums within 1e-3 of max|plain| (fp32 sums of 1024 terms;
+def test_probe_matches_plain(cuda, stage, transposed, int8, n):
+    """Kernel 5 at (8, n, 40) within ``kv_resident_attn.compare``'s
+    limits: row sums within 1e-3 of max|plain| (fp32 sums of n terms;
     bf16 products exact in fp32), full within 2e-2 of max|plain| and at
     cosine >= 0.9999."""
     from ccedit_tpu_torch.scripts import kv_resident_attn as kr
 
-    x = kr.inputs(cuda, seed=1, b=8, n=1024)
+    x = kr.inputs(cuda, seed=1, b=8, n=n)
     q, k, v, scale, tr = kr.call_args(x, stage, transposed, int8)
     before = kr.probe.launches
     out = kr.probe(stage, q, k, v, scale, tr)
@@ -481,10 +482,11 @@ def test_probe_matches_plain(cuda, stage, transposed, int8):
 
 
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("mkn", [(256, 128, 384), (1024, 512, 1024)])
+@pytest.mark.parametrize("mkn", [(256, 128, 384), (1024, 512, 1024), (384, 192, 640)])
 def test_gemm_matches_plain(cuda, int8, mkn):
     """Kernel 6: int8 -> int32 exactly equal to the float64 product; bf16 ->
-    fp32 within 1e-5 of max|plain| (fp32 sums in another order)."""
+    fp32 within 1e-5 of max|plain| (fp32 sums in another order).  N 384 and
+    640 end in half a 256-column tile; K 192 ends in part of a k-tile."""
     from ccedit_tpu_torch.scripts import int8_probe as ip
 
     m, k, n = mkn
@@ -498,3 +500,29 @@ def test_gemm_matches_plain(cuda, int8, mkn):
         assert c.dtype == torch.int32 and torch.equal(c, ref)
     else:
         assert ((c - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("call", ["probe n % 64", "probe head_dim", "probe int8 plain layout",
+                                  "gemm m % 128", "gemm k % 64 int8", "transpose cols % 16"])
+def test_probe_wrappers_raise_outside_their_contract(cuda, call):
+    """Kernels 5 and 6 and the int8 transposition raise on a shape their
+    kernels do not take, and launch nothing."""
+    from ccedit_tpu_torch.scripts import int8_probe as ip
+    from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = lambda *s: torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)  # noqa: E731
+    i8 = lambda *s: torch.randint(-127, 127, s, generator=gen, device=cuda,  # noqa: E731
+                                  dtype=torch.int8)
+    calls = {
+        "probe n % 64": lambda: kr.probe("qkt", bf(2, 96, 40), bf(2, 96, 40)),
+        "probe head_dim": lambda: kr.probe("qkt", bf(2, 128, 48), bf(2, 128, 48)),
+        "probe int8 plain layout": lambda: kr.probe("qkt", i8(2, 128, 40), i8(2, 128, 40)),
+        "gemm m % 128": lambda: ip.gemm(bf(100, 64), bf(64, 128)),
+        "gemm k % 64 int8": lambda: ip.gemm(i8(128, 96), i8(96, 128)),
+        "transpose cols % 16": lambda: ip.transpose_int8(i8(40, 40), 48),
+    }
+    before = (kr.probe.launches, ip.gemm.launches, ip.transpose_int8.launches)
+    with pytest.raises(ValueError):
+        calls[call]()
+    assert (kr.probe.launches, ip.gemm.launches, ip.transpose_int8.launches) == before

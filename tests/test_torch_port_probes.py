@@ -55,22 +55,24 @@ def jax_script():
     return module
 
 
-def _pallas(body, transposed: bool, rowsum: bool, n_in: int):
+def _pallas(body, transposed: bool, rowsum: bool, n_in: int, b: int = B, n: int = N,
+            qb: int = QB):
     """A small-shape ``pallas_call`` of one of the script's kernel bodies,
-    laid out as its ``make_call`` / ``make_tr_call`` / ``make_tr8_call``."""
+    laid out as its ``make_call`` / ``make_tr_call`` / ``make_tr8_call``,
+    at (b, n) with ``qb``-query blocks."""
     d = kr.D
     if transposed:
-        qspec = pl.BlockSpec((1, d, QB), lambda b, i: (b, 0, i))
-        kvspec = pl.BlockSpec((1, d, N), lambda b, i: (b, 0, 0))
-        rspec, rshape = pl.BlockSpec((1, 1, QB), lambda b, i: (b, 0, i)), (B, 1, N)
-        oshape = (B, d, N)
+        qspec = pl.BlockSpec((1, d, qb), lambda b, i: (b, 0, i))
+        kvspec = pl.BlockSpec((1, d, n), lambda b, i: (b, 0, 0))
+        rspec, rshape = pl.BlockSpec((1, 1, qb), lambda b, i: (b, 0, i)), (b, 1, n)
+        oshape = (b, d, n)
     else:
-        qspec = pl.BlockSpec((1, QB, d), lambda b, i: (b, i, 0))
-        kvspec = pl.BlockSpec((1, N, d), lambda b, i: (b, 0, 0))
-        rspec, rshape = pl.BlockSpec((1, QB, 1), lambda b, i: (b, i, 0)), (B, N, 1)
-        oshape = (B, N, d)
+        qspec = pl.BlockSpec((1, qb, d), lambda b, i: (b, i, 0))
+        kvspec = pl.BlockSpec((1, n, d), lambda b, i: (b, 0, 0))
+        rspec, rshape = pl.BlockSpec((1, qb, 1), lambda b, i: (b, i, 0)), (b, n, 1)
+        oshape = (b, n, d)
     return pl.pallas_call(
-        body, grid=(B, N // QB), in_specs=[qspec] + [kvspec] * (n_in - 1),
+        body, grid=(b, n // qb), in_specs=[qspec] + [kvspec] * (n_in - 1),
         out_specs=rspec if rowsum else qspec,
         out_shape=jax.ShapeDtypeStruct(rshape if rowsum else oshape, jnp.float32),
         interpret=True)
