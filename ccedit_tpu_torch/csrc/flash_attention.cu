@@ -2,8 +2,7 @@
 // head, head_dim 512; 6144 tokens per frame at 512x768, 1024 at the VAE
 // fine-tune's 256x256.  With a non-null `lse` it also writes each row's
 // log-sum-exp for the backward (flash_attention_bwd.cu).  Redesigned for
-// Hopper; kernel 7, the tile sweep, keeps the simple design in
-// flash_tiles.cu.
+// Hopper.
 //
 // Replaces: the stock Pallas TPU flash_attention forward
 // (jax.experimental.pallas.ops.tpu.flash_attention), called from

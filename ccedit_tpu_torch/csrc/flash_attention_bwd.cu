@@ -1,331 +1,342 @@
 // Kernel 4 at head_dim 512: the backward of kernel 3, dq, dk and dv of the
 // VAE's single-head mid-block attention in VAE training, (12, 1, 1024, 512)
 // at the fine-tune's 12 images of 256x256 and (4, 1, 4096, 512) at 512x512;
-// any n_q, n_k >= 1.
+// any n_q, n_k >= 1.  Redesigned for Hopper.
 //
 // Replaces: the stock Pallas TPU flash-attention backward that
 // ccedit_tpu/ops/attention.py `_xla_attention_bwd` reaches through
 // `jax.vjp(flash_attention)` at kernel 3's shapes.
 //
-// What bounds it on an H100: arithmetic.  Five products of the forward's
-// QK^T size (S = Q K^T and dP = dO V^T recomputed in both kernels, dV = P^T
-// dO, dK = dS^T Q, dQ = dS K; 64 GFLOP at (12, 1, 1024, 512)) against 63 MB
-// of q, k, v, o, dO, dq, dk, dv: 0.065 ms on the tensor cores, far above the
-// bf16 ridge point.  The (n_q x n_k) P and dS never reach device memory.
+// What bounds it on an H100: the tensor cores.  The function is five
+// products of the forward's Q.K^T size (S and dP recomputed, dV = P^T dO,
+// dK = dS^T Q, dQ = dS K; 64 GFLOP at (12, 1, 1024, 512): 0.065 ms at 989
+// TFLOP/s) against 63 MB of q, k, v, o, dO, dq, dk, dv (0.019 ms).  The
+// (n_q x n_k) P and dS never reach device memory.
 //
-// Why kernel 4's d 40/80/160 layout does not widen to 512: it keeps a warp's
-// dK or dV rows (16 keys x head_dim) in registers, 256 fp32 a thread at
-// d = 512, over the 255 limit before anything else, and its dK/dV block
-// stages ~430 KB of shared memory at d = 512.  Here the accumulators are
-// split by head-dim columns instead: each of a block's 8 warps owns 64 of the
-// 512 columns (32 fp32 registers per accumulator), and the small score tiles
-// go through shared memory between the warps.
+// The crux, the accumulators at d = 512.  dK plus dV of 64 keys is 2 x 64 x
+// 512 fp32 = 256 KB, the whole register file of an SM; one warpgroup's
+// m64n256 fp32 accumulator is 128 registers a thread.  So no block holds
+// both dK and dV of a 64-key tile (kernel 4 at d 40/80/160 does), and dQ by
+// fp32 atomics, as there, would push ~100 M fp32 additions through L2 at
+// (12, 1, 1024, 512), more than the whole tensor bound.  Hence three
+// passes, each owning one output of 64 rows in registers, split by
+// columns: warpgroup w holds columns 256w .. 256w + 255 (128 fp32 a
+// thread), as kernel 3 (flash_attention.cu) holds its O.
+//   dV pass, a block per 64 keys, over query tiles of 32:
+//     S^T = K Q^T, P^T = exp2(S^T * scale_log2 - lse), dV += P^T dO.
+//     Kernel 3's forward with the log2 lse in place of the running max.
+//   dK pass, a block per 64 keys, over query tiles of 16:
+//     S^T = K Q^T, dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+//   dQ pass, a block per 64 queries, over key tiles of 16:
+//     S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+// 8 product units where the function has 5 (S three times, dP twice): a
+// bound of 0.104 ms at (12, 1, 1024, 512).  The three passes are one launch
+// (blockIdx.z picks the pass, the two 3-unit passes first), so their 3 x 192
+// blocks at (12, 1, 1024, 512) fill 4.4 waves of 132 SMs where each alone
+// would leave the second of 1.5 waves half empty.
 //
-// Design: FlashAttention-2's backward, two kernels and no atomics, 8 warps a
-// block; delta = rowsum(dO * O) is an fp32 torch reduction in the wrapper
-// (the stock Pallas backward's `di`).
-//   dK/dV kernel: one block per (batch*head, 16-key tile) walks 32-query
-//   steps.  Phase A: each warp computes one 16-key x 8-query tile of S^T =
-//   K Q^T (warps 0-3) or dP^T = V dO^T (warps 4-7) over the full head dim
-//   (32 mma.sync m16n8k16 k-steps, two accumulators for ILP) into fp32
-//   shared memory.  Phase B: all threads form P^T = exp2(S^T * scale_log2 -
-//   lse) with kernel 3's log2-domain lse and dS^T = P^T (dP^T - delta), bf16.
-//   Phase C: each warp accumulates dV += P^T dO and dK += dS^T Q over its 64
-//   columns; dO and Q are the products' B operands in their row-major
-//   staging, read with ldmatrix.trans.
-//   dQ kernel: one block per (batch*head, 16-query tile) walks 32-key steps
-//   the same way: S = Q K^T and dP = dO V^T tiles, dS, then dQ += dS K over
-//   each warp's 64 columns (K through ldmatrix.trans).
-//   The softmax scale multiplies dK and dQ once, in the epilogue.  Rows
-//   past n_q or n_k are staged as zeros, with lse = +inf past n_q and P
-//   masked to 0 past n_k, so they add exact zeros.  Shared memory (dynamic):
-//   105 KB a block in either kernel (107,264 bytes): two blocks an SM.
-//   Staged rows are 520 bf16 (1040 bytes) apart: every 16-byte ldmatrix row
-//   and every 32-bit fragment load of a quad falls on its own banks.
+// A block is two warpgroups (256 threads, up to 255 registers each).
+//   - The 512-deep score products are wgmma m64n16k16, 32 steps, both
+//     operands from shared memory, K-major: in the dV pass each warpgroup
+//     computes 16 of the 32 query columns of S^T; in the dK and dQ passes
+//     warpgroup 0 computes S (or S^T) and warpgroup 1 dP (or dP^T) of the
+//     same 16 columns, hands dP over through shared memory (4 KB fp32), and
+//     warpgroup 0 forms dS.  The scores are computed once a pass.
+//   - P^T, dS^T or dS goes to shared memory as bf16 (no swizzle, 8 x 8 core
+//     matrices), the A operand of the accumulating product, wgmma
+//     m64n256k16 with the streamed tile as an MN-major B read in its
+//     row-major layout (dO, Q or K): no transpose anywhere.
+//   - The resident operands (K; K and V; Q and dO) load once by TMA; the
+//     streamed pair (Q and dO, or K and V) arrives by TMA into a ring of two
+//     stages, one thread issuing tile j + 2 into the stage tile j frees.
+//   - lse and delta: the dV and dK passes read each query column's from
+//     global memory (L1), issued before the score product's wait; the dQ
+//     pass reads its rows' once.  Queries past n_q take lse = +inf (P = 0)
+//     and delta = 0, and their Q and dO rows arrive as zeros; keys past n_k
+//     are masked to P = 0 in the dQ pass, and in the other passes their
+//     rows are never stored.
+//   - The softmax scale multiplies dK and dQ once, in the epilogue.
+// delta = rowsum(dO * O) comes from a prep kernel in the same call (the
+// stock Pallas backward's `di`, which XLA computes): one warp a row, fp32
+// sums of the bf16 operands, each read once (25 MB at (12, 1, 1024, 512),
+// ~8 us at the bytes bound), in place of a torch reduction through fp32
+// copies.
 //
-// ptxas (sm_90a, from chip_smoke.py's verbose build): 128 registers for the
-// dK/dV kernel (the __launch_bounds__ cap for two blocks an SM), 114 for the
-// dQ kernel, no spills.
+// Shared memory (+ 1 KB of alignment): the dV pass K 64 KB + 2 stages x
+// (Q + dO) 2 x 32 rows x 1 KB + P^T 4 KB = 196 KB; the dK and dQ passes
+// their two resident operands 128 KB + 2 stages x 2 x 16 rows x 1 KB + dS
+// 2 KB + dP 4 KB = 198 KB.  One block an SM.
 //
-// Left for later: cp.async/TMA pipelining of the Q/dO and K/V steps, wgmma,
-// one pass for S and dP (they are recomputed in both kernels).
-#include "attention_common.cuh"
+// What held the first design back, and what this one does about it:
+// mma.sync on 16-row tiles with 8 warps (now wgmma m64n256 from two
+// warpgroups), no copy overlapping the math (now TMA rings), S and dP each
+// computed in both of its kernels (now dV needs no dP), 16-key blocks each
+// streaming every query (now 64 rows a block: a quarter of the traffic).
+#include "hopper.cuh"
 
 namespace ccedit {
 
 namespace {
 
-constexpr int kD = 512;
-constexpr int kLD = kD + 8;        // bf16 pitch of staged rows
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = kD / kWarps;  // head-dim columns of a warp's accumulators
-constexpr int kNB = kCols / 8;      // their 8-wide n-tiles
-constexpr int kVPR = kD / 8;        // 16-byte vectors per row
-constexpr int kRows = 16;           // keys (dK/dV) or queries (dQ) per block
-constexpr int kStep = 32;           // queries (dK/dV) or keys (dQ) per step
-constexpr int kLDS = kStep + 4;     // fp32 pitch of the S / dP tiles
-constexpr int kLDP = kStep + 8;     // bf16 pitch of the P / dS tiles
+using namespace hopper;
 
-// One kernel's shared memory: the block's 16 rows of two operands, a step's
-// 32 rows of two more, the fp32 S and dP tiles, the bf16 P and dS tiles
-// (dQ uses only dS), and a step's lse and delta (dK/dV only).
-constexpr size_t kSmemBytes = sizeof(bf16) * (2 * kRows * kLD + 2 * kStep * kLD +
-                                              2 * kRows * kLDP) +
-                              sizeof(float) * (2 * kRows * kLDS + 2 * kStep);
-static_assert(kSmemBytes <= 232448 / 2, "two blocks an SM");
+constexpr int kD = 512, kChunks = kD / 64;
+constexpr int kRows = 64;     // rows (keys or queries) a block
+constexpr int kStages = 2;    // of the streamed ring
+constexpr int kBoxRows = 16;  // rows of a streamed TMA box
+enum Pass { kDK = 0, kDQ = 1, kDV = 2 };
+// the passes in launch order (blockIdx.z): the 3-unit passes first
+__constant__ const int kPassOrder[] = {kDK, kDQ, kDV};
+constexpr int kPasses = 3;
+
+template <int P>
+struct PassTiles {
+  static constexpr int kProducts = P == kDV ? 1 : 2;  // score products: S, or S and dP
+  static constexpr int kBN = P == kDV ? 32 : 16;      // streamed rows a tile
+  static constexpr int kResBytes = kProducts * kRows * kChunks * 128;
+  static constexpr int kTileBytes = kBN * kChunks * 128;  // one streamed operand
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kZBytes = kRows * kBN * 2;          // bf16 P^T or dS
+  static constexpr int kDPBytes = kProducts == 2 ? kRows * kBN * 4 : 0;  // fp32 dP
+  static constexpr int kSmemBytes = 1024 + kResBytes + kStages * kStageBytes + kZBytes + kDPBytes;
+  static_assert(kSmemBytes + 64 <= 232448, "the tiles do not fit in a block's shared memory");
+};
+
+constexpr int smem_bytes() {
+  return PassTiles<kDK>::kSmemBytes > PassTiles<kDV>::kSmemBytes ? PassTiles<kDK>::kSmemBytes
+                                                                 : PassTiles<kDV>::kSmemBytes;
+}
+
+// q, k, v and dO as 4-D tensor maps: boxes of kRows rows (the resident
+// operands) and of kBoxRows (the streamed ones)
+struct Bwd512Maps {
+  CUtensorMap q64, k64, v64, do64, q16, k16, v16, do16;
+};
 
 struct Bwd512Args {
-  const bf16 *q, *k, *v, *dout;
+  int tokens_inner;  // bit 0 q, 1 k, 2 v, 3 dO: load_chunk's flag
+  const float *lse, *delta;  // (batch * heads, n_q), fp32; delta from delta_kernel
   bf16 *dq, *dk, *dv;
-  const float *lse, *delta;  // (batch * heads, n_q), fp32
   int heads, n_q, n_k;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  Strides sdq, sdk, sdv;
   float scale_log2, scale;
 };
 
-// Rows [r0, r0 + rows) of an (N x 512) operand into shared memory at pitch
-// kLD; rows at or past n are zeros.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride_n,
-                                           int r0, int rows, int n) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < rows * kVPR; i += kThreads) {
-    const int r = i / kVPR, c = i % kVPR;
-    st128(dst + r * kLD + c * 8, r0 + r < n ? ld128(src + (r0 + r) * stride_n + c * 8) : zero);
-  }
+// byte offset of element (r, c) of a bf16 A operand [kRows][BN] in 8 x 8
+// core matrices: [r / 8][c / 8][r % 8][c % 8]
+template <int BN>
+__device__ __forceinline__ int z_off(int r, int c) {
+  return (r / 8) * (BN / 8) * 128 + (c / 8) * 128 + (r % 8) * 16 + (c % 8) * 2;
 }
 
-// A fragment (16 x 16, row-major) at `p` with row pitch `ld`.
-__device__ __forceinline__ void a_frag(uint32_t a[4], const bf16* p, int ld) {
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
+template <int P>
+__device__ __forceinline__ void bwd512_pass(const Bwd512Maps& m, const Bwd512Args& a,
+                                            unsigned char* smem, uint64_t* res_full,
+                                            uint64_t* full) {
+  using T = PassTiles<P>;
+  constexpr int BN = T::kBN, NP = T::kProducts;
+  unsigned char* s_res = smem;  // resident operand r at r * kRows * kChunks * 128
+  unsigned char* s_ring = s_res + T::kResBytes;  // stage s: streamed operands 0 and 1
+  unsigned char* s_z = s_ring + kStages * T::kStageBytes;
+  float* s_dp = reinterpret_cast<float*>(s_z + T::kZBytes);
 
-// B fragments of two neighbouring 8-wide n-tiles of a product whose B
-// operand is stored row-major with the k index along the rows: `tile` is
-// &B[k0][n0], `ld` its pitch.  ldmatrix.x4.trans: lanes 0-7 address rows
-// k0..k0+7 at column n0 (b0 of n-tile 0), lanes 8-15 rows k0+8..k0+15 (b1),
-// lanes 16-31 the same rows at column n0 + 8 (b0, b1 of n-tile 1); the
-// transpose hands lane (g, t) the elements B[2t, 2t+1][g] of each matrix.
-__device__ __forceinline__ void b_frags_trans(uint32_t b[4], const bf16* tile, int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(addr));
-}
-
-// Phase A of either kernel: this warp's 16 x 8 tile of A B^T over the full
-// head dim, A rows at `a_rows` and B rows at `b_rows` (both pitch kLD), into
-// the fp32 tile `dst` (pitch kLDS) at column `col0`.
-__device__ __forceinline__ void score_tile(const bf16* a_rows, const bf16* b_rows,
-                                           float* dst, int col0, int g, int t) {
-  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-  const bf16* ap = a_rows + g * kLD + 2 * t;
-  const bf16* bp = b_rows + g * kLD + 2 * t;
-#pragma unroll 8
-  for (int kk = 0; kk < kD / 16; kk += 2) {
-    uint32_t af[4];
-    a_frag(af, ap + kk * 16, kLD);
-    mma_16816(c0, af, ld32(bp + kk * 16), ld32(bp + kk * 16 + 8));
-    a_frag(af, ap + kk * 16 + 16, kLD);
-    mma_16816(c1, af, ld32(bp + kk * 16 + 16), ld32(bp + kk * 16 + 24));
-  }
-  dst[g * kLDS + col0 + 2 * t] = c0[0] + c1[0];
-  dst[g * kLDS + col0 + 2 * t + 1] = c0[1] + c1[1];
-  dst[(g + 8) * kLDS + col0 + 2 * t] = c0[2] + c1[2];
-  dst[(g + 8) * kLDS + col0 + 2 * t + 1] = c0[3] + c1[3];
-}
-
-__device__ __forceinline__ void store_rows(bf16* out, long long stride_n, int row0, int n,
-                                           int col0, const float acc[kNB][4], float mult,
-                                           int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) {
-    const int col = col0 + nb * 8 + 2 * t;
-    if (row0 + g < n)
-      *reinterpret_cast<uint32_t*>(out + (row0 + g) * stride_n + col) =
-          pack_bf16(acc[nb][0] * mult, acc[nb][1] * mult);
-    if (row0 + g + 8 < n)
-      *reinterpret_cast<uint32_t*>(out + (row0 + g + 8) * stride_n + col) =
-          pack_bf16(acc[nb][2] * mult, acc[nb][3] * mult);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 2) attention_bwd512_dkdv_kernel(Bwd512Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);  // kRows keys x kLD
-  bf16* s_v = s_k + kRows * kLD;              // kRows keys x kLD
-  bf16* s_q = s_v + kRows * kLD;              // kStep queries x kLD
-  bf16* s_do = s_q + kStep * kLD;             // kStep queries x kLD
-  bf16* s_pt = s_do + kStep * kLD;            // kRows x kLDP: P^T (keys x queries)
-  bf16* s_dst = s_pt + kRows * kLDP;          // kRows x kLDP: dS^T
-  float* s_s = reinterpret_cast<float*>(s_dst + kRows * kLDP);  // kRows x kLDS: S^T
-  float* s_dp = s_s + kRows * kLDS;           // kRows x kLDS: dP^T
-  float* s_lse = s_dp + kRows * kLDS;         // kStep
-  float* s_delta = s_lse + kStep;             // kStep
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.x * kRows;
-  const bf16* q = a.q + b * a.sq.b + h * a.sq.h;
-  const bf16* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
-  const float* lse = a.lse + static_cast<long long>(bh) * a.n_q;
-  const float* delta = a.delta + static_cast<long long>(bh) * a.n_q;
+  const int r0 = blockIdx.x * kRows;
+  const int n_rows = P == kDQ ? a.n_q : a.n_k, n_cols = P == kDQ ? a.n_k : a.n_q;
+  if (r0 >= n_rows) return;  // the grid covers the longer of n_q and n_k
+  const int n_tiles = (n_cols + BN - 1) / BN;
+  const int in = a.tokens_inner;
+  // resident: dK K and V, dQ Q and dO, dV K; streamed: dK and dV Q and dO,
+  // dQ K and V
+  const CUtensorMap* res[2] = {P == kDQ ? &m.q64 : &m.k64, P == kDQ ? &m.do64 : &m.v64};
+  const bool res_in[2] = {(in & (P == kDQ ? 1 : 2)) != 0, (in & (P == kDQ ? 8 : 4)) != 0};
+  const CUtensorMap* str[2] = {P == kDQ ? &m.k16 : &m.q16, P == kDQ ? &m.v16 : &m.do16};
+  const bool str_in[2] = {(in & (P == kDQ ? 2 : 1)) != 0, (in & (P == kDQ ? 4 : 8)) != 0};
 
-  stage_rows(s_k, a.k + b * a.sk.b + h * a.sk.h, a.sk.n, k0, kRows, a.n_k);
-  stage_rows(s_v, a.v + b * a.sv.b + h * a.sv.h, a.sv.n, k0, kRows, a.n_k);
+  auto load_tile = [&](int j) {  // streamed tile j into stage j % 2
+    const int s = j % kStages;
+    unsigned char* st = s_ring + s * T::kStageBytes;
+    mbar_expect_tx(&full[s], T::kStageBytes);
+    for (int op = 0; op < 2; ++op)
+      for (int c = 0; c < kChunks; ++c)
+        for (int part = 0; part < BN / kBoxRows; ++part)
+          load_chunk(st + op * T::kTileBytes + c * BN * 128 + part * kBoxRows * 128, str[op],
+                     str_in[op], &full[s], c, h, j * BN + part * kBoxRows, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    mbar_expect_tx(res_full, T::kResBytes);
+    for (int r = 0; r < NP; ++r)
+      for (int c = 0; c < kChunks; ++c)
+        load_chunk(s_res + r * kRows * kChunks * 128 + c * kRows * 128, res[r], res_in[r],
+                   res_full, c, h, r0, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_tile(j);
+  }
+  __syncthreads();
 
-  // phase A: warps 0-3 S^T = K Q^T, warps 4-7 dP^T = V dO^T, 8 queries each
-  const bool is_dp = warp >= 4;
-  const int qc = (warp & 3) * 8;
-  // phase C: this warp's columns of dV and dK
-  const int d0 = warp * kCols;
-  float dv[kNB][4], dk[kNB][4];
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane & 3;
+  const int row = 16 * warp + g;  // this thread's rows of the block: row, row + 8
+  const long long stat0 = static_cast<long long>(bh) * a.n_q;
+  // the dQ pass's rows' lse and delta (queries past n_q: P = 0, dS = 0)
+  float lse_r[2] = {INFINITY, INFINITY}, delta_r[2] = {0.f, 0.f};
+  if constexpr (P == kDQ) {
+    for (int e = 0; e < 2; ++e)
+      if (r0 + row + 8 * e < a.n_q) {
+        lse_r[e] = a.lse[stat0 + r0 + row + 8 * e];
+        delta_r[e] = a.delta[stat0 + r0 + row + 8 * e];
+      }
+  }
+  // the score product of this warpgroup: A resident, B streamed (16 rows)
+  const unsigned char* s_a = s_res + (NP == 2 ? w * kRows * kChunks * 128 : 0);
+  const int b_off = NP == 2 ? w * T::kTileBytes : w * 16 * 128;
+  const int col0 = NP == 2 ? 0 : 16 * w;  // its first column of the tile
+  // the accumulating product's B: dV dO, dK Q, dQ K; this warpgroup's 4 chunks
+  const int c_off = (P == kDV ? T::kTileBytes : 0) + w * 4 * BN * 128;
+
+  float acc[128];
 #pragma unroll
-  for (int nb = 0; nb < kNB; ++nb)
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  mbar_wait(res_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const unsigned char* st = s_ring + s * T::kStageBytes;
+    float sc[8];
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dv[nb][e] = dk[nb][e] = 0.f;
-
-  for (int q0 = 0; q0 < a.n_q; q0 += kStep) {
-    __syncthreads();  // the previous step's tiles have been consumed
-    stage_rows(s_q, q, a.sq.n, q0, kStep, a.n_q);
-    stage_rows(s_do, dout, a.sdo.n, q0, kStep, a.n_q);
-    if (tid < kStep) {  // past n_q: P = exp2(-inf) = 0 and dS = 0
-      const bool valid = q0 + tid < a.n_q;
-      s_lse[tid] = valid ? lse[q0 + tid] : INFINITY;
-      s_delta[tid] = valid ? delta[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    score_tile(is_dp ? s_v : s_k, (is_dp ? s_do : s_q) + qc * kLD, is_dp ? s_dp : s_s, qc, g, t);
-    __syncthreads();
-
-    for (int i = tid; i < kRows * kStep; i += kThreads) {
-      const int key = i / kStep, qi = i % kStep;
-      float p = exp2f(s_s[key * kLDS + qi] * a.scale_log2 - s_lse[qi]);
-      if (k0 + key >= a.n_k) p = 0.f;
-      s_pt[key * kLDP + qi] = __float2bfloat16(p);
-      s_dst[key * kLDP + qi] = __float2bfloat16(p * (s_dp[key * kLDS + qi] - s_delta[qi]));
-    }
-    __syncthreads();
-
+    for (int kk = 0; kk < kD / 16; ++kk)  // chunk kk / 4, 32-byte step kk % 4 within it
+      WgmmaSS<16, 0>::run(sc, desc(s_a + (kk / 4) * kRows * 128 + (kk % 4) * 32, 16, 1024, 1),
+                          desc(st + b_off + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024, 1),
+                          kk > 0);
+    wgmma_commit();
+    // columns col0 + 8 (i / 4) + 2t + (i & 1) of the tile: their lse and
+    // delta (dV, dK: queries), fetched while the product runs
+    float lse_c[4] = {INFINITY, INFINITY, INFINITY, INFINITY}, delta_c[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (P != kDQ) {
+      if (NP == 1 || w == 0) {
 #pragma unroll
-    for (int j = 0; j < kStep / 16; ++j) {
-      uint32_t pa[4], da[4];
-      a_frag(pa, s_pt + g * kLDP + j * 16 + 2 * t, kLDP);
-      a_frag(da, s_dst + g * kLDP + j * 16 + 2 * t, kLDP);
-#pragma unroll
-      for (int nb = 0; nb < kNB; nb += 2) {
-        uint32_t bf[4];
-        b_frags_trans(bf, s_do + j * 16 * kLD + d0 + nb * 8, kLD);
-        mma_16816(dv[nb], pa, bf[0], bf[1]);
-        mma_16816(dv[nb + 1], pa, bf[2], bf[3]);
-        b_frags_trans(bf, s_q + j * 16 * kLD + d0 + nb * 8, kLD);
-        mma_16816(dk[nb], da, bf[0], bf[1]);
-        mma_16816(dk[nb + 1], da, bf[2], bf[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int q = j * BN + col0 + 8 * (e / 2) + 2 * t + (e & 1);
+          if (q < a.n_q) {
+            lse_c[e] = a.lse[stat0 + q];
+            if constexpr (P == kDK) delta_c[e] = a.delta[stat0 + q];
+          }
+        }
       }
     }
-  }
+    wgmma_wait<0>();
+    fence_regs(sc);
 
-  store_rows(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.n, k0, a.n_k, d0, dv, 1.f, g, t);
-  store_rows(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.n, k0, a.n_k, d0, dk, a.scale, g, t);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) attention_bwd512_dq_kernel(Bwd512Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // kRows queries x kLD
-  bf16* s_do = s_q + kRows * kLD;             // kRows queries x kLD
-  bf16* s_k = s_do + kRows * kLD;             // kStep keys x kLD
-  bf16* s_v = s_k + kStep * kLD;              // kStep keys x kLD
-  bf16* s_ds = s_v + kStep * kLD;             // kRows x kLDP: dS (queries x keys)
-  float* s_s = reinterpret_cast<float*>(s_ds + 2 * kRows * kLDP);  // kRows x kLDS: S
-  float* s_dp = s_s + kRows * kLDS;           // kRows x kLDS: dP
-  float* s_lse = s_dp + kRows * kLDS;         // kRows
-  float* s_delta = s_lse + kStep;             // kRows
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.x * kRows;
-  const bf16* k = a.k + b * a.sk.b + h * a.sk.h;
-  const bf16* v = a.v + b * a.sv.b + h * a.sv.h;
-  const long long base = static_cast<long long>(bh) * a.n_q;
-
-  stage_rows(s_q, a.q + b * a.sq.b + h * a.sq.h, a.sq.n, q0, kRows, a.n_q);
-  stage_rows(s_do, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.n, q0, kRows, a.n_q);
-  if (tid < kRows) {  // past n_q: P = 0 and dS = 0 (those rows are not stored)
-    const bool valid = q0 + tid < a.n_q;
-    s_lse[tid] = valid ? a.lse[base + q0 + tid] : INFINITY;
-    s_delta[tid] = valid ? a.delta[base + q0 + tid] : 0.f;
-  }
-
-  // phase A: warps 0-3 S = Q K^T, warps 4-7 dP = dO V^T, 8 keys each
-  const bool is_dp = warp >= 4;
-  const int kc = (warp & 3) * 8;
-  const int d0 = warp * kCols;
-  float dq[kNB][4];
+    if constexpr (NP == 2) {  // warpgroup 1 hands dP over
+      if (w == 1) {
 #pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) dq[nb][0] = dq[nb][1] = dq[nb][2] = dq[nb][3] = 0.f;
-
-  for (int k0 = 0; k0 < a.n_k; k0 += kStep) {
-    __syncthreads();  // the previous key step has been consumed; on the first, Q and dO staged
-    stage_rows(s_k, k, a.sk.n, k0, kStep, a.n_k);
-    stage_rows(s_v, v, a.sv.n, k0, kStep, a.n_k);
-    __syncthreads();
-
-    score_tile(is_dp ? s_do : s_q, (is_dp ? s_v : s_k) + kc * kLD, is_dp ? s_dp : s_s, kc, g, t);
-    __syncthreads();
-
-    for (int i = tid; i < kRows * kStep; i += kThreads) {
-      const int qi = i / kStep, key = i % kStep;
-      float p = exp2f(s_s[qi * kLDS + key] * a.scale_log2 - s_lse[qi]);
-      if (k0 + key >= a.n_k) p = 0.f;
-      s_ds[qi * kLDP + key] = __float2bfloat16(p * (s_dp[qi * kLDS + key] - s_delta[qi]));
+        for (int i = 0; i < 8; ++i) s_dp[i * 128 + tid] = sc[i];
+      }
+      __syncthreads();
     }
-    __syncthreads();
-
+    if (NP == 1 || w == 0) {
+      // sc[i]: row row + 8 ((i >> 1) & 1), column col0 + 8 (i / 4) + 2t + (i & 1)
+      float z[8];
 #pragma unroll
-    for (int j = 0; j < kStep / 16; ++j) {
-      uint32_t da[4];
-      a_frag(da, s_ds + g * kLDP + j * 16 + 2 * t, kLDP);
+      for (int i = 0; i < 8; ++i) {
+        const int e = 2 * (i / 4) + (i & 1);  // this column's lse_c / delta_c
+        const int r = (i >> 1) & 1;
+        if constexpr (P == kDQ) {
+          const int key = j * BN + 8 * (i / 4) + 2 * t + (i & 1);
+          const float p = key < a.n_k ? ex2(fmaf(sc[i], a.scale_log2, -lse_r[r])) : 0.f;
+          z[i] = p * (s_dp[i * 128 + tid] - delta_r[r]);
+        } else {
+          const float p = ex2(fmaf(sc[i], a.scale_log2, -lse_c[e]));
+          if constexpr (P == kDK)
+            z[i] = p * (s_dp[i * 128 + tid] - delta_c[e]);
+          else
+            z[i] = p;
+        }
+      }
 #pragma unroll
-      for (int nb = 0; nb < kNB; nb += 2) {
-        uint32_t bf[4];
-        b_frags_trans(bf, s_k + j * 16 * kLD + d0 + nb * 8, kLD);
-        mma_16816(dq[nb], da, bf[0], bf[1]);
-        mma_16816(dq[nb + 1], da, bf[2], bf[3]);
+      for (int i = 0; i < 8; i += 2) {
+        const int col = col0 + 8 * (i / 4) + 2 * t, r = row + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(s_z + z_off<BN>(r, col)) = pack_bf16(z[i], z[i + 1]);
       }
     }
+    fence_proxy_async();
+    __syncthreads();  // all of P^T or dS written
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      WgmmaSS<256, 1>::run(acc, desc(s_z + kk * 256, 128, (BN / 8) * 128, 0),
+                           desc(st + c_off + kk * 2048, BN * 128, 1024, 1), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // stage s, P^T / dS and dP are free
+    if (threadIdx.x == 0 && j + kStages < n_tiles) load_tile(j + kStages);
   }
 
-  store_rows(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.n, q0, a.n_q, d0, dq, a.scale, g, t);
+  bf16* out = P == kDQ ? a.dq : P == kDK ? a.dk : a.dv;
+  const Strides so = P == kDQ ? a.sdq : P == kDK ? a.sdk : a.sdv;
+  const float mult = P == kDV ? 1.f : a.scale;
+  out += b * so.b + h * so.h + 256 * w;
+  const int row0 = r0 + row, row1 = row0 + 8;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (row0 < n_rows)
+      *reinterpret_cast<uint32_t*>(out + row0 * so.n + col) =
+          pack_bf16(acc[4 * i] * mult, acc[4 * i + 1] * mult);
+    if (row1 < n_rows)
+      *reinterpret_cast<uint32_t*>(out + row1 * so.n + col) =
+          pack_bf16(acc[4 * i + 2] * mult, acc[4 * i + 3] * mult);
+  }
 }
 
-int launch_bwd512(const Bwd512Args& a, int batch, cudaStream_t stream) {
-  // above 48 KB, dynamic shared memory needs an opt-in per kernel
-  static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd512_dkdv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(attention_bwd512_dq_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(kSmemBytes));
-  }();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int bhs = batch * a.heads;
-  attention_bwd512_dkdv_kernel<<<dim3((a.n_k + kRows - 1) / kRows, bhs), kThreads, kSmemBytes,
-                                 stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd512_dq_kernel<<<dim3((a.n_q + kRows - 1) / kRows, bhs), kThreads, kSmemBytes,
-                               stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// delta = rowsum(dO * O) in fp32, one warp a row, 8 rows a block.
+__global__ void __launch_bounds__(256)
+delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
+             int heads, int n_q, Strides so, Strides sdo) {
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= n_q) return;
+  const bf16* po = o + b * so.b + h * so.h + row * so.n;
+  const bf16* pd = dout + b * sdo.b + h * sdo.h + row * sdo.n;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 8 * lane; c < kD; c += 256) {  // 16-byte vectors
+    const uint4 vo = ld128(po + c), vd = ld128(pd + c);
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&vo);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&vd);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fx = __bfloat1622float2(x[e]), fy = __bfloat1622float2(y[e]);
+      sum = fmaf(fx.x, fy.x, fmaf(fx.y, fy.y, sum));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[static_cast<long long>(bh) * n_q + row] = sum;
+}
+
+__global__ void __launch_bounds__(256, 1)
+flash_attention_bwd512_kernel(const __grid_constant__ Bwd512Maps maps, Bwd512Args a) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __shared__ uint64_t res_full, full[kStages];
+  switch (kPassOrder[blockIdx.z]) {
+    case kDK:
+      bwd512_pass<kDK>(maps, a, smem, &res_full, full);
+      break;
+    case kDQ:
+      bwd512_pass<kDQ>(maps, a, smem, &res_full, full);
+      break;
+    default:
+      bwd512_pass<kDV>(maps, a, smem, &res_full, full);
+  }
 }
 
 }  // namespace
@@ -333,35 +344,61 @@ int launch_bwd512(const Bwd512Args& a, int batch, cudaStream_t stream) {
 }  // namespace ccedit
 
 // C entry point, with ccedit_spatial_attention_bwd's conventions: strides
-// are the (batch, head, token) element strides of q, k, v, dout, dq, dk, dv
-// (21 values); `lse` is kernel 3's log2-domain row log-sum-exp and `delta`
-// rowsum(dO * O), both contiguous fp32 (batch * heads, n_q).  Launches the
-// dK/dV kernel, then the dQ kernel, on `stream`.  Returns the first
-// cudaError_t (0 = success); -1 for a head_dim other than 512.
+// are the (batch, head, token) element strides of q, k, v, out, dout, dq,
+// dk, dv (24 values); `lse` is kernel 3's log2-domain row log-sum-exp,
+// contiguous fp32 (batch * heads, n_q), and `delta` fp32 scratch of that
+// shape.  Launches the delta kernel, then the three passes in one launch, on
+// `stream`.  Returns the first cudaError_t (0 = success); -1 for a head_dim
+// other than 512 or an empty n_q or n_k.
 extern "C" int ccedit_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int batch, int heads, int n_q,
+    const void* q, const void* k, const void* v, const void* out, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int batch, int heads, int n_q,
     int n_k, int head_dim, const long long* strides, float scale_log2, float scale,
     void* stream) {
-  using ccedit::bf16;
-  using ccedit::Strides;
-  if (head_dim != ccedit::kD) return -1;
-  ccedit::Bwd512Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
+  using namespace ccedit;
+  if (head_dim != kD || n_q <= 0 || n_k <= 0) return -1;
+  constexpr int kSmem = smem_bytes();
+  // above 48 KB, dynamic shared memory needs an opt-in per kernel
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_bwd512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // q, k, v, out, dout, dq, dk, dv
+  Strides s[8];
+  for (int i = 0; i < 8; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  // the descriptors hold the data pointers, so they are built per launch
+  Bwd512Maps m;
+  bool iq, ik, iv, ido;
+  int err = hopper::tensor_map(&m.q64, &iq, q, batch, heads, n_q, kD, s[0], kRows);
+  if (err == 0) err = hopper::tensor_map(&m.k64, &ik, k, batch, heads, n_k, kD, s[1], kRows);
+  if (err == 0) err = hopper::tensor_map(&m.v64, &iv, v, batch, heads, n_k, kD, s[2], kRows);
+  if (err == 0) err = hopper::tensor_map(&m.do64, &ido, dout, batch, heads, n_q, kD, s[4], kRows);
+  if (err == 0) err = hopper::tensor_map(&m.q16, &iq, q, batch, heads, n_q, kD, s[0], kBoxRows);
+  if (err == 0) err = hopper::tensor_map(&m.k16, &ik, k, batch, heads, n_k, kD, s[1], kBoxRows);
+  if (err == 0) err = hopper::tensor_map(&m.v16, &iv, v, batch, heads, n_k, kD, s[2], kBoxRows);
+  if (err == 0) err = hopper::tensor_map(&m.do16, &ido, dout, batch, heads, n_q, kD, s[4], kBoxRows);
+  if (err != 0) return err;
+  Bwd512Args a;
+  a.tokens_inner = (iq ? 1 : 0) | (ik ? 2 : 0) | (iv ? 4 : 0) | (ido ? 8 : 0);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
   a.heads = heads;
   a.n_q = n_q;
   a.n_k = n_k;
-  Strides* s[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
-  for (int i = 0; i < 7; ++i) *s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.sdq = s[5];
+  a.sdk = s[6];
+  a.sdv = s[7];
   a.scale_log2 = scale_log2;
   a.scale = scale;
-  return ccedit::launch_bwd512(a, batch, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  delta_kernel<<<dim3((n_q + 7) / 8, batch * heads), 256, 0, st>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<float*>(delta),
+      heads, n_q, s[3], s[4]);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_blocks = ((n_q > n_k ? n_q : n_k) + kRows - 1) / kRows;
+  flash_attention_bwd512_kernel<<<dim3(row_blocks, batch * heads, kPasses), 256, kSmem, st>>>(m, a);
+  return static_cast<int>(cudaGetLastError());
 }

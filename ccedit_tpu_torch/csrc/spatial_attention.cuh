@@ -1,12 +1,12 @@
 // The Hopper forward of kernels 1 and 1c (spatial_attention.cu: exact,
-// bf16 Q.K^T; spatial_attention_int8.cu: int8 Q.K^T) and of kernel 5, the
-// probes of kernel 1's phases (attention_probe.cu), one template over
+// bf16 Q.K^T; spatial_attention_int8.cu: int8 Q.K^T), of kernel 5, the
+// probes of kernel 1's phases (attention_probe.cu), and of kernel 7, the
+// tile sweep (attention_tiles.cu), one template over
 //   - the Q.K^T policy `QK` (below: Bf16QK, Int8QK, Bf16QKTr):
 //       QK::Acc          the S accumulator's element type (float, or int for s8)
 //       QK::kInt8        whether q and k are int8 (their tensor maps)
 //       QK::kWidth       q's and k's row width in elements (the row policies'
 //                        tensor maps' D)
-//       QK::kStages      stages of the K/V ring
 //       QK::tile_bytes(rows)        shared bytes of a Q or K tile of `rows` tokens
 //       QK::load<ROWS>(...)         the TMA loads of such a tile
 //       QK::rows(q, w)              warpgroup w's 64 rows of the Q tile
@@ -20,17 +20,21 @@
 //   - the layout `L` of V and O: RowLayout (the default; (B, H, N, D), unit
 //     d stride) or TrLayout ((B, H, D, N), unit token stride: V^T tiles are
 //     K-major B operands of P.V, and each warpgroup's O^T is staged through
-//     its half of the Q tile so the stores run along the tokens).
-// Kernels 1 and 1c instantiate the defaults, for which the stage's and the
-// layout's branches compile away.
+//     its half of the Q tile so the stores run along the tokens);
+//   - the tile: BM query rows a block (64 a consumer warpgroup: 64, 128 or
+//     192) and BN keys a K/V tile (16 .. 256; kernel 7 sweeps both).
+// Kernels 1 and 1c instantiate the defaults (BM 128, BN 128, or 64 at
+// d = 160), for which the stage's, the layout's and the tile's branches
+// compile away.
 //
 // Design (FlashAttention-3's shape): one block of three warpgroups per
-// (batch*head, 128-query tile).
+// (batch*head, 128-query tile) at the default tile.
 //   - Warpgroup 0 is the producer.  It gives up registers (setmaxnreg 40)
 //     and one thread issues TMA loads: Q once, then K and V tiles of BN keys
-//     into a ring of kStages stages, each guarded by a full mbarrier (TMA
-//     transaction bytes) and an empty one (8 consumer warps arrive).  Tile
-//     j + 1 .. j + kStages - 2 load while tile j is multiplied.
+//     into a ring of kStages stages (as many as fit, at most 4), each
+//     guarded by a full mbarrier (TMA transaction bytes) and an empty one
+//     (every consumer warp arrives).  Tile j + 1 .. j + kStages - 2 load
+//     while tile j is multiplied.
 //   - Warpgroups 1 and 2 are consumers (setmaxnreg 232), 64 query rows
 //     each.  S = Q.K^T is wgmma with Q and K from shared memory (both
 //     K-major: m64nBNk16 in bf16, m64nBNk32 in s8); O += P.V is wgmma
@@ -44,21 +48,25 @@
 //     at or past n_k are zero-filled by TMA and masked to -inf here.  An s8
 //     S converts to fp32 exactly (|S| <= 127^2 * 80 < 2^24).
 //   - Ping-pong: the consumers take turns at the tensor cores (named
-//     barriers 1 and 2).  In its turn a warpgroup issues P.V of tile j - 1
-//     and Q.K^T of tile j as one wgmma group, then hands the turn over and
-//     waits for its products; its softmax of tile j then runs while the
-//     other warpgroup's products occupy the tensor cores.  At d = 40, where
-//     the exponentials are the bound, they overlap the products instead of
-//     following them.
+//     barriers 1 .. kConsumers, round robin).  In its turn a warpgroup
+//     issues P.V of tile j - 1 and Q.K^T of tile j as one wgmma group, then
+//     hands the turn to the next and waits for its products; its softmax of
+//     tile j then runs while the others' products occupy the tensor cores.
+//     At d = 40, where the exponentials are the bound, they overlap the
+//     products instead of following them.  One consumer (BM 64) has no
+//     turns: its softmax follows its products.
 //
-// Tiles and budgets.  BM = 128 (two warpgroups of 64 rows; kernel 7 found
-// 128-row tiles faster than 64, BM mattering more than BN).  A bf16 head is
-// ceil(D / 64) 128-byte chunks, an int8 one (40 -> 48, 80 -> 80 bytes) one
-// chunk (hopper.cuh); the contraction runs over the row rounded up to the
-// step (bf16 40 -> 48, s8 40 -> 64, 80 -> 96: the TMA box's zero columns are
-// the pad) and P.V writes exactly D columns (m64n40 reads the first 40 of a
-// swizzled 64-column chunk).  Shared memory: Q 128 x chunks x 128 B, a stage
-// K + V = BN x (QK chunks + V chunks) x 128 B:
+// Tiles and budgets.  BM = 128: two warpgroups of 64 rows.  Kernel 7's
+// sweep of this template on an H100 at (34, 8, 6144, 40) (PERF.md section
+// 7) found one consumer without turns 1.75-1.80x slower, BM mattering more
+// than BN, and three consumers at BN 128 (192, 128) 7 % faster than this
+// default, whose K/V tiles then feed 192 query rows instead of 128.  A
+// bf16 head is ceil(D / 64) 128-byte chunks, an int8 one (40 -> 48, 80 ->
+// 80 bytes) one chunk (hopper.cuh); the contraction runs over the row
+// rounded up to the step (bf16 40 -> 48, s8 40 -> 64, 80 -> 96: the TMA
+// box's zero columns are the pad) and P.V writes exactly D columns (m64n40
+// reads the first 40 of a swizzled 64-column chunk).  Shared memory: Q 128
+// x chunks x 128 B, a stage K + V = BN x (QK chunks + V chunks) x 128 B:
 //   bf16 d = 40:  BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB
 //   bf16 d = 80:  BN 128, 3 stages: 32 KB + 3 x 64 KB = 224 KB (of 227)
 //   bf16 d = 160: BN 64,  3 stages: 48 KB + 3 x 48 KB = 192 KB
@@ -67,9 +75,14 @@
 //   kernel 5, d = 40, 4 stages: qkt and softmax 16 KB + 4 x 16 KB (K only);
 //     tr bf16 Q 2 x 48 x 128 B = 12 KB, a stage K 12 KB + V^T 2 x 40 x 128
 //     B = 10 KB (qkt 12 + 4 x 12 KB, full 12 + 4 x 22 KB)
+//   kernel 7, bf16 d = 40: Q BM x 128 B, a stage 2 x BN x 128 B; 4 stages
+//     at BN 64 and 128, 3 at BN 256
 // Registers of a consumer thread: S BN/2 (64 at BN = 128), P BN/4 (32), O
-// D/2 (20 / 40 / 80): under the 232 that setmaxnreg gives it.  One block of
-// 384 threads an SM; (34, 8, 6144, 40) is 48 x 272 blocks.
+// D/2 (20 / 40 / 80).  ptxas compiles the whole kernel within 65536 /
+// threads (168 at 384 threads, 128 at 512, 255 at 256) whatever setmaxnreg
+// grants later, so setmaxnreg (40 / 232) is kept only for kernel 1's two
+// consumers (kernel 7's kept pairs and their registers: attention_tiles.cu).
+// One block an SM; (34, 8, 6144, 40) is 48 x 272 blocks at BM 128.
 //
 // Training: given a non-null `lse`, the kernel also writes each row's fp32
 // log-sum-exp in the log2 domain, m + log2(l) over s * scale_log2, to
@@ -122,7 +135,6 @@ struct Bf16QK {
   static constexpr bool kInt8 = false;
   static constexpr int kChunks = (D + 63) / 64;
   static constexpr int kWidth = D;
-  static constexpr int kStages = D <= 64 ? 4 : 3;
 
   static constexpr int tile_bytes(int rows) { return rows * kChunks * 128; }
 
@@ -163,7 +175,6 @@ struct Int8QK {
   using Acc = int;
   static constexpr bool kInt8 = true;
   static constexpr int kWidth = (D + 15) / 16 * 16;
-  static constexpr int kStages = 4;
   static_assert(kWidth <= 128, "an int8 row is one 128-byte chunk");
 
   static constexpr int tile_bytes(int rows) { return rows * 128; }
@@ -204,7 +215,6 @@ struct Bf16QKTr {
   using Acc = float;
   static constexpr bool kInt8 = false;
   static constexpr int kRows = (D + 15) / 16 * 16;
-  static constexpr int kStages = 4;
 
   static constexpr int tile_bytes(int rows) { return rows / 64 * kRows * 128; }
 
@@ -233,40 +243,50 @@ struct Bf16QKTr {
   }
 };
 
-template <int D, class QK, int ST = kFull, class L = RowLayout>
+// kernel 1's key tile at head dim D
+constexpr int default_bn(int d) { return d > 128 ? 64 : 128; }
+
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+          int BN = default_bn(D)>
 struct SpatialTiles {
   static constexpr int kVChunks = (D + 63) / 64;  // 128-byte chunks of a V row
-  static constexpr int kBM = 128;                 // two consumer warpgroups of 64 rows
-  static constexpr int kBN = D > 128 ? 64 : 128;
-  static constexpr int kStages = QK::kStages;
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
+  static constexpr int kConsumers = BM / 64;      // consumer warpgroups of 64 rows
+  static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kQBytes = QK::tile_bytes(kBM);
   static constexpr int kKBytes = QK::tile_bytes(kBN);  // K of one stage
   // V of one stage (none before the full stage); a V^T tile is kBN / 64
   // chunks of D d-rows
   static constexpr int kVBytes = ST != kFull ? 0 : L::kTr ? kBN / 64 * D * 128 : kBN * kVChunks * 128;
   static constexpr int kStageBytes = kKBytes + kVBytes;
+  // the ring: as many stages as fit beside Q and the barriers, at most 4;
   // + 1024: the dynamic buffer is aligned up to the swizzle atom by hand
+  static constexpr int kFit = (232448 - 64 - 1024 - kQBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes;
-  static constexpr int kThreads = 384;
   static constexpr int kPitchTr = 144;  // bytes of a staged O^T row: 64 tokens + 16, conflict-free
   static_assert(D % 8 == 0 && D <= 256, "P.V writes D columns in blocks of 8, at most 256");
-  static_assert(kSmemBytes + 64 <= 232448, "the tiles do not fit in a block's shared memory");
-  static_assert(!L::kTr || (D * kPitchTr <= kQBytes / 2 && kBN % 64 == 0),
-                "a warpgroup's O^T is staged in its half of the Q tile");
+  static_assert(BM % 64 == 0 && BM >= 64 && BM <= 192, "one to three consumers of 64 rows");
+  static_assert(BN % 16 == 0 && BN >= 16 && BN <= 256, "a key tile is wgmma's N");
+  static_assert(kStages >= 2, "the tiles do not fit in a block's shared memory");
+  static_assert(!L::kTr || (D * kPitchTr <= kQBytes / kConsumers && kBN % 64 == 0),
+                "a warpgroup's O^T is staged in its share of the Q tile");
 };
 
 constexpr int kTurn = 1;  // named barriers kTurn + w: warpgroup w's turn at the tensor cores
 
-template <int D, class QK, int ST = kFull, class L = RowLayout>
-__global__ void __launch_bounds__(384, 1)
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+          int BN = default_bn(D)>
+__global__ void __launch_bounds__(SpatialTiles<D, QK, ST, L, BM, BN>::kThreads, 1)
 spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v, int tokens_inner,
                          bf16* __restrict__ o, float* __restrict__ lse,
                          const float* __restrict__ scales, int heads, int n_q, int n_k,
                          Strides so, float scale_log2) {
-  using T = SpatialTiles<D, QK, ST, L>;
-  constexpr int BM = T::kBM, BN = T::kBN, S = T::kStages, NS = BN / 2;
+  using T = SpatialTiles<D, QK, ST, L, BM, BN>;
+  constexpr int S = T::kStages, NS = BN / 2, NC = T::kConsumers;
   extern __shared__ unsigned char raw[];
   unsigned char* s_q = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -281,14 +301,14 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(&q_full, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // every consumer warp
+      mbar_init(&empty[s], 4 * NC);  // every consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {  // producer
-    regs_dec<40>();
+    if constexpr (NC == 2) regs_dec<40>();
     if (tid == 0) {
       const bool iq = tokens_inner & 1, ik = tokens_inner & 2, iv = tokens_inner & 4;
       mbar_expect_tx(&q_full, T::kQBytes);
@@ -314,8 +334,9 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // consumers: warpgroup w owns query rows 64w .. 64w + 63 of the tile
-  regs_inc<232>();
+  if constexpr (NC == 2) regs_inc<232>();
   const int w = wg - 1, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  const int next = NC == 2 ? 1 - w : (w + 1) % NC;  // who takes the turn after w
   const unsigned char* q_w = QK::rows(s_q, w);
   const float sl2 = QK::scale_log2(scale_log2, scales, bh);
   float acc[D / 2], sc[NS];
@@ -326,12 +347,13 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
 
   mbar_wait(&q_full, 0);
-  if (w == 1) named_arrive(kTurn, 256);  // warpgroup 0 takes the first turn
+  if constexpr (NC > 1)
+    if (w == NC - 1) named_arrive(kTurn, 256);  // warpgroup 0 takes the first turn
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % S;
     mbar_wait(&full[s], (j / S) & 1);
     const unsigned char* sk = s_kv + s * T::kStageBytes;
-    named_sync(kTurn + w, 256);
+    if constexpr (NC > 1) named_sync(kTurn + w, 256);
     if constexpr (ST == kFull) fence_regs(acc);
     wgmma_fence();
     if constexpr (ST == kFull) {
@@ -342,7 +364,8 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     QK::template scores<BM, BN>(si, q_w, sk);
     wgmma_commit();
-    if (!(w == 1 && j == n_tiles - 1)) named_arrive(kTurn + 1 - w, 256);  // the other's turn
+    if constexpr (NC > 1)
+      if (!(w == NC - 1 && j == n_tiles - 1)) named_arrive(kTurn + next, 256);  // the next turn
     wgmma_wait<0>();
     fence_regs(si);
     if constexpr (ST == kFull) {
@@ -450,7 +473,7 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
       *reinterpret_cast<bf16*>(ot + (col + 1) * T::kPitchTr + r1) =
           __float2bfloat16(acc[4 * i + 3] * inv1);
     }
-    named_sync(kTurn + 2 + w, 128);
+    named_sync(kTurn + NC + w, 128);
     const int tok0 = q0 + 64 * w;
     for (int i = tid; i < D * 8; i += 128) {
       const int r = i / 8, p = i % 8;
@@ -480,19 +503,20 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 // of q, k, v has the tokens inside the heads, load_chunk's flag).  `lse`
 // takes kernel 1's log-sum-exp (null: none) or, before the full stage, the
 // probes' (B*H, n_q) row sums.
-template <int D, class QK, int ST = kFull, class L = RowLayout>
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+          int BN = default_bn(D)>
 int launch_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                   int tokens_inner, void* o, float* lse, const float* scales, int batch,
                   int heads, int n_q, int n_k, Strides so, float scale_log2, cudaStream_t stream) {
-  using T = SpatialTiles<D, QK, ST, L>;
+  using T = SpatialTiles<D, QK, ST, L, BM, BN>;
   if (n_q <= 0 || n_k <= 0) return -1;  // the loop needs a key tile, the grid a row tile
   // above 48 KB, dynamic shared memory needs an opt-in per kernel
   static const cudaError_t attr =
-      cudaFuncSetAttribute(spatial_attention_kernel<D, QK, ST, L>,
+      cudaFuncSetAttribute(spatial_attention_kernel<D, QK, ST, L, BM, BN>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((n_q + T::kBM - 1) / T::kBM, batch * heads);
-  spatial_attention_kernel<D, QK, ST, L><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+  spatial_attention_kernel<D, QK, ST, L, BM, BN><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       mq, mk, mv, tokens_inner, static_cast<bf16*>(o), lse, scales, heads, n_q, n_k, so,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -501,12 +525,12 @@ int launch_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMa
 // Launch the kernel over (B, H, N, D) operands: q and k of QK's type (row
 // width QK::kWidth), bf16 v and o.  Strides are in elements of each
 // operand.  `scales` is read by QK::scale_log2 (kernel 1c's per-(b, h)
-// folded scales; null for kernel 1).
-template <int D, class QK>
+// folded scales; null for kernel 1).  BM and BN: the tile (kernel 7's sweep).
+template <int D, class QK, int BM = 128, int BN = default_bn(D)>
 int launch_spatial(const void* q, const void* k, const void* v, void* o, float* lse,
                    const float* scales, int batch, int heads, int n_q, int n_k, Strides sq,
                    Strides sk, Strides sv, Strides so, float scale_log2, cudaStream_t stream) {
-  using T = SpatialTiles<D, QK>;
+  using T = SpatialTiles<D, QK, kFull, RowLayout, BM, BN>;
   if (n_q <= 0 || n_k <= 0) return -1;
   // the descriptors hold the data pointers, so they are built per launch
   CUtensorMap mq, mk, mv;
@@ -515,8 +539,9 @@ int launch_spatial(const void* q, const void* k, const void* v, void* o, float* 
   if (err == 0) err = tensor_map(&mk, &ik, k, batch, heads, n_k, QK::kWidth, sk, T::kBN, QK::kInt8);
   if (err == 0) err = tensor_map(&mv, &iv, v, batch, heads, n_k, D, sv, T::kBN);
   if (err != 0) return err;
-  return launch_kernel<D, QK>(mq, mk, mv, (iq ? 1 : 0) | (ik ? 2 : 0) | (iv ? 4 : 0), o, lse,
-                              scales, batch, heads, n_q, n_k, so, scale_log2, stream);
+  return launch_kernel<D, QK, kFull, RowLayout, BM, BN>(
+      mq, mk, mv, (iq ? 1 : 0) | (ik ? 2 : 0) | (iv ? 4 : 0), o, lse, scales, batch, heads, n_q,
+      n_k, so, scale_log2, stream);
 }
 
 }  // namespace

@@ -10,10 +10,8 @@ register accumulators for Hopper) and ``csrc/flash_attention_bwd.cu``.
 When autograd needs the attention's gradient (VAE training),
 ``flash_attention`` goes through ``FlashAttention``:
 its forward launches kernel 3 with the row log-sum-exp saved, its backward
-launches kernel 4 at d = 512; on the CPU both are the plain versions.  The
-first port's simple template, at head_dim 40 and swept tiles, is kernel 7
-(``csrc/flash_tiles.cu``), which only ``scripts/profile_blocks.py``
-launches.
+launches kernel 4 at d = 512 (three passes, dK, dQ and dV, in one launch);
+on the CPU both are the plain versions.
 """
 
 from __future__ import annotations
@@ -63,15 +61,15 @@ def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
         return plain_spatial_attention_bwd(q, k, v, do, scale)
     do = grad_operand(do, q, lse)
     b, h, n_q, d = q.shape
-    # delta = rowsum(dO * O) in fp32, a torch reduction outside the kernels
-    # (as the stock Pallas backward computes its `di`)
-    delta = (do.float() * out.float()).sum(-1).reshape(b * h, n_q)
+    # delta = rowsum(dO * O), fp32 scratch the kernel's prep launch writes
+    delta = torch.empty((b * h, n_q), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    strides = build.attention_operand_strides(q, k, v, do, HEAD_DIMS, dq=dq, dk=dk, dv=dv)
+    strides = build.attention_operand_strides(q, k, v, out, HEAD_DIMS, do=do, dq=dq, dk=dk,
+                                              dv=dv)
     build.launch("ccedit_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, h, n_q, k.shape[2], d, strides, float(scale) * _LOG2E,
-                 float(scale), build.stream_of(q))
+                 out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, h, n_q, k.shape[2], d, strides,
+                 float(scale) * _LOG2E, float(scale), build.stream_of(q))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -1,9 +1,8 @@
-"""Kernel 4's time at head_dim 40/80 split by leaving parts of its work out,
-on one GPU.
+"""Kernel 4's time split by leaving parts of its work out, on one GPU.
 
-    python -m ccedit_tpu_torch.scripts.bwd_breakdown
+    python -m ccedit_tpu_torch.scripts.bwd_breakdown [d40] [d512]
 
-Builds variants of ``csrc/spatial_attention_bwd.cu`` (a patched copy each,
+``d40`` (the default) builds variants of ``csrc/spatial_attention_bwd.cu`` (a patched copy each,
 compiled with nvcc into ``build/bwd_breakdown/``) and times each, in turns,
 beside the kernel as it is, at the TV2V training shapes and the CFCA's
 n_k = 2 * n_q:
@@ -18,12 +17,21 @@ n_k = 2 * n_q:
 The variants that leave work out give wrong gradients and time only what
 remains; the reduce-add keeps the work, and each line reports every
 variant's largest dq/dk/dv difference from the kernel's, relative to the
-kernel's largest value, so that one shows it is right.  One JSON line a
-shape, with the card's name and power limit.
+kernel's largest value, so that one shows it is right.
+
+``d512`` builds variants of ``csrc/flash_attention_bwd.cu`` that launch one
+of its three passes alone (``dk_only``, ``dq_only``, ``dv_only``, each after
+the delta kernel) or the passes without the delta kernel (``no_delta``) and
+times each, in turns, beside the kernel as it is, at the VAE training
+shapes, with the whole wrapper (``wrapper_ms``) and SDPA's backward alone
+(``library_ms``) beside them.
+
+One JSON line a shape, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
@@ -32,6 +40,7 @@ import subprocess
 import torch
 
 from ..ops import build
+from ..ops import flash_attention as fa
 from ..ops import spatial_attention as sa
 from . import roofline
 
@@ -93,6 +102,17 @@ VARIANTS = {
          "\n  if (tid == 0) asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: \"memory\");"
          "\n  const int row0 = key, row1 = key + 8;"),
     ),
+}
+
+
+SHAPES_512 = (((12, 1, 1024, 512), 1024), ((4, 1, 4096, 512), 4096), ((2, 1, 600, 512), 600))
+SOURCE_512 = "flash_attention_bwd.cu"
+_PASSES = "__constant__ const int kPassOrder[] = {kDK, kDQ, kDV};\nconstexpr int kPasses = 3;"
+VARIANTS_512 = {
+    **{f"{p}_only": ((_PASSES, f"__constant__ const int kPassOrder[] = {{k{p.upper()}}};\n"
+                               "constexpr int kPasses = 1;"),)
+       for p in ("dk", "dq", "dv")},
+    "no_delta": (("  delta_kernel<<<", "  if (false) delta_kernel<<<"),),
 }
 
 
@@ -177,13 +197,64 @@ def run(device, iters: int = 10) -> list:
     return records
 
 
+def run_512(device, iters: int = 10) -> list:
+    """Time kernel 4 at d = 512 and its variants at each of ``SHAPES_512``,
+    twice in turns, beside the whole wrapper and SDPA's backward alone; one
+    record a shape."""
+    fns = {"kernel": build.library().ccedit_flash_attention_bwd,
+           **build_variants(VARIANTS_512, SOURCE_512, "ccedit_flash_attention_bwd",
+                            OUT / "d512")}
+    gen = torch.Generator(device=device).manual_seed(0)
+    records = []
+    for shape, n_k in SHAPES_512:
+        b, h, n_q, d = shape
+        q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device=device)
+                       .to(torch.bfloat16) for n in (n_q, n_k, n_k, n_q))
+        scale = d ** -0.5
+        lse = torch.empty((b * h, n_q), device=device)
+        out = fa._forward(q, k, v, scale, lse)
+        delta = torch.empty((b * h, n_q), device=device)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        strides = build.attention_operand_strides(q, k, v, out, fa.HEAD_DIMS, do=do,
+                                                  dq=grads[0], dk=grads[1], dv=grads[2])
+
+        def call(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in grads), b, h,
+                     n_q, n_k, d, strides, scale * fa._LOG2E, scale, build.stream_of(q))
+            if err != 0:
+                raise RuntimeError(f"launch failed with error {err}")
+
+        ms = {name: [] for name in fns}
+        for _ in range(2):
+            for name, fn in fns.items():
+                ms[name].append(roofline.cuda_time_ms(lambda: call(fn), iters))
+        wrapper_ms = roofline.cuda_time_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, do, lse, scale), iters)
+        library_ms, backend = roofline.sdpa_ms(q, k, v, scale, iters, grad_out=do,
+                                               backward_only=True)
+        records.append(dict(shape=list(shape), n_k=n_k, ms=ms, wrapper_ms=wrapper_ms, library_ms=library_ms,
+                            library=f"scaled_dot_product_attention backward [{backend}]",
+                            **roofline.attention_bound(b, h, n_q, n_k, d, backward=True)))
+    return records
+
+
 def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parts", nargs="*", choices=("d40", "d512"))
+    a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bwd_breakdown needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    for record in run(torch.device("cuda:0")):
-        print(json.dumps(dict(gpu=smi, **record)), flush=True)
+    parts = set(a.parts) or {"d40"}
+    device = torch.device("cuda:0")
+    if "d40" in parts:
+        for record in run(device):
+            print(json.dumps(dict(gpu=smi, part="d40", **record)), flush=True)
+    if "d512" in parts:
+        for record in run_512(device):
+            print(json.dumps(dict(gpu=smi, part="d512", **record)), flush=True)
 
 
 if __name__ == "__main__":

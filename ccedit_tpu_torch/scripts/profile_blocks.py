@@ -1,23 +1,24 @@
-"""Kernel 7: the first port's flash-attention template at swept tile sizes,
-and per-block timings, on one GPU.
+"""Kernel 7: kernel 1's Hopper forward at swept tile sizes, and per-block
+timings, on one GPU.
 
     python -m ccedit_tpu_torch.scripts.profile_blocks [sweep] [blocks]
 
-Port of ``scripts/profile_blocks.py``.  ``sweep`` (the default) times the
-stock flash forward's counterpart, the simple mma.sync template of kernel
-3's first port (``csrc/flash_tiles.cu``; kernel 3 itself is now the Hopper
-design of ``csrc/flash_attention.cu``) instantiated at head_dim 40 (rows
-staged 48 wide), at (34, 8, 6144, 40) with q = k = v and scale 0.158, as the TPU
-script does, over the Hopper tiles BM (query rows a block, BM / 16 warps)
-in {32, 64, 128} and BN (keys a staged tile) in {32, 64, 128}: one JSON line
-a tile pair with its CUDA-event ms, its bound (``scripts/roofline.py``),
-PyTorch's ``scaled_dot_product_attention`` on the same tensors (a
-yardstick) and its error against the plain version on one batch row of
-independent q, k and v (``compare_inputs``; with q = k = v each row's own
-key dominates), held as kernel 5's full probes are
-(``kv_resident_attn.compare``): max|err| / max|plain| <= 2e-2 and cosine
->= 0.9999, limits that the sweep fails with log2 e left out of its exp2
-scale.
+Port of ``scripts/profile_blocks.py``, which swept the block sizes of the
+flash kernel the JAX edits ran.  ``sweep`` (the default) sweeps the tiles
+of the port's: kernel 1's template (``csrc/spatial_attention.cuh``, bf16
+Q.K^T, row layout) instantiated at head_dim 40 (``csrc/attention_tiles.cu``)
+over BM (query rows a block, 64 a consumer warpgroup) and BN (keys a K/V
+tile), the pairs of ``TILES`` (the others spill; the source's header says
+why), at (34, 8, 6144, 40) with q = k = v and scale 0.158, as the TPU script
+does: one JSON line a tile pair with its CUDA-event ms, its bound
+(``scripts/roofline.py``), kernel 1 on the same tensors and the ratio to it
+((128, 128) is kernel 1's own instantiation), PyTorch's
+``scaled_dot_product_attention`` on the same tensors (a yardstick) and its
+error against the plain version on one batch row of independent q, k and v
+(``compare_inputs``; with q = k = v each row's own key dominates), held as
+kernel 5's full probes are (``kv_resident_attn.compare``): max|err| /
+max|plain| <= 2e-2 and cosine >= 0.9999, limits that the sweep fails with
+log2 e left out of its exp2 scale.
 ``blocks`` times the port's ``ResBlock3D`` and ``SpatialTransformer3D`` at
 (2, 17, 64, 96, 320) in bf16 (seeded random weights), one JSON line.  The
 TPU script's compile cache and ``fori_loop`` slope timing are TPU
@@ -26,7 +27,7 @@ scaffolding and are not ported.
 ``tiles`` is the sweep's wrapper (a CPU tensor takes the plain version, a
 CUDA tensor launches the instantiation or raises), counted in
 ``tiles.launches`` and ``tiles.variant_launches``.  The attention dispatch
-never launches it: kernel 3 itself runs only at d = 512, tiles (32, 32).
+never launches it: kernel 1 runs its own (128, 128) instantiation.
 """
 
 from __future__ import annotations
@@ -41,12 +42,15 @@ import torch
 
 from ..ops import build
 from ..ops.flash_attention import plain_flash_attention
+from ..ops.spatial_attention import kv_resident_attention
 from . import roofline
 from .kv_resident_attn import compare
 
 B, H, N, D = 34, 8, 6144, 40
 SCALE = 0.158
-TILES = tuple((bm, bn) for bm in (32, 64, 128) for bn in (32, 64, 128))
+# the (BM, BN) pairs of BM in {64, 128, 192} x BN in {64, 128, 256} that
+# compile without spills (csrc/attention_tiles.cu says why the others do not)
+TILES = ((64, 64), (64, 128), (64, 256), (128, 64), (128, 128), (192, 64), (192, 128))
 COMPARE_BATCH = 1  # batch rows held to the plain version (its fp32 scores fit)
 BLOCK_SHAPE = (2, 17, 64, 96, 320)  # (B, T, H, W, C): UNet level 0 at 512x768
 _LOG2E = 1.0 / math.log(2.0)
@@ -57,7 +61,7 @@ def variant_name(bm: int, bn: int) -> str:
 
 
 def tiles(q, k, v, scale: float, bm: int, bn: int) -> torch.Tensor:
-    """Attention over (B, H, N, 40) through kernel 3's template at tiles
+    """Attention over (B, H, N, 40) through kernel 1's template at tiles
     (bm, bn).  A CPU tensor takes ``plain_flash_attention``; a CUDA tensor
     launches the instantiation or raises."""
     if not q.is_cuda:
@@ -67,7 +71,7 @@ def tiles(q, k, v, scale: float, bm: int, bn: int) -> torch.Tensor:
     out = torch.empty_like(q)
     strides = build.attention_operand_strides(q, k, v, out, (D,))
     b, h, n_q, d = q.shape
-    build.launch("ccedit_flash_attention_tiles", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.launch("ccedit_attention_tiles", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, h, n_q, k.shape[2], d, bm, bn, strides,
                  float(scale) * _LOG2E, build.stream_of(q))
     tiles.launches += 1
@@ -89,9 +93,11 @@ def compare_inputs(device, shape=(B, H, N, D), rows: int = COMPARE_BATCH):
 
 def sweep(device, iters: int = 5, shape=(B, H, N, D), rows: int = COMPARE_BATCH) -> list:
     """Every tile pair at ``shape`` on one seeded q (= k = v): its time,
-    bound and SDPA's time at the full shape; and on ``compare_inputs`` its
-    error against the plain version (``compare``: max|err|, max|err| /
-    max|plain|, cosine and ``ok``) and both times."""
+    bound, kernel 1's time on the same tensors (``kernel1_ms``, timed
+    beside each pair; ``over_kernel1`` the ratio) and SDPA's time at the
+    full shape; and on ``compare_inputs`` its error against the plain
+    version (``compare``: max|err|, max|err| / max|plain|, cosine and
+    ``ok``) and both times."""
     gen = torch.Generator(device=device).manual_seed(0)
     q = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     qs, ks, vs = compare_inputs(device, shape, rows)
@@ -103,9 +109,11 @@ def sweep(device, iters: int = 5, shape=(B, H, N, D), rows: int = COMPARE_BATCH)
     records = []
     for bm, bn in TILES:
         checked = compare("full", tiles(qs, ks, vs, SCALE, bm, bn), ref)
+        ms = roofline.cuda_time_ms(lambda: tiles(q, q, q, SCALE, bm, bn), iters)
+        kernel1_ms = roofline.cuda_time_ms(lambda: kv_resident_attention(q, q, q, SCALE), iters)
         records.append(dict(
-            variant=variant_name(bm, bn), shape=list(shape),
-            ms=roofline.cuda_time_ms(lambda: tiles(q, q, q, SCALE, bm, bn), iters),
+            variant=variant_name(bm, bn), shape=list(shape), ms=ms, kernel1_ms=kernel1_ms,
+            over_kernel1=ms / kernel1_ms,
             compared_ms=roofline.cuda_time_ms(lambda: tiles(qs, ks, vs, SCALE, bm, bn), iters),
             plain_ms=plain_ms, plain_shape=list(qs.shape), library_ms=library_ms,
             library=f"scaled_dot_product_attention [{backend}]", **checked, **bound))

@@ -22,7 +22,7 @@ Phases:
      difference of its atomically summed dq printed, and with delta left
      out at the training shapes, which it must fail; at d = 512 (VAE
      training: (12,1,1024,512), the 512x512 fine-tune's (4,1,4096,512) and a
-     ragged (2,1,600,512)) likewise.
+     ragged (2,1,600,512)) likewise, with delta left out at every shape.
      Kernel 1c (the int8 QK^T path, with its pre-pass) is held to
      ``plain_spatial_attention_int8`` and, by cosine, to exact kernel 1, at
      the level-0/1 shapes and ragged rows ((2,8,600,40) x 600 and x 1200,
@@ -42,10 +42,12 @@ Phases:
      their exp2 scale), and the kernel-6 GEMMs (``scripts/int8_probe.py``)
      at 1024x512x1024 and 4096^3 (the int8 product exactly, which the int8
      product with B's transposition skipped must fail), and the kernel-7
-     tile sweep (``scripts/profile_blocks.py``: kernel 3's template at
-     head_dim 40 over nine (BM, BN) tiles at (34, 8, 6144, 40)), each held
-     as the full kernel-5 probes are, limits that every tile pair fails with
-     log2 e left out of its scale.
+     tile sweep (``scripts/profile_blocks.py``: kernel 1's template at
+     head_dim 40 over the seven (BM, BN) tiles of ``TILES`` at (34, 8, 6144,
+     40), each timed beside kernel 1 on the same tensors, (128, 128) being
+     kernel 1's own instantiation), each held as the full kernel-5 probes
+     are, limits that every tile pair fails with log2 e left out of its
+     scale.
   4. TV2V: the full-width SD-1.5 TV2V engine (seeded random weights, bf16,
      the luminance depth stand-in), its network through the kernels against
      plain attention, then one clip edit through ``edit_clip``: 17 frames at
@@ -136,8 +138,10 @@ LATENT_COSINE = 0.99
 # 40/80/160 sums dQ with atomics in an order that changes from run to run
 # (a few fp32 roundings, far inside the limit)
 BWD_TOLERANCE = 2e-2
-# the training shapes at which kernel 4 with delta left out must fail it
-DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80))
+# the shapes at which kernel 4 with delta left out must fail it: the
+# training shapes, and every d = 512 shape (VAE training)
+DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80), (12, 1, 1024, 512),
+                      (4, 1, 4096, 512), (2, 1, 600, 512))
 # relative error of a full bf16 network forward, kernels vs plain attention:
 # bf16 rounding differences inside attention compound through ~70 layers
 ROUTE_TOLERANCE = 5e-2
@@ -299,9 +303,9 @@ def check_backward(kind, shape, n_k, nb, gen, device) -> dict:
     full shape); the run-to-run max |dq difference| of two identical calls
     (kernel 4 at d 40/80/160 sums dQ with atomics); the forward (with lse) +
     kernel 4 beside SDPA's forward and backward, and SDPA's backward alone.
-    At the training shapes (``DELTA_FAULT_SHAPES``) the same check must
-    refuse kernel 4 with delta left out (dS = P * dP), planted by handing it
-    a zero output: delta = rowsum(dO * O) = 0."""
+    At ``DELTA_FAULT_SHAPES`` the same check must refuse kernel 4 with delta
+    left out (dS = P * dP), planted by handing it a zero output: delta =
+    rowsum(dO * O) = 0."""
     import torch
 
     from ccedit_tpu_torch.ops import flash_attention as fa
@@ -347,7 +351,7 @@ def check_backward(kind, shape, n_k, nb, gen, device) -> dict:
     rerun_dq = (results[0][0][0].float() - again[0].float()).abs().max().item()
     del results, again
     fault = ""
-    if kind == "spatial_bwd" and tuple(shape) in DELTA_FAULT_SHAPES:
+    if tuple(shape) in DELTA_FAULT_SHAPES:
         _, _, fault_rels, _ = compare(sl, torch.zeros_like(out))
         fault = (f"; with delta left out dq/dk/dv relative {fault_rels[0]:.3e}/"
                  f"{fault_rels[1]:.3e}/{fault_rels[2]:.3e}")
@@ -572,8 +576,9 @@ def run_probes(device):
     40) and holds each one's first rows to ``plain_probe``;
     ``int8_probe.part_kernel`` runs kernel 6 at 1024x512x1024 and 4096^3
     against ``plain_gemm`` (the int8 product exactly); ``profile_blocks.sweep``
-    runs kernel 7's nine tile pairs at (34, 8, 6144, 40) against the plain
-    attention (``kr.compare``'s full-attention limits).  Then the probes
+    runs kernel 7's tile pairs (``TILES``) at (34, 8, 6144, 40) against the
+    plain attention (``kr.compare``'s full-attention limits), each timed
+    beside kernel 1 on the same tensors.  Then the probes
     that read the logits scale, and every kernel-7 tile pair, run with log2
     e left out of it (a softmax temperature off by ln 2), a planted fault
     that ``kr.compare`` must refuse, and kernel 6's int8 product runs with
@@ -680,7 +685,8 @@ def run_probes(device):
                                    replaces="scripts/int8_probe.py:"
                                    + ("142" if label == "int8" else "159")), per_shape))
     for r in sweep:
-        print(f"[probes] kernel 7 {r['variant']} {tuple(r['shape'])}: {r['ms']:.4f} ms (bound "
+        print(f"[probes] kernel 7 {r['variant']} {tuple(r['shape'])}: {r['ms']:.4f} ms, kernel 1 "
+              f"{r['kernel1_ms']:.4f} ms on the same tensors (ratio {r['over_kernel1']:.4f}; bound "
               f"{r['bound_ms']:.4f} ms, {r['bound_what']}; {r['library']} {r['library_ms']} ms); "
               f"on {r['plain_shape']}: max_abs_err {r['max_abs_err']:.3e}, relative "
               f"{r['max_rel_err']:.3e}, cosine {r['cosine']:.7f} (max|err|/max|plain| <= "
@@ -690,11 +696,18 @@ def run_probes(device):
             raise RuntimeError(f"kernel 7 at {r['variant']} disagrees with its plain version: {r}")
         records.append(dict(
             name=f"flash_attention_tiles[{r['variant']}]", route="cuda",
-            source="ccedit_tpu_torch/csrc/flash_tiles.cu",
+            source="ccedit_tpu_torch/csrc/attention_tiles.cu",
             replaces="scripts/profile_blocks.py:36", launches=0,
-            **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "compared_ms",
-                                 "plain_ms", "plain_shape", "bound_ms", "bound_by",
-                                 "bound_what", "library_ms", "library")}))
+            **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "kernel1_ms",
+                                 "over_kernel1", "compared_ms", "plain_ms", "plain_shape",
+                                 "bound_ms", "bound_by", "bound_what", "library_ms",
+                                 "library")}))
+    own = [r for r in sweep if r["variant"] == pb.variant_name(128, 128)]
+    if own:
+        best = min(sweep, key=lambda r: r["ms"])
+        print(f"[probes] kernel 7 (128, 128), kernel 1's own instantiation, over kernel 1 on the "
+              f"same tensors: {own[0]['over_kernel1']:.4f}; fastest pair {best['variant']} "
+              f"{best['ms']:.4f} ms ({best['over_kernel1']:.4f} of kernel 1)", flush=True)
     return records, {"probes": counts}
 
 

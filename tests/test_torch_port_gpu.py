@@ -20,6 +20,7 @@ from ccedit_tpu_torch.ops import attention as att
 from ccedit_tpu_torch.ops import flash_attention as fa
 from ccedit_tpu_torch.ops import spatial_attention as sa
 from ccedit_tpu_torch.ops import temporal_attention as ta
+from ccedit_tpu_torch.scripts import profile_blocks as pb
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -221,6 +222,7 @@ def test_flash_kernel_differentiates_through_kernel_4(cuda):
     ((4, 1, 4096, 512), 4096),    # the fine-tune at 512x512
     ((2, 1, 600, 512), 600),      # ragged
     ((1, 1, 100, 512), 70),       # ragged n_q and n_k, under one tile
+    ((1, 1, 70, 512), 300),       # n_k > n_q: the dK and dV passes have more row blocks
 ])
 def test_flash_backward_kernel_matches_plain(cuda, shape, n_k):
     """Kernel 4 at d = 512 against its plain version,
@@ -242,6 +244,27 @@ def test_flash_backward_kernel_matches_plain(cuda, shape, n_k):
         assert torch.isfinite(got.float()).all() and rel <= TOL
 
 
+def test_flash_backward_check_refuses_delta_left_out(cuda):
+    """Kernel 4 at d = 512 agrees with its plain version at the ragged
+    (2, 1, 600, 512); handed a zero output, whose delta = rowsum(dO * O) is
+    0 (dS = P * dP), it must not."""
+    shape = (2, 1, 600, 512)
+    q, k, v = _qkv(shape, 600, cuda, seed=13)
+    do = _qkv(shape, 600, cuda, seed=14)[0]
+    scale = 512 ** -0.5
+    lse = torch.empty((2, 600), device=cuda, dtype=torch.float32)
+    out = fa._forward(q, k, v, scale, lse)
+    refs = sa.plain_spatial_attention_bwd(q, k, v, do, scale)
+
+    def rels(o):
+        grads = fa.flash_attention_bwd(q, k, v, o, do, lse, scale)
+        return [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                for g, r in zip(grads, refs)]
+
+    assert max(rels(out)) <= TOL
+    assert max(rels(torch.zeros_like(out))) > TOL
+
+
 @pytest.mark.parametrize("shape,n_k", [((12, 1, 1024, 512), 1024), ((2, 1, 100, 512), 70)])
 def test_flash_kernel_writes_the_log2_lse(cuda, shape, n_k):
     """Kernel 3's lse is log2 of each row's sum of exp(scale q.k), within
@@ -258,14 +281,11 @@ def test_flash_kernel_writes_the_log2_lse(cuda, shape, n_k):
     assert _agrees(out, fa.plain_flash_attention(q, k, v, scale))
 
 
-@pytest.mark.parametrize("bm,bn", [(32, 32), (32, 64), (32, 128), (64, 32), (64, 64),
-                                   (64, 128), (128, 32), (128, 64), (128, 128)])
+@pytest.mark.parametrize("bm,bn", pb.TILES)
 def test_tile_sweep_matches_plain(cuda, bm, bn):
-    """Kernel 7: each tile pair of kernel 3's template at head_dim 40, at a
-    ragged shape, agrees with the plain version; with log2 e left out of its
-    exp2 scale (a softmax temperature off by ln 2) it does not."""
-    from ccedit_tpu_torch.scripts import profile_blocks as pb
-
+    """Kernel 7: each kept tile pair of kernel 1's template at head_dim 40,
+    at a ragged shape, agrees with the plain version; with log2 e left out
+    of its exp2 scale (a softmax temperature off by ln 2) it does not."""
     q, k, v = _qkv((2, 3, 1000, 40), 777, cuda, seed=bm + bn)
     before = pb.tiles.launches
     out = pb.tiles(q, k, v, pb.SCALE, bm, bn)

@@ -14,8 +14,17 @@ against the JAX package's Pallas kernels run in interpret mode.
   kernel's unrolled length and masked, fp32 softmax, P.V; against the JAX
   ``small_seq_attention``.
 
-Tolerance 1e-5 absolute: fp32 on both sides, the integer scores exact on
-both; exp2 vs exp and summation order differ.  The CUDA kernels run only on
+* Kernel 4 at d = 512 (``csrc/flash_attention_bwd.cu``): each of its three
+  passes in its own tile order, P from the log2-domain lse of the forward,
+  delta = rowsum(dO * O): the dV pass (64-key blocks over 32-query tiles,
+  dV += P^T dO), the dK pass (64-key blocks over 16-query tiles, dS^T =
+  P^T (dP^T - delta), dK += dS^T Q) and the dQ pass (64-query blocks over
+  16-key tiles, P masked past n_k, dQ += dS K), the softmax scale applied
+  to dK and dQ at the end; queries past n_q zero with lse = +inf; against
+  ``_xla_attention_bwd`` at 1e-4 absolute.
+
+Tolerance 1e-5 absolute for the forwards: fp32 on both sides, the integer
+scores exact on both; exp2 vs exp and summation order differ.  The CUDA kernels run only on
 a GPU (``chip_smoke.py`` phase 3, ``tests/test_torch_port_gpu.py``).
 """
 
@@ -24,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from ccedit_tpu.ops import attention as jatt
 from ccedit_tpu.ops import spatial_attention as jsa
 from ccedit_tpu.ops.temporal_attention import small_seq_attention
 from ccedit_tpu_torch.ops import spatial_attention as sa
@@ -125,3 +135,57 @@ def test_temporal_split_covers_the_columns():
     one (head, query) a lane, two or four."""
     assert [_kernel2_split(d // 8) for d in (40, 80, 160, 256, 8)] == \
         [(1, 5), (2, 5), (4, 5), (8, 4), (1, 1)]
+
+
+def _mirror_bwd512_pass(name, q, k, v, do, scale):
+    """One pass of kernel 4 at d = 512 in fp32, in its tile order: "dv",
+    "dk" or "dq"."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    sl2 = np.float32(scale * _LOG2E)
+    s_full = q @ k.transpose(-1, -2)
+    lse = torch.logsumexp(s_full * scale, -1) * np.float32(_LOG2E)  # kernel 3's, log2 domain
+    out = torch.softmax(s_full * scale, -1) @ v
+    delta = (do * out).sum(-1)
+    rows, cols = (q, k) if name == "dq" else (k, q)
+    tile = 32 if name == "dv" else 16
+    n_cols = cols.shape[2]
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n))  # TMA's zero rows
+    lse_p = torch.nn.functional.pad(lse, (0, -n_q % tile), value=float("inf"))
+    delta_p = torch.nn.functional.pad(delta, (0, -n_q % tile))
+    qp, dop, kp, vp = pad(q, -n_q % tile), pad(do, -n_q % tile), pad(k, -n_k % tile), pad(v, -n_k % tile)
+    result = torch.zeros_like(rows)
+    for r0 in range(0, rows.shape[2], 64):  # a block's 64 rows
+        acc = torch.zeros(rows.shape[:2] + (min(64, rows.shape[2] - r0), 512))
+        for c0 in range(0, n_cols, tile):
+            c = slice(c0, c0 + tile)
+            if name == "dq":
+                r = slice(r0, r0 + 64)
+                s = q[:, :, r] @ kp[:, :, c].transpose(-1, -2)
+                dp = do[:, :, r] @ vp[:, :, c].transpose(-1, -2)
+                p = torch.exp2(s * sl2 - lse[:, :, r, None])
+                p = torch.where(torch.arange(c0, c0 + tile) < n_k, p, 0.0)
+                acc = acc + (p * (dp - delta[:, :, r, None])) @ kp[:, :, c]
+            else:
+                r = slice(r0, r0 + 64)
+                st = k[:, :, r] @ qp[:, :, c].transpose(-1, -2)
+                pt = torch.exp2(st * sl2 - lse_p[:, :, None, c])
+                if name == "dv":
+                    acc = acc + pt @ dop[:, :, c]
+                else:
+                    dpt = v[:, :, r] @ dop[:, :, c].transpose(-1, -2)
+                    acc = acc + (pt * (dpt - delta_p[:, :, None, c])) @ qp[:, :, c]
+        result[:, :, r0:r0 + 64] = acc * (1.0 if name == "dv" else np.float32(scale))
+    return result
+
+
+@pytest.mark.parametrize("shape,n_k", [((2, 1, 512, 512), 512), ((1, 1, 300, 512), 200)])
+@pytest.mark.parametrize("name", ["dq", "dk", "dv"])
+def test_bwd512_pass_mirror_matches_the_jax_backward(name, shape, n_k):
+    rs = np.random.RandomState(shape[2] + n_k)
+    kshape = shape[:2] + (n_k, shape[3])
+    q, k, v, do = (rs.standard_normal(s).astype(np.float32) for s in (shape, kshape, kshape, shape))
+    scale = 512 ** -0.5
+    ref = jatt._xla_attention_bwd(scale, tuple(map(jnp.asarray, (q, k, v))), jnp.asarray(do))
+    out = _mirror_bwd512_pass(name, *map(torch.from_numpy, (q, k, v, do)), scale)
+    want = np.asarray(ref[("dq", "dk", "dv").index(name)])
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-4, rtol=0)

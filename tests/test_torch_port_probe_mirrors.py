@@ -21,6 +21,14 @@ interpret mode.
   of ``scripts/int8_probe.py``'s ``part_pallas`` kernel (defined inside
   that function, so written out here), and the bf16 body within 1e-5 of
   max|JAX|.
+* Kernel 7 (``csrc/attention_tiles.cu``, kernel 1's template at swept
+  tiles): each (BM, BN) of ``profile_blocks.TILES``, a BM-row tile cut into
+  the 64-row slices of its consumer warpgroups, BN-key tiles with the keys
+  past n_k zero (TMA's fill) and masked, the online exp2 softmax with log2 e
+  folded into the scale; at the ragged (1, 2, 600, 40) x 600 against the
+  JAX package's ``kv_resident_attention(..., interpret=True)`` (its query
+  block widened to all of n_q, which its gate refuses at 600) at 1e-5
+  absolute.  The unmasked mirror must fail.
 The CUDA kernels run only on a GPU (``chip_smoke.py`` phase 3b,
 ``tests/test_torch_port_gpu.py``).
 """
@@ -36,8 +44,10 @@ import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
 import chip_smoke
+from ccedit_tpu.ops import spatial_attention as jsa
 from ccedit_tpu_torch.scripts import int8_probe as ip
 from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+from ccedit_tpu_torch.scripts import profile_blocks as pb
 from test_torch_port_probes import _bodies, _pallas, jax_script  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
@@ -209,3 +219,61 @@ def test_plain_transpose_int8(shape, width):
     width = rows if width is None else width
     assert out.shape == shape[:-2] + (shape[-1], width) and out.is_contiguous()
     assert torch.equal(out[..., :rows], x.transpose(-1, -2)) and not out[..., rows:].any()
+
+
+TILE_SHAPE = (1, 2, 600, 40)  # ragged: 600 is no multiple of a query or key tile
+
+
+def mirror_tiles(q, k, v, scale: float, bm: int, bn: int, mask: bool = True):
+    """Kernel 7's order of work in fp32 at tiles (bm, bn) (P kept in fp32;
+    the kernel rounds it to bf16 for P.V).  ``mask=False`` leaves the zero
+    keys past n_k in the softmax, a fault the test must see."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    sl2 = np.float32(scale * _LOG2E)
+    pad = -n_k % bn
+    kp, vp = (F.pad(x, (0, 0, 0, pad)) for x in (k, v))  # TMA's zero rows
+    out = torch.zeros_like(q)
+    for q0 in range(0, n_q, bm):  # a block
+        for r0 in range(q0, min(q0 + bm, n_q), 64):  # its consumer warpgroups
+            qs = q[:, :, r0:r0 + 64]
+            m = torch.full(qs.shape[:-1], -float("inf"))
+            l = torch.zeros(qs.shape[:-1])
+            acc = torch.zeros_like(qs)
+            for k0 in range(0, n_k, bn):
+                s = qs @ kp[:, :, k0:k0 + bn].transpose(-1, -2)
+                if mask:
+                    s = torch.where(torch.arange(k0, k0 + bn) < n_k, s, -float("inf"))
+                m_new = torch.maximum(m, s.amax(-1) * sl2)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s * sl2 - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + p @ vp[:, :, k0:k0 + bn]
+                m = m_new
+            out[:, :, r0:r0 + 64] = acc / l[..., None]
+    return out
+
+
+@pytest.fixture(scope="module")
+def tile_case():
+    """Seeded q, k, v at TILE_SHAPE and the JAX kernel's output on them."""
+    rs = np.random.RandomState(600)
+    q, k, v = (rs.standard_normal(TILE_SHAPE).astype(np.float32) for _ in range(3))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsa, "_pick_qb", lambda n_q, n_k: n_q)  # one query block of every row
+        ref = jsa.kv_resident_attention(*map(jnp.asarray, (q, k, v)), pb.SCALE, interpret=True)
+    return tuple(map(torch.from_numpy, (q, k, v))), np.asarray(ref)
+
+
+@pytest.mark.parametrize("bm,bn", pb.TILES)
+def test_tile_mirror_matches_the_jax_kernel(tile_case, bm, bn):
+    (q, k, v), ref = tile_case
+    out = mirror_tiles(q, k, v, pb.SCALE, bm, bn).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+def test_tile_mirror_needs_the_mask_past_n_k(tile_case):
+    """600 keys end inside a tile at every BN: the zero keys past them,
+    left in the softmax, change every row."""
+    (q, k, v), ref = tile_case
+    out = mirror_tiles(q, k, v, pb.SCALE, 128, 128, mask=False).numpy()
+    assert np.abs(out - ref).max() > 100 * 1e-5

@@ -211,3 +211,11 @@ def test_bwd_breakdown_variant_patches_the_kernel_source(name):
     ``csrc/spatial_attention_bwd.cu`` (``patched`` raises otherwise)."""
     src = (bb.build.CSRC / "spatial_attention_bwd.cu").read_text()
     assert bb.patched(name) != src
+
+
+@pytest.mark.parametrize("name", sorted(bb.VARIANTS_512))
+def test_bwd_breakdown_d512_variant_patches_the_kernel_source(name):
+    """Every substitution of the d = 512 variant finds its text in
+    ``csrc/flash_attention_bwd.cu``."""
+    src = (bb.build.CSRC / bb.SOURCE_512).read_text()
+    assert bb.patched(name, bb.VARIANTS_512, bb.SOURCE_512) != src
