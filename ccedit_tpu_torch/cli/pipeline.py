@@ -1,15 +1,16 @@
 """TV2V and TVI2V inference pipeline (port of ``ccedit_tpu/cli/pipeline.py``).
 
 ``edit_clip`` is the per-job body: conditioning, sampling and the uint8
-decode of one clip, with an optional edited reference frame (TVI2V) and the
-x-prior mix.  ``run_pipeline`` wraps it with the same flag surface
-(``base_parser``), job gathering, ``log_info.json`` resume ledger and saving;
-``reference_mode=True`` is the TVI2V CLI (``sampling_tv2v_ref``).  Of the
-JAX pipeline's options the base-model sweep, LoRA, VAE swap, sdedit and
-inpainting raise ``NotImplementedError``.  Clip height and width must be
-multiples of 64 (an odd latent geometry cannot round-trip the UNet's
-down/up skips); the shape bucket grid and the TPU compile workarounds are
-not ported.
+decode of one clip, with an optional edited reference frame (TVI2V), the
+x-prior mix, sdedit (the clip's latents noised onto the img2img-pruned
+schedule) and inpainting (the clip's white areas regenerated).
+``run_pipeline`` wraps it with the same flag surface (``base_parser``), the
+base-model sweep with its per-base-model output directories, the LoRA and
+VAE swaps, job gathering, ``log_info.json`` resume ledger and saving;
+``reference_mode=True`` is the TVI2V CLI (``sampling_tv2v_ref``).  Clip
+height and width must be multiples of 64 (an odd latent geometry cannot
+round-trip the UNet's down/up skips); the shape bucket grid and the TPU
+compile workarounds are not ported, so ``--exact_shapes`` changes nothing.
 """
 
 from __future__ import annotations
@@ -23,10 +24,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..conditioning.annotators.base import AnnotatorEmbedder
-from ..config import TV2V_CONFIG, TVI2V_CONFIG, build_engine, load_config
+from ..conditioning.annotators.base import CHECKPOINTS, AnnotatorEmbedder
+from ..conditioning.annotators.zoedepth import randomize_zoedepth_
+from ..config import SAMPLER_NAMES, TV2V_CONFIG, TVI2V_CONFIG, build_engine, load_config
 from ..data.video import load_image, load_video_keyframes, save_video_frames
-from ..io.checkpoint import load_reference_checkpoint, load_torch_state_dict, randomize_weights_
+from ..diffusion import make_discretization, make_sampler
+from ..io.checkpoint import (load_partial, load_reference_checkpoint, load_torch_state_dict,
+                             randomize_weights_, reference_parts, sub_state_dict)
+from ..io.lora import merge_kohya_lora
 from ..ops.attention import launch_counts
 
 PRIOR_TYPES = ("video", "ref", "video_ref")
@@ -62,7 +67,7 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--add_prompt", type=str, default="masterpiece, high quality")
     p.add_argument("--sample_steps", type=int, default=50)
     p.add_argument("--sampler_name", type=str, default="DPMPP2SAncestralSampler",
-                   choices=["DPMPP2SAncestralSampler"])
+                   choices=sorted(SAMPLER_NAMES))
     p.add_argument("--cfg_scale", type=float, default=7.5)
     p.add_argument("--prior_coefficient_x", type=float, default=0.0)
     p.add_argument("--prior_coefficient_noise", type=float, default=1.0)
@@ -78,6 +83,9 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", help="bfloat16 network, VAE and CLIP")
     p.add_argument("--fake_annotator", action="store_true",
                    help="use the luminance pseudo-depth stand-in (NOT MiDaS; debug)")
+    p.add_argument("--exact_shapes", action="store_true",
+                   help="accepted for the JAX CLI's sake: the port always runs at the "
+                        "requested geometry (it has no shape buckets)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CUDA kernels need 'cuda'")
     return p
@@ -101,48 +109,129 @@ def gather_jobs(args) -> List[Dict]:
     return [{"video": args.video_path, "prompt": args.prompt}]
 
 
-def _reject_unported(args) -> None:
-    unported = {
-        "--basemodel_path/--basemodel_listpath": args.basemodel_path or args.basemodel_listpath,
-        "--lora_path": args.lora_path,
-        "--vae_path": args.vae_path,
-        "--sdedit_denoise_strength": args.sdedit_denoise_strength > 0,
-        "--inpainting_mode": args.inpainting_mode,
-    }
-    used = [k for k, v in unported.items() if v]
-    if used:
-        raise NotImplementedError(f"{', '.join(used)}: not ported yet")
+def check_args(args) -> None:
+    """The geometry and the flag combinations the JAX pipeline asserts."""
     if args.H % 64 or args.W % 64:
         raise ValueError(f"--H/--W must be multiples of 64, got {args.H}x{args.W}")
+    if not 0.0 <= args.sdedit_denoise_strength <= 1.0:
+        raise ValueError(f"--sdedit_denoise_strength {args.sdedit_denoise_strength} is not in "
+                         "[0, 1]")
+    if args.sdedit_denoise_strength > 0 and args.prior_coefficient_x != 0:
+        raise ValueError("--prior_coefficient_x should be 0 when using --sdedit_denoise_strength")
+    if args.basemodel_path and args.basemodel_listpath:
+        raise ValueError("only one of --basemodel_path and --basemodel_listpath can be given")
+
+
+def _randomize(engine, generator: torch.Generator) -> None:
+    """Seeded random weights for the network, the VAE and every embedder
+    but an annotator loaded from its own checkpoint; ZoeDepth with its
+    live-block init (``randomize_zoedepth_``)."""
+    randomize_weights_(engine.network, generator)
+    randomize_weights_(engine.vae, generator)
+    for emb in engine.conditioner.embedders:
+        if isinstance(emb, AnnotatorEmbedder) and emb.backbone is not None:
+            if emb.backbone_loaded:
+                continue
+            if emb.kind == "depth_zoe":
+                randomize_zoedepth_(emb.backbone, generator)
+                continue
+        randomize_weights_(emb, generator)
 
 
 def load_engine(args, num_steps: int, default_config=TV2V_CONFIG):
     """The engine on ``args.device`` with checkpoint or seeded random weights
-    (``default_config`` when no ``--config_path``).  With a checkpoint, a
-    depth annotator needs its own weights (``ckpt_path`` in its embedder
-    params) or ``--fake_annotator``."""
+    (``default_config`` when no ``--config_path``) and the sampler of
+    ``--sampler_name`` on the LegacyDDPM schedule, pruned to
+    ``--sdedit_denoise_strength`` when it is set (the JAX ``load_engine``).
+    With a checkpoint, a depth annotator needs its own weights
+    (``ckpt_path`` in its embedder params) or ``--fake_annotator``."""
     cfg = load_config(args.config_path) if args.config_path else default_config
     device = torch.device(args.device)
     with device:
         engine = build_engine(cfg, asset_dir=args.tokenizer_assets or None,
                               guider_scale=args.cfg_scale, num_steps=num_steps,
                               fake_annotator=args.fake_annotator)
-    modules = (engine.network, engine.vae, engine.conditioner)
+    strength = args.sdedit_denoise_strength
+    engine.sampler = make_sampler(
+        SAMPLER_NAMES[args.sampler_name], num_steps=num_steps,
+        discretization=make_discretization(
+            "legacy_ddpm", **({"img2img_strength": strength} if strength > 0 else {})))
     if args.ckpt_path:
         load_reference_checkpoint(engine, load_torch_state_dict(args.ckpt_path))
         for emb in engine.conditioner.embedders:
             if isinstance(emb, AnnotatorEmbedder) and emb.backbone is not None \
                     and not emb.backbone_loaded:
-                raise RuntimeError("the DPT-Hybrid depth annotator has no weights: set "
-                                   "ckpt_path in its embedder params "
-                                   "(dpt_hybrid-midas-501f0c75.pt) or pass --fake_annotator")
+                raise RuntimeError(f"the {emb.kind} annotator has no weights: set ckpt_path in "
+                                   f"its embedder params ({CHECKPOINTS[emb.kind]}) or pass "
+                                   "--fake_annotator")
     else:
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        for m in modules:
-            randomize_weights_(m, gen)
-    for m in modules:
+        _randomize(engine, torch.Generator(device=device).manual_seed(args.seed))
+    for m in (engine.network, engine.vae, engine.conditioner):
         m.to(dtype=torch.bfloat16 if args.bf16 else torch.float32).eval()
     return engine, cfg
+
+
+def _text_encoder(engine):
+    return next((e.transformer for e in engine.conditioner.embedders
+                 if hasattr(e, "transformer")), None)
+
+
+def _swapped_modules(engine) -> Dict[str, torch.nn.Module]:
+    """The modules a base-model swap loads: the UNet, the VAE and CLIP."""
+    mods = {"unet": engine.network.unet, "vae": engine.vae, "clip": _text_encoder(engine)}
+    return {k: m for k, m in mods.items() if m is not None}
+
+
+def apply_basemodel(engine, path: str) -> Dict[str, Dict]:
+    """Load a swapped SD base model's spatial UNet, VAE and CLIP text
+    encoder, non-strict; the temporal layers, the ControlNets and the
+    annotators keep their weights.  Returns each module's report
+    (``load_partial``)."""
+    print(f"--> load a new base model from {path}")
+    sd = load_torch_state_dict(path)
+    parts, modules = reference_parts(sd), _swapped_modules(engine)
+    unread = len(sd) - sum(len(parts[k]) for k in modules)
+    print(f"[basemodel] {unread} of the file's {len(sd)} keys are not the spatial UNet's, the "
+          "VAE's or the text encoder's and are not read")
+    return {k: load_partial(m, parts[k], f"basemodel {k}") for k, m in modules.items()}
+
+
+def apply_lora(engine, path: str, strength: float) -> Dict[str, list]:
+    """Merge a kohya LoRA into the UNet and the text encoder."""
+    print(f"--> load a new LoRA model from {path}")
+    return merge_kohya_lora(engine.network.unet, _text_encoder(engine),
+                            load_torch_state_dict(path), strength)
+
+
+def apply_vae(engine, path: str) -> Dict[str, List]:
+    """Swap the first-stage VAE (a bare VAE state dict or a full checkpoint's
+    ``first_stage_model.``), non-strict."""
+    print(f"--> load a new VAE model from {path}")
+    sd = load_torch_state_dict(path)
+    if any(k.startswith("first_stage_model.") for k in sd):
+        sd = sub_state_dict(sd, "first_stage_model.")
+    return load_partial(engine.vae, sd, "vae")
+
+
+def gather_basemodels(args) -> List[str]:
+    """The base-model sweep: the list file's paths, the one path, or
+    ``["default"]`` (the engine's own weights)."""
+    if args.basemodel_listpath:
+        return [p.strip() for p in Path(args.basemodel_listpath).read_text().splitlines()
+                if p.strip()]
+    return [args.basemodel_path] if args.basemodel_path else ["default"]
+
+
+def make_inpaint_mask(frames: np.ndarray, factor: int = 8) -> np.ndarray:
+    """Latent-resolution inpainting mask of the clip: 1 (generate) where it
+    is pure white, 0 (keep) elsewhere, from the green channel, area-pooled
+    over factor x factor pixels and rounded.  frames (T, H, W, 3) uint8 (or
+    in [-1, 1]) -> (1, T, H/f, W/f, 1) float32."""
+    white = 255 if frames.dtype == np.uint8 else 1.0 - 1e-6
+    px = (frames[..., 1] >= white).astype(np.float32)
+    t, h, w = px.shape
+    pooled = px.reshape(t, h // factor, factor, w // factor, factor).mean(axis=(2, 4))
+    return np.clip(np.round(pooled), 0.0, 1.0)[None, ..., None]
 
 
 class _Stopwatch:
@@ -173,20 +262,12 @@ class _Stopwatch:
 
 def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               cfg_scale: float, num_steps: int, generator: torch.Generator,
-              stage_seconds: Optional[Dict[str, float]] = None,
-              reference: Optional[np.ndarray] = None, prior_type: str = "ref",
-              prior_coefficient_x: float = 0.0, prior_coefficient_noise: float = 1.0,
-              stage_launches: Optional[Dict[str, Dict[str, int]]] = None,
-              return_latents: bool = False):
+              return_latents: bool = False, **kw):
     """Edit one clip: (T, H, W, 3) uint8 -> (T, H, W, 3) uint8 (and, with
     ``return_latents``, the sampled latents (1, T, h, w, 4) before decoding).
-    One draw of ``edit_clips``; the arguments are its."""
+    One draw of ``edit_clips``, whose keywords it takes."""
     out, latents = edit_clips(engine, frames_u8, prompt, negative_prompt, cfg_scale,
-                              num_steps, generator, stage_seconds=stage_seconds,
-                              reference=reference, prior_type=prior_type,
-                              prior_coefficient_x=prior_coefficient_x,
-                              prior_coefficient_noise=prior_coefficient_noise,
-                              stage_launches=stage_launches)
+                              num_steps, generator, **kw)
     return (out[0], latents) if return_latents else out[0]
 
 
@@ -205,7 +286,7 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
                prior_coefficient_x: float = 0.0, prior_coefficient_noise: float = 1.0,
                stage_launches: Optional[Dict[str, Dict[str, int]]] = None,
                batch_size: int = 1, init_noise: Optional[torch.Tensor] = None,
-               loop_noise: Optional[torch.Tensor] = None):
+               loop_noise=None, sdedit: bool = False, inpainting: bool = False):
     """Edit one clip ``batch_size`` times in one sampler call: (T, H, W, 3)
     uint8 -> (batch_size, T, H, W, 3) uint8 and the sampled latents
     (batch_size, T, h, w, 4) before decoding.  The conditioning is computed
@@ -215,11 +296,15 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
 
     ``reference`` (H, W, 3), uint8 or in [-1, 1], is the edited reference
     frame of a TVI2V edit: its VAE latent conditions the appearance branch
-    (``cond_img``).  A nonzero ``prior_coefficient_x`` starts the chain at
-    ``prior_coefficient_noise * noise + prior_coefficient_x * x_prior``,
-    with x_prior the clip's latents (``prior_type`` "video"), the reference
-    latent repeated over T ("ref") or their mean ("video_ref"); without a
-    reference it is the clip's latents.
+    (``cond_img``).  The x-prior, used by a nonzero ``prior_coefficient_x``,
+    ``sdedit`` or ``inpainting``, is the clip's latents, or with a reference
+    (and no sdedit) the reference latent repeated over T (``prior_type``
+    "ref") or the mean of both ("video_ref").  A nonzero
+    ``prior_coefficient_x`` starts the chain at ``prior_coefficient_noise *
+    noise + prior_coefficient_x * x_prior``; ``sdedit`` (whose schedule the
+    engine's sampler prunes, ``load_engine``) starts it at the x-prior
+    noised to the first sigma; ``inpainting`` regenerates the clip's white
+    areas (``make_inpaint_mask``) and keeps the x-prior elsewhere.
 
     Stages (timed into ``stage_seconds``, their kernel launches counted into
     ``stage_launches``, when given): ``text`` (CLIP of the prompt and the
@@ -230,6 +315,8 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
     weights, so unlike the JAX function there is no params argument."""
     if prior_type not in PRIOR_TYPES:
         raise ValueError(f"prior_type {prior_type!r} (one of {PRIOR_TYPES})")
+    if sdedit and prior_coefficient_x != 0:
+        raise ValueError("prior_coefficient_x should be 0 with sdedit")
     cond = engine.conditioner
     device = next(engine.network.parameters()).device
     watch = _Stopwatch(device, stage_seconds, stage_launches)
@@ -242,14 +329,15 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
     watch.lap("hint")
     t, h, w = frames_u8.shape[:3]
     x_prior = None
-    if reference is not None or prior_coefficient_x != 0:
+    use_prior = prior_coefficient_x != 0 or sdedit or inpainting
+    if reference is not None or use_prior:
         if reference is not None:
             ref = torch.from_numpy(np.ascontiguousarray(reference))[None]
             feat = cond.embed(cond.prepare({"cond_img": ref}))
             c.update(feat)
             uc.update(feat)
-        if prior_coefficient_x != 0:
-            use_ref = reference is not None and prior_type != "video"
+        if use_prior:
+            use_ref = reference is not None and not sdedit and prior_type != "video"
             if not use_ref or prior_type == "video_ref":
                 x_prior = engine.encode_first_stage(video.to(device))
             if use_ref:  # the reference latent, repeated over T
@@ -257,15 +345,21 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
                 x_prior = z_ref if x_prior is None else 0.5 * (x_prior + z_ref)
         watch.lap("encode")
     f = engine.latent_factor
+    mask = (torch.from_numpy(make_inpaint_mask(frames_u8, f)).to(device) if inpainting
+            else None)
     if batch_size > 1:
         c, uc = _repeat_batch(c, batch_size), _repeat_batch(uc, batch_size)
         if x_prior is not None:
             x_prior = x_prior.repeat_interleave(batch_size, dim=0)
+        if mask is not None:
+            mask = mask.repeat_interleave(batch_size, dim=0)
     latents = engine.sample(c, uc, (batch_size, t, h // f, w // f, 4), num_steps=num_steps,
                             generator=generator, init_noise=init_noise, loop_noise=loop_noise,
                             guider_scale=cfg_scale, x_prior=x_prior,
                             prior_coefficient=prior_coefficient_x,
-                            prior_noise_coefficient=prior_coefficient_noise)
+                            prior_noise_coefficient=prior_coefficient_noise,
+                            mode="sdedit" if sdedit else "full",
+                            inpaint_x0=x_prior if inpainting else None, inpaint_mask=mask)
     watch.lap("sample")
     decoded = engine.decode_first_stage(latents).float()
     if not bool(torch.isfinite(decoded).all()):
@@ -280,50 +374,87 @@ def _ledger(save_dir: Path) -> Dict:
     return json.loads(path.read_text()) if path.exists() else {}
 
 
+def _snapshot(engine) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Host copies of the weights the swaps change."""
+    return {k: {n: v.detach().to("cpu", copy=True) for n, v in m.state_dict().items()}
+            for k, m in _swapped_modules(engine).items()}
+
+
+def _restore(engine, snap: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    for k, m in _swapped_modules(engine).items():
+        m.load_state_dict(snap[k], strict=True)
+
+
 def run_pipeline(args, reference_mode: bool = False) -> None:
-    """The TV2V CLI loop: jobs -> ``edit_clip`` -> mp4/gif + ledger.  With
+    """The TV2V CLI loop (the JAX ``run_pipeline``): for each base model of
+    the sweep (its outputs and ledger in a subdirectory named after it),
+    the swaps (base model, ``--lora_path``, ``--vae_path``) applied before
+    its first job, then jobs -> ``edit_clips`` -> mp4/gif + ledger.  With
     ``reference_mode`` (TVI2V) every job also takes the edited reference
     frame ``args.reference_path`` and ``args.prior_type``, and the default
     config is ``TVI2V_CONFIG``."""
-    _reject_unported(args)
+    check_args(args)
     engine, _ = load_engine(args, args.sample_steps,
                             TVI2V_CONFIG if reference_mode else TV2V_CONFIG)
-    save_dir = Path(args.save_path)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    root_dir = Path(args.save_path)
+    root_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=torch.device(args.device)).manual_seed(args.seed)
-    for job in gather_jobs(args):
-        vid_name = Path(job["video"]).stem
-        job_key = f"{vid_name}::{job['prompt']}"
-        if not args.disable_check_repeat and job_key in _ledger(save_dir):
-            print(f"[skip] {job_key} already done")
-            continue
-        try:
-            frames = load_video_keyframes(job["video"], args.original_fps, args.target_fps,
-                                          args.num_keyframes, (args.H, args.W))
-        except (IOError, ValueError) as e:  # a bad input skips its job
-            print(f"[error] {job_key}: failed to load video: {e}")
-            continue
-        prompt = ", ".join(x for x in (args.add_prompt, job["prompt"]) if x)
-        extra = dict(prior_coefficient_x=args.prior_coefficient_x,
-                     prior_coefficient_noise=args.prior_coefficient_noise)
-        if reference_mode:
-            extra.update(reference=load_image(args.reference_path, (args.H, args.W)),
-                         prior_type=args.prior_type)
-        t0 = time.time()
-        # num_samples drawn in chunks of batch_size (the JAX pipeline's loop)
-        bs = max(1, min(args.batch_size, args.num_samples))
-        outputs, remaining = [], args.num_samples
-        while remaining > 0:
-            out, _ = edit_clips(engine, frames, prompt, args.negative_prompt, args.cfg_scale,
-                                args.sample_steps, gen, batch_size=bs, **extra)
-            outputs.extend(out[:min(bs, remaining)])
-            remaining -= bs
-        dt = time.time() - t0
-        ext = "." + args.save_type
-        for i, out in enumerate(outputs):
-            save_video_frames(out, str(save_dir / f"{vid_name}_{i:02d}{ext}"), fps=args.target_fps)
-        save_video_frames(frames, str(save_dir / f"{vid_name}_original{ext}"), fps=args.target_fps)
-        done = _ledger(save_dir)
-        done[job_key] = {"prompt": job["prompt"], "seconds": dt, "num_samples": args.num_samples}
-        (save_dir / "log_info.json").write_text(json.dumps(done, indent=1))
-        print(f"[done] {job_key}: {args.num_samples} sample(s) in {dt:.1f}s")
+    basemodels = gather_basemodels(args)
+    swaps = basemodels != ["default"] or args.lora_path or args.vae_path
+    snap = _snapshot(engine) if swaps and len(basemodels) > 1 else None
+    for bm_idx, bm_path in enumerate(basemodels):
+        print(f"-> base model {bm_idx}: {bm_path}")
+        save_dir = root_dir if bm_path == "default" else root_dir / Path(bm_path).stem
+        save_dir.mkdir(parents=True, exist_ok=True)
+        swapped = False
+        for job in gather_jobs(args):
+            vid_name = Path(job["video"]).stem
+            job_key = f"{vid_name}::{job['prompt']}"
+            if not args.disable_check_repeat and job_key in _ledger(save_dir):
+                print(f"[skip] {job_key} already done")
+                continue
+            try:
+                frames = load_video_keyframes(job["video"], args.original_fps, args.target_fps,
+                                              args.num_keyframes, (args.H, args.W))
+            except (IOError, ValueError) as e:  # a bad input skips its job
+                print(f"[error] {job_key}: failed to load video: {e}")
+                continue
+            if not swapped:
+                if snap is not None and bm_idx > 0:
+                    _restore(engine, snap)
+                if bm_path != "default":
+                    apply_basemodel(engine, bm_path)
+                if args.lora_path:
+                    apply_lora(engine, args.lora_path, args.lora_strength)
+                if args.vae_path:
+                    apply_vae(engine, args.vae_path)
+                swapped = True
+            prompt = ", ".join(x for x in (args.add_prompt, job["prompt"]) if x)
+            extra = dict(prior_coefficient_x=args.prior_coefficient_x,
+                         prior_coefficient_noise=args.prior_coefficient_noise,
+                         sdedit=args.sdedit_denoise_strength > 0,
+                         inpainting=args.inpainting_mode)
+            if reference_mode:
+                extra.update(reference=load_image(args.reference_path, (args.H, args.W)),
+                             prior_type=args.prior_type)
+            t0 = time.time()
+            # num_samples drawn in chunks of batch_size (the JAX pipeline's loop)
+            bs = max(1, min(args.batch_size, args.num_samples))
+            outputs, remaining = [], args.num_samples
+            while remaining > 0:
+                out, _ = edit_clips(engine, frames, prompt, args.negative_prompt, args.cfg_scale,
+                                    args.sample_steps, gen, batch_size=bs, **extra)
+                outputs.extend(out[:min(bs, remaining)])
+                remaining -= bs
+            dt = time.time() - t0
+            ext = "." + args.save_type
+            for i, out in enumerate(outputs):
+                save_video_frames(out, str(save_dir / f"{vid_name}_{i:02d}{ext}"),
+                                  fps=args.target_fps)
+            save_video_frames(frames, str(save_dir / f"{vid_name}_original{ext}"),
+                              fps=args.target_fps)
+            done = _ledger(save_dir)
+            done[job_key] = {"prompt": job["prompt"], "seconds": dt,
+                             "num_samples": args.num_samples}
+            (save_dir / "log_info.json").write_text(json.dumps(done, indent=1))
+            print(f"[done] {job_key}: {args.num_samples} sample(s) in {dt:.1f}s")

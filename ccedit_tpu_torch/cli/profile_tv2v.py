@@ -3,13 +3,15 @@ training step or a VAE GAN training step, on one GPU.
 
     python -m ccedit_tpu_torch.cli.profile_tv2v --steps 30 --profile_steps 2 --out DIR
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v   # 50 steps, CFG 7
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_zoe   # TVI2V as shipped
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 2 profiled
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
 with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
 DPT-Hybrid, an edited reference frame, ``--prior_type ref`` and
-prior_coefficient_x 0.03 at CFG 7), edits a 17x512x768 synthetic clip once
+prior_coefficient_x 0.03 at CFG 7; ``tvi2v_zoe`` the same with a random
+full-size ZoeD_M12_N hint, TVI2V as shipped), edits a 17x512x768 synthetic clip once
 to warm up, then (1) times ``edit_clip`` at ``--steps`` (default 30 for
 TV2V, 50 for TVI2V, the README's settings) with its stage seconds and (2)
 profiles an edit at ``--profile_steps`` with torch.profiler.  The profile is read from its chrome
@@ -47,7 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import TV2V_CONFIG, TVI2V_CONFIG
+from ..config import TV2V_CONFIG, TVI2V_CONFIG, TVI2V_ZOE_CONFIG
 from ..data.video import moving_gradient_clip
 from ..ops.attention import quantized_qk_enabled
 from .pipeline import base_parser, edit_clip, load_engine
@@ -200,22 +202,26 @@ def profile_vae_train(a, device, smi: str) -> dict:
 EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
 
 
+EDIT_CONFIGS = {"tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_ZOE_CONFIG}
+
+
 def build_edit(workload: str, device, seed: int, steps: int):
-    """The full-width engine of the ``tv2v`` or ``tvi2v`` edit (seeded random
-    weights, bf16) and ``edit(n_steps, generator, **edit_clip keywords)``,
-    which edits the synthetic 17x512x768 clip as the README's settings do:
-    TV2V with the luminance depth stand-in at CFG 7.5; TVI2V with a random
-    DPT-Hybrid, the centre frame with its colours shifted as the edited
-    reference, ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.
-    Returns (engine, edit, cfg_scale)."""
-    tvi2v = workload == "tvi2v"
+    """The full-width engine of the ``tv2v``, ``tvi2v`` or ``tvi2v_zoe``
+    edit (seeded random weights, bf16) and ``edit(n_steps, generator,
+    **edit_clip keywords)``, which edits the synthetic 17x512x768 clip as
+    the README's settings do: TV2V with the luminance depth stand-in at CFG
+    7.5; TVI2V with a random DPT-Hybrid (``tvi2v_zoe``: ZoeD_M12_N), the
+    centre frame with its colours shifted as the edited reference,
+    ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.  Returns
+    (engine, edit, cfg_scale)."""
+    tvi2v = workload != "tv2v"
     cfg_scale = 7.0 if tvi2v else 7.5
     t, h, w = EDIT_GEOMETRY
     args = base_parser().parse_args(
         ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(h),
          "--W", str(w), "--num_keyframes", str(t), "--sample_steps", str(steps),
          "--cfg_scale", str(cfg_scale)] + ([] if tvi2v else ["--fake_annotator"]))
-    engine, _ = load_engine(args, steps, TVI2V_CONFIG if tvi2v else TV2V_CONFIG)
+    engine, _ = load_engine(args, steps, EDIT_CONFIGS[workload])
     frames = moving_gradient_clip(t, h, w)
     extra = {}
     if tvi2v:  # the edited reference: the centre frame with its colours shifted
@@ -231,9 +237,10 @@ def build_edit(workload: str, device, seed: int, steps: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("tv2v", "tvi2v", "train", "vae_train"), default="tv2v")
+    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + ("train", "vae_train"),
+                    default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
-                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v); "
+                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v and tvi2v_zoe); "
                          "timed training steps for train and vae_train (default 5)")
     # one profiled training step reads a busy share of 58-75 % where two
     # read 97 %: the profiler's start falls inside a single step's window
@@ -250,7 +257,7 @@ def main(argv=None) -> None:
         profile = profile_train if a.workload == "train" else profile_vae_train
         print(json.dumps(profile(a, device, smi)))
         return
-    steps = a.steps or (50 if a.workload == "tvi2v" else 30)
+    steps = a.steps or (30 if a.workload == "tv2v" else 50)
     _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)
     gen = torch.Generator(device=device).manual_seed(a.seed)
     t, h, w = EDIT_GEOMETRY
@@ -258,6 +265,7 @@ def main(argv=None) -> None:
     edit(1, gen)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
     stages = {}
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 1e9  # the engine's weights
     t0 = time.perf_counter()
     edit(steps, gen, stage_seconds=stages)
     total = time.perf_counter() - t0
@@ -271,6 +279,7 @@ def main(argv=None) -> None:
         "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
         "edit_seconds": total, "stage_seconds": stages,
         "sample_seconds_per_row": stages["sample"] / rows, "peak_memory_gb": peak,
+        "resident_memory_gb": resident,
         "profile": dict(profile, steps=a.profile_steps, rows=2 * a.profile_steps - 1),
     }))
 

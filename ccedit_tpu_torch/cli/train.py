@@ -16,7 +16,7 @@ config) ``SyntheticVideoDataset`` clips at the config's ``video_length`` and
 ``resolution`` (default 8 frames of 64x64).  On CUDA ``--bf16`` is needed
 (fp32 masters, bf16 autocast: the kernels take bf16).  ``--mesh_data`` > 1
 and ``--sample_every`` raise: multi-GPU training and validation sampling
-are not ported yet (ROADMAP queue 1, items 11 and 8).
+are not ported yet (ROADMAP queue 1, "the rest of training").
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def main(argv=None):
 
     if (args.mesh_data or 1) > 1:
         raise NotImplementedError("multi-GPU training (--mesh_data > 1) is not ported yet "
-                                  "(ROADMAP queue 1, item 11)")
+                                  "(ROADMAP queue 1, 'the rest of training')")
     device = torch.device(args.device)
     if device.type == "cuda" and not args.bf16:
         raise SystemExit("on CUDA pass --bf16: the attention kernels take bf16")

@@ -10,6 +10,9 @@ given; ``TVI2V_CONFIG`` the reference-guided one of
 ``keyframe_ref_cp_no2ndca_add_cfca`` as ``bench.py`` builds it: CFCA
 centre+self in the UNet, the structure ControlNet, and the appearance
 ControlNet fed the VAE latent of the edited centre frame.
+``TVI2V_ZOE_CONFIG`` is TVI2V as shipped
+(``keyframe_ref_cp_no2ndca_add_cfca_depthzoe``): the same with the
+``DepthZoeEncoder`` (ZoeDepth) structure hint in place of MiDaS.
 ``TV2V_TRAIN_CONFIG`` is the TV2V training recipe (the shape of the
 reference's ``sd_1_5_controlldm-test-tv2v-depthmidas.yaml``): the TV2V
 network with ``use_checkpoint``, the depth-MiDaS conditioner with text
@@ -34,16 +37,19 @@ from .conditioning.annotators.base import build_annotator
 from .conditioning.conditioner import Conditioner, EmbedderSpec
 from .conditioning.embedders import CLIPTextEmbedder, IdentityEncoder, VAEEmbedder
 from .diffusion import (
+    Denoiser,
     DiscreteDenoiser,
     DiscreteSampling,
-    DPMPP2SAncestralSampler,
     EDMSampling,
-    EpsScaling,
     IdentityGuider,
     LegacyDDPMDiscretization,
     StandardDiffusionLoss,
     VanillaCFG,
+    make_discretization,
+    make_sampler,
 )
+from .diffusion.samplers import BaseSampler
+from .diffusion.scaling import SCALINGS
 from .diffusion.weighting import EDMWeighting, EpsWeighting, UnitWeighting, VWeighting
 from .models.engine import CCEditEngine
 from .modules.clip import CLIPTextModel
@@ -109,6 +115,17 @@ def _tvi2v_config() -> Dict:
 
 
 TVI2V_CONFIG: Dict = _tvi2v_config()
+
+
+def _tvi2v_zoe_config() -> Dict:
+    cfg = copy.deepcopy(TVI2V_CONFIG)
+    for emb in cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"]:
+        if emb["target"].endswith("DepthMidasEncoder"):
+            emb["target"] = "sgm.modules.encoders.modules.DepthZoeEncoder"
+    return cfg
+
+
+TVI2V_ZOE_CONFIG: Dict = _tvi2v_zoe_config()
 
 
 def _tv2v_train_config() -> Dict:
@@ -341,7 +358,7 @@ def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,
     specs = []
     for emb in _params(cfg).get("emb_models", []):
         name = _expect(emb, "FrozenCLIPEmbedder", "IdentityEncoder", "VAEEmbedder",
-                       "DepthMidasEncoder")
+                       "DepthMidasEncoder", "DepthZoeEncoder")
         p = _params(emb)
         if name == "FrozenCLIPEmbedder":
             embedder = CLIPTextEmbedder(CLIPTextModel(), asset_dir=asset_dir,
@@ -414,30 +431,53 @@ def freeze_policy(model_params: Dict) -> str:
     return _TV2V_FREEZE.get(freeze, freeze)
 
 
-def build_sampler(cfg: Optional[Dict], num_steps: Optional[int] = None
-                  ) -> DPMPP2SAncestralSampler:
-    """The sampler of a ``sampler_config`` (the JAX ``build_sampler``):
-    DPM++2S-ancestral with its ``eta``, ``s_noise`` and its
-    ``discretization_config``'s params; ``num_steps`` when given, else the
-    config's, else 30.  Raises on the options and discretizations the port
-    does not have (the EDM samplers' ``s_churn``/``s_tmin``/``s_tmax``, the
-    linear-multistep ``order``, img2img strength below 1)."""
+_SCALING = {"EpsScaling": "eps", "EDMScaling": "edm", "VScaling": "v"}
+_DISCRETIZATION = {"LegacyDDPMDiscretization": "legacy_ddpm", "EDMDiscretization": "edm"}
+SAMPLER_NAMES = {
+    "EulerEDMSampler": "euler",
+    "HeunEDMSampler": "heun",
+    "EulerAncestralSampler": "euler_ancestral",
+    "DPMPP2SAncestralSampler": "dpmpp_2s_ancestral",
+    "DPMPP2MSampler": "dpmpp_2m",
+    "LinearMultistepSampler": "lms",
+}
+_SAMPLER_OPTIONS = ("s_churn", "s_tmin", "s_tmax", "s_noise", "eta", "order")
+
+
+def build_discretization(cfg: Optional[Dict]):
+    """A ``discretization_config`` (LegacyDDPM when absent) with its params;
+    ``img2img_strength`` below 1 prunes it (``Img2ImgDiscretizationWrapper``)."""
+    cfg = cfg or {"target": "LegacyDDPMDiscretization"}
+    return make_discretization(_DISCRETIZATION[_expect(cfg, *_DISCRETIZATION)], **_params(cfg))
+
+
+def build_denoiser(cfg: Dict) -> Denoiser:
+    """A ``denoiser_config``: ``DiscreteDenoiser`` (the shipped one) or the
+    continuous ``Denoiser``, with its scaling, weighting and (discrete)
+    discretization."""
+    name = _expect(cfg, "DiscreteDenoiser", "Denoiser")
+    p = _params(cfg)
+    scfg = p.get("scaling_config")
+    scaling = SCALINGS[_SCALING[_expect(scfg, *_SCALING)]](**_params(scfg))
+    weighting = build_weighting(p.get("weighting_config"))
+    if name == "Denoiser":
+        return Denoiser(scaling, weighting=weighting)
+    return DiscreteDenoiser(scaling, num_idx=p.get("num_idx", 1000),
+                            discretization=build_discretization(p.get("discretization_config")),
+                            weighting=weighting)
+
+
+def build_sampler(cfg: Optional[Dict], num_steps: Optional[int] = None) -> BaseSampler:
+    """The sampler of a ``sampler_config`` (the JAX ``build_sampler``): its
+    target, its ``s_churn``/``s_tmin``/``s_tmax``/``s_noise``/``eta``/
+    ``order`` and its ``discretization_config`` (img2img strength
+    included); DPM++2S-ancestral on LegacyDDPM without one.  ``num_steps``
+    when given, else the config's, else 30."""
     sp = _params(cfg)
-    if cfg is not None:
-        _expect(cfg, "DPMPP2SAncestralSampler")
-    unported = [k for k in ("s_churn", "s_tmin", "s_tmax", "order") if k in sp]
-    if unported:
-        raise KeyError(f"sampler option(s) {', '.join(unported)} are not implemented by the "
-                       f"port's DPMPP2SAncestralSampler")
-    disc_cfg = sp.get("discretization_config", {"target": "LegacyDDPMDiscretization"})
-    _expect(disc_cfg, "LegacyDDPMDiscretization")
-    disc = _params(disc_cfg)
-    if disc.pop("img2img_strength", 1.0) < 1.0:
-        raise KeyError("img2img_strength < 1 (Img2ImgDiscretizationWrapper) is not "
-                       "implemented by the port")
-    kwargs = {k: float(sp[k]) for k in ("eta", "s_noise") if k in sp}
-    return DPMPP2SAncestralSampler(LegacyDDPMDiscretization(**disc),
-                                   num_steps=num_steps or sp.get("num_steps") or 30, **kwargs)
+    name = SAMPLER_NAMES[_expect(cfg, *SAMPLER_NAMES)] if cfg is not None else "dpmpp_2s_ancestral"
+    kwargs = {k: sp[k] for k in _SAMPLER_OPTIONS if k in sp}
+    return make_sampler(name, discretization=build_discretization(sp.get("discretization_config")),
+                        num_steps=num_steps or sp.get("num_steps") or 30, **kwargs)
 
 
 def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
@@ -451,15 +491,7 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
     model_cfg = cfg.get("model", cfg)
     _expect(model_cfg, "VideoDiffusionEngineTV2V")
     p = _params(model_cfg)
-    dcfg = _params(p["denoiser_config"])
-    _expect(p["denoiser_config"], "DiscreteDenoiser")
-    _expect(dcfg.get("scaling_config"), "EpsScaling")
-    _expect(dcfg.get("discretization_config", {"target": "LegacyDDPMDiscretization"}),
-            "LegacyDDPMDiscretization")
-    denoiser = DiscreteDenoiser(EpsScaling(), num_idx=dcfg.get("num_idx", 1000),
-                                discretization=LegacyDDPMDiscretization(
-                                    **_params(dcfg.get("discretization_config"))),
-                                weighting=build_weighting(dcfg.get("weighting_config")))
+    denoiser = build_denoiser(p["denoiser_config"])
     guider = VanillaCFG(scale=guider_scale)
     sampler = build_sampler(p.get("sampler_config"), num_steps)
     if "sampler_config" in p:

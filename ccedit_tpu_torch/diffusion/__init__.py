@@ -1,19 +1,25 @@
-"""Diffusion math of the TV2V path: LegacyDDPM schedule, eps scaling,
-discrete denoiser, CFG and the DPM++2S-ancestral sampler; for training the
-sigma samplers, loss weightings and ``StandardDiffusionLoss``."""
+"""Diffusion math: the LegacyDDPM and EDM schedules (and img2img pruning),
+the eps, EDM and v scalings, the continuous and discrete denoisers, CFG, the
+six k-diffusion samplers with their sdedit / inpaint / blend modes; for
+training the sigma samplers, loss weightings and ``StandardDiffusionLoss``."""
 
-from .denoiser import DiscreteDenoiser
-from .discretization import LegacyDDPMDiscretization
+from .denoiser import Denoiser, DiscreteDenoiser
+from .discretization import (EDMDiscretization, Img2ImgDiscretizationWrapper,
+                             LegacyDDPMDiscretization, make_discretization)
 from .guidance import IdentityGuider, VanillaCFG
 from .loss import StandardDiffusionLoss
-from .samplers import DPMPP2SAncestralSampler, get_ancestral_step
-from .scaling import EpsScaling
+from .samplers import (DPMPP2MSampler, DPMPP2SAncestralSampler, EulerAncestralSampler,
+                       EulerEDMSampler, HeunEDMSampler, LinearMultistepSampler,
+                       get_ancestral_step, make_sampler)
+from .scaling import EDMScaling, EpsScaling, VScaling
 from .sigma_sampling import DiscreteSampling, EDMSampling
 from .weighting import EDMWeighting, EpsWeighting, UnitWeighting, VWeighting
 
 __all__ = [
-    "DiscreteDenoiser", "LegacyDDPMDiscretization", "IdentityGuider", "VanillaCFG",
-    "DPMPP2SAncestralSampler", "get_ancestral_step", "EpsScaling",
-    "StandardDiffusionLoss", "DiscreteSampling", "EDMSampling",
-    "EDMWeighting", "EpsWeighting", "UnitWeighting", "VWeighting",
+    "Denoiser", "DiscreteDenoiser", "EDMDiscretization", "Img2ImgDiscretizationWrapper",
+    "LegacyDDPMDiscretization", "make_discretization", "IdentityGuider", "VanillaCFG",
+    "DPMPP2MSampler", "DPMPP2SAncestralSampler", "EulerAncestralSampler", "EulerEDMSampler",
+    "HeunEDMSampler", "LinearMultistepSampler", "get_ancestral_step", "make_sampler",
+    "EDMScaling", "EpsScaling", "VScaling", "StandardDiffusionLoss", "DiscreteSampling",
+    "EDMSampling", "EDMWeighting", "EpsWeighting", "UnitWeighting", "VWeighting",
 ]

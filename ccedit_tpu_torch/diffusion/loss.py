@@ -3,7 +3,7 @@
 optional offset noise shared over the trailing dims past
 ``offset_noise_varying_dim``), denoise, and take the weighted l2 or l1
 against the clean input.  The ``lpips`` loss is not ported yet (ROADMAP
-queue 1, item 8)."""
+queue 1, "the rest of training")."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ class StandardDiffusionLoss:
                  offset_noise_level: float = 0.0, offset_noise_varying_dim: int = 1):
         if loss_type == "lpips":
             raise NotImplementedError("the lpips diffusion loss is not ported yet "
-                                      "(ROADMAP queue 1, item 8)")
+                                      "(ROADMAP queue 1, 'the rest of training')")
         if loss_type not in ("l2", "l1"):
             raise ValueError(loss_type)
         self.sigma_sampler = sigma_sampler

@@ -3,8 +3,9 @@
 ``from_jax(kind, params)`` is the inverse of
 ``ccedit_tpu/io/torch_convert.py``'s ``convert_unet`` / ``convert_controlnet``
 / ``convert_vae`` / ``convert_clip``, of ``convert_dpt_midas``, of
-``ccedit_tpu/modules/lpips.py::convert_lpips`` (taming's ``vgg.pth`` layout)
-and of the NLayerDiscriminator layout (taming's ``main.{i}``): it takes a
+``ccedit_tpu/modules/lpips.py::convert_lpips`` (taming's ``vgg.pth`` layout),
+of the NLayerDiscriminator layout (taming's ``main.{i}``) and of
+``convert_zoedepth`` (HF ``ZoeDepthForDepthEstimation``): it takes a
 flax parameter tree (nested dicts of numpy arrays) and returns a state dict
 in the reference sgm/LDM/HF/MiDaS key layout, which the port's modules load
 as it is.  Layouts:
@@ -87,6 +88,39 @@ _DPT = [
     (r"^fusion(\d)/ru(\d)/", r"scratch.refinenet\1.resConfUnit\2."),
     (r"^fusion(\d)/out/", r"scratch.refinenet\1.out_conv/"),
     (r"^head_conv(\d)/", lambda m: f"scratch.output_conv.{2 * int(m[1]) - 2}/"),
+]
+
+_LAYER = r"^backbone/blocks_(\d+)/"
+_ZOE = [
+    (r"^backbone/patch_embed/", "backbone.embeddings.patch_embeddings.projection/"),
+    (r"^backbone/cls_token$", "backbone.embeddings.cls_token"),
+    (_LAYER + "ln1/", r"backbone.encoder.layer.\1.layernorm_before/"),
+    (_LAYER + "ln2/", r"backbone.encoder.layer.\1.layernorm_after/"),
+    (_LAYER + "q/", r"backbone.encoder.layer.\1.attention.attention.query/"),
+    (_LAYER + "k/", r"backbone.encoder.layer.\1.attention.attention.key/"),
+    (_LAYER + "v/", r"backbone.encoder.layer.\1.attention.attention.value/"),
+    (_LAYER + "proj/", r"backbone.encoder.layer.\1.attention.output.dense/"),
+    (_LAYER + "fc1/", r"backbone.encoder.layer.\1.intermediate.dense/"),
+    (_LAYER + "fc2/", r"backbone.encoder.layer.\1.output.dense/"),
+    (_LAYER + r"gamma_(\d)$", r"backbone.encoder.layer.\1.lambda_\2"),
+    (_LAYER + "rel_bias$", r"backbone.encoder.layer.\1.attention.attention"
+     ".relative_position_bias.relative_position_bias_table"),
+    (r"^readout_(\d)/", r"neck.reassemble_stage.readout_projects.\1.0/"),
+    (r"^reassemble_proj_(\d)/", r"neck.reassemble_stage.layers.\1.projection/"),
+    (r"^reassemble_resize_(\d)/", r"neck.reassemble_stage.layers.\1.resize/"),
+    (r"^reassemble_resize_(\d)_bias$", r"neck.reassemble_stage.layers.\1.resize.bias"),
+    (r"^neck_conv_(\d)/", r"neck.convs.\1/"),
+    (r"^fusion_(\d)/proj/", r"neck.fusion_stage.layers.\1.projection/"),
+    (r"^fusion_(\d)/res(\d)/conv(\d)/",
+     r"neck.fusion_stage.layers.\1.residual_layer\2.convolution\3/"),
+    (r"^rel_conv(\d)/", r"relative_head.conv\1/"),
+    (r"^bottleneck_conv/", "metric_head.conv2/"),
+    (r"^seed_mlp(\d)/", r"metric_head.seed_bin_regressor.conv\1/"),
+    (r"^seed_proj(\d)/", r"metric_head.seed_projector.conv\1/"),
+    (r"^proj(\d)_(\d)/", r"metric_head.projectors.\1.conv\2/"),
+    (r"^attr(\d)_(\d)/", r"metric_head.attractors.\1.conv\2/"),
+    (r"^clb_1/", "metric_head.conditional_log_binomial.mlp.0/"),
+    (r"^clb_2/", "metric_head.conditional_log_binomial.mlp.2/"),
 ]
 
 
@@ -188,7 +222,8 @@ def _unet_path(path: str, index: Dict[str, str]) -> str:
 
 
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
-    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt' | 'lpips' | 'disc'.
+    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt' | 'lpips' | 'disc' |
+    'zoedepth'.
     ``params`` is the flax tree of that module (``{"params": ...}`` is
     unwrapped).  Returns the reference-layout state dict, fp32 torch
     tensors."""
@@ -214,8 +249,13 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
         rules, prefix = _disc_rules(sum(p.startswith("bn_") for p in params)), ""
     else:
         rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model."), "dpt": (_DPT, ""),
-                         "lpips": (_LPIPS, "")}[kind]
+                         "lpips": (_LPIPS, ""), "zoedepth": (_ZOE, "")}[kind]
     for path, value in flat.items():
-        name, val = _leaf(_sub(rules, path), value)
+        m = re.match(r"^reassemble_resize_(\d)_kernel$", path)  # ConvTranspose (kh, kw, I, O)
+        if kind == "zoedepth" and m:
+            name, val = f"neck.reassemble_stage.layers.{m[1]}.resize.weight", \
+                np.transpose(value, (2, 3, 0, 1))
+        else:
+            name, val = _leaf(_sub(rules, path), value)
         out[prefix + name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))
     return out

@@ -1,10 +1,10 @@
 """CCEditEngine: network, diffusion math, conditioner and VAE (port of
-``ccedit_tpu/models/engine.py``: ``sample`` in mode "full" with
-``init_noise``/``loop_noise`` and the x-prior mix, ``make_denoise_fn``,
-``_hoist_control_hint``, ``encode_first_stage``, ``_wire_vae_embedders``,
-``decode_first_stage``, and training: ``loss``, ``make_optimizer``,
-``train_step``, ``ema_subset``/``merge_ema``; sdedit and inpainting are not
-ported).
+``ccedit_tpu/models/engine.py``: ``sample`` in modes "full" (with the
+x-prior mix), "sdedit" and "skip_steps", with inpainting and
+``init_noise``/``loop_noise``, ``make_denoise_fn``, ``_hoist_control_hint``,
+``encode_first_stage``, ``_wire_vae_embedders``, ``decode_first_stage``, and
+training: ``loss``, ``make_optimizer``, ``train_step``,
+``ema_subset``/``merge_ema``).
 
 The modules own their weights.  The network (and VAE, CLIP) may run in
 bf16; the sampler state and the denoiser math stay fp32, with a cast at the
@@ -20,13 +20,14 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..conditioning.conditioner import Conditioner
 from ..conditioning.embedders import VAEEmbedder, as_float_frames
-from ..diffusion.denoiser import DiscreteDenoiser
+from ..diffusion.denoiser import Denoiser
 from ..diffusion.guidance import IdentityGuider, VanillaCFG
-from ..diffusion.samplers import DPMPP2SAncestralSampler
+from ..diffusion.samplers import BaseSampler
 from ..modules.controlnet import CCEditNetwork
 from ..modules.vae import AutoencoderKL, DiagonalGaussian
 from ..train.ema import Ema
@@ -34,8 +35,8 @@ from ..train.freeze import freeze_mask
 
 
 class CCEditEngine:
-    def __init__(self, network: CCEditNetwork, denoiser: DiscreteDenoiser,
-                 sampler: DPMPP2SAncestralSampler, conditioner: Conditioner,
+    def __init__(self, network: CCEditNetwork, denoiser: Denoiser,
+                 sampler: BaseSampler, conditioner: Conditioner,
                  vae: Optional[AutoencoderKL] = None, guider=None,
                  scale_factor: float = 0.18215, loss_fn=None, input_key: str = "jpg",
                  freeze_policy: str = "none", use_ema: bool = False,
@@ -126,29 +127,64 @@ class CCEditEngine:
     @torch.no_grad()
     def sample(self, cond: Dict, uc: Optional[Dict], shape: Sequence[int],
                num_steps: Optional[int] = None, generator: Optional[torch.Generator] = None,
-               init_noise: Optional[torch.Tensor] = None,
-               loop_noise: Optional[torch.Tensor] = None,
+               init_noise: Optional[torch.Tensor] = None, loop_noise=None,
                guider_scale: Optional[float] = None,
                x_prior: Optional[torch.Tensor] = None, prior_coefficient: float = 0.0,
-               prior_noise_coefficient: float = 1.0) -> torch.Tensor:
-        """Draw latents (fp32) from noise (mode "full" of the JAX engine).
+               prior_noise_coefficient: float = 1.0, mode: str = "full",
+               sdedit_steps: int = 0, inpaint_x0: Optional[torch.Tensor] = None,
+               inpaint_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Draw latents (fp32).
+
+        * mode "full": from noise; with ``x_prior`` and a nonzero
+          ``prior_coefficient`` the start is ``prior_noise_coefficient *
+          noise + prior_coefficient * x_prior``.
+        * mode "sdedit": ``x_prior`` is the clean video latent; the start is
+          (x_prior + noise * sigma_0) / sqrt(1 + sigma_0^2) on the sampler's
+          (img2img-pruned) schedule, which the sampler's own rescale turns
+          back into x_prior + noise * sigma_0.
+        * mode "skip_steps": only the last ``sdedit_steps`` steps of the
+          full schedule, from ``x_prior``, which is already noised.
+        * ``inpaint_x0`` / ``inpaint_mask``: before each step the latents
+          keep their own values where the mask is 1 and take ``inpaint_x0``
+          noised to the step's sigma where it is 0.
+
         ``init_noise`` replaces the start-of-chain gaussian and
-        ``loop_noise`` (num_steps, *shape) the per-step ancestral draws;
-        otherwise both come from ``generator``.  With ``x_prior`` and a
-        nonzero ``prior_coefficient`` the start is
-        ``prior_noise_coefficient * noise + prior_coefficient * x_prior``."""
+        ``loop_noise`` the sampler's draws (rows of the executed steps, or
+        ``{"loop": rows, "pre": rows}`` with inpainting's second stream);
+        otherwise both come from ``generator``."""
         device = next(self.network.parameters()).device
         if init_noise is not None:
-            x = init_noise.to(device=device, dtype=torch.float32)
-            if tuple(x.shape) != tuple(shape):
-                raise ValueError(f"init_noise shape {tuple(x.shape)} != {tuple(shape)}")
+            noise = init_noise.to(device=device, dtype=torch.float32)
+            if tuple(noise.shape) != tuple(shape):
+                raise ValueError(f"init_noise shape {tuple(noise.shape)} != {tuple(shape)}")
         else:
-            x = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
-        if x_prior is not None and prior_coefficient != 0:
-            x = prior_noise_coefficient * x + prior_coefficient * x_prior.to(x)
+            noise = torch.randn(tuple(shape), generator=generator, device=device,
+                                dtype=torch.float32)
+        if mode == "sdedit":
+            if x_prior is None:
+                raise ValueError("mode 'sdedit' needs the clean video latent (x_prior)")
+            sigma0 = float(self.sampler.get_sigmas(num_steps)[0])
+            x = (x_prior.to(noise) + noise * sigma0) / float(np.sqrt(1.0 + sigma0 ** 2))
+        elif mode == "skip_steps":
+            if x_prior is None:
+                raise ValueError("mode 'skip_steps' needs the noised latent (x_prior)")
+            x = x_prior.to(noise)
+        elif mode == "full":
+            x = noise
+            if x_prior is not None and prior_coefficient != 0:
+                x = prior_noise_coefficient * x + prior_coefficient * x_prior.to(x)
+        else:
+            raise ValueError(f"mode {mode!r} (one of full, sdedit, skip_steps)")
         denoise_fn = self.make_denoise_fn(cond, uc, guider_scale=guider_scale)
-        return self.sampler(denoise_fn, x, num_steps=num_steps,
-                            noise_override=loop_noise, generator=generator)
+        kw = dict(num_steps=num_steps, noise_override=loop_noise, generator=generator)
+        if mode == "skip_steps":
+            return self.sampler.sdedit(sdedit_steps, denoise_fn, x, **kw)
+        if inpaint_x0 is not None:
+            if inpaint_mask is None:
+                raise ValueError("inpainting needs inpaint_mask as well as inpaint_x0")
+            return self.sampler.sample_inpainting(denoise_fn, x, inpaint_x0.to(x),
+                                                  inpaint_mask.to(x), **kw)
+        return self.sampler(denoise_fn, x, **kw)
 
     # ------------------------------------------------------------------
     # training

@@ -68,6 +68,7 @@ class UNetModel(nn.Module):
             raise NotImplementedError("temporal text cross-attention is not ported")
         self.is_video = unet_type == "pseudo-3d"
         self.model_channels = model_channels
+        self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
         ch = model_channels
         res_cls = ResBlock3D if self.is_video else ResBlock
 

@@ -15,7 +15,7 @@ scheduler states, the step and the EMA shadow; frozen weights come from the
 engine's initial weights.  Every step draws its randomness from a generator
 seeded by (seed, step), so a resumed run continues as the uninterrupted one
 would.  Validation sampling (``sample_every``), wandb and multi-GPU training
-are not ported (ROADMAP queue 1, item 8).
+are not ported (ROADMAP queue 1, "the rest of training").
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ class Trainer:
                  lr_schedule: Optional[Callable[[int], float]] = None):
         if cfg.sample_every:
             raise NotImplementedError("validation sampling (sample_every) is not ported yet "
-                                      "(ROADMAP queue 1, item 8)")
+                                      "(ROADMAP queue 1, 'the rest of training')")
         self.engine = engine
         self.cfg = cfg
         self.lr_schedule = lr_schedule

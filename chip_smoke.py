@@ -65,6 +65,24 @@ Phases:
      centre frame with its colours shifted), ``--prior_type ref`` with
      prior_coefficient_x 0.03, CFG 7, 3 steps; then its quantized edit and
      the planted fault, as in phase 4 (the CFCA quantized too).
+  4b. modes and swaps, on phase 4's engine before it is freed: an sdedit
+     edit (strength 0.5, DPM++2M, 8 steps, 3 after the img2img pruning) whose final latents must be
+     nearer, by cosine, to the clip's own VAE latents than phase 4's full
+     edit's are; an Euler-ancestral inpaint of a white box in the clip
+     (``make_inpaint_mask``); an Euler-EDM edit with s_churn 1; each finite
+     and launching kernels 1, 2 and 3.  Then a seeded random rank-4 kohya
+     LoRA over every UNet attention projection and the text encoder,
+     merged by ``apply_lora``: no pair skipped, each merged bf16 weight
+     equal to W + s up down computed in fp32 within its bf16 rounding.
+  5b. TVI2V as shipped: the full-width engine of ``TVI2V_ZOE_CONFIG`` (a
+     seeded random ZoeD_M12_N, BEiT-L/384 with live layer-scale gammas and
+     bias tables, bf16).  The Zoe depth of the clip's first and last chunk
+     in bf16 is held to the same module in fp32 by the cosine of the
+     mean-centred maps (ZOE_COSINE), which the bf16 run with the
+     relative-position bias left out must fail; the hint must show its
+     2 %/85 % normalisation (at least k_lo values at -1 and n - k_hi + 1
+     at +1); then phase 5's edit (exact only), which must launch kernels 1
+     (n_k = n_q and 2 n_q), 2 and 3 (encoder and decoder).
   6. train: the full-width TV2V training engine of ``TV2V_TRAIN_CONFIG``
      (seeded random fp32 master weights, the zero-initialised temporal
      layers included; a random full-size DPT-Hybrid inside the step;
@@ -172,6 +190,25 @@ VAE_STEPS = 4  # 1 warm-up + 3 timed
 # launches a VAE training step: both mid-block attentions, with their lse and
 # backward in the generator pass, without either in the discriminator pass
 VAE_LAUNCHES_PER_STEP = {"flash_attention": 4, "flash_attention[lse]": 2, "flash_attention_bwd": 2}
+# phase 4b: the modes and swaps on phase 4's engine (CFG 7.5): sdedit at
+# strength 0.5 with DPM++2M over 8 steps (3 survive the img2img pruning, so
+# the second step takes DPM++2M's second-order update), an Euler-ancestral
+# inpaint of a white box, an Euler-EDM edit with churn; a rank-4 kohya LoRA
+# at strength 0.8 over the UNet's attention projections and the text encoder
+SDEDIT_STRENGTH, SDEDIT_STEPS, S_CHURN = 0.5, 8, 1.0
+LORA_RANK, LORA_STRENGTH = 4, 0.8
+# a merged bf16 weight against W + s * up @ down computed in fp32: its bf16
+# rounding is at most 2^-8 of |target| (half a bf16 ulp); the limit is one
+# ulp.  A pair merged at the wrong scale or not at all is off by ~1, since
+# s * up @ down is several times W here
+LORA_TOLERANCE = 2.0 ** -7
+# phase 5b: the ZoeDepth hint of the first and last chunk computed in bf16,
+# held to the same module in fp32 by the cosine of their mean-centred maps
+# (the raw maps are positive, so their plain cosine is near 1 whatever they
+# hold); the same bf16 run with the relative-position bias left out must
+# fall below it.  First H100 reading, first chunk: 0.99947 sound, 0.99671
+# without the bias (the card tests' 5 and 2 frames: 0.9976 without it)
+ZOE_COSINE = 0.999
 
 
 def _variant_sum(stages, prefix, variant):
@@ -265,6 +302,13 @@ PATH_KERNELS = {
     "train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
               "spatial_attention_bwd"),
     "vae_train": ("flash_attention_lse", "flash_attention_bwd"),
+    "tv2v_sdedit": ("spatial_attention", "temporal_attention", "flash_attention",
+                    "flash_attention_encoder"),
+    "tv2v_inpaint": ("spatial_attention", "temporal_attention", "flash_attention",
+                     "flash_attention_encoder"),
+    "tv2v_churn": ("spatial_attention", "temporal_attention", "flash_attention"),
+    "tvi2v_zoe": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
+                  "flash_attention", "flash_attention_encoder"),
 }
 
 
@@ -753,6 +797,7 @@ def edit_counted(edit, device, steps: int, seed: int, label: str):
 
     stages, launches = {}, {}
     torch.cuda.reset_peak_memory_stats(device)
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9  # weights and earlier phases'
     reset_launches()
     t0 = time.perf_counter()
     out, latents = edit(steps, torch.Generator(device=device).manual_seed(seed),
@@ -763,9 +808,10 @@ def edit_counted(edit, device, steps: int, seed: int, label: str):
     summed = {k: sum(c.get(k, 0) for c in launches.values()) for k in counts}
     if summed != counts:
         raise RuntimeError(f"per-stage launch counts {summed} do not add up to {counts}")
-    print(f"[{label}] edit_clip {T}x{H}x{W}, {steps} steps ({2 * steps - 1} network rows): "
+    print(f"[{label}] edit_clip {T}x{H}x{W}, {steps} steps: "
           f"{total:.2f} s; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
-          + f"; peak memory {peak_gb:.2f} GB", flush=True)
+          + f"; peak memory {peak_gb:.2f} GB ({resident_gb:.2f} GB allocated before it)",
+          flush=True)
     print(f"[{label}] kernel launches by stage {json.dumps(launches)}", flush=True)
     if out.dtype != np.uint8 or out.shape != (T, H, W, 3):
         raise RuntimeError(f"edit_clip returned {out.dtype} {out.shape}")
@@ -811,6 +857,8 @@ def run_path(path: str, device, steps: int, seed: int) -> dict:
     from ccedit_tpu_torch.ops import spatial_attention as sa
 
     t0 = time.perf_counter()
+    print(f"[{path}] {torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated before the "
+          "phase", flush=True)
     engine, edit, cfg_scale = build_edit(path, device, seed, steps)
     torch.cuda.synchronize()
     modules = {"network": engine.network, "vae": engine.vae, "conditioner": engine.conditioner}
@@ -853,10 +901,192 @@ def run_path(path: str, device, steps: int, seed: int) -> dict:
     if not cos_fault < LATENT_COSINE:
         raise RuntimeError(f"the latent check passes a kernel 1c without its dequant factor: "
                            f"cosine {cos_fault}")
-    del engine, edit
+    out = {path: launches, f"{path}_int8": launches_int8}
+    if path == "tv2v":
+        out.update(run_modes(engine, exact, device, seed))
+    del engine, edit, modules  # ``modules`` holds the weights too
     gc.collect()
     torch.cuda.empty_cache()
-    return {path: launches, f"{path}_int8": launches_int8}
+    return out
+
+
+def run_modes(engine, full_latents, device, seed: int) -> dict:
+    """Phase 4b, on phase 4's TV2V engine: an sdedit edit, an inpaint edit
+    and an Euler-EDM edit with churn (each finite, each launching kernels 1,
+    2 and 3), then a kohya LoRA merged into the UNet and the text encoder.
+    Returns the per-stage counts of the three edits as paths."""
+    import torch
+
+    from ccedit_tpu_torch.cli.pipeline import edit_clip
+    from ccedit_tpu_torch.data.video import moving_gradient_clip
+    from ccedit_tpu_torch.diffusion import make_discretization, make_sampler
+
+    t0 = time.perf_counter()
+    frames = moving_gradient_clip(T, H, W)
+    boxed = frames.copy()
+    boxed[:, H // 4:H // 2, W // 3:2 * W // 3] = 255  # the white box to regenerate
+    sdedit_disc = make_discretization("legacy_ddpm", img2img_strength=SDEDIT_STRENGTH)
+    if len(sdedit_disc(SDEDIT_STEPS)) < 4:  # a second step to a nonzero sigma
+        raise RuntimeError(f"{SDEDIT_STEPS} sdedit steps at strength {SDEDIT_STRENGTH} leave "
+                           "DPM++2M no second-order update")
+    edits = {
+        "tv2v_sdedit": (frames, make_sampler("dpmpp_2m", discretization=sdedit_disc),
+                        SDEDIT_STEPS, {"sdedit": True}),
+        "tv2v_inpaint": (boxed, make_sampler("euler_ancestral"), STEPS, {"inpainting": True}),
+        "tv2v_churn": (frames, make_sampler("euler", s_churn=S_CHURN), STEPS, {}),
+    }
+    saved, counts, latents = engine.sampler, {}, {}
+    try:
+        for label, (clip, sampler, steps, kw) in edits.items():
+            engine.sampler = sampler
+
+            def edit(n_steps, generator, _clip=clip, _kw=kw, **more):
+                return edit_clip(engine, _clip, "a robot bear walking through the snow",
+                                 "ugly, low quality", 7.5, n_steps, generator, **_kw, **more)
+
+            _, latents[label], counts[label] = edit_counted(edit, device, steps, seed, label)
+    finally:
+        engine.sampler = saved
+    with torch.no_grad():
+        z = engine.encode_first_stage(torch.from_numpy(frames)[None].to(device))
+    cos_sdedit, cos_full = cosine(latents["tv2v_sdedit"], z), cosine(full_latents, z)
+    print(f"[tv2v_sdedit] final latents vs the clip's own VAE latents: cosine {cos_sdedit:.6f}; "
+          f"the full edit's {cos_full:.6f}", flush=True)
+    if not cos_sdedit > cos_full:
+        raise RuntimeError(f"the sdedit edit is no nearer the clip than the full edit: "
+                           f"{cos_sdedit} <= {cos_full}")
+    check_lora(engine, device, seed)
+    print(f"[modes] phase 4b in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def check_lora(engine, device, seed: int) -> None:
+    """A seeded random rank-4 kohya LoRA over every UNet attention
+    projection and the text encoder, written to ``build/`` and merged by
+    ``apply_lora``: no pair may be skipped, and each merged bf16 weight must
+    equal W + s * up @ down computed in fp32 within its bf16 rounding."""
+    import pathlib
+
+    import torch
+
+    from ccedit_tpu_torch.cli.pipeline import apply_lora
+    from ccedit_tpu_torch.io import lora as tl
+
+    unet = engine.network.unet
+    clip = next(e.transformer for e in engine.conditioner.embedders if hasattr(e, "transformer"))
+    params = {"lora_unet_": dict(unet.named_parameters()),
+              "lora_te_": dict(clip.named_parameters())}
+    blocks = ([f"down_blocks_{b}_attentions_{a}" for b in range(3) for a in range(2)]
+              + ["mid_block_attentions_0"]
+              + [f"up_blocks_{b}_attentions_{a}" for b in (1, 2, 3) for a in range(3)])
+    names = [f"lora_unet_{b}_transformer_blocks_0_{attn}_to_{p}" for b in blocks
+             for attn in ("attn1", "attn2") for p in ("q", "k", "v", "out_0")]
+    names += [f"lora_te_text_model_encoder_layers_{i}_{m}" for i in range(12)
+              for m in ("self_attn_q_proj", "self_attn_k_proj", "self_attn_v_proj",
+                        "self_attn_out_proj", "mlp_fc1", "mlp_fc2")]
+    gen = torch.Generator().manual_seed(seed + 7)
+    sd, targets = {}, {}
+    for name in names:
+        prefix = "lora_unet_" if name.startswith("lora_unet_") else "lora_te_"
+        key = name[len(prefix):]
+        target = (tl.unet_target(key, unet.num_res_blocks, len(unet.channel_mult))
+                  if prefix == "lora_unet_" else tl.text_target(key))
+        w = params[prefix][f"{target}.weight"]
+        sd[f"{name}.lora_down.weight"] = torch.randn((LORA_RANK, w.shape[1]), generator=gen)
+        sd[f"{name}.lora_up.weight"] = torch.randn((w.shape[0], LORA_RANK), generator=gen) * 0.1
+        sd[f"{name}.alpha"] = torch.tensor(float(LORA_RANK) / 2)
+        targets[name] = (w, w.detach().float().clone())
+    path = pathlib.Path("build") / "chip_smoke_lora.pt"
+    path.parent.mkdir(exist_ok=True)
+    torch.save(sd, path)
+    report = apply_lora(engine, str(path), LORA_STRENGTH)
+    if report["skipped"] or len(report["merged"]) != len(names):
+        raise RuntimeError(f"the LoRA merge skipped {report['skipped']}")
+    worst = 0.0
+    for name, (w, before) in targets.items():
+        delta = (sd[f"{name}.lora_up.weight"] @ sd[f"{name}.lora_down.weight"]).to(device)
+        target = before + LORA_STRENGTH * 0.5 * delta  # alpha / rank = 0.5
+        err = ((w.float() - target).abs() / target.abs().clamp_min(1e-30)).max().item()
+        worst = max(worst, err)
+    print(f"[lora] {len(names)} pairs merged ({len(blocks)} UNet transformers, 12 text layers); "
+          f"worst |W - (W0 + s up down)| / |W0 + s up down| {worst:.3e} "
+          f"(limit {LORA_TOLERANCE:.3e})", flush=True)
+    if not worst <= LORA_TOLERANCE:
+        raise RuntimeError(f"a merged LoRA weight is off by {worst} of its value")
+
+
+def centred_cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return cosine(a - a.mean(), b - b.mean())
+
+
+def run_zoe(device, seed: int) -> dict:
+    """Phase 5b: TVI2V as shipped.  The full-width engine of
+    ``TVI2V_ZOE_CONFIG`` (a seeded random ZoeD_M12_N with live BEiT blocks,
+    bf16), the Zoe depth of the clip's first and last chunk in bf16 against
+    the same module in fp32 (and the planted fault, the bias left out), the
+    hint's normalisation, then one reference-guided edit as phase 5's.
+    Returns its per-stage counts as path ``tvi2v_zoe``."""
+    import copy
+
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit
+    from ccedit_tpu_torch.conditioning.annotators.base import CHUNK
+    from ccedit_tpu_torch.conditioning.annotators.zoedepth import detect_depth_zoe
+    from ccedit_tpu_torch.data.video import moving_gradient_clip
+
+    t0 = time.perf_counter()
+    print(f"[tvi2v_zoe] {torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated before the "
+          "phase", flush=True)
+    engine, edit, _ = build_edit("tvi2v_zoe", device, seed, STEPS)
+    emb = next(e for e in engine.conditioner.embedders if getattr(e, "kind", "") == "depth_zoe")
+    n_zoe = sum(p.numel() for p in emb.backbone.parameters())
+    print(f"[tvi2v_zoe] engine built in {time.perf_counter() - t0:.1f} s; ZoeD_M12_N "
+          f"{n_zoe / 1e6:.1f} M parameters, bf16", flush=True)
+    clip = torch.from_numpy(moving_gradient_clip(T, H, W)).to(device)
+    frames = clip.float() / 255.0  # the embedder's (x / 127.5 - 1 + 1) / 2
+    zoe32 = copy.deepcopy(emb.backbone).float()
+    readings = {}
+    with torch.no_grad():
+        last = (T - 1) // CHUNK * CHUNK
+        for name, chunk in (("first", frames[:CHUNK]), ("last", frames[last:])):
+            ref = detect_depth_zoe(zoe32, chunk)
+            d16 = detect_depth_zoe(emb.backbone, chunk).float()
+            fault = detect_depth_zoe(emb.backbone, chunk, rel_bias=False).float()
+            if not (torch.isfinite(d16).all() and torch.isfinite(ref).all()):
+                raise FloatingPointError(f"the Zoe depth of the {name} chunk is not finite")
+            readings[name] = (centred_cosine(d16, ref), centred_cosine(fault, ref))
+    del zoe32
+    torch.cuda.empty_cache()
+    for name, (sound, fault) in readings.items():
+        print(f"[tvi2v_zoe] Zoe depth of the {name} chunk, bf16 vs fp32 on the card: centred "
+              f"cosine {sound:.6f}; with the relative-position bias left out {fault:.6f} "
+              f"(limit {ZOE_COSINE})", flush=True)
+        if not sound >= ZOE_COSINE:
+            raise RuntimeError(f"the bf16 Zoe depth left the fp32 one: {sound}")
+        if not fault < ZOE_COSINE:
+            raise RuntimeError(f"the Zoe check passes a depth without its bias: {fault}")
+    torch.cuda.reset_peak_memory_stats(device)
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    with torch.no_grad():
+        hint = emb(clip[None])[0, ..., 0]
+    print(f"[tvi2v_zoe] the hint stage alone: peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB ({resident_gb:.2f} GB "
+          "allocated before it)", flush=True)
+    n = hint.numel()
+    k_lo, k_hi = max(int(0.02 * n), 1), max(int(0.85 * n), 1)
+    at_lo, at_hi = int((hint == -1.0).sum()), int((hint == 1.0).sum())
+    print(f"[tvi2v_zoe] hint: {at_lo} of {n} values at -1 (k_lo {k_lo}), {at_hi} at +1 "
+          f"(n - k_hi + 1 = {n - k_hi + 1})", flush=True)
+    if not (bool(torch.isfinite(hint).all()) and at_lo >= k_lo and at_hi >= n - k_hi + 1):
+        raise RuntimeError("the Zoe hint does not show its 2 %/85 % normalisation")
+    _, _, launches = edit_counted(edit, device, STEPS, seed, "tvi2v_zoe")
+    print(f"[tvi2v_zoe] phase 5b in {time.perf_counter() - t0:.1f} s", flush=True)
+    del engine, edit, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tvi2v_zoe": launches}
 
 
 def grad_errors(g, ref) -> dict:
@@ -1246,6 +1476,7 @@ def main() -> int:
     by_path = {"probes": probe_counts}
     for p in ("tv2v", "tvi2v"):
         by_path.update(run_path(p, device, steps=STEPS, seed=SEED))
+    by_path.update(run_zoe(device, SEED))
     by_path["train"] = run_train(device, SEED)
     by_path["vae_train"] = run_vae_train(device, SEED)
     for rec, spec in zip(records, KERNELS):

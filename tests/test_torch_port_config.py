@@ -1,8 +1,9 @@
 """Config and gate parity of the port against the JAX package, on the CPU:
 the sampler a ``sampler_config`` builds (its eta, s_noise and
-discretization params, and the options the port refuses), the UNet options
-the port refuses (``adm_in_channels``), and kernel 1's dispatch gate
-``supported`` with its element size a required keyword."""
+discretization params, and the EDM options, the EDM schedule and img2img
+strength the port once refused), the UNet options the port refuses
+(``adm_in_channels``), and kernel 1's dispatch gate ``supported`` with its
+element size a required keyword."""
 
 import json
 
@@ -82,16 +83,36 @@ def test_sampler_config_params_reach_the_sampler(tiny_clip):
     assert not np.allclose(plain.numpy(), np.asarray(ref), atol=1e-3)
 
 
-@pytest.mark.parametrize("params,match", [
-    ({"s_churn": 0.5}, "s_churn"),
-    ({"order": 4}, "order"),
-    ({"discretization_config": {"target": "EDMDiscretization"}}, "EDMDiscretization"),
-    ({"discretization_config": {"target": "LegacyDDPMDiscretization",
-                                "params": {"img2img_strength": 0.5}}}, "img2img_strength"),
+@pytest.mark.parametrize("target,params,match", [
+    ("EulerEDMSampler", {"s_churn": 0.5}, "s_churn"),
+    ("LinearMultistepSampler", {"order": 4}, "order"),
+    ("DPMPP2SAncestralSampler", {"discretization_config": {"target": "EDMDiscretization"}},
+     "EDMDiscretization"),
+    ("DPMPP2SAncestralSampler", {"discretization_config": {
+        "target": "LegacyDDPMDiscretization", "params": {"img2img_strength": 0.5}}},
+     "img2img_strength"),
 ])
-def test_unported_sampler_options_raise(params, match):
-    with pytest.raises(KeyError, match=match):
-        config.build_sampler({"target": "DPMPP2SAncestralSampler", "params": params})
+def test_unported_sampler_options_raise(target, params, match):
+    """These options were refused until the samplers, the EDM schedule and
+    the img2img pruning were ported: each now builds what the JAX
+    ``build_sampler`` builds, and what still raises is a target neither
+    package has (``KeyError`` naming it) or an option its sampler lacks."""
+    cfg = {"target": target, "params": dict(params, num_steps=6)}
+    ours, ref = config.build_sampler(cfg), jax_config.build_sampler(cfg)
+    assert type(ours).__name__ == type(ref).__name__ == target
+    np.testing.assert_allclose(ours.get_sigmas(), ref.get_sigmas(), rtol=1e-6, atol=0)
+    for key, value in params.items():
+        if key != "discretization_config":
+            assert getattr(ours, key) == value == getattr(ref, key)
+    with pytest.raises(KeyError, match="FooSampler"):
+        config.build_sampler({"target": "FooSampler", "params": params})
+    if "discretization_config" in params:
+        with pytest.raises(KeyError, match="FooDiscretization"):
+            config.build_sampler({"target": target, "params": {
+                "discretization_config": {"target": "FooDiscretization"}}})
+    else:
+        with pytest.raises(TypeError, match=match):
+            config.build_sampler({"target": "DPMPP2MSampler", "params": {match: 1}})
 
 
 def test_adm_in_channels_raises(tiny_clip):

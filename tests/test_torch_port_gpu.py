@@ -8,9 +8,12 @@ Tolerances as in ``chip_smoke.py`` phase 3: a forward kernel's output is
 held to max|err| / max|plain| <= 2e-2 and cosine >= 0.9999 (the outputs of
 random attention have a max of ~0.1, so an absolute limit would pass a
 wrong kernel); the backward kernels (kernel 4 at d 40/80/160 and at
-d = 512) to 2e-2 of max|plain| on dq, dk and dv.
+d = 512) to 2e-2 of max|plain| on dq, dk and dv.  ZoeDepth (the TVI2V
+hint) in bf16 is held to itself in fp32 as ``chip_smoke.py`` phase 5b holds
+it.
 """
 
+import copy
 import math
 
 import pytest
@@ -546,3 +549,34 @@ def test_probe_wrappers_raise_outside_their_contract(cuda, call):
     with pytest.raises(ValueError):
         calls[call]()
     assert (kr.probe.launches, ip.gemm.launches, ip.transpose_int8.launches) == before
+
+
+@pytest.fixture(scope="module")
+def zoe_on_card():
+    """A seeded random full-size ZoeD_M12_N in bf16 and its fp32 copy, on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ZoeDepth check compares bf16 and fp32 on the card")
+    from ccedit_tpu_torch.conditioning.annotators import zoedepth as zd
+
+    model = zd.randomize_zoedepth_(zd.ZoeDepthN(), torch.Generator().manual_seed(0))
+    fp32 = model.to("cuda").eval()
+    return copy.deepcopy(fp32).to(torch.bfloat16), zd, fp32
+
+
+@pytest.mark.parametrize("frames", [5, 2])
+def test_zoe_bf16_matches_fp32(zoe_on_card, frames):
+    """The Zoe depth of a chunk of the edit's 512x768 clip in bf16 against
+    fp32, by the cosine of the mean-centred maps (``chip_smoke.ZOE_COSINE``);
+    the bf16 run without the relative-position bias must fall below it."""
+    from chip_smoke import ZOE_COSINE, centred_cosine
+    from ccedit_tpu_torch.data.video import moving_gradient_clip
+
+    bf16, zd, fp32 = zoe_on_card
+    clip = torch.from_numpy(moving_gradient_clip(frames, 512, 768)).cuda().float() / 255.0
+    with torch.no_grad():
+        ref = zd.detect_depth_zoe(fp32, clip)
+        out = zd.detect_depth_zoe(bf16, clip).float()
+        fault = zd.detect_depth_zoe(bf16, clip, rel_bias=False).float()
+    assert out.shape == ref.shape == (frames, 512, 768) and bool(torch.isfinite(out).all())
+    assert centred_cosine(out, ref) >= ZOE_COSINE > centred_cosine(fault, ref)

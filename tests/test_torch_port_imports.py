@@ -1,6 +1,7 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
-included), its training modules (VAE training's too), the kernel-7 sweep
-script and ``chip_smoke.py``'s imports pulls in
+included), its samplers, ZoeDepth, the LoRA merge, its training modules
+(VAE training's too), the kernel-7 sweep script and ``chip_smoke.py``'s
+imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
 the GPU machine may not have."""
 
@@ -30,7 +31,14 @@ import ccedit_tpu_torch.train.freeze
 import ccedit_tpu_torch.train.lr_schedule
 import ccedit_tpu_torch.train.trainer
 import ccedit_tpu_torch.conditioning.annotators.dpt_midas
+import ccedit_tpu_torch.conditioning.annotators.zoedepth
+import ccedit_tpu_torch.diffusion.denoiser
+import ccedit_tpu_torch.diffusion.discretization
+import ccedit_tpu_torch.diffusion.samplers
+import ccedit_tpu_torch.diffusion.scaling
+import ccedit_tpu_torch.io.checkpoint
 import ccedit_tpu_torch.io.jax_params
+import ccedit_tpu_torch.io.lora
 import ccedit_tpu_torch.models.autoencoder_engine
 import ccedit_tpu_torch.modules.discriminator
 import ccedit_tpu_torch.modules.lpips
