@@ -5,6 +5,7 @@ training step or a VAE GAN training step, on one GPU.
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v   # 50 steps, CFG 7
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_zoe   # TVI2V as shipped
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 2 profiled
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_train   # likewise, TVI2V
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
@@ -25,7 +26,9 @@ counterpart of ``bench.py::bench_train``) builds the engine of
 DPT-Hybrid, ``use_checkpoint``, ``spatial_tv2v``), takes one warm-up step
 at batch 4 of 12-frame 384x512 synthetic clips under bf16 autocast, times
 ``--steps`` (default 5) ``train_step`` calls and profiles
-``--profile_steps`` more.  The ``vae_train`` workload builds the SD KL-f8
+``--profile_steps`` more.  The ``tvi2v_train`` workload does the same with
+``TVI2V_TRAIN_CONFIG`` (CFCA, the appearance ControlNet training) at its
+recipe's batch 1 of 17-frame 384x512 clips.  The ``vae_train`` workload builds the SD KL-f8
 autoencoder of ``VAE_TRAIN_CONFIG`` with a full VGG16 LPIPS and the
 PatchGAN (seeded random weights, fp32 masters, bf16 autocast, the GAN term
 live from step 0) and times ``VAETrainer.train_step`` the same way on 12
@@ -126,12 +129,14 @@ def _time_train_steps(a, device, step, read) -> dict:
     library load), ``a.steps`` (default 5) timed ones, each result turned
     into host values by ``read`` (which waits for the step), then
     ``a.profile_steps`` profiled: the timing fields of a training
-    workload's JSON line."""
+    workload's JSON line (peak memory over the timed steps, resident
+    memory between steps: weights and optimizer state)."""
     from ..ops.attention import launch_counts, reset_launch_counts
 
     steps = a.steps or 5
     read(step())
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 1e9  # weights and optimizer state
     reset_launch_counts()
     times, results = [], []
     for _ in range(steps):
@@ -142,19 +147,28 @@ def _time_train_steps(a, device, step, read) -> dict:
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     profile = _profile(lambda: [step() for _ in range(a.profile_steps)], Path(a.out))
     return {"steps": steps, "step_seconds": times, "mean_step_seconds": sum(times) / steps,
-            "results": results, "peak_memory_gb": peak,
+            "results": results, "peak_memory_gb": peak, "resident_memory_gb": resident,
             "launches_per_step": {k: v / steps for k, v in counts.items()},
             "profile": dict(profile, steps=a.profile_steps)}
 
 
+def train_geometry(cfg) -> tuple:
+    """(batch, frames, height, width) of a training config's data."""
+    data = cfg["data"]["params"]
+    train = data["train"]["params"]
+    return (data["batch_size"], train["video_length"]) + tuple(train["resolution"])
+
+
 def profile_train(a, device, smi: str) -> dict:
-    """Time and profile the TV2V recipe's training step."""
-    from ..config import TV2V_TRAIN_CONFIG
+    """Time and profile the TV2V (``train``) or TVI2V (``tvi2v_train``)
+    recipe's training step at the recipe's batch and geometry."""
+    from ..config import TV2V_TRAIN_CONFIG, TVI2V_TRAIN_CONFIG
     from ..data.dataset import DataLoader, SyntheticVideoDataset
     from .train import build_train_engine
 
-    bs, t, h, w = 4, 12, 384, 512
-    engine = build_train_engine(TV2V_TRAIN_CONFIG, device, a.seed)
+    cfg = TVI2V_TRAIN_CONFIG if a.workload == "tvi2v_train" else TV2V_TRAIN_CONFIG
+    bs, t, h, w = train_geometry(cfg)
+    engine = build_train_engine(cfg, device, a.seed)
     optimizer = engine.make_optimizer(1e-4)
     loader = DataLoader(SyntheticVideoDataset(n_items=bs * ((a.steps or 5) + a.profile_steps + 1),
                                               num_frames=t, size_hw=(h, w), seed=a.seed),
@@ -169,7 +183,7 @@ def profile_train(a, device, smi: str) -> dict:
     n_train = sum(p.numel() for p in engine.trainable_parameters().values())
     n_total = sum(p.numel() for m in (engine.network, engine.vae, engine.conditioner)
                   for p in m.parameters())
-    return {"gpu": smi, "workload": "train", "quantized_qk": quantized_qk_enabled(),
+    return {"gpu": smi, "workload": a.workload, "quantized_qk": quantized_qk_enabled(),
             "batch": bs, "frames": t, "height": h, "width": w,
             "freeze_policy": engine.freeze_policy, "params_trainable": n_train,
             "params_total": n_total, "losses": timed.pop("results"),
@@ -237,11 +251,12 @@ def build_edit(workload: str, device, seed: int, steps: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + ("train", "vae_train"),
+    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + ("train", "tvi2v_train",
+                                                                 "vae_train"),
                     default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
                     help="sampling steps (default: 30 for tv2v, 50 for tvi2v and tvi2v_zoe); "
-                         "timed training steps for train and vae_train (default 5)")
+                         "timed training steps for train, tvi2v_train and vae_train (default 5)")
     # one profiled training step reads a busy share of 58-75 % where two
     # read 97 %: the profiler's start falls inside a single step's window
     ap.add_argument("--profile_steps", type=int, default=2)
@@ -253,8 +268,8 @@ def main(argv=None) -> None:
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if a.workload in ("train", "vae_train"):
-        profile = profile_train if a.workload == "train" else profile_vae_train
+    if a.workload in ("train", "tvi2v_train", "vae_train"):
+        profile = profile_vae_train if a.workload == "vae_train" else profile_train
         print(json.dumps(profile(a, device, smi)))
         return
     steps = a.steps or (30 if a.workload == "tv2v" else 50)

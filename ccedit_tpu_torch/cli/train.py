@@ -14,9 +14,18 @@ weights (``randomize_weights_``).  Data: WebVid from the config's
 ``data.params.train.params``, or with ``--synthetic_data`` (or no data
 config) ``SyntheticVideoDataset`` clips at the config's ``video_length`` and
 ``resolution`` (default 8 frames of 64x64).  On CUDA ``--bf16`` is needed
-(fp32 masters, bf16 autocast: the kernels take bf16).  ``--mesh_data`` > 1
-and ``--sample_every`` raise: multi-GPU training and validation sampling
-are not ported yet (ROADMAP queue 1, "the rest of training").
+(fp32 masters, bf16 autocast: the kernels take bf16).  ``--sample_every N``
+samples ``--sample_steps`` steps from the batch's conditioning at step 1
+and every N steps into ``{run}/images/``.
+
+Data parallelism: one process a GPU under torchrun, the config's
+``batch_size`` being the global batch (each rank takes its contiguous
+block of it):
+
+    torchrun --nproc_per_node 4 -m ccedit_tpu_torch.cli.train --mesh_data 4 ...
+
+``--mesh_data`` must equal torchrun's world size (the default is the world
+size); only rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -45,11 +54,12 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_every", type=int, default=500)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--sample_every", type=int, default=0,
-                   help="validation sampling every N steps (not ported yet: must be 0)")
+                   help="validation sampling at step 1 and every N steps (0: off)")
+    p.add_argument("--sample_steps", type=int, default=10, help="steps of a validation sample")
     p.add_argument("--accumulate_grad_batches", type=int, default=1)
     p.add_argument("--scale_lr", type=lambda s: s.lower() != "false", default=True)
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel size (multi-GPU training is not ported yet: 1)")
+                   help="data-parallel size: torchrun's world size (default: that size)")
     p.add_argument("--synthetic_data", action="store_true", help="train on synthetic clips")
     p.add_argument("--init_ckpt", type=str, default="",
                    help="initial weights: a reference torch checkpoint (.ckpt/.pt/.safetensors); "
@@ -82,7 +92,9 @@ def build_train_engine(cfg: Dict, device: torch.device, seed: int,
     return engine
 
 
-def build_dataloader(cfg: Dict, args):
+def build_dataloader(cfg: Dict, args, rank: int = 0, world: int = 1):
+    """The loader of this rank's block of each global batch, and the global
+    batch size."""
     from ..data.dataset import DataLoader, SyntheticVideoDataset, WebVidDataset
 
     data_cfg = (cfg.get("data") or {}).get("params") or {}
@@ -98,20 +110,23 @@ def build_dataloader(cfg: Dict, args):
                            num_frames=train_cfg.get("video_length", 9),
                            size_hw=tuple(train_cfg.get("resolution", (256, 384))),
                            seed=args.seed)
-    return DataLoader(ds, batch_size=bs, seed=args.seed), bs
+    return DataLoader(ds, batch_size=bs, seed=args.seed, rank=rank, world=world), bs
 
 
 def main(argv=None):
     """Train; returns (engine, FitResult)."""
     args, overrides = parse_args(argv)
+    from ..parallel import mesh
     from ..train.trainer import Trainer, TrainerConfig
 
-    if (args.mesh_data or 1) > 1:
-        raise NotImplementedError("multi-GPU training (--mesh_data > 1) is not ported yet "
-                                  "(ROADMAP queue 1, 'the rest of training')")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not args.bf16:
+    if torch.device(args.device).type == "cuda" and not args.bf16:
         raise SystemExit("on CUDA pass --bf16: the attention kernels take bf16")
+    device = mesh.init_distributed(args.device)
+    rank, world = mesh.rank(), mesh.world_size()
+    if args.mesh_data is not None and args.mesh_data != world:
+        raise SystemExit(f"--mesh_data {args.mesh_data} needs as many processes, one a GPU: "
+                         f"launch with torchrun --nproc_per_node {args.mesh_data} (this run "
+                         f"has {world})")
     if args.resume:
         logdir = Path(args.resume)
         base = json.loads((logdir / "configs" / "merged.json").read_text())
@@ -120,28 +135,39 @@ def main(argv=None):
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         name = args.name or (Path(args.base[0]).stem if args.base else "tv2v_train")
         logdir = Path(args.logdir) / f"{now}_{name}"
+        if world > 1:  # rank 0's clock names the run for every rank
+            shared = [str(logdir)]
+            torch.distributed.broadcast_object_list(shared, src=0)
+            logdir = Path(shared[0])
         cfg = load_configs(args.base, overrides, base=None if args.base else TV2V_TRAIN_CONFIG)
-        (logdir / "configs").mkdir(parents=True, exist_ok=True)
-        (logdir / "configs" / "merged.json").write_text(json.dumps(cfg, indent=1))
+        if rank == 0:
+            (logdir / "configs").mkdir(parents=True, exist_ok=True)
+            (logdir / "configs" / "merged.json").write_text(json.dumps(cfg, indent=1))
 
     model_params = (cfg.get("model") or {}).get("params") or {}
     engine = build_train_engine(cfg, device, args.seed,
                                 args.init_ckpt or str(model_params.get("ckpt_path") or ""),
                                 args.tokenizer_assets)
-    loader, bs = build_dataloader(cfg, args)
+    loader, bs = build_dataloader(cfg, args, rank, world)
     trainer = Trainer(
         engine,
         TrainerConfig(logdir=str(logdir), max_steps=args.max_steps, ckpt_every=args.ckpt_every,
                       log_every=args.log_every, sample_every=args.sample_every,
+                      sample_steps=args.sample_steps,
                       accumulate_grad_batches=args.accumulate_grad_batches,
                       base_lr=float(model_params.get("base_learning_rate", 1e-4)),
                       scale_lr=args.scale_lr, seed=args.seed,
                       autocast_dtype=torch.bfloat16 if args.bf16 else None),
         lr_schedule=build_lr_scheduler(model_params.get("scheduler_config")))
     result = trainer.fit(loader, batch_size=bs, resume=bool(args.resume))
-    print(f"training done at step {result.step}; logs in {logdir}")
+    if rank == 0:
+        print(f"training done at step {result.step}; logs in {logdir}")
     return engine, result
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -67,12 +67,16 @@ class Conditioner(nn.Module):
               generator: Optional[torch.Generator] = None) -> Dict:
         """Run every embedder and route its output.  ``apply_ucg`` (training)
         zeroes the output of an embedder without a ``legacy_ucg_value`` for
-        each batch element with probability ``ucg_rate``."""
+        each batch element with probability ``ucg_rate``; an embedder that
+        ``wants_generator`` (``VAEEmbedder``) draws from ``generator``."""
         cond: Dict[str, torch.Tensor] = {}
         for spec in self.specs:
             if spec.input_key not in prepared:
                 continue
-            emb = spec.embedder(prepared[spec.input_key])
+            if generator is not None and getattr(spec.embedder, "wants_generator", False):
+                emb = spec.embedder(prepared[spec.input_key], generator=generator)
+            else:
+                emb = spec.embedder(prepared[spec.input_key])
             if apply_ucg and spec.ucg_rate > 0.0 and spec.legacy_ucg_value is None:
                 keep = torch.bernoulli(torch.full((emb.shape[0],), 1.0 - spec.ucg_rate,
                                                   device=emb.device), generator=generator)

@@ -58,14 +58,18 @@ class IdentityEncoder(Embedder):
 class VAEEmbedder(Embedder):
     """The edited reference frame -> its scaled VAE latent, through the
     engine's shared first stage: ``encode`` is set by the engine to
-    ``CCEditEngine.encode_first_stage`` (the posterior mode times the scale
-    factor at inference).  (B, H, W, 3) pixels -> (B, H/8, W/8, 4)."""
+    ``CCEditEngine.encode_first_stage``: the posterior mode times the scale
+    factor at inference, a posterior sample drawn from ``generator`` in
+    training (the JAX embedder's ``rng``, as the reference samples it).
+    (B, H, W, 3) pixels -> (B, H/8, W/8, 4)."""
+
+    wants_generator = True
 
     def __init__(self):
         super().__init__()
         self.encode: Optional[Callable] = None
 
-    def forward(self, prepared):
+    def forward(self, prepared, generator: Optional[torch.Generator] = None):
         if self.encode is None:
             raise RuntimeError("VAEEmbedder is not wired to an engine's VAE")
-        return self.encode(prepared)
+        return self.encode(prepared, generator=generator)

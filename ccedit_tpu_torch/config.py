@@ -19,7 +19,9 @@ network with ``use_checkpoint``, the depth-MiDaS conditioner with text
 dropout, ``StandardDiffusionLoss`` with ``DiscreteSampling`` and eps
 weighting, ``freeze_model: spatial``, base LR 1e-4 with a
 ``LambdaLinearScheduler`` warm-up, and its data: batch 4 of 12-frame clips
-at 384x512.  ``VAE_TRAIN_CONFIG`` is the SD KL-f8 autoencoder's GAN
+at 384x512.  ``TVI2V_TRAIN_CONFIG`` is TVI2V training: ``TVI2V_CONFIG`` with
+those settings, batch 1 of 17-frame clips at 384x512 and base LR 5e-5.
+``VAE_TRAIN_CONFIG`` is the SD KL-f8 autoencoder's GAN
 fine-tune in the layout of the reference's autoencoder training YAMLs
 (``model.params.encoder_config`` / ``loss_config``), which
 ``build_autoencoder_engine`` reads.
@@ -159,6 +161,40 @@ def _tv2v_train_config() -> Dict:
 
 
 TV2V_TRAIN_CONFIG: Dict = _tv2v_train_config()
+
+
+def _tvi2v_train_config() -> Dict:
+    """TVI2V training: ``TVI2V_CONFIG``'s network and conditioning with
+    ``TV2V_TRAIN_CONFIG``'s training settings.  The reference's TVI2V
+    training YAML is not in the repository; SURVEY.md's recipe table
+    (``…tvi2v…yaml:9-27``) gives batch 1 of 17 frames at 384x512 and base LR
+    5e-5, and its parallelism table (:222) fp16 under DDP, which the port
+    runs as fp32 masters under bf16 autocast.  Everything else is
+    ``TV2V_TRAIN_CONFIG``'s: ``use_checkpoint``, eps weighting, ucg 0.1 on
+    ``txt``, ``DiscreteSampling``, ``freeze_model: spatial`` (under the TV2V
+    engine ``spatial_tv2v``: the temporal layers, the CFCA's ``*_temporal_ca``
+    and ``controlnet_img`` train) and the ``LambdaLinearScheduler`` warm-up.
+    The ZoeDepth variant is one dotlist override away:
+    ``model.params.conditioner_config.params.emb_models.1.target=
+    sgm.modules.encoders.modules.DepthZoeEncoder``, as ``TVI2V_ZOE_CONFIG``."""
+    cfg = copy.deepcopy(TVI2V_CONFIG)
+    train = TV2V_TRAIN_CONFIG["model"]["params"]
+    p = cfg["model"]["params"]
+    net = p["network_config"]["params"]
+    for params in (net, net["controlnet_config"]["params"], net["controlnet_img_config"]["params"]):
+        params["use_checkpoint"] = True
+    p["denoiser_config"]["params"]["weighting_config"] = copy.deepcopy(
+        train["denoiser_config"]["params"]["weighting_config"])
+    p["conditioner_config"]["params"]["emb_models"][0]["ucg_rate"] = 0.1
+    p.update({k: copy.deepcopy(train[k])
+              for k in ("freeze_model", "loss_fn_config", "scheduler_config")})
+    p["base_learning_rate"] = 5e-5
+    cfg["data"] = {"params": {"batch_size": 1, "train": {"params": {
+        "video_length": 17, "resolution": [384, 512]}}}}
+    return cfg
+
+
+TVI2V_TRAIN_CONFIG: Dict = _tvi2v_train_config()
 
 # The SD KL-f8 autoencoder (the edits' VAE: ch 128, ch_mult 1,2,4,4, 2 res
 # blocks, 4 latent channels, no attention but the mid blocks') with a full

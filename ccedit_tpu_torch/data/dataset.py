@@ -10,10 +10,15 @@
 * ``SyntheticVideoDataset``: deterministic moving-square clips, the offline
   dataset for smoke training.
 * ``collate`` and ``DataLoader``: numpy batches from a background prefetch
-  thread.
+  thread; under data parallelism each rank's contiguous block of every
+  global batch.
 
-Pure numpy; the video decoder (cv2, through ``data/video.py``) and the
-resize (cv2) are imported only when a file is read.
+Pure numpy; the video decoder (the native threaded decode of
+``data/native_decode.py`` when its library loads, else cv2 through
+``data/video.py``) and the resize (cv2) are imported only when a file is
+read.  Both decoders give the same frames: the native one decodes the
+selected frames at the file's own size, and the same ``resize_center_crop``
+follows.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .video import VIDEO_EXTS
 
 
 def resize_center_crop(frame: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
@@ -70,25 +77,45 @@ class TextVideoDataset:
         self.prop_factor = prop_factor
         self.rng = np.random.default_rng(seed)
         self.lax = lax
+        from . import native_decode
+
+        self.decoder = "native" if native_decode.available() else "cv2"
 
     def __len__(self) -> int:
         return len(self.items)
 
-    def __getitem__(self, idx: int) -> Dict:
+    def _frames(self, path: str) -> List[np.ndarray]:
+        """The clip's sampled frames at the file's own size."""
+        if self.decoder == "native" and path.lower().endswith(VIDEO_EXTS):
+            from . import native_decode
+            from .video import probe_video
+
+            n, fps, h, w = probe_video(path)
+            if n > 0:  # a container that reports no frame count takes the cv2 path
+                sel = proportional_frame_indices(n, fps or 30.0, self.num_frames,
+                                                 self.prop_factor, self.rng)
+                try:
+                    return list(native_decode.decode_clip_u8(path, sel, h, w))
+                except IOError:
+                    pass  # the container over-reported its frame count: decode them all
         from .video import _read_frames
 
+        frames, fps = _read_frames(path)
+        sel = proportional_frame_indices(len(frames), fps or 30.0, self.num_frames,
+                                         self.prop_factor, self.rng)
+        return [frames[i] for i in sel]
+
+    def __getitem__(self, idx: int) -> Dict:
         for attempt in range(8):
             path, caption = self.items[idx]
             try:
-                frames, fps = _read_frames(path)
+                frames = self._frames(path)
                 break
             except Exception:
                 if not self.lax or attempt == 7:
                     raise
                 idx = int(self.rng.integers(0, len(self.items)))  # resample another item
-        sel = proportional_frame_indices(len(frames), fps or 30.0, self.num_frames,
-                                         self.prop_factor, self.rng)
-        clip = np.stack([resize_center_crop(frames[i], self.size_hw) for i in sel])
+        clip = np.stack([resize_center_crop(f, self.size_hw) for f in frames])
         return _item(clip.astype(np.float32) / 127.5 - 1.0, caption)
 
 
@@ -112,6 +139,7 @@ class SyntheticVideoDataset(TextVideoDataset):
                  size_hw: Tuple[int, int] = (64, 64), seed: int = 0):
         super().__init__([("", f"moving square {i}") for i in range(n_items)],
                          num_frames=num_frames, size_hw=size_hw, seed=seed)
+        self.decoder = None  # made, not decoded
 
     def __getitem__(self, idx: int) -> Dict:
         h, w = self.size_hw
@@ -138,16 +166,26 @@ def collate(samples: List[Dict]) -> Dict:
 
 class DataLoader:
     """Shuffled batches (a new order every epoch) from a background
-    prefetch thread."""
+    prefetch thread.  ``batch_size`` is the global batch; with ``world`` >
+    1 every rank shuffles with the same seed and loads only its contiguous
+    block (``parallel.mesh.batch_slice``) of each global batch.  Prints
+    once which decoder its dataset uses."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
-                 prefetch: int = 2, drop_last: bool = True):
+                 prefetch: int = 2, drop_last: bool = True, rank: int = 0, world: int = 1):
+        from ..parallel.mesh import batch_slice
+
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.block = batch_slice(batch_size, rank, world)
+        if getattr(dataset, "decoder", None):
+            print(f"[data] {type(dataset).__name__} decodes with "
+                  + ("the native threaded decode" if dataset.decoder == "native" else "cv2"),
+                  flush=True)
 
     def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -163,7 +201,8 @@ class DataLoader:
 
         def producer():
             for s in range(0, end, self.batch_size):
-                q.put(collate([self.dataset[int(i)] for i in idx[s:s + self.batch_size]]))
+                block = idx[s:s + self.batch_size][self.block]
+                q.put(collate([self.dataset[int(i)] for i in block]))
             q.put(stop)
 
         threading.Thread(target=producer, daemon=True).start()

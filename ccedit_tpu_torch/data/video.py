@@ -1,13 +1,18 @@
-"""Host-side video and image IO for inference (port of the TV2V/TVI2V subset
-of ``ccedit_tpu/data/video.py``).  Clips are uint8 (T, H, W, 3).  The decoders
-(cv2 for video files, PIL for frame directories, imageio for gifs) are
-imported inside the functions that use them."""
+"""Host-side video and image IO (port of ``ccedit_tpu/data/video.py``).
+Clips are uint8 (T, H, W, 3).  The decoders (the native threaded decode of
+``data/native_decode.py`` when its library loads, else cv2 for video files,
+PIL for frame directories, imageio for gifs) are imported inside the
+functions that use them.  The validation-sampling writers (``to_uint8``,
+``save_panel_grid``, and gifs without imageio) need only numpy and zlib,
+which every machine the port runs on has."""
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -71,13 +76,44 @@ def moving_gradient_clip(t: int, h: int, w: int) -> np.ndarray:
     return ((clip + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
 
 
+def probe_video(path: str) -> Tuple[int, float, int, int]:
+    """(frame count, fps or 0, height, width) of a video file, from its
+    container (cv2)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video {path}")
+    try:
+        return (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)), cap.get(cv2.CAP_PROP_FPS) or 0.0,
+                int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)), int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)))
+    finally:
+        cap.release()
+
+
 def load_video_keyframes(path: str, origin_fps: Optional[float] = None,
                          target_fps: float = 6.0, num_keyframes: int = 17,
                          size_hw: Tuple[int, int] = (512, 768)) -> np.ndarray:
-    """(T, H, W, 3) uint8 keyframes, bicubic-resized to ``size_hw``."""
+    """(T, H, W, 3) uint8 keyframes, bicubic-resized to ``size_hw``.  A
+    video file goes through the native decode when its library loads (the
+    selected frames decoded and resized by OpenCV's bicubic in C++ threads,
+    as in the JAX loader), else through cv2 and PIL's bicubic; at the
+    file's own size the two return the same frames."""
+    from . import native_decode
+
+    p = str(path)
+    if p.lower().endswith(VIDEO_EXTS) and native_decode.available():
+        n, file_fps, _, _ = probe_video(p)
+        if n > 0:  # a container that reports no frame count takes the cv2 path
+            idx = select_keyframe_indices(n, origin_fps or file_fps or 30.0, target_fps,
+                                          num_keyframes)
+            try:
+                return native_decode.decode_clip_u8(p, idx, size_hw[0], size_hw[1])
+            except IOError:
+                pass  # the container over-reported its frame count: decode them all
     from PIL import Image
 
-    frames, file_fps = _read_frames(str(path))
+    frames, file_fps = _read_frames(p)
     fps = origin_fps or file_fps or 30.0
     idx = select_keyframe_indices(len(frames), fps, target_fps, num_keyframes)
     out = [np.asarray(Image.fromarray(frames[i]).resize((size_hw[1], size_hw[0]), Image.BICUBIC))
@@ -94,15 +130,87 @@ def load_image(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
     return np.asarray(img).astype(np.float32) / 127.5 - 1.0
 
 
+def to_uint8(frames: np.ndarray) -> np.ndarray:
+    """[-1, 1] floats -> uint8 pixels; uint8 passes through."""
+    if frames.dtype == np.uint8:
+        return frames
+    return np.clip((frames + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """A uint8 (H, W, 3) image as an 8-bit RGB PNG (numpy and zlib only)."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = rgb.shape[:2]
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def gif_palette_index(frames: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> indices into ``write_gif``'s fixed 3-3-2 bit palette."""
+    f = np.asarray(frames, dtype=np.uint8)
+    return (f[..., 0] & 0xE0) | ((f[..., 1] & 0xE0) >> 3) | (f[..., 2] >> 6)
+
+
+def gif_palette() -> np.ndarray:
+    """The (256, 3) uint8 colours of ``write_gif``'s 3-3-2 bit palette."""
+    i = np.arange(256)
+    return np.stack([((i >> 5) & 7) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
+                     (i & 3) * 255 // 3], axis=-1).astype(np.uint8)
+
+
+def write_gif(path: str, frames: np.ndarray, fps: float = 6.0) -> None:
+    """uint8 (T, H, W, 3) as a looping GIF89a on the fixed 3-3-2 bit palette
+    (numpy only).  The LZW stream holds only literals, at 9 bits with a
+    clear code every 254 of them, so the decoder's code width never grows."""
+    idx = gif_palette_index(frames)
+    t, h, w = idx.shape
+    delay = int(round(100.0 / fps))
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    for frame in idx.reshape(t, -1).astype(np.uint16):
+        codes = np.append(np.insert(frame, np.arange(0, frame.size, 254), 256), 257)
+        bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+        data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+        blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                          for i in range(0, len(data), 255))
+        out += [b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00",
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0), b"\x08", blocks, b"\x00"]
+    with open(path, "wb") as f:
+        f.write(b"".join(out) + b"\x3b")
+
+
+def save_panel_grid(rows: Sequence[np.ndarray], out_path: str, max_frames: int = 8) -> None:
+    """The validation panel: each row a (T, H, W, 3) clip in [-1, 1] (or
+    uint8), rows stacked vertically, at most ``max_frames`` frames of each
+    side by side, cropped to the smallest row, written as a PNG."""
+    t = min(min(r.shape[0] for r in rows), max_frames)
+    h = min(r.shape[1] for r in rows)
+    w = min(r.shape[2] for r in rows)
+    grid = np.concatenate([np.concatenate([np.asarray(r[i][:h, :w]) for i in range(t)], axis=1)
+                           for r in rows], axis=0)
+    write_png(out_path, to_uint8(grid))
+
+
 def save_video_frames(frames: np.ndarray, out_path: str, fps: float = 6.0) -> None:
-    """uint8 (T, H, W, 3) -> .mp4 (cv2), .gif (imageio) or a frame directory."""
+    """uint8 (T, H, W, 3) -> .mp4 (cv2), .gif (imageio, or ``write_gif``
+    where imageio is not installed) or a frame directory."""
     frames = np.asarray(frames, dtype=np.uint8)
     out = Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     suffix = out.suffix.lower()
     if suffix == ".gif":
-        import imageio
-
+        try:
+            import imageio
+        except ImportError:
+            write_gif(str(out), frames, fps)
+            return
         imageio.mimsave(str(out), list(frames), duration=1000.0 / fps, loop=0)
     elif suffix in (".mp4", ".avi"):
         import cv2

@@ -2,8 +2,9 @@
 ``StandardDiffusionLoss``): draw a sigma per batch element, add noise (plus
 optional offset noise shared over the trailing dims past
 ``offset_noise_varying_dim``), denoise, and take the weighted l2 or l1
-against the clean input.  The ``lpips`` loss is not ported yet (ROADMAP
-queue 1, "the rest of training")."""
+against the clean input, or (``lpips``) an injected perceptual distance,
+unweighted as in the JAX package; ``make_lpips_fn`` builds one over the
+port's VGG16 LPIPS (``modules/lpips.py``)."""
 
 from __future__ import annotations
 
@@ -16,16 +17,17 @@ from .denoiser import append_dims
 
 class StandardDiffusionLoss:
     def __init__(self, sigma_sampler, loss_type: str = "l2",
-                 offset_noise_level: float = 0.0, offset_noise_varying_dim: int = 1):
-        if loss_type == "lpips":
-            raise NotImplementedError("the lpips diffusion loss is not ported yet "
-                                      "(ROADMAP queue 1, 'the rest of training')")
-        if loss_type not in ("l2", "l1"):
+                 offset_noise_level: float = 0.0, offset_noise_varying_dim: int = 1,
+                 perceptual_fn: Optional[Callable] = None):
+        if loss_type not in ("l2", "l1", "lpips"):
             raise ValueError(loss_type)
+        if loss_type == "lpips" and perceptual_fn is None:
+            raise ValueError("lpips loss requires a perceptual_fn")
         self.sigma_sampler = sigma_sampler
         self.loss_type = loss_type
         self.offset_noise_level = offset_noise_level
         self.offset_noise_varying_dim = offset_noise_varying_dim
+        self.perceptual_fn = perceptual_fn
 
     def __call__(self, network: Callable, denoiser, cond, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
@@ -66,7 +68,23 @@ class StandardDiffusionLoss:
             shape[ref_to_ours[ref_dim]] = xshape[ref_to_ours[ref_dim]]
         return tuple(shape)
 
+    @staticmethod
+    def make_lpips_fn(lpips_module) -> Callable:
+        """A ``perceptual_fn`` over an LPIPS module (``modules/lpips.py``):
+        the leading dims of (B, ..., H, W, 3) inputs fold into the batch,
+        and each sample's distances are averaged: (B,)."""
+
+        def fn(a, b):
+            bsz = a.shape[0]
+            d = lpips_module(a.reshape((-1,) + tuple(a.shape[-3:])),
+                             b.reshape((-1,) + tuple(b.shape[-3:])))
+            return d.reshape(bsz, -1).mean(dim=1)
+
+        return fn
+
     def get_loss(self, model_output, target, w) -> torch.Tensor:
         b = target.shape[0]
+        if self.loss_type == "lpips":
+            return self.perceptual_fn(model_output, target).reshape(-1)
         err = (model_output - target) ** 2 if self.loss_type == "l2" else (model_output - target).abs()
         return (w * err).reshape(b, -1).mean(dim=1)

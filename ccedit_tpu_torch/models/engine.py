@@ -194,16 +194,21 @@ class CCEditEngine:
         mask = freeze_mask(self.network.named_parameters(), self.freeze_policy)
         return {n: p for n, p in self.network.named_parameters() if mask[n]}
 
-    def make_optimizer(self, lr: float) -> torch.optim.AdamW:
+    def make_optimizer(self, lr: float, zero: bool = False) -> torch.optim.Optimizer:
         """AdamW (weight decay 1e-2, as ``optax.adamw`` in the JAX engine)
-        over the trainable parameters; every other parameter of the engine
-        is frozen with ``requires_grad_(False)``."""
+        over the trainable parameters, its state sharded over the
+        data-parallel ranks with ``zero`` (``parallel/zero.py``, ZeRO-1); every
+        other parameter of the engine is frozen with ``requires_grad_(False)``."""
         trainable = self.trainable_parameters()
         for m in (self.network, self.conditioner, self.vae):
             if m is not None:
                 m.requires_grad_(False)
         for p in trainable.values():
             p.requires_grad_(True)
+        if zero:
+            from ..parallel.zero import zero_adamw
+
+            return zero_adamw(trainable.values(), lr=lr, weight_decay=1e-2)
         return torch.optim.AdamW(list(trainable.values()), lr=lr, weight_decay=1e-2)
 
     def ema_subset(self) -> Dict[str, torch.Tensor]:
@@ -265,14 +270,20 @@ class CCEditEngine:
     def train_step(self, batch: Dict, optimizer: torch.optim.Optimizer,
                    generator: Optional[torch.Generator] = None, ema: Optional[Ema] = None,
                    lr_scheduler=None, autocast_dtype: Optional[torch.dtype] = None,
-                   accumulate: int = 1, apply: bool = True, **overrides) -> torch.Tensor:
+                   accumulate: int = 1, apply: bool = True,
+                   reduce_grads: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
+                   **overrides) -> torch.Tensor:
         """One batch of training: loss + backward, its grads scaled by
         1/``accumulate`` and added to ``.grad``; with ``apply`` (the last of
-        ``accumulate`` batches) the AdamW update, zeroed grads and an LR
-        schedule step; then the EMA update.  Returns the detached loss."""
+        ``accumulate`` batches) ``reduce_grads(trainable parameters)`` (data
+        parallelism: ``parallel.mesh.all_reduce_grads``), the AdamW update,
+        zeroed grads and an LR schedule step; then the EMA update.  Returns
+        the detached loss."""
         loss = self.backward_step(batch, generator, autocast_dtype,
                                   grad_scale=1.0 / accumulate, **overrides)
         if apply:
+            if reduce_grads is not None:
+                reduce_grads(self.trainable_parameters())
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
             if lr_scheduler is not None:

@@ -9,7 +9,8 @@ Phases:
   3. kernels: each kernel and variant against its plain PyTorch version in
      bf16 (max|err| / max|plain| and cosine) at the shapes the TV2V, TVI2V and training paths give it (17
      frames at 512x768, CFG-doubled; training: 4 clips of 12 frames at
-     384x512), plus kernel 1's head_dim 160 instantiation at level 2 of
+     384x512, and TVI2V's 17 frames whose CFCA runs kernels 1 and 4 at n_k
+     = 2 n_q), plus kernel 1's head_dim 160 instantiation at level 2 of
      1024x1024 and ragged rows (kernel 1 at (2,8,600,40) x 600 and x 1200
      and (2,8,600,80) x 600, kernel 3 at (2,1,600,512) x 600), with the error
      tolerance and CUDA-event times.  Each forward row is compared on its
@@ -20,7 +21,8 @@ Phases:
      on its first and last batch slice (ragged rows (2,8,600,40) x 600 and
      x 1200 and (2,8,600,80) x 600 on every row), with the run-to-run
      difference of its atomically summed dq printed, and with delta left
-     out at the training shapes, which it must fail; at d = 512 (VAE
+     out at the training shapes (TVI2V's CFCA shapes among them), which it
+     must fail; at d = 512 (VAE
      training: (12,1,1024,512), the 512x512 fine-tune's (4,1,4096,512) and a
      ragged (2,1,600,512)) likewise, with delta left out at every shape.
      Kernel 1c (the int8 QK^T path, with its pre-pass) is held to
@@ -97,6 +99,23 @@ Phases:
      and each step must launch the backward kernel 5 times at d 40 and 5 at
      d 80 (the UNet's level-0 and level-1 self-attentions).  With the int8
      switch on, ``Trainer.fit`` must refuse to start.
+  6b. TVI2V training: the full-width engine of ``TVI2V_TRAIN_CONFIG`` (CFCA
+     centre+self, the structure and appearance ControlNets, a random
+     full-size DPT-Hybrid, seeded random fp32 masters, bf16 autocast,
+     ``use_checkpoint``; ``spatial_tv2v``: the temporal layers, the CFCA's
+     ``*_temporal_ca`` and ``controlnet_img`` train).  (a) Its trainable
+     gradients through the kernels are held to plain attention at 17 frames
+     of 256x512 (kernel 4 at n_k = n_q and, in the CFCA, n_k = 2 n_q), and
+     two planted faults must fail that check: kernel 4's dq and dk zeroed
+     everywhere, and only on the CFCA's calls.  (b) ``Trainer.fit`` takes 1
+     warm-up and 3 timed steps at the recipe's batch 1 of 17x384x512
+     synthetic clips: frozen tensors bit-identical, every trainable tensor
+     moved, kernel 4 launched ``TVI2V_BWD_PER_STEP`` times a step.  (c) One
+     validation sampling (2 steps) writes its gifs and panel and launches
+     kernels 1 (both variants), 2 and 3.  (d) At world size 1 over NCCL,
+     the data-parallel gradient all-reduce with AdamW, plain and ZeRO,
+     leaves the trainable tensors bit-identical to the same update without
+     torch.distributed, and a whole step runs through that path.
   7. VAE training: the SD KL-f8 autoencoder of ``VAE_TRAIN_CONFIG`` with a
      full VGG16 LPIPS and the PatchGAN (seeded random weights, fp32 masters,
      bf16 autocast, hinge loss, KL weight 1e-6, the GAN term and the
@@ -157,9 +176,11 @@ LATENT_COSINE = 0.99
 # (a few fp32 roundings, far inside the limit)
 BWD_TOLERANCE = 2e-2
 # the shapes at which kernel 4 with delta left out must fail it: the
-# training shapes, and every d = 512 shape (VAE training)
-DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80), (12, 1, 1024, 512),
-                      (4, 1, 4096, 512), (2, 1, 600, 512))
+# training shapes (TV2V's, and TVI2V's CFCA at n_k = 2 n_q), and every d =
+# 512 shape (VAE training)
+DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80), (17, 8, 3072, 40),
+                      (17, 8, 768, 80), (12, 1, 1024, 512), (4, 1, 4096, 512),
+                      (2, 1, 600, 512))
 # relative error of a full bf16 network forward, kernels vs plain attention:
 # bf16 rounding differences inside attention compound through ~70 layers
 ROUTE_TOLERANCE = 5e-2
@@ -176,6 +197,24 @@ TRAIN_STEPS = 4  # 1 warm-up + 3 timed
 # backward launches a training step: the UNet's spatial self-attentions at
 # level 0 (input blocks 1, 2; output blocks 9-11) and level 1 (4, 5; 6-8)
 BWD_PER_STEP = {"d40": 5, "d80": 5}
+# phase 6b, TVI2V training (TVI2V_TRAIN_CONFIG's batch 1 of 17-frame
+# 384x512 clips); its gradient check at 17 frames of 256x512 (2048 tokens at
+# level 0, 4096 CFCA keys), held to GRAD_TOLERANCE
+TVI2V_TRAIN_T, TVI2V_TRAIN_H, TVI2V_TRAIN_W = 17, 384, 512
+TVI2V_GRAD_H, TVI2V_GRAD_W = 256, 512
+TVI2V_SAMPLE_STEPS = 2  # the validation sampling of phase 6b (c)
+# backward launches a TVI2V training step, by kernel 4's variant.  n_k = n_q:
+# the UNet's spatial self-attentions at level 0 (input blocks 1, 2; output
+# blocks 9-11) and level 1 (4, 5; 6-8), 5 + 5 as in TV2V, plus the
+# appearance ControlNet's (``controlnet_img``, trainable, encoder only: input
+# blocks 1, 2 and 4, 5), 2 + 2.  n_k = 2 n_q: the CFCA (the
+# ``*_temporal_ca`` block beside each of the UNet's 10 level-0/1 spatial
+# transformers, its keys a frame's tokens and the centre frame's).  The
+# structure ControlNet is frozen and reads nothing that needs a gradient, so
+# it has no backward; level 2 (192 tokens) and the middle block are plain
+# attention
+TVI2V_BWD_PER_STEP = {"d40 n_k=n_q": 7, "d80 n_k=n_q": 7, "d40 n_k!=n_q": 5,
+                      "d80 n_k!=n_q": 5}
 # kernels 1 and 3's lse: max |lse - log2(sum exp(scale q.k))| (fp32 sums
 # in another order)
 LSE_TOLERANCE = 1e-3
@@ -234,6 +273,7 @@ KERNELS = (
          source="ccedit_tpu_torch/csrc/spatial_attention.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:93",
          shapes=(((34, 8, 6144, 40), 12288, 1), ((34, 8, 1536, 80), 3072, 34),
+                 ((17, 8, 3072, 40), 6144, 4), ((17, 8, 768, 80), 1536, 17),
                  ((2, 8, 600, 40), 1200, 1)),
          count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
     dict(name="spatial_attention_1c", kernel="spatial_int8", path="tvi2v_int8",
@@ -273,6 +313,7 @@ KERNELS = (
          replaces="ccedit_tpu/ops/attention.py:173",
          shapes=(((48, 8, 3072, 40), 3072, 4), ((48, 8, 768, 80), 768, 48),
                  ((8, 8, 1024, 160), 1024, 8), ((4, 8, 3072, 40), 6144, 1),
+                 ((17, 8, 3072, 40), 6144, 2), ((17, 8, 768, 80), 1536, 17),
                  ((2, 8, 600, 40), 600, 2), ((2, 8, 600, 40), 1200, 2),
                  ((2, 8, 600, 80), 600, 2)),
          count=lambda st: sum(c.get("spatial_attention_bwd", 0) for c in st.values())),
@@ -301,6 +342,10 @@ PATH_KERNELS = {
                    "flash_attention", "flash_attention_encoder"),
     "train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
               "spatial_attention_bwd"),
+    "tvi2v_train": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
+                    "flash_attention_encoder", "spatial_attention_bwd"),
+    "tvi2v_train_sample": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
+                           "flash_attention", "flash_attention_encoder"),
     "vae_train": ("flash_attention_lse", "flash_attention_bwd"),
     "tv2v_sdedit": ("spatial_attention", "temporal_attention", "flash_attention",
                     "flash_attention_encoder"),
@@ -1106,12 +1151,25 @@ def grad_errors(g, ref) -> dict:
                 leaves=len(ref))
 
 
-def grads_three_ways(params, backward, function):
+def everywhere(dq, dk) -> bool:
+    """Where the planted fault of phases 6 and 7 acts: every kernel-4 call."""
+    return True
+
+
+def on_cfca(dq, dk) -> bool:
+    """Phase 6b's second fault: only the CFCA's calls (n_k = 2 n_q), told
+    apart by dk's row count differing from dq's."""
+    return dk.shape[-2] != dq.shape[-2]
+
+
+def grads_three_ways(params, backward, function, faults=(("dq = dk = 0", everywhere),)):
     """The gradients of ``params`` (a dict by name) that ``backward()``
     accumulates: through the kernels, with every attention on its plain
-    version, and with a planted fault in the autograd ``function``'s
-    backward (kernel 4's dq and dk zeroed, dv kept).  Returns the three
-    dicts of fp32 gradients and the launch counts of the first run."""
+    version, and with each planted fault in the autograd ``function``'s
+    backward (kernel 4's dq and dk zeroed, dv kept, on the calls where the
+    fault's predicate of (dq, dk) holds).  Returns the fp32 gradients
+    through the kernels, on plain attention and by fault name, and the
+    launch counts of the first run."""
     import torch
 
     from ccedit_tpu_torch.ops import attention as att
@@ -1132,19 +1190,22 @@ def grads_three_ways(params, backward, function):
     finally:
         att._ROUTES.update(saved)
     kernel_bwd = function.backward
+    g_faults = {}
+    for name, where in faults:
+        def faulty_bwd(ctx, do, _where=where):
+            dq, dk, dv, _ = kernel_bwd(ctx, do)
+            if _where(dq, dk):
+                return torch.zeros_like(dq), torch.zeros_like(dk), dv, None
+            return dq, dk, dv, None
 
-    def faulty_bwd(ctx, do):
-        dq, dk, dv, _ = kernel_bwd(ctx, do)
-        return torch.zeros_like(dq), torch.zeros_like(dk), dv, None
-
-    function.backward = staticmethod(faulty_bwd)
-    try:
-        g_fault = grads()
-    finally:
-        function.backward = staticmethod(kernel_bwd)
+        function.backward = staticmethod(faulty_bwd)
+        try:
+            g_faults[name] = grads()
+        finally:
+            function.backward = staticmethod(kernel_bwd)
     for p in params.values():
         p.grad = None
-    return g_kernels, g_plain, g_fault, counts
+    return g_kernels, g_plain, g_faults, counts
 
 
 def check_train_grads(engine, device, seed: int) -> dict:
@@ -1175,7 +1236,7 @@ def check_train_grads(engine, device, seed: int) -> dict:
     def backward():
         engine.backward_step(batch, gen.manual_seed(seed + 1), torch.bfloat16, **overrides)
 
-    g_kernels, g_plain, g_fault, counts = grads_three_ways(params, backward, sa.SpatialAttention)
+    g_kernels, g_plain, g_faults, counts = grads_three_ways(params, backward, sa.SpatialAttention)
     for key in ("spatial_attention_bwd[d40 n_k=n_q]", "spatial_attention_bwd[d80 n_k=n_q]"):
         if counts.get(key, 0) <= 0:
             raise RuntimeError(f"the gradient check never launched {key}: {counts}")
@@ -1183,7 +1244,37 @@ def check_train_grads(engine, device, seed: int) -> dict:
         raise RuntimeError(f"the gradient check never launched temporal_attention: {counts}")
     if not all(bool(torch.isfinite(g).all()) for g in g_kernels.values()):
         raise FloatingPointError("training gradients through the kernels are not finite")
-    return dict(kernels=grad_errors(g_kernels, g_plain), fault=grad_errors(g_fault, g_plain))
+    return dict(kernels=grad_errors(g_kernels, g_plain),
+                fault=grad_errors(g_faults["dq = dk = 0"], g_plain))
+
+
+def engine_parameters(engine) -> list:
+    """(name, tensor) of every parameter of a training engine: the network's,
+    the VAE's and the conditioner's (CLIP and the depth network)."""
+    return [(f"{prefix}.{n}", p) for prefix, m in (("network", engine.network),
+                                                  ("vae", engine.vae),
+                                                  ("conditioner", engine.conditioner))
+            for n, p in m.named_parameters()]
+
+
+def check_frozen_and_moved(named, before, trainable, label: str) -> None:
+    """After training: every frozen tensor of ``named`` bit-identical to
+    ``before``, every trainable one (the network's, by name) moved."""
+    import torch
+
+    changed_frozen, unmoved = [], []
+    for n, p in named:
+        same = torch.equal(before[n], p.detach().cpu())
+        is_trainable = n.startswith("network.") and n[len("network."):] in trainable
+        if is_trainable and same:
+            unmoved.append(n)
+        elif not is_trainable and not same:
+            changed_frozen.append(n)
+    print(f"[{label}] {len(trainable)} trainable tensors, {len(unmoved)} unmoved; "
+          f"{len(named) - len(trainable)} frozen tensors, {len(changed_frozen)} changed", flush=True)
+    if changed_frozen or unmoved:
+        raise RuntimeError(f"frozen tensors changed: {changed_frozen[:5]}; trainable tensors "
+                           f"that did not move: {unmoved[:5]}")
 
 
 def run_train(device, seed: int) -> dict:
@@ -1227,10 +1318,7 @@ def run_train(device, seed: int) -> dict:
                            f"{errs['fault']}")
 
     trainable = engine.trainable_parameters()
-    named = [(f"{prefix}.{n}", p) for prefix, m in (("network", engine.network),
-                                                   ("vae", engine.vae),
-                                                   ("conditioner", engine.conditioner))
-             for n, p in m.named_parameters()]
+    named = engine_parameters(engine)
     before = {n: p.detach().cpu().clone() for n, p in named}
     logdir = "build/chip_smoke_train"
     shutil.rmtree(logdir, ignore_errors=True)
@@ -1265,19 +1353,7 @@ def run_train(device, seed: int) -> dict:
             or counts["spatial_attention_bwd"] != sum(BWD_PER_STEP.values()) * result.step):
         raise RuntimeError(f"expected {BWD_PER_STEP} backward launches a step, got {per_step} "
                            f"({counts['spatial_attention_bwd']} in all)")
-    changed_frozen, unmoved = [], []
-    for n, p in named:
-        same = torch.equal(before[n], p.detach().cpu())
-        is_trainable = n.startswith("network.") and n[len("network."):] in trainable
-        if is_trainable and same:
-            unmoved.append(n)
-        elif not is_trainable and not same:
-            changed_frozen.append(n)
-    print(f"[train] {len(trainable)} trainable tensors, {len(unmoved)} unmoved; "
-          f"{len(named) - len(trainable)} frozen tensors, {len(changed_frozen)} changed", flush=True)
-    if changed_frozen or unmoved:
-        raise RuntimeError(f"frozen tensors changed: {changed_frozen[:5]}; trainable tensors "
-                           f"that did not move: {unmoved[:5]}")
+    check_frozen_and_moved(named, before, trainable, "train")
     # the int8 QK^T switch trains an int8 forward under the exact backward:
     # fit must refuse, by its guard, before any step
     steps_taken = []
@@ -1303,6 +1379,270 @@ def run_train(device, seed: int) -> dict:
     return {"train": counts}
 
 
+def tvi2v_batch(t: int, h: int, w: int, seed: int) -> dict:
+    """A TVI2V training batch of one synthetic clip in [-1, 1]: the clip,
+    its prompt, the clip as the depth network's input and its centre frame
+    as the reference (``cond_img``), as ``data/dataset.py`` makes items."""
+    import numpy as np
+
+    clip = np.random.RandomState(seed).uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
+    return {"jpg": clip, "txt": ["a robot bear walking through the snow"], "control_hint": clip,
+            "cond_img": clip[:, t // 2].copy()}
+
+
+def check_tvi2v_grads(engine, device, seed: int) -> dict:
+    """Phase 6b (a): the trainable gradients of one bf16-autocast TVI2V step
+    through the kernels against plain attention at 17 frames of 256x512
+    (kernels 1 and 4 at d 40/80 with n_k = n_q and, in the CFCA, n_k = 2
+    n_q; kernel 2 at T = 17; kernel 3 in the VAE encoder), with the same
+    sigma, noise, VAE posterior noise and generator (the ucg draws and the
+    reference latent's posterior sample).  Two planted faults, kernel 4's dq
+    and dk zeroed everywhere and only on the CFCA's calls, must fail it."""
+    import torch
+
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+
+    t, h, w = TVI2V_TRAIN_T, TVI2V_GRAD_H, TVI2V_GRAD_W
+    f = engine.latent_factor
+    batch = tvi2v_batch(t, h, w, seed)
+    gen = torch.Generator(device=device)
+    zshape = (1, t, h // f, w // f, 4)
+    overrides = dict(
+        sigmas=torch.tensor([engine.denoiser.sigmas_np[500]], device=device),
+        noise=torch.randn(zshape, generator=gen.manual_seed(seed), device=device),
+        vae_noise=torch.randn(zshape, generator=gen, device=device))
+    params = engine.trainable_parameters()
+
+    def backward():
+        engine.backward_step(batch, gen.manual_seed(seed + 1), torch.bfloat16, **overrides)
+
+    faults = (("dq = dk = 0", everywhere), ("dq = dk = 0 on the CFCA", on_cfca))
+    g_kernels, g_plain, g_faults, counts = grads_three_ways(params, backward,
+                                                            sa.SpatialAttention, faults)
+    want = [f"spatial_attention_bwd[{v}]" for v in TVI2V_BWD_PER_STEP] + ["temporal_attention",
+                                                                          "flash_attention"]
+    if any(counts.get(k, 0) <= 0 for k in want):
+        raise RuntimeError(f"the TVI2V gradient check did not launch all of {want}: {counts}")
+    if not all(bool(torch.isfinite(g).all()) for g in g_kernels.values()):
+        raise FloatingPointError("TVI2V training gradients through the kernels are not finite")
+    cfca = {n: (g_faults[faults[1][0]][n] - g_plain[n]).norm().item()
+            / max(g_plain[n].norm().item(), 1e-30)
+            for n in g_plain if "_temporal_ca" in n and ".attn1.to_k." in n}
+    return dict(kernels=grad_errors(g_kernels, g_plain), counts=counts, cfca_to_k=cfca,
+                **{name: grad_errors(g, g_plain) for name, g in g_faults.items()})
+
+
+def check_distributed_step(engine, batch, device, seed: int) -> None:
+    """Phase 6b (d): one step through the data-parallel path at world size
+    1 (a process group over NCCL on a ``file://`` store): the reduced
+    gradient (``parallel.mesh.all_reduce_grads``) and the AdamW update, plain
+    and sharded (``ZeroRedundancyOptimizer``), must leave the trainable
+    parameters bit-identical to the same update without torch.distributed.
+    All three apply one gradient, computed once: two backward passes differ
+    in the last bits, since kernel 4 sums dQ with atomics in an order that
+    changes from run to run (printed).  Then one whole ``train_step``
+    through the path, with ZeRO, must run and move every trainable tensor."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.parallel import mesh
+
+    params = engine.trainable_parameters()
+    start = {n: p.detach().clone() for n, p in params.items()}
+    gen = torch.Generator(device=device)
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+                p.grad = None
+
+    grads = []
+    for _ in range(2):
+        restore()
+        engine.backward_step(batch, gen.manual_seed(seed + 2), torch.bfloat16)
+        grads.append({n: p.grad.clone() for n, p in params.items()})
+    rerun = max((grads[0][n] - grads[1][n]).abs().max().item() for n in params)
+
+    def apply(zero: bool, reduce) -> dict:
+        restore()
+        optimizer = engine.make_optimizer(1e-4, zero=zero)
+        for n, p in params.items():
+            p.grad = grads[0][n].clone()
+        if reduce is not None:
+            reduce(params)
+        optimizer.step()
+        out = {n: p.detach().clone() for n, p in params.items()}
+        del optimizer
+        return out
+
+    plain = apply(False, None)
+    store = os.path.abspath("build/chip_smoke_dist_store")
+    os.makedirs("build", exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        results = {"all-reduce + AdamW": apply(False, mesh.all_reduce_grads),
+                   "all-reduce + ZeRO AdamW": apply(True, mesh.all_reduce_grads)}
+        restore()
+        optimizer = engine.make_optimizer(1e-4, zero=True)
+        loss = engine.train_step(batch, optimizer, gen.manual_seed(seed + 2),
+                                 autocast_dtype=torch.bfloat16, reduce_grads=mesh.all_reduce_grads)
+        unmoved = [n for n, p in params.items() if torch.equal(p, start[n])]
+        del optimizer
+    finally:
+        dist.destroy_process_group()
+    for name, got in results.items():
+        diff = [n for n in plain if not torch.equal(got[n], plain[n])]
+        print(f"[tvi2v_train] world 1 ({dist.Backend.NCCL if device.type == 'cuda' else 'gloo'}"
+              f"), {name}: {len(plain) - len(diff)} of {len(plain)} trainable tensors "
+              f"bit-identical to the step without torch.distributed", flush=True)
+        if diff:
+            worst = max((got[n] - plain[n]).abs().max().item() for n in diff)
+            raise RuntimeError(f"{name} at world 1 differs from the plain step on {len(diff)} "
+                               f"tensors, max |diff| {worst}: {diff[:5]}")
+    print(f"[tvi2v_train] two backward passes of one step: max |grad difference| {rerun:.3e} "
+          f"(kernel 4's atomic dQ sums); a whole train_step through all_reduce_grads and ZeRO: "
+          f"loss {float(loss):.5f}, {len(params) - len(unmoved)} of {len(params)} trainable "
+          "tensors moved", flush=True)
+    if not math.isfinite(float(loss)) or unmoved:
+        raise RuntimeError(f"the distributed train_step: loss {float(loss)}, unmoved {unmoved[:5]}")
+    restore()
+
+
+def run_tvi2v_train(device, seed: int) -> dict:
+    """Phase 6b: TVI2V training (``TVI2V_TRAIN_CONFIG``: CFCA, the structure
+    and appearance ControlNets, ``spatial_tv2v``) at full width: (a) the
+    gradient check with its two planted faults, (b) ``Trainer.fit`` at the
+    recipe's batch 1 of 17x384x512 (1 warm-up and 3 timed steps), (c) one
+    validation sampling, (d) one step through the data-parallel path at
+    world size 1.  Returns the launch counts of (b), one stage, and of (c),
+    its sampling and decode stages, as paths ``tvi2v_train`` and
+    ``tvi2v_train_sample``."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from ccedit_tpu_torch import config
+    from ccedit_tpu_torch.cli.train import build_train_engine
+    from ccedit_tpu_torch.data.dataset import DataLoader, SyntheticVideoDataset
+    from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.train.freeze import count_trainable, freeze_mask
+    from ccedit_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = config.TVI2V_TRAIN_CONFIG
+    model_params = cfg["model"]["params"]
+    engine = build_train_engine(cfg, device, seed)
+    engine.make_optimizer(1e-4)  # sets the freeze policy's requires_grad flags
+    torch.cuda.synchronize()
+    net_counts = count_trainable(engine.network.named_parameters(),
+                                 freeze_mask(engine.network.named_parameters(), engine.freeze_policy))
+    named = engine_parameters(engine)
+    total = sum(p.numel() for _, p in named)
+    print(f"[tvi2v_train] engine built in {time.perf_counter() - t0:.1f} s: freeze policy "
+          f"{engine.freeze_policy}, {net_counts['trainable'] / 1e6:.1f} M trainable of "
+          f"{total / 1e9:.3f} B parameters (network {net_counts['total'] / 1e6:.1f} M), fp32 "
+          f"masters, bf16 autocast, use_checkpoint", flush=True)
+
+    errs = check_tvi2v_grads(engine, device, seed)
+    for which in ("kernels", "dq = dk = 0", "dq = dk = 0 on the CFCA"):
+        e = errs[which]
+        print(f"[tvi2v_train] trainable gradients ({which}) vs plain attention at "
+              f"{TVI2V_TRAIN_T}x{TVI2V_GRAD_H}x{TVI2V_GRAD_W}: ||diff||/||plain|| of the worst of "
+              f"{e['leaves_compared']} of {e['leaves']} tensors {e['worst_leaf']:.3e} "
+              f"({e['worst_leaf_name']}; tol {GRAD_TOLERANCE:.0e}), of the whole gradient "
+              f"{e['whole']:.3e}", flush=True)
+    print(f"[tvi2v_train] CFCA to_k gradients with the CFCA-only fault: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in list(errs["cfca_to_k"].items())[:4])
+          + f"; launches {json.dumps(errs['counts'])}", flush=True)
+    if not errs["kernels"]["worst_leaf"] <= GRAD_TOLERANCE:
+        raise RuntimeError(f"TVI2V training gradients through the kernels disagree with plain "
+                           f"attention: {errs['kernels']}")
+    for fault in ("dq = dk = 0", "dq = dk = 0 on the CFCA"):
+        if not errs[fault]["worst_leaf"] > GRAD_TOLERANCE:
+            raise RuntimeError(f"the TVI2V gradient check passes kernel 4 with {fault}: "
+                               f"{errs[fault]}")
+
+    trainable = engine.trainable_parameters()
+    before = {n: p.detach().cpu().clone() for n, p in named}
+    logdir = Path("build/chip_smoke_tvi2v_train")
+    shutil.rmtree(logdir, ignore_errors=True)
+    bs, t, h, w = 1, TVI2V_TRAIN_T, TVI2V_TRAIN_H, TVI2V_TRAIN_W
+    loader = DataLoader(SyntheticVideoDataset(n_items=4 * bs, num_frames=t, size_hw=(h, w),
+                                              seed=seed), batch_size=bs, seed=seed)
+    trainer = Trainer(engine, TrainerConfig(
+        logdir=str(logdir), max_steps=TRAIN_STEPS, ckpt_every=0, log_every=1, seed=seed,
+        base_lr=model_params["base_learning_rate"], autocast_dtype=torch.bfloat16,
+        sample_steps=TVI2V_SAMPLE_STEPS), config.build_lr_scheduler(model_params["scheduler_config"]))
+    torch.cuda.reset_peak_memory_stats(device)
+    att.reset_launch_counts()
+    result = trainer.fit(loader, bs, resume=False)
+    torch.cuda.synchronize()
+    counts = att.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    timed = result.step_seconds[1:]
+    step_s = sum(timed) / len(timed)
+    print(f"[tvi2v_train] Trainer.fit bs {bs} x {t} x {h}x{w}, {result.step} steps: step seconds "
+          f"{[round(x, 4) for x in result.step_seconds]} (first is the warm-up); {step_s:.4f} s "
+          f"per step, {bs * t / step_s:.2f} frames/s; peak memory {peak_gb:.2f} GB; losses "
+          f"{[round(x, 5) for x in result.losses]}", flush=True)
+    print(f"[tvi2v_train] kernel launches over {result.step} steps {json.dumps(counts)}", flush=True)
+    if result.step != TRAIN_STEPS or not all(math.isfinite(x) for x in result.losses):
+        raise RuntimeError(f"TVI2V training ended at step {result.step} with losses {result.losses}")
+    per_step = {v: counts.get(f"spatial_attention_bwd[{v}]", 0) / result.step
+                for v in TVI2V_BWD_PER_STEP}
+    if (per_step != TVI2V_BWD_PER_STEP or counts["spatial_attention_bwd"]
+            != sum(TVI2V_BWD_PER_STEP.values()) * result.step):
+        raise RuntimeError(f"expected {TVI2V_BWD_PER_STEP} backward launches a step, got "
+                           f"{per_step} ({counts['spatial_attention_bwd']} in all)")
+    check_frozen_and_moved(named, before, trainable, "tvi2v_train")
+    del before
+
+    # (c) one validation sampling, outside the timed steps, stage by stage
+    batch = next(iter(loader))
+    decode, stages = engine.decode_first_stage, {}
+
+    def counted_decode(z):
+        torch.cuda.synchronize()
+        start = att.launch_counts()
+        out = decode(z)
+        torch.cuda.synchronize()
+        stages["decode"] = {k: n - start.get(k, 0) for k, n in att.launch_counts().items()}
+        return out
+
+    engine.decode_first_stage = counted_decode
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        image_dir = trainer.log_samples(batch, result.step)
+    finally:
+        del engine.decode_first_stage
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t1
+    total_counts = att.launch_counts()
+    stages["sample"] = {k: n - stages["decode"].get(k, 0) for k, n in total_counts.items()}
+    files = sorted(p.name for p in image_dir.iterdir())
+    want = [f"step{result.step:08d}_{kind}" for kind in ("input.gif", "panel.png", "sample.gif")]
+    print(f"[tvi2v_train] validation sampling, {TVI2V_SAMPLE_STEPS} steps at {t}x{h}x{w}: "
+          f"{sample_s:.2f} s; files {files}; launches by stage {json.dumps(stages)}", flush=True)
+    if files != want or any((image_dir / f).stat().st_size == 0 for f in files):
+        raise RuntimeError(f"validation sampling wrote {files}, not {want}")
+
+    # (d) the data-parallel path at world size 1
+    check_distributed_step(engine, tvi2v_batch(t, h, w, seed), device, seed)
+    print(f"[tvi2v_train] phase 6b in {time.perf_counter() - t0:.1f} s", flush=True)
+    del engine, trainer, named, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tvi2v_train": {"train": counts}, "tvi2v_train_sample": stages}
+
+
 def check_vae_grads(engine, x, noise) -> dict:
     """The generator parameters' gradients of one bf16-autocast generator
     pass through kernels 3 and 4 (d = 512) against the same pass with every
@@ -1322,13 +1662,13 @@ def check_vae_grads(engine, x, noise) -> dict:
             loss, _ = engine.generator_loss(x, 0, noise=noise)
         loss.backward(inputs=list(params.values()))
 
-    g_kernels, g_plain, g_fault, counts = grads_three_ways(params, backward, fa.FlashAttention)
+    g_kernels, g_plain, g_faults, counts = grads_three_ways(params, backward, fa.FlashAttention)
     if not all(bool(torch.isfinite(g).all()) for g in g_kernels.values()):
         raise FloatingPointError("VAE gradients through the kernels are not finite")
     qk = {n: (g_kernels[n] - g_plain[n]).norm().item() / g_plain[n].norm().item()
           for n in g_plain if ".attn_1.q.weight" in n or ".attn_1.k.weight" in n}
-    return dict(kernels=grad_errors(g_kernels, g_plain), fault=grad_errors(g_fault, g_plain),
-                qk=qk, counts=counts)
+    return dict(kernels=grad_errors(g_kernels, g_plain),
+                fault=grad_errors(g_faults["dq = dk = 0"], g_plain), qk=qk, counts=counts)
 
 
 def run_vae_train(device, seed: int) -> dict:
@@ -1478,6 +1818,7 @@ def main() -> int:
         by_path.update(run_path(p, device, steps=STEPS, seed=SEED))
     by_path.update(run_zoe(device, SEED))
     by_path["train"] = run_train(device, SEED)
+    by_path.update(run_tvi2v_train(device, SEED))
     by_path["vae_train"] = run_vae_train(device, SEED)
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}

@@ -10,7 +10,9 @@ random attention have a max of ~0.1, so an absolute limit would pass a
 wrong kernel); the backward kernels (kernel 4 at d 40/80/160 and at
 d = 512) to 2e-2 of max|plain| on dq, dk and dv.  ZoeDepth (the TVI2V
 hint) in bf16 is held to itself in fp32 as ``chip_smoke.py`` phase 5b holds
-it.
+it; a narrow TVI2V training step's gradients through the CFCA backward to
+plain attention, and the world-1 NCCL step to the plain one, as phase 6b
+holds them.
 """
 
 import copy
@@ -332,6 +334,66 @@ def test_one_bf16_train_step(cuda):
     assert att.launch_counts()["spatial_attention_bwd"] > counts["spatial_attention_bwd"]
     for n, t in engine.network.named_parameters():
         assert torch.equal(t, before[n]) != (n in trainable), n
+
+
+def _narrow_tvi2v_train_engine(device):
+    """``TVI2V_TRAIN_CONFIG`` narrowed (model_channels 160, 4 heads: d 40 at
+    level 0, d 80 at level 1, for the UNet and both ControlNets; the
+    luminance depth stand-in) on the card, fp32 masters."""
+    import copy
+
+    from ccedit_tpu_torch.cli.train import build_train_engine
+    from ccedit_tpu_torch.config import TVI2V_TRAIN_CONFIG
+
+    cfg = copy.deepcopy(TVI2V_TRAIN_CONFIG)
+    p = cfg["model"]["params"]
+    net = p["network_config"]["params"]
+    for params in (net, net["controlnet_config"]["params"], net["controlnet_img_config"]["params"]):
+        params.update(model_channels=160, num_res_blocks=1, num_heads=4, channel_mult=[1, 2],
+                      attention_resolutions=[2, 1])
+    p["conditioner_config"]["params"]["emb_models"][1]["params"]["fake_annotator"] = True
+    engine = build_train_engine(cfg, device, seed=0)
+    engine.make_optimizer(1e-4)
+    return engine
+
+
+def test_tvi2v_train_grads_through_the_cfca_backward(cuda):
+    """A narrow TVI2V training step (3 frames of 256x512: 2048-token level 0
+    and its 4096-key CFCA) in bf16 autocast: the trainable gradients
+    through kernels 1, 1b and 4 (n_k = n_q and n_k = 2 n_q) against plain
+    attention, tensor by tensor within ``chip_smoke.GRAD_TOLERANCE``; kernel
+    4's dq and dk zeroed only on the CFCA's calls must leave it."""
+    import chip_smoke as cs
+
+    engine = _narrow_tvi2v_train_engine(cuda)
+    batch = cs.tvi2v_batch(3, 256, 512, seed=0)
+    gen = torch.Generator(device=cuda)
+    zshape = (1, 3, 32, 64, 4)
+    overrides = dict(sigmas=torch.tensor([engine.denoiser.sigmas_np[500]], device=cuda),
+                     noise=torch.randn(zshape, generator=gen.manual_seed(0), device=cuda),
+                     vae_noise=torch.randn(zshape, generator=gen, device=cuda))
+
+    def backward():
+        engine.backward_step(batch, gen.manual_seed(1), torch.bfloat16, **overrides)
+
+    g_kernels, g_plain, g_faults, counts = cs.grads_three_ways(
+        engine.trainable_parameters(), backward, sa.SpatialAttention,
+        (("cfca", cs.on_cfca),))
+    for variant in ("d40 n_k=n_q", "d80 n_k=n_q", "d40 n_k!=n_q", "d80 n_k!=n_q"):
+        assert counts.get(f"spatial_attention_bwd[{variant}]", 0) > 0, counts
+    assert cs.grad_errors(g_kernels, g_plain)["worst_leaf"] <= cs.GRAD_TOLERANCE
+    assert cs.grad_errors(g_faults["cfca"], g_plain)["worst_leaf"] > cs.GRAD_TOLERANCE
+
+
+def test_world_one_nccl_step_equals_the_plain_step(cuda):
+    """The data-parallel path at world size 1 over NCCL: all-reduced
+    gradients under AdamW and under ZeRO leave the trainable tensors bit
+    for bit where the plain update leaves them; a whole step runs through
+    it (``chip_smoke.check_distributed_step``)."""
+    import chip_smoke as cs
+
+    engine = _narrow_tvi2v_train_engine(cuda)
+    cs.check_distributed_step(engine, cs.tvi2v_batch(3, 256, 512, seed=0), cuda, 0)
 
 
 def test_one_bf16_vae_train_step(cuda):

@@ -1,5 +1,5 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
-included), its samplers, ZoeDepth, the LoRA merge, its training modules
+included), its data parallelism and native decode binding, its samplers, ZoeDepth, the LoRA merge, its training modules
 (VAE training's too), the kernel-7 sweep script and ``chip_smoke.py``'s
 imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
@@ -23,6 +23,10 @@ import ccedit_tpu_torch.cli.sampling_tv2v_ref
 import ccedit_tpu_torch.cli.profile_tv2v
 import ccedit_tpu_torch.cli.train
 import ccedit_tpu_torch.data.dataset
+import ccedit_tpu_torch.data.native_decode
+import ccedit_tpu_torch.data.video
+import ccedit_tpu_torch.parallel.mesh
+import ccedit_tpu_torch.parallel.zero
 import ccedit_tpu_torch.diffusion.loss
 import ccedit_tpu_torch.diffusion.sigma_sampling
 import ccedit_tpu_torch.diffusion.weighting

@@ -116,28 +116,6 @@ def test_standard_diffusion_loss(loss_type):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=0)
 
 
-def test_lpips_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StandardDiffusionLoss(DiscreteSampling(), "lpips")
-
-
-@pytest.mark.parametrize("refusal", ["lpips loss", "validation sampling", "multi-GPU training"])
-def test_training_refusals_name_their_roadmap_item(refusal):
-    """What training does not port yet still raises, and names its ROADMAP
-    item by title ("the rest of training"), not by a number a reorder can
-    stale."""
-    from ccedit_tpu_torch.cli import train as train_cli
-    from ccedit_tpu_torch.train.trainer import Trainer, TrainerConfig
-
-    calls = {
-        "lpips loss": lambda: StandardDiffusionLoss(DiscreteSampling(), "lpips"),
-        "validation sampling": lambda: Trainer(None, TrainerConfig(sample_every=10)),
-        "multi-GPU training": lambda: train_cli.main(["--mesh_data", "2", "--device", "cpu"]),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'the rest of training'"):
-        calls[refusal]()
-
-
 @pytest.mark.parametrize("name,kwargs", [
     ("LambdaWarmUpCosineScheduler",
      dict(warm_up_steps=10, lr_min=0.1, lr_max=1.0, lr_start=0.01, max_decay_steps=50)),
