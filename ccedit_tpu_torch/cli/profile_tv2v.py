@@ -6,6 +6,7 @@ training step or a VAE GAN training step, on one GPU.
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_zoe   # TVI2V as shipped
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload train   # 5 timed steps, 2 profiled
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_train   # likewise, TVI2V
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload interp_train   # likewise, interpolation
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
@@ -28,7 +29,10 @@ at batch 4 of 12-frame 384x512 synthetic clips under bf16 autocast, times
 ``--steps`` (default 5) ``train_step`` calls and profiles
 ``--profile_steps`` more.  The ``tvi2v_train`` workload does the same with
 ``TVI2V_TRAIN_CONFIG`` (CFCA, the appearance ControlNet training) at its
-recipe's batch 1 of 17-frame 384x512 clips.  The ``vae_train`` workload builds the SD KL-f8
+recipe's batch 1 of 17-frame 384x512 clips, and ``interp_train`` with
+``INTERP_TRAIN_CONFIG`` (the frame-interpolation network, its appearance
+ControlNet on the first and last frames) at the same batch and geometry.
+The ``vae_train`` workload builds the SD KL-f8
 autoencoder of ``VAE_TRAIN_CONFIG`` with a full VGG16 LPIPS and the
 PatchGAN (seeded random weights, fp32 masters, bf16 autocast, the GAN term
 live from step 0) and times ``VAETrainer.train_step`` the same way on 12
@@ -160,13 +164,15 @@ def train_geometry(cfg) -> tuple:
 
 
 def profile_train(a, device, smi: str) -> dict:
-    """Time and profile the TV2V (``train``) or TVI2V (``tvi2v_train``)
-    recipe's training step at the recipe's batch and geometry."""
-    from ..config import TV2V_TRAIN_CONFIG, TVI2V_TRAIN_CONFIG
+    """Time and profile the TV2V (``train``), TVI2V (``tvi2v_train``) or
+    interpolation (``interp_train``) recipe's training step at the recipe's
+    batch and geometry."""
+    from .. import config
     from ..data.dataset import DataLoader, SyntheticVideoDataset
     from .train import build_train_engine
 
-    cfg = TVI2V_TRAIN_CONFIG if a.workload == "tvi2v_train" else TV2V_TRAIN_CONFIG
+    cfg = {"train": config.TV2V_TRAIN_CONFIG, "tvi2v_train": config.TVI2V_TRAIN_CONFIG,
+           "interp_train": config.INTERP_TRAIN_CONFIG}[a.workload]
     bs, t, h, w = train_geometry(cfg)
     engine = build_train_engine(cfg, device, a.seed)
     optimizer = engine.make_optimizer(1e-4)
@@ -217,6 +223,7 @@ EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
 
 
 EDIT_CONFIGS = {"tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_ZOE_CONFIG}
+TRAIN_WORKLOADS = ("train", "tvi2v_train", "interp_train", "vae_train")
 
 
 def build_edit(workload: str, device, seed: int, steps: int):
@@ -251,12 +258,11 @@ def build_edit(workload: str, device, seed: int, steps: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + ("train", "tvi2v_train",
-                                                                 "vae_train"),
+    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + TRAIN_WORKLOADS,
                     default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
                     help="sampling steps (default: 30 for tv2v, 50 for tvi2v and tvi2v_zoe); "
-                         "timed training steps for train, tvi2v_train and vae_train (default 5)")
+                         "timed training steps for the training workloads (default 5)")
     # one profiled training step reads a busy share of 58-75 % where two
     # read 97 %: the profiler's start falls inside a single step's window
     ap.add_argument("--profile_steps", type=int, default=2)
@@ -268,7 +274,7 @@ def main(argv=None) -> None:
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if a.workload in ("train", "tvi2v_train", "vae_train"):
+    if a.workload in TRAIN_WORKLOADS:
         profile = profile_vae_train if a.workload == "vae_train" else profile_train
         print(json.dumps(profile(a, device, smi)))
         return

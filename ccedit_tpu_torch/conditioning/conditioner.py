@@ -1,7 +1,9 @@
 """Conditioning framework (port of ``ccedit_tpu/conditioning/conditioner.py``):
 each embedder reads one batch key and routes its output to a conditioning key
 (``txt`` -> crossattn, ``control_hint`` -> control_hint, ``cond_img`` ->
-cond_feat, else by ndim: 2 vector, 3 crossattn, 4/5 concat); outputs landing
+cond_feat, ``interpolate_first`` / ``interpolate_last`` /
+``interpolate_first_last`` -> the same key, else by ndim: 2 vector, 3
+crossattn, 4/5 concat); outputs landing
 on one key are concatenated on the channel axis.  Training's classifier-free
 dropout: ``embed(..., apply_ucg=True)`` zeroes an embedder's output per
 batch element with probability ``ucg_rate``; an embedder with a
@@ -18,7 +20,9 @@ import torch
 from torch import nn
 
 _OUTPUT_KEY_OVERRIDES = {"txt": "crossattn", "control_hint": "control_hint",
-                         "cond_img": "cond_feat"}
+                         "cond_img": "cond_feat", "interpolate_first": "interpolate_first",
+                         "interpolate_last": "interpolate_last",
+                         "interpolate_first_last": "interpolate_first_last"}
 _DIM2KEY = {2: "vector", 3: "crossattn", 4: "concat", 5: "concat"}
 
 

@@ -61,7 +61,9 @@ class VAEEmbedder(Embedder):
     ``CCEditEngine.encode_first_stage``: the posterior mode times the scale
     factor at inference, a posterior sample drawn from ``generator`` in
     training (the JAX embedder's ``rng``, as the reference samples it).
-    (B, H, W, 3) pixels -> (B, H/8, W/8, 4)."""
+    (B, H, W, 3) pixels -> (B, H/8, W/8, 4); the interpolation network's
+    (B, 2, H, W, 3) first and last frames -> (B, 2, H/8, W/8, 4), folded
+    per frame as the VAE folds a clip."""
 
     wants_generator = True
 

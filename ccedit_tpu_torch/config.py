@@ -1,5 +1,5 @@
-"""TV2V and TVI2V engines from a reference-format config (port of the
-TV2V/TVI2V subset of ``ccedit_tpu/config.py``).
+"""Engines from a reference-format config (port of
+``ccedit_tpu/config.py``'s network, TV2V, TVI2V and interpolation builders).
 
 The reference wires everything through ``{target: python.path, params:
 {...}}`` trees.  This module resolves the targets the port implements and
@@ -21,6 +21,14 @@ weighting, ``freeze_model: spatial``, base LR 1e-4 with a
 ``LambdaLinearScheduler`` warm-up, and its data: batch 4 of 12-frame clips
 at 384x512.  ``TVI2V_TRAIN_CONFIG`` is TVI2V training: ``TVI2V_CONFIG`` with
 those settings, batch 1 of 17-frame clips at 384x512 and base LR 5e-5.
+``INTERP_TRAIN_CONFIG`` trains the frame-interpolation network
+(``ControlledUNetModel3DTV2VInterpolate`` under
+``VideoDiffusionEngineTV2VInterpolate``): the TV2V recipe with TVI2V's
+appearance ControlNet on the first and last frames, at TVI2V's batch,
+geometry and LR.  Every network target of the JAX ``build_network`` builds
+(the pseudo-3D UNets, the interpolation network, RAIG's 2-D UNet with its
+reference attention, any other as a 2-D UNet), with every UNet option but
+``remat_policy``.
 ``VAE_TRAIN_CONFIG`` is the SD KL-f8 autoencoder's GAN
 fine-tune in the layout of the reference's autoencoder training YAMLs
 (``model.params.encoder_config`` / ``loss_config``), which
@@ -55,7 +63,7 @@ from .diffusion.scaling import SCALINGS
 from .diffusion.weighting import EDMWeighting, EpsWeighting, UnitWeighting, VWeighting
 from .models.engine import CCEditEngine
 from .modules.clip import CLIPTextModel
-from .modules.controlnet import CCEditNetwork, ControlNet2D
+from .modules.controlnet import CCEditNetwork, ControlNet2D, ControlNet3D
 from .modules.unet import UNetModel
 from .modules.vae import AutoencoderKL
 
@@ -196,6 +204,44 @@ def _tvi2v_train_config() -> Dict:
 
 TVI2V_TRAIN_CONFIG: Dict = _tvi2v_train_config()
 
+
+def _interp_train_config() -> Dict:
+    """Training the frame-interpolation network, which fills the frames
+    between two generated keyframes (SURVEY.md's interpolation model).  The
+    reference's YAML is not in the repository, so the config is composed
+    from what is: ``TV2V_TRAIN_CONFIG``'s recipe (``use_checkpoint`` on all
+    three networks, eps weighting, ucg 0.1 on ``txt``, ``DiscreteSampling``,
+    the ``LambdaLinearScheduler`` warm-up, ``freeze_model: spatial``, which
+    this engine maps to ``spatial_tv2v`` as the JAX ``build_engine`` does);
+    the JAX builder's ``ControlledUNetModel3DTV2VInterpolate`` network with
+    no CFCA and ``VideoDiffusionEngineTV2VInterpolate`` engine; TVI2V's
+    appearance ``ControlNet2D`` as ``controlnet_img`` (latent hint,
+    identity hint block, ``no_add_x``, ``disable_text_ca``), as
+    ``tests/test_variants.py`` composes the interpolation network, fed by a
+    ``VAEEmbedder`` on the first and last frames (``interpolate_first_last``,
+    which ``data/dataset.py`` yields) in place of ``cond_img``; and TVI2V's
+    data and LR (batch 1 of 17-frame 384x512 clips, 5e-5; SURVEY.md's
+    recipe table), since the same appearance branch trains."""
+    cfg = copy.deepcopy(TV2V_TRAIN_CONFIG)
+    cfg["model"]["target"] = "sgm.models.diffusion.VideoDiffusionEngineTV2VInterpolate"
+    p = cfg["model"]["params"]
+    net = p["network_config"]
+    net["target"] = ("sgm.modules.diffusionmodules.controlmodel."
+                     "ControlledUNetModel3DTV2VInterpolate")
+    appearance = copy.deepcopy(
+        TVI2V_CONFIG["model"]["params"]["network_config"]["params"]["controlnet_img_config"])
+    appearance["params"]["use_checkpoint"] = True
+    net["params"]["controlnet_img_config"] = appearance
+    p["conditioner_config"]["params"]["emb_models"].append(
+        {"input_key": "interpolate_first_last",
+         "target": "sgm.modules.encoders.modules.VAEEmbedder", "params": {}})
+    p["base_learning_rate"] = TVI2V_TRAIN_CONFIG["model"]["params"]["base_learning_rate"]
+    cfg["data"] = copy.deepcopy(TVI2V_TRAIN_CONFIG["data"])
+    return cfg
+
+
+INTERP_TRAIN_CONFIG: Dict = _interp_train_config()
+
 # The SD KL-f8 autoencoder (the edits' VAE: ch 128, ch_mult 1,2,4,4, 2 res
 # blocks, 4 latent channels, no attention but the mid blocks') with a full
 # VGG16 LPIPS and the n_layers = 3, ndf = 64 PatchGAN, in the reference's
@@ -302,47 +348,76 @@ def _expect(cfg: Optional[Dict], *names: str) -> str:
     return name
 
 
-def _unet_kwargs(p: Dict, video: bool) -> Dict:
-    unported = ["use_linear_in_transformer", "legacy", "use_scale_shift_norm",
-                "use_learnable_alpha", "enable_ref_attn", "adm_in_channels"]
-    unported += ["disable_text_ca"] if video else ["enable_attention3d_crossframe"]
-    for flag in unported:
-        if p.get(flag):
-            raise KeyError(f"network option {flag}={p[flag]!r} is not implemented by the port "
-                           f"for a {'pseudo-3D UNet' if video else '2-D ControlNet'}")
-    kw = {k: p[k] for k in ("in_channels", "model_channels", "out_channels",
-                            "num_res_blocks", "num_heads", "num_head_channels",
-                            "transformer_depth", "context_dim", "disable_text_ca",
-                            "enable_attention3d_crossframe", "use_checkpoint") if k in p}
-    if "ST3DCA_ca_type" in p:
-        kw["st3dca_ca_type"] = p["ST3DCA_ca_type"]
-    for k in ("attention_resolutions", "channel_mult"):
-        if k in p:
-            kw[k] = tuple(p[k])
-    return kw
+# the reference's UNet params -> the port's UNetModel keywords: every key of
+# the JAX ``_UNET_KEY_MAP`` but ``remat_policy``, a jax.checkpoint_policies
+# name with no torch meaning (``use_checkpoint`` recomputes everything)
+_UNET_KEY_MAP = {k: k for k in (
+    "in_channels", "model_channels", "out_channels", "num_res_blocks",
+    "attention_resolutions", "channel_mult", "num_heads", "num_head_channels",
+    "transformer_depth", "context_dim", "use_linear_in_transformer", "legacy",
+    "use_scale_shift_norm", "resblock_updown", "disable_temporal_text_ca",
+    "disable_text_ca", "enable_attention3d_crossframe", "enable_ref_attn",
+    "use_learnable_alpha", "adm_in_channels", "use_checkpoint")}
+_UNET_KEY_MAP["ST3DCA_ca_type"] = "st3dca_ca_type"
 
 
-def build_controlnet(cfg: Dict) -> ControlNet2D:
-    _expect(cfg, "ControlNet2D")
+def _unet_kwargs(p: Dict) -> Dict:
+    """The UNet keywords of a network's params (lists as tuples);
+    ``remat_policy`` raises ``KeyError`` naming it."""
+    if "remat_policy" in p:
+        raise KeyError(f"network option remat_policy={p['remat_policy']!r} is a "
+                       "jax.checkpoint_policies name: the port has no such policy "
+                       "(use_checkpoint recomputes every block)")
+    return {dst: tuple(p[src]) if isinstance(p[src], list) else p[src]
+            for src, dst in _UNET_KEY_MAP.items() if src in p}
+
+
+def build_controlnet(cfg: Dict):
+    """A ``ControlNet2D`` or, for that target, a ``ControlNet3D`` (the
+    pseudo-3D branch no shipped config composes; the JAX converter's
+    ``convert_controlnet(video=True)`` loads its weights)."""
+    name = _expect(cfg, "ControlNet2D", "ControlNet3D")
     p = _params(cfg)
-    return ControlNet2D(hint_channels=p.get("hint_channels", 3),
-                        control_scales=float(p.get("control_scales", 1.0)),
+    kw = _unet_kwargs(p)
+    scales = float(p.get("control_scales", 1.0))
+    if name == "ControlNet3D":
+        return ControlNet3D(hint_channels=p.get("hint_channels", 4), control_scales=scales,
+                            disable_temporal=bool(p.get("disable_temporal", False)), **kw)
+    return ControlNet2D(hint_channels=p.get("hint_channels", 3), control_scales=scales,
                         no_add_x=bool(p.get("no_add_x", False)),
                         input_hint_identity=bool(p.get("set_input_hint_block_as_identity", False)),
-                        **_unet_kwargs(p, video=False))
+                        **kw)
+
+
+# network targets whose UNet is pseudo-3D, as the JAX ``build_network``;
+# every other target builds a 2-D UNet (RAIG's with its reference attention)
+_VIDEO_NETWORKS = ("UNetModel3D", "ControlledUNetModel3DTV2V",
+                   "ControlledUNetModel3DTV2VInterpolate", "ControlNet3D")
 
 
 def build_network(cfg: Dict) -> CCEditNetwork:
-    _expect(cfg, "ControlledUNetModel3DTV2V")
+    """The composed network of a ``network_config``, for every target the
+    JAX ``build_network`` takes: a pseudo-3D UNet for ``_VIDEO_NETWORKS``, a
+    2-D one otherwise; ``ControlledUNetModel3DTV2VInterpolate`` sets
+    ``interpolate``, ``ControlledUNetModel2DRAIG`` ``raig`` and
+    ``enable_ref_attn``.  The branches are ``ControlNet2D`` (the composed
+    network calls no ControlNet3D)."""
+    name = _tname(cfg)
     p = _params(cfg)
-    unet = UNetModel(unet_type="pseudo-3d",
-                     disable_temporal_text_ca=p.get("disable_temporal_text_ca", True),
-                     **_unet_kwargs(p, video=True))
-    controlnet = build_controlnet(p["controlnet_config"]) if p.get("controlnet_config") else None
-    controlnet_img = (build_controlnet(p["controlnet_img_config"])
-                      if p.get("controlnet_img_config") else None)
-    return CCEditNetwork(unet, controlnet, controlnet_img,
-                         crossframe_type=p.get("crossframe_type"))
+    kw = _unet_kwargs(p)
+    raig = name == "ControlledUNetModel2DRAIG"
+    if raig:
+        kw["enable_ref_attn"] = True
+    unet = UNetModel(unet_type="pseudo-3d" if name in _VIDEO_NETWORKS else "2d", **kw)
+    branches = []
+    for key in ("controlnet_config", "controlnet_img_config"):
+        if p.get(key):
+            _expect(p[key], "ControlNet2D")
+            branches.append(build_controlnet(p[key]))
+        else:
+            branches.append(None)
+    return CCEditNetwork(unet, *branches, crossframe_type=p.get("crossframe_type"),
+                         interpolate=name == "ControlledUNetModel3DTV2VInterpolate", raig=raig)
 
 
 def build_vae(cfg: Dict) -> AutoencoderKL:
@@ -462,7 +537,8 @@ _TV2V_FREEZE = {"spatial": "spatial_tv2v", "spatial_openlora": "spatial_tv2v_ope
 
 
 def freeze_policy(model_params: Dict) -> str:
-    """The freeze policy of a VideoDiffusionEngineTV2V's ``freeze_model``."""
+    """The freeze policy of a VideoDiffusionEngineTV2V's (or
+    VideoDiffusionEngineTV2VInterpolate's) ``freeze_model``."""
     freeze = _FREEZE_MAP.get(model_params.get("freeze_model", "none"), "none")
     return _TV2V_FREEZE.get(freeze, freeze)
 
@@ -525,7 +601,7 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
     initialisation; load or randomise weights afterwards."""
     cfg = copy.deepcopy(cfg if cfg is not None else TV2V_CONFIG)
     model_cfg = cfg.get("model", cfg)
-    _expect(model_cfg, "VideoDiffusionEngineTV2V")
+    _expect(model_cfg, "VideoDiffusionEngineTV2V", "VideoDiffusionEngineTV2VInterpolate")
     p = _params(model_cfg)
     denoiser = build_denoiser(p["denoiser_config"])
     guider = VanillaCFG(scale=guider_scale)

@@ -8,7 +8,11 @@ from typing import Dict, Optional
 
 import torch
 
-DOUBLED_KEYS = ("vector", "crossattn", "concat", "cond_feat", "control_hint")
+# the keys whose uc and c halves differ, as the JAX list (VanillaCFGTV2V's,
+# with ``ref_context``); any other key must be the same in both and passes
+DOUBLED_KEYS = ("vector", "crossattn", "concat", "cond_feat", "control_hint",
+                "interpolate_first", "interpolate_last", "interpolate_first_last",
+                "ref_context")
 
 
 class IdentityGuider:

@@ -1,9 +1,10 @@
 """Engine weights: seeded random initialisation and reference checkpoints.
 
 ``randomize_weights_`` draws every parameter from an explicit
-``torch.Generator`` (weights N(0, 1/fan_in), norm scales 1, biases 0), the
-zero-initialised temporal and ControlNet projections included, so that no
-branch is trivially zero.  ``load_reference_checkpoint`` loads an SD-1.5 /
+``torch.Generator`` (weights N(0, 1/fan_in), norm scales 1, biases 0, the
+learnable ``alpha_temporal*`` blends U(0.25, 0.75)), the zero-initialised
+temporal and ControlNet projections included, so that no branch is
+trivially zero.  ``load_reference_checkpoint`` loads an SD-1.5 /
 CCEdit checkpoint (sgm key layout) into the engine's modules with strict
 ``load_state_dict`` calls; no converter is involved.  ``load_partial``
 loads what fits of a state dict into a module (the base-model and VAE
@@ -22,8 +23,10 @@ from torch import nn
 def randomize_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     norm_scales = {id(m.weight) for m in module.modules()
                    if isinstance(m, (nn.GroupNorm, nn.LayerNorm))}
-    for p in module.parameters():
-        if p.dim() >= 2:
+    for name, p in module.named_parameters():
+        if "alpha_temporal" in name:  # learnable blends: both branches live
+            p.uniform_(0.25, 0.75, generator=generator)
+        elif p.dim() >= 2:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
         elif id(p) in norm_scales:
             p.fill_(1.0)

@@ -5,7 +5,8 @@
 / ``convert_vae`` / ``convert_clip``, of ``convert_dpt_midas``, of
 ``ccedit_tpu/modules/lpips.py::convert_lpips`` (taming's ``vgg.pth`` layout),
 of the NLayerDiscriminator layout (taming's ``main.{i}``) and of
-``convert_zoedepth`` (HF ``ZoeDepthForDepthEstimation``): it takes a
+``convert_zoedepth`` (HF ``ZoeDepthForDepthEstimation``), and of sgm's
+``EncoderUNetModel`` layout: it takes a
 flax parameter tree (nested dicts of numpy arrays) and returns a state dict
 in the reference sgm/LDM/HF/MiDaS key layout, which the port's modules load
 as it is.  Layouts:
@@ -180,17 +181,7 @@ def _unet_index(names) -> Dict[str, str]:
            "out_norm": "out.0", "out_conv": "out.2", "out_temporal/conv": "out_temporal.1"}
     enc = sorted({(int(m[1]), int(m[2])) for n in names
                   if (m := re.match(r"in_(\d+)_(\d+)_res$", n))})
-    downs = {int(m[1]) for n in names if (m := re.match(r"in_(\d+)_down$", n))}
-    idx = 1
-    for level in sorted({lv for lv, _ in enc} | downs):
-        for lv, nr in enc:
-            if lv == level:
-                out[f"in_{level}_{nr}_res"] = f"input_blocks.{idx}.0"
-                out[f"in_{level}_{nr}_attn"] = f"input_blocks.{idx}.1"
-                idx += 1
-        if level in downs:
-            out[f"in_{level}_down"] = f"input_blocks.{idx}.0"
-            idx += 1
+    out.update(_encoder_index(enc, "in_{}_down"))
     dec = sorted({(int(m[1]), int(m[2])) for n in names
                   if (m := re.match(r"out_(\d+)_(\d+)_res$", n))},
                  key=lambda li: (-li[0], li[1]))
@@ -200,6 +191,26 @@ def _unet_index(names) -> Dict[str, str]:
         out[f"out_{level}_{i}_attn"] = f"output_blocks.{j}.1"
         if i == max(ii for lv, ii in dec if lv == level):
             out[f"out_{level}_up"] = f"output_blocks.{j}.{2 if has_attn else 1}"
+    return out
+
+
+def _encoder_index(enc, down_name: str, downs: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """Input-block indices of the encoder's res blocks ``enc`` ((level, n)
+    pairs) and of the downsampling block closing every level but the last,
+    which has no parameters under ``conv_resample=False`` and so is not
+    among the flax names (``down_name`` and ``downs`` format its names)."""
+    out, idx = {}, 1
+    levels = sorted({lv for lv, _ in enc})
+    for level in levels:
+        for lv, nr in enc:
+            if lv == level:
+                out[f"in_{level}_{nr}_res"] = f"input_blocks.{idx}.0"
+                out[f"in_{level}_{nr}_attn"] = f"input_blocks.{idx}.1"
+                idx += 1
+        if level != levels[-1]:
+            for name in (down_name,) + downs:
+                out[name.format(level)] = f"input_blocks.{idx}.0"
+            idx += 1
     return out
 
 
@@ -221,9 +232,46 @@ def _unet_path(path: str, index: Dict[str, str]) -> str:
     return f"{index[head]}/{rest}" if rest else index[head]
 
 
+_CONV1D_DENSES = ("qkv", "proj_out", "qkv_proj", "c_proj")  # k=1 Conv1d in sgm
+
+
+def _encoder_unet(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``EncoderUNetModel`` (``modules/unet_extras.py``): the flax names
+    ``conv_in``, ``in_{level}_{n}_res/_attn``, ``down_{level}[_res]``,
+    ``mid_*``, ``out_*`` -> sgm's ``input_blocks`` / ``middle_block`` /
+    ``out``; the attention blocks' Dense kernels become k=1 Conv1d weights
+    and the positional embedding (C, N + 1)."""
+    names = {p.split("/")[0] for p in flat}
+    enc = sorted({(int(m[1]), int(m[2])) for n in names
+                  if (m := re.match(r"in_(\d+)_(\d+)_res$", n))})
+    v2 = "out_fc2" in names and "out_norm" in names  # spatial_v2's head
+    index = {"time_embed": "time_embed", "conv_in": "input_blocks.0.0",
+             "mid_res1": "middle_block.0", "mid_attn": "middle_block.1",
+             "mid_res2": "middle_block.2", "out_norm": "out.1" if v2 else "out.0",
+             "out_conv": "out.3", "out_pool": "out.2", "out_fc1": "out.0",
+             "out_fc2": "out.3" if v2 else "out.2"}
+    index.update(_encoder_index(enc, "down_{}", ("down_{}_res",)))
+    out = {}
+    for path, value in flat.items():
+        head, _, rest = path.partition("/")
+        if head == "time_embed":
+            rest = rest.replace("dense1", "0").replace("dense2", "2")
+        elif head.endswith(("_res", "_res1", "_res2")) and "/" in rest:
+            mod, leaf = rest.rsplit("/", 1)
+            rest = f"{_RES.get(mod, mod)}/{leaf}"
+        name, val = _leaf(f"{index[head]}/{rest}", value)
+        name = name.replace("/", ".")
+        if name.rsplit(".", 2)[-2] in _CONV1D_DENSES and val.ndim == 2:
+            val = val[..., None]
+        elif name.endswith("positional_embedding"):
+            val = val.T
+        out[name] = torch.from_numpy(np.ascontiguousarray(val))
+    return out
+
+
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
-    """kind: 'unet' | 'controlnet' | 'vae' | 'clip' | 'dpt' | 'lpips' | 'disc' |
-    'zoedepth'.
+    """kind: 'unet' | 'controlnet' | 'encoder_unet' | 'vae' | 'clip' | 'dpt' |
+    'lpips' | 'disc' | 'zoedepth'.
     ``params`` is the flax tree of that module (``{"params": ...}`` is
     unwrapped).  Returns the reference-layout state dict, fp32 torch
     tensors."""
@@ -245,6 +293,8 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
             name, val = _leaf(mod, value)
             out[name.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(val))
         return out
+    if kind == "encoder_unet":
+        return _encoder_unet(flat)
     if kind == "disc":
         rules, prefix = _disc_rules(sum(p.startswith("bn_") for p in params)), ""
     else:

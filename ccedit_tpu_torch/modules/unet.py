@@ -2,24 +2,32 @@
 (port of ``ccedit_tpu/modules/unet.py``).
 
 Submodules follow the sgm ``UNetModel`` state-dict layout: ``time_embed``,
-``input_blocks.{i}.{j}``, ``middle_block.{j}``, ``output_blocks.{i}.{j}``,
-``out``, and for the pseudo-3D UNet ``input_blocks_temporal`` and
-``out_temporal``.  Ported options: ``unet_type`` "2d" | "pseudo-3d" with
-``disable_temporal_text_ca=True``, ``encoder_only`` (the ControlNet trunk),
+``label_emb``, ``input_blocks.{i}.{j}``, ``middle_block.{j}``,
+``output_blocks.{i}.{j}``, ``out``, and for the pseudo-3D UNet
+``input_blocks_temporal`` and ``out_temporal``.  Every option of the JAX
+``UNetModel`` is ported: ``unet_type`` "2d" | "pseudo-3d",
+``num_res_blocks`` and ``transformer_depth`` as an int or a per-level
+list, ``legacy`` heads, ``use_linear_in_transformer``, ``conv_resample``,
+``use_scale_shift_norm``, ``use_learnable_alpha``,
+``disable_temporal_text_ca``, ``encoder_only`` (the ControlNet trunk),
 ``disable_text_ca`` (2D: the TVI2V appearance ControlNet),
 ``enable_attention3d_crossframe`` with ``st3dca_ca_type`` (pseudo-3D: CFCA
-in every transformer), and the appearance branch's inputs to ``forward``:
-``img_control`` (added onto the centre frame in the encoder) and
-``ref_contexts`` (the CFCA reference bank).  ``use_checkpoint`` (the
-reference's activation checkpointing, the JAX package's ``use_remat``)
-recomputes every residual block and transformer in the backward pass
-instead of keeping its activations, while autograd is recording.  RAIG,
-learnable alphas, scale-shift norm and vector conditioning are not ported.
+in every transformer), ``enable_ref_attn`` (2D: RAIG's reference
+attention in every transformer) and ``adm_in_channels`` (vector
+conditioning ``y`` through ``label_emb``); ``resblock_updown`` is accepted
+and unused, as in the JAX UNet.  ``forward`` takes the appearance
+branch's inputs: ``img_control`` (added onto the centre frame in the
+encoder), ``ref_contexts`` (the CFCA / RAIG reference bank) and
+``interpolate_control`` (added onto the first and last frames), and
+``only_mid_control``.  ``use_checkpoint`` (the reference's activation
+checkpointing, the JAX package's ``use_remat``) recomputes every residual
+block and transformer in the backward pass instead of keeping its
+activations, while autograd is recording.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,16 +35,36 @@ from torch.utils.checkpoint import checkpoint
 
 from .blocks import Downsample, Downsample3D, ResBlock, ResBlock3D, Upsample, Upsample3D, spatial_temporal
 from .layers import TimeEmbed, conv2d, group_norm, temporal_conv, timestep_embedding
-from .transformer import SpatialTransformer, SpatialTransformer3D, SpatialTransformer3DCA
+from .transformer import (SpatialTransformer, SpatialTransformer3D, SpatialTransformer3DCA,
+                          SpatialTransformerCA)
 
 _TRANSFORMERS = (SpatialTransformer, SpatialTransformer3D)
+_TAKES_REF = (SpatialTransformerCA, SpatialTransformer3DCA)
+PerLevel = Union[int, Sequence[int]]
 
 
-def _add_to_centre_frame(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """h[:, T // 2] += c, in place: every block returns a fresh tensor that
+def _add_to_frame(h: torch.Tensor, frame: int, c: torch.Tensor) -> torch.Tensor:
+    """h[:, frame] += c, in place: every block returns a fresh tensor that
     nothing else holds."""
-    h[:, h.shape[1] // 2] += c
+    h[:, frame] += c
     return h
+
+
+def heads_dims(ch: int, num_heads: int, num_head_channels: int,
+               legacy: bool = False) -> Tuple[int, int]:
+    """(n_heads, d_head) of a transformer at ``ch`` channels, as the JAX
+    ``UNetModel._heads_dims`` (whose UNets always use spatial transformers)."""
+    if num_head_channels == -1:
+        n_heads, d_head = num_heads, ch // num_heads
+    else:
+        n_heads, d_head = ch // num_head_channels, num_head_channels
+    if legacy:
+        d_head = ch // num_heads
+    return n_heads, d_head
+
+
+def per_level(value: PerLevel, level: int) -> int:
+    return value[level] if isinstance(value, (list, tuple)) else value
 
 
 class UNetModel(nn.Module):
@@ -45,81 +73,102 @@ class UNetModel(nn.Module):
         in_channels: int = 4,
         model_channels: int = 320,
         out_channels: int = 4,
-        num_res_blocks: int = 2,
+        num_res_blocks: PerLevel = 2,
         attention_resolutions: Sequence[int] = (4, 2, 1),
         channel_mult: Sequence[int] = (1, 2, 4, 4),
         num_heads: int = 8,
         num_head_channels: int = -1,
-        transformer_depth: int = 1,
+        transformer_depth: PerLevel = 1,
         context_dim: Optional[int] = 768,
+        use_linear_in_transformer: bool = False,
+        legacy: bool = False,
         unet_type: str = "2d",
-        disable_temporal_text_ca: bool = True,
-        encoder_only: bool = False,
+        conv_resample: bool = True,
+        resblock_updown: bool = False,
+        use_scale_shift_norm: bool = False,
         disable_text_ca: bool = False,
+        enable_ref_attn: bool = False,
+        disable_temporal_text_ca: bool = True,
         enable_attention3d_crossframe: bool = False,
         st3dca_ca_type: str = "center",
+        use_learnable_alpha: bool = False,
+        adm_in_channels: Optional[int] = None,
+        encoder_only: bool = False,
         use_checkpoint: bool = False,
     ):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         if unet_type not in ("2d", "pseudo-3d"):
             raise ValueError(f"unet_type {unet_type!r}")
-        if unet_type == "pseudo-3d" and not disable_temporal_text_ca:
-            raise NotImplementedError("temporal text cross-attention is not ported")
         self.is_video = unet_type == "pseudo-3d"
         self.model_channels = model_channels
-        self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
+        self.num_res_blocks = (tuple(num_res_blocks) if isinstance(num_res_blocks, (list, tuple))
+                               else num_res_blocks)
+        self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.adm_in_channels = adm_in_channels
         ch = model_channels
-        res_cls = ResBlock3D if self.is_video else ResBlock
+        n_levels = len(channel_mult)
 
-        def heads(c):
-            if num_head_channels == -1:
-                return num_heads, c // num_heads
-            return c // num_head_channels, num_head_channels
-
-        def transformer(c):
-            n_heads, d_head = heads(c)
-            if self.is_video and enable_attention3d_crossframe:
-                return SpatialTransformer3DCA(c, n_heads, d_head, transformer_depth,
-                                              context_dim, ca_type=st3dca_ca_type)
+        def res(cin, cout):
+            kw = dict(use_scale_shift_norm=use_scale_shift_norm)
             if self.is_video:
-                return SpatialTransformer3D(c, n_heads, d_head, transformer_depth, context_dim)
-            return SpatialTransformer(c, n_heads, d_head, transformer_depth, context_dim,
-                                      disable_text_ca=disable_text_ca)
+                return ResBlock3D(cin, 4 * ch, cout, use_learnable_alpha=use_learnable_alpha, **kw)
+            return ResBlock(cin, 4 * ch, cout, **kw)
+
+        def transformer(c, level):
+            n_heads, d_head = heads_dims(c, num_heads, num_head_channels, legacy)
+            depth = per_level(transformer_depth, level)
+            if self.is_video:
+                kw = dict(use_linear=use_linear_in_transformer,
+                          disable_temporal_text_ca=disable_temporal_text_ca,
+                          use_learnable_alpha=use_learnable_alpha)
+                if enable_attention3d_crossframe:
+                    return SpatialTransformer3DCA(c, n_heads, d_head, depth, context_dim,
+                                                  ca_type=st3dca_ca_type, **kw)
+                return SpatialTransformer3D(c, n_heads, d_head, depth, context_dim, **kw)
+            cls = SpatialTransformerCA if enable_ref_attn else SpatialTransformer
+            return cls(c, n_heads, d_head, depth, context_dim, disable_text_ca=disable_text_ca,
+                       use_linear=use_linear_in_transformer)
 
         self.time_embed = TimeEmbed(ch, 4 * ch)
+        if adm_in_channels is not None:  # sgm's "sequential" label_emb: label_emb.0.{0,2}
+            self.label_emb = nn.Sequential(TimeEmbed(adm_in_channels, 4 * ch))
         blocks = [nn.ModuleList([conv2d(in_channels, ch)])]
         enc_chans, cur, ds = [ch], ch, 1
         for level, mult in enumerate(channel_mult):
-            for _ in range(num_res_blocks):
-                blk = [res_cls(cur, 4 * ch, mult * ch)]
+            for _ in range(per_level(num_res_blocks, level)):
+                blk = [res(cur, mult * ch)]
                 cur = mult * ch
                 if ds in attention_resolutions:
-                    blk.append(transformer(cur))
+                    blk.append(transformer(cur, level))
                 blocks.append(nn.ModuleList(blk))
                 enc_chans.append(cur)
-            if level != len(channel_mult) - 1:
-                blocks.append(nn.ModuleList([(Downsample3D if self.is_video else Downsample)(cur)]))
+            if level != n_levels - 1:
+                down = Downsample3D if self.is_video else Downsample
+                blocks.append(nn.ModuleList([down(cur, use_conv=conv_resample)]))
                 enc_chans.append(cur)
                 ds *= 2
         self.input_blocks = nn.ModuleList(blocks)
         if self.is_video:
             self.input_blocks_temporal = nn.Sequential(temporal_conv(ch, ch))
         self.middle_block = nn.ModuleList(
-            [res_cls(cur, 4 * ch, cur), transformer(cur), res_cls(cur, 4 * ch, cur)])
+            [res(cur, cur), transformer(cur, n_levels - 1), res(cur, cur)])
         self.input_channels = tuple(enc_chans)  # output channels of each input block
         if encoder_only:
             return
 
         blocks = []
         for level, mult in reversed(list(enumerate(channel_mult))):
-            for i in range(num_res_blocks + 1):
-                blk = [res_cls(cur + enc_chans.pop(), 4 * ch, mult * ch)]
+            nrb = per_level(num_res_blocks, level)
+            for i in range(nrb + 1):
+                blk = [res(cur + enc_chans.pop(), mult * ch)]
                 cur = mult * ch
                 if ds in attention_resolutions:
-                    blk.append(transformer(cur))
-                if level and i == num_res_blocks:
-                    blk.append((Upsample3D if self.is_video else Upsample)(cur))
+                    blk.append(transformer(cur, level))
+                if level and i == nrb:
+                    up = Upsample3D if self.is_video else Upsample
+                    blk.append(up(cur, use_conv=conv_resample))
                     ds //= 2
                 blocks.append(nn.ModuleList(blk))
         self.output_blocks = nn.ModuleList(blocks)
@@ -127,9 +176,14 @@ class UNetModel(nn.Module):
         if self.is_video:
             self.out_temporal = nn.Sequential(nn.SiLU(), temporal_conv(out_channels, out_channels))
 
-    def embed(self, timesteps: torch.Tensor) -> torch.Tensor:
-        return self.time_embed(timestep_embedding(timesteps, self.model_channels).to(
-            self.time_embed[0].weight.dtype))
+    def embed(self, timesteps: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.time_embed[0].weight.dtype
+        emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
+        if self.adm_in_channels is not None:
+            if y is None:
+                raise ValueError("the UNet is vector-conditional (adm_in_channels) but y is None")
+            emb = emb + self.label_emb(y.to(dtype))
+        return emb
 
     def _run(self, mod: nn.Module, *args, **kwargs):
         """mod(*args, **kwargs), checkpointed under ``use_checkpoint`` while
@@ -141,36 +195,59 @@ class UNetModel(nn.Module):
 
     def apply_block(self, blk: nn.ModuleList, h, emb, context, refs=None, bank=None):
         """One input/middle/output block.  ``refs``: an iterator over the
-        CFCA reference bank, one entry taken by every CFCA transformer in
-        order (entries past its end are None); ``bank``: a list that collects
-        2D transformer outputs (the appearance branch's bank)."""
+        reference bank; every transformer takes the next entry (None past
+        its end), which only the CFCA and RAIG transformers read; ``bank``: a
+        list that collects transformer outputs (the appearance branch's
+        bank)."""
         for mod in blk:
             if isinstance(mod, (ResBlock, ResBlock3D)):
                 h = self._run(mod, h, emb)
-            elif isinstance(mod, SpatialTransformer3DCA):
-                ref = next(refs, None) if refs is not None else None
-                h = self._run(mod, h, context=context, ref_context=ref)
             elif isinstance(mod, _TRANSFORMERS):
-                h = self._run(mod, h, context=context)
+                ref = next(refs, None) if refs is not None else None
+                if isinstance(mod, _TAKES_REF):
+                    h = self._run(mod, h, context=context, ref_context=ref)
+                else:
+                    h = self._run(mod, h, context=context)
                 if bank is not None:
                     bank.append(h)
             else:
                 h = mod(h)
         return h
 
-    def forward(self, x, timesteps, context=None, control: Optional[Sequence] = None,
+    def forward(self, x, timesteps, context=None, y=None, control: Optional[Sequence] = None,
                 img_control: Optional[Sequence] = None,
-                ref_contexts: Optional[Sequence] = None):
-        """x: (B, T, H, W, C) video latents (or (N, H, W, C) for "2d").
+                ref_contexts: Optional[Sequence] = None,
+                interpolate_control: Optional[Tuple[Sequence, Sequence]] = None,
+                only_mid_control: bool = False):
+        """x: (B, T, H, W, C) video latents (or (N, H, W, C) for "2d"); ``y``
+        the vector conditioning of an ``adm_in_channels`` UNet.
         ``control``: the ControlNet's 13 encoder+middle residuals, added in
         the decoder.  ``img_control``: the appearance ControlNet's 13
         (B, h, w, C) maps, added onto frame T // 2 after every input block
         and after the middle block.  ``ref_contexts``: (B, h*w, C) token
-        banks for the first transformers' CFCA, in application order."""
-        emb = self.embed(timesteps)
+        banks, one for each transformer in application order (the CFCA's,
+        or RAIG's reference attention).  ``interpolate_control``: (13 maps
+        for the first frame, 13 for the last), added after every input block
+        and after the middle block.  ``only_mid_control`` (as in the JAX
+        UNet): no ``img_control`` adds in the encoder (the middle block's
+        add takes the list's first entry) and no ``control`` adds in the
+        decoder."""
+        emb = self.embed(timesteps, y)
         control = list(control) if control is not None else None
         img_control = list(img_control) if img_control is not None else None
+        ic_first = ic_last = None
+        if interpolate_control is not None:
+            ic_first, ic_last = (list(c) for c in interpolate_control)
         refs = iter(ref_contexts) if ref_contexts is not None else None
+
+        def inject(h, centre: bool):
+            if img_control is not None and centre:
+                h = _add_to_frame(h, h.shape[1] // 2, img_control.pop(0))
+            if ic_first is not None:  # at T = 1 both land on the one frame
+                h = _add_to_frame(h, 0, ic_first.pop(0))
+                h = _add_to_frame(h, h.shape[1] - 1, ic_last.pop(0))
+            return h
+
         hs = []
         h = x
         for i, blk in enumerate(self.input_blocks):
@@ -178,17 +255,13 @@ class UNetModel(nn.Module):
                 h = spatial_temporal(h, blk[0], self.input_blocks_temporal)
             else:
                 h = self.apply_block(blk, h, emb, context, refs)
-            if img_control is not None:
-                h = _add_to_centre_frame(h, img_control.pop(0))
-            hs.append(h)
-        h = self.apply_block(self.middle_block, h, emb, context, refs)
-        if img_control is not None:
-            h = _add_to_centre_frame(h, img_control.pop(0))
+            hs.append(inject(h, not only_mid_control))
+        h = inject(self.apply_block(self.middle_block, h, emb, context, refs), True)
         if control is not None:
             h = h + control.pop()
         for blk in self.output_blocks:
             skip = hs.pop()
-            if control is not None:
+            if control is not None and not only_mid_control:
                 skip = skip + control.pop()
             h = self.apply_block(blk, torch.cat([h, skip], dim=-1), emb, context, refs)
         if self.is_video:

@@ -129,6 +129,25 @@ Phases:
      generator pass; twice without, in the discriminator pass under
      no_grad), LPIPS must stay bit-identical, and every autoencoder and
      discriminator tensor with a nonzero gradient must move.
+  8. network variants, at full SD-1.5 width with seeded random weights
+     (every zero-initialised layer drawn too, the learnable alphas off 1):
+     (a) interpolation training (``INTERP_TRAIN_CONFIG``: the appearance
+     ControlNet on the first and last frames, ``spatial_tv2v``): its
+     gradients through the kernels held to plain attention at 17 frames
+     of 256x512 (GRAD_TOLERANCE), refusing kernel 4's dq and dk zeroed
+     everywhere and only on ``controlnet_img``'s first- and last-frame
+     rows; ``Trainer.fit`` for 3 steps at 1 x 17 x 384x512 with kernel 4
+     ``INTERP_BWD_PER_STEP`` times a step, frozen tensors bit-identical,
+     trainable ones moved; a 2-step validation sample.  (b) one forward of
+     RAIG's 2-D network (``ControlledUNetModel2DRAIG``) on (2, 64, 64, 4),
+     its reference attention through kernel 1 at (2, 8, 4096, 40) with K/V
+     from the bank, held to plain attention (ROUTE_TOLERANCE), refusing
+     the query's own tokens as the bank.  (c) ControlNet3D in both modes
+     and (d) a pseudo-3D UNet with temporal text cross-attention, Linear
+     projections, learnable alphas, scale-shift norm and ``label_emb`` (a
+     ``vector`` cond), each on (2, 17, 64, 96) through kernels 1 and 2,
+     held to plain attention, refusing kernels 1 and 2 with their batch
+     halves swapped.  Each part prints its seconds and peak memory.
   Launch counts are reset just before each path and read just after (per
   stage for the edits, per step in VAE training); every kernel of that path
   must have run (on the
@@ -229,6 +248,17 @@ VAE_STEPS = 4  # 1 warm-up + 3 timed
 # launches a VAE training step: both mid-block attentions, with their lse and
 # backward in the generator pass, without either in the discriminator pass
 VAE_LAUNCHES_PER_STEP = {"flash_attention": 4, "flash_attention[lse]": 2, "flash_attention_bwd": 2}
+# phase 8 (a): interpolation training at TVI2V's geometry (its gradient
+# check at TVI2V_TRAIN_T x TVI2V_GRAD_H x TVI2V_GRAD_W, Trainer.fit at
+# TVI2V_TRAIN_T x TVI2V_TRAIN_H x TVI2V_TRAIN_W), 1 warm-up + 2 timed steps
+# and a 2-step validation sample.  Backward launches a step: the UNet's
+# level-0 and level-1 spatial self-attentions (5 + 5, as in TV2V) and the
+# appearance ControlNet's (input blocks 1, 2 and 4, 5, on the first and
+# last frames), all at n_k = n_q
+INTERP_TRAIN_STEPS, INTERP_SAMPLE_STEPS = 3, 2
+INTERP_BWD_PER_STEP = {"d40 n_k=n_q": 7, "d80 n_k=n_q": 7}
+# phase 8 (d): SDXL's vector width (ADM), the label_emb input
+ADM_CHANNELS = 2816
 # phase 4b: the modes and swaps on phase 4's engine (CFG 7.5): sdedit at
 # strength 0.5 with DPM++2M over 8 steps (3 survive the img2img pruning, so
 # the second step takes DPM++2M's second-order update), an Euler-ancestral
@@ -347,6 +377,13 @@ PATH_KERNELS = {
     "tvi2v_train_sample": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
                            "flash_attention", "flash_attention_encoder"),
     "vae_train": ("flash_attention_lse", "flash_attention_bwd"),
+    "interp_train": ("spatial_attention", "temporal_attention", "flash_attention_encoder",
+                     "spatial_attention_bwd"),
+    "interp_train_sample": ("spatial_attention", "temporal_attention", "flash_attention",
+                            "flash_attention_encoder"),
+    "raig": ("spatial_attention",),
+    "controlnet3d": ("spatial_attention", "temporal_attention"),
+    "unet_variants": ("spatial_attention", "temporal_attention"),
     "tv2v_sdedit": ("spatial_attention", "temporal_attention", "flash_attention",
                     "flash_attention_encoder"),
     "tv2v_inpaint": ("spatial_attention", "temporal_attention", "flash_attention",
@@ -1514,6 +1551,44 @@ def check_distributed_step(engine, batch, device, seed: int) -> None:
     restore()
 
 
+def sample_counted(engine, trainer, batch, step: int, label: str, what: str) -> dict:
+    """One validation sampling (``Trainer.log_samples``) outside the timed
+    steps, its launch counts by stage (``sample``, ``decode``): its gifs
+    and panel must be written.  Returns the stages' counts."""
+    import torch
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    decode, stages = engine.decode_first_stage, {}
+
+    def counted_decode(z):
+        torch.cuda.synchronize()
+        start = att.launch_counts()
+        out = decode(z)
+        torch.cuda.synchronize()
+        stages["decode"] = {k: n - start.get(k, 0) for k, n in att.launch_counts().items()}
+        return out
+
+    engine.decode_first_stage = counted_decode
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        image_dir = trainer.log_samples(batch, step)
+    finally:
+        del engine.decode_first_stage
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t1
+    total = att.launch_counts()
+    stages["sample"] = {k: n - stages["decode"].get(k, 0) for k, n in total.items()}
+    files = sorted(p.name for p in image_dir.iterdir())
+    want = [f"step{step:08d}_{kind}" for kind in ("input.gif", "panel.png", "sample.gif")]
+    print(f"[{label}] validation sampling, {what}: {sample_s:.2f} s; files {files}; launches "
+          f"by stage {json.dumps(stages)}", flush=True)
+    if files != want or any((image_dir / f).stat().st_size == 0 for f in files):
+        raise RuntimeError(f"validation sampling wrote {files}, not {want}")
+    return stages
+
+
 def run_tvi2v_train(device, seed: int) -> dict:
     """Phase 6b: TVI2V training (``TVI2V_TRAIN_CONFIG``: CFCA, the structure
     and appearance ControlNets, ``spatial_tv2v``) at full width: (a) the
@@ -1605,34 +1680,8 @@ def run_tvi2v_train(device, seed: int) -> dict:
     del before
 
     # (c) one validation sampling, outside the timed steps, stage by stage
-    batch = next(iter(loader))
-    decode, stages = engine.decode_first_stage, {}
-
-    def counted_decode(z):
-        torch.cuda.synchronize()
-        start = att.launch_counts()
-        out = decode(z)
-        torch.cuda.synchronize()
-        stages["decode"] = {k: n - start.get(k, 0) for k, n in att.launch_counts().items()}
-        return out
-
-    engine.decode_first_stage = counted_decode
-    att.reset_launch_counts()
-    t1 = time.perf_counter()
-    try:
-        image_dir = trainer.log_samples(batch, result.step)
-    finally:
-        del engine.decode_first_stage
-    torch.cuda.synchronize()
-    sample_s = time.perf_counter() - t1
-    total_counts = att.launch_counts()
-    stages["sample"] = {k: n - stages["decode"].get(k, 0) for k, n in total_counts.items()}
-    files = sorted(p.name for p in image_dir.iterdir())
-    want = [f"step{result.step:08d}_{kind}" for kind in ("input.gif", "panel.png", "sample.gif")]
-    print(f"[tvi2v_train] validation sampling, {TVI2V_SAMPLE_STEPS} steps at {t}x{h}x{w}: "
-          f"{sample_s:.2f} s; files {files}; launches by stage {json.dumps(stages)}", flush=True)
-    if files != want or any((image_dir / f).stat().st_size == 0 for f in files):
-        raise RuntimeError(f"validation sampling wrote {files}, not {want}")
+    stages = sample_counted(engine, trainer, next(iter(loader)), result.step, "tvi2v_train",
+                            f"{TVI2V_SAMPLE_STEPS} steps at {t}x{h}x{w}")
 
     # (d) the data-parallel path at world size 1
     check_distributed_step(engine, tvi2v_batch(t, h, w, seed), device, seed)
@@ -1763,6 +1812,363 @@ def run_vae_train(device, seed: int) -> dict:
     return {"vae_train": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the network variants
+# ---------------------------------------------------------------------------
+
+def interp_batch(t: int, h: int, w: int, seed: int) -> dict:
+    """An interpolation training batch of one synthetic clip: the clip, its
+    prompt, the clip as the depth network's input and its first and last
+    frames (``interpolate_first_last``), as ``data/dataset.py`` makes items."""
+    import numpy as np
+
+    clip = np.random.RandomState(seed).uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
+    return {"jpg": clip, "txt": ["a robot bear walking through the snow"], "control_hint": clip,
+            "interpolate_first_last": np.stack([clip[:, 0], clip[:, -1]], axis=1)}
+
+
+def on_first_last(dq, dk) -> bool:
+    """Phase 8 (a)'s second fault: only ``controlnet_img``'s calls, whose
+    batch is the clip's first and last frames (2 rows at batch 1; the
+    UNet's rows are the 17 frames)."""
+    return dq.shape[0] == 2
+
+
+def part_stats(label: str, t0: float, device) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    print(f"[variants] {label} in {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB", flush=True)
+
+
+def run_interp_train(device, seed: int) -> dict:
+    """Phase 8 (a): interpolation training (``INTERP_TRAIN_CONFIG``) at full
+    width.  Returns the launch counts of ``Trainer.fit`` and, by stage, of
+    its validation sampling."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from ccedit_tpu_torch import config
+    from ccedit_tpu_torch.cli.train import build_train_engine
+    from ccedit_tpu_torch.data.dataset import DataLoader, SyntheticVideoDataset
+    from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+    from ccedit_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = config.INTERP_TRAIN_CONFIG
+    model_params = cfg["model"]["params"]
+    engine = build_train_engine(cfg, device, seed)
+    torch.cuda.reset_peak_memory_stats(device)
+    engine.make_optimizer(1e-4)  # sets the freeze policy's requires_grad flags
+    if not engine.network.interpolate:
+        raise RuntimeError("INTERP_TRAIN_CONFIG did not build the interpolation network")
+    trainable = engine.trainable_parameters()
+    print(f"[interp_train] engine built in {time.perf_counter() - t0:.1f} s: freeze policy "
+          f"{engine.freeze_policy}, {sum(p.numel() for p in trainable.values()) / 1e6:.1f} M "
+          "trainable, fp32 masters, bf16 autocast, use_checkpoint", flush=True)
+
+    # the gradient check at 17 frames of 256x512, with its two faults
+    t, h, w = TVI2V_TRAIN_T, TVI2V_GRAD_H, TVI2V_GRAD_W
+    f = engine.latent_factor
+    batch = interp_batch(t, h, w, seed)
+    gen = torch.Generator(device=device)
+    zshape = (1, t, h // f, w // f, 4)
+    overrides = dict(
+        sigmas=torch.tensor([engine.denoiser.sigmas_np[500]], device=device),
+        noise=torch.randn(zshape, generator=gen.manual_seed(seed), device=device),
+        vae_noise=torch.randn(zshape, generator=gen, device=device))
+
+    def backward():
+        engine.backward_step(batch, gen.manual_seed(seed + 1), torch.bfloat16, **overrides)
+
+    faults = (("dq = dk = 0", everywhere),
+              ("dq = dk = 0 on controlnet_img's first and last frames", on_first_last))
+    g_kernels, g_plain, g_faults, counts = grads_three_ways(trainable, backward,
+                                                            sa.SpatialAttention, faults)
+    if not all(bool(torch.isfinite(g).all()) for g in g_kernels.values()):
+        raise FloatingPointError("interpolation training gradients are not finite")
+    errs = {"kernels": grad_errors(g_kernels, g_plain),
+            **{name: grad_errors(g, g_plain) for name, g in g_faults.items()}}
+    for which, e in errs.items():
+        print(f"[interp_train] trainable gradients ({which}) vs plain attention at {t}x{h}x{w}: "
+              f"||diff||/||plain|| of the worst of {e['leaves_compared']} of {e['leaves']} "
+              f"tensors {e['worst_leaf']:.3e} ({e['worst_leaf_name']}; tol "
+              f"{GRAD_TOLERANCE:.0e}), of the whole gradient {e['whole']:.3e}", flush=True)
+    print(f"[interp_train] gradient check launches {json.dumps(counts)}", flush=True)
+    if not errs["kernels"]["worst_leaf"] <= GRAD_TOLERANCE:
+        raise RuntimeError(f"interpolation training gradients through the kernels disagree "
+                           f"with plain attention: {errs['kernels']}")
+    for name, _ in faults:
+        if not errs[name]["worst_leaf"] > GRAD_TOLERANCE:
+            raise RuntimeError(f"the interpolation gradient check passes kernel 4 with {name}: "
+                               f"{errs[name]}")
+    del g_kernels, g_plain, g_faults
+
+    # Trainer.fit at the recipe's batch 1 of 17x384x512
+    named = engine_parameters(engine)
+    before = {n: p.detach().cpu().clone() for n, p in named}
+    logdir = Path("build/chip_smoke_interp_train")
+    shutil.rmtree(logdir, ignore_errors=True)
+    bs, t, h, w = 1, TVI2V_TRAIN_T, TVI2V_TRAIN_H, TVI2V_TRAIN_W
+    loader = DataLoader(SyntheticVideoDataset(n_items=4 * bs, num_frames=t, size_hw=(h, w),
+                                              seed=seed), batch_size=bs, seed=seed)
+    trainer = Trainer(engine, TrainerConfig(
+        logdir=str(logdir), max_steps=INTERP_TRAIN_STEPS, ckpt_every=0, log_every=1, seed=seed,
+        base_lr=model_params["base_learning_rate"], autocast_dtype=torch.bfloat16,
+        sample_steps=INTERP_SAMPLE_STEPS), config.build_lr_scheduler(model_params["scheduler_config"]))
+    att.reset_launch_counts()
+    result = trainer.fit(loader, bs, resume=False)
+    torch.cuda.synchronize()
+    counts = att.launch_counts()
+    step_s = sum(result.step_seconds[1:]) / len(result.step_seconds[1:])
+    print(f"[interp_train] Trainer.fit bs {bs} x {t} x {h}x{w}, {result.step} steps: step seconds "
+          f"{[round(x, 4) for x in result.step_seconds]} (first is the warm-up); {step_s:.4f} s "
+          f"per step; losses {[round(x, 5) for x in result.losses]}", flush=True)
+    print(f"[interp_train] kernel launches over {result.step} steps {json.dumps(counts)}",
+          flush=True)
+    if result.step != INTERP_TRAIN_STEPS or not all(math.isfinite(x) for x in result.losses):
+        raise RuntimeError(f"interpolation training ended at step {result.step} with losses "
+                           f"{result.losses}")
+    per_step = {v: counts.get(f"spatial_attention_bwd[{v}]", 0) / result.step
+                for v in INTERP_BWD_PER_STEP}
+    if (per_step != INTERP_BWD_PER_STEP or counts["spatial_attention_bwd"]
+            != sum(INTERP_BWD_PER_STEP.values()) * result.step):
+        raise RuntimeError(f"expected {INTERP_BWD_PER_STEP} backward launches a step, got "
+                           f"{per_step} ({counts['spatial_attention_bwd']} in all)")
+    check_frozen_and_moved(named, before, trainable, "interp_train")
+    del before
+
+    # one validation sampling, stage by stage
+    stages = sample_counted(engine, trainer, next(iter(loader)), result.step, "interp_train",
+                            f"{INTERP_SAMPLE_STEPS} steps at {t}x{h}x{w}")
+    part_stats("(a) interpolation training", t0, device)
+    del engine, trainer, named, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"interp_train": {"train": counts}, "interp_train_sample": stages}
+
+
+def plain_in_chunks(q, k, v, scale, budget: int = 2 ** 32):
+    """The plain attention over slices of the batch axis whose fp32 scores
+    fit ``budget`` bytes: (34, 8, 6144, 40)'s scores alone are 41 GB."""
+    import torch
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    rows = max(1, budget // (8 * q.shape[1] * q.shape[2] * k.shape[2]))
+    return torch.cat([att.plain_attention(q[i:i + rows], k[i:i + rows], v[i:i + rows], scale)
+                      for i in range(0, q.shape[0], rows)])
+
+
+def held_to_plain(fn, faults=()) -> dict:
+    """``fn()`` (a tensor or a tuple of them) through the kernels, with its
+    launch counts, against ``fn()`` with every attention on its plain
+    version (over batch slices, ``plain_in_chunks``), and each planted fault
+    (a context manager) against the same: the worst output's max|out -
+    plain| / max|plain|."""
+    import torch
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    def outputs():
+        with torch.no_grad():
+            out = fn()
+        return [o.float() for o in (out if isinstance(out, (tuple, list)) else (out,))]
+
+    def worst(outs, ref):
+        return max(((o - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, ref))
+
+    att.reset_launch_counts()
+    kernels = outputs()
+    torch.cuda.synchronize()
+    counts = att.launch_counts()
+    saved = dict(att._ROUTES)
+    att._ROUTES.update({k: plain_in_chunks for k in saved})
+    try:
+        plain = outputs()
+    finally:
+        att._ROUTES.update(saved)
+    errs = {}
+    for name, fault in faults:
+        with fault():
+            errs[name] = worst(outputs(), plain)
+    if not all(bool(torch.isfinite(o).all()) for o in kernels):
+        raise FloatingPointError("outputs through the kernels are not finite")
+    return dict(kernels=worst(kernels, plain), faults=errs, counts=counts)
+
+
+def halves_swapped(*routes):
+    """A planted fault: the named attention routes' kernels return their
+    output with the batch's halves swapped (CFG's uc and c rows, or the
+    two clips' temporal rows)."""
+    import contextlib
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    @contextlib.contextmanager
+    def fault():
+        saved = dict(att._ROUTES)
+        for r in routes:
+            att._ROUTES[r] = lambda q, k, v, s, _fn=saved[r]: _fn(q, k, v, s).roll(
+                q.shape[0] // 2, dims=0)
+        try:
+            yield
+        finally:
+            att._ROUTES.update(saved)
+
+    return fault
+
+
+def own_tokens_as_reference():
+    """A planted fault for RAIG: every reference attention reads the
+    query's own tokens in place of its bank entry."""
+    import contextlib
+
+    from ccedit_tpu_torch.modules.transformer import SpatialTransformerCA
+
+    @contextlib.contextmanager
+    def fault():
+        forward = SpatialTransformerCA.forward
+
+        def faulty(self, x, context=None, ref_context=None, kv_reuse_every=0):
+            if ref_context is not None:
+                ref_context = x.reshape(x.shape[0], -1, x.shape[-1])
+            return forward(self, x, context, ref_context, kv_reuse_every)
+
+        SpatialTransformerCA.forward = faulty
+        try:
+            yield
+        finally:
+            SpatialTransformerCA.forward = forward
+
+    return fault
+
+
+def random_module(module, device, seed: int):
+    """``module`` on ``device`` with seeded random weights (the
+    zero-initialised layers and the alphas included), in bf16, eval mode."""
+    import torch
+
+    from ccedit_tpu_torch.io.checkpoint import randomize_weights_
+
+    randomize_weights_(module.to(device), torch.Generator(device=device).manual_seed(seed))
+    return module.to(torch.bfloat16).eval()
+
+
+def check_held(label: str, res: dict, want: dict) -> dict:
+    """Print a ``held_to_plain`` result and fail unless the kernels agree
+    within ROUTE_TOLERANCE, every fault breaks it and every launch count of
+    ``want`` (name -> least count) was reached."""
+    print(f"[variants] {label}: max|kernels - plain| / max|plain| {res['kernels']:.3e} (tol "
+          f"{ROUTE_TOLERANCE:.0e}); planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in res["faults"].items())
+          + f"; launches {json.dumps(res['counts'])}", flush=True)
+    if not res["kernels"] <= ROUTE_TOLERANCE:
+        raise RuntimeError(f"{label} through the kernels disagrees with plain attention: "
+                           f"{res['kernels']}")
+    for name, err in res["faults"].items():
+        if not err > ROUTE_TOLERANCE:
+            raise RuntimeError(f"{label}'s check passes the planted fault {name}: {err}")
+    short = {k: n for k, n in want.items() if res["counts"].get(k, 0) < n}
+    if short:
+        raise RuntimeError(f"{label} launched fewer than {short}: {res['counts']}")
+    return res["counts"]
+
+
+def run_variants(device, seed: int) -> dict:
+    """Phase 8: the network variants at full SD-1.5 width.  (a) interpolation
+    training; (b) one forward of RAIG's 2-D network on (2, 64, 64, 4),
+    512x512 doubled for CFG; (c) ControlNet3D in both modes and (d) a
+    pseudo-3D UNet with temporal text cross-attention, Linear projections,
+    learnable alphas off 1, scale-shift norm and ``label_emb``, each on
+    (2, 17, 64, 96); (b)-(d) held to plain attention, each refusing its
+    planted fault.  Returns the launch counts of each part, by path."""
+    import copy
+
+    import torch
+
+    from ccedit_tpu_torch import config
+    from ccedit_tpu_torch.modules.controlnet import ControlNet3D
+    from ccedit_tpu_torch.modules.unet import UNetModel
+
+    t0 = time.perf_counter()
+    by_path = run_interp_train(device, seed)
+    sd15 = {k: tuple(v) if isinstance(v, list) else v for k, v in config._SD15_UNET.items()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = lambda *s: torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+
+    # (b) RAIG
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    appearance = copy.deepcopy(config.TVI2V_CONFIG["model"]["params"]["network_config"]
+                               ["params"]["controlnet_img_config"])
+    with device:
+        net = config.build_network({
+            "target": "sgm.modules.diffusionmodules.controlmodel.ControlledUNetModel2DRAIG",
+            "params": dict(config._SD15_UNET, controlnet_img_config=appearance)})
+    net = random_module(net, device, seed)
+    x, ts = bf16(2, 64, 64, 4), torch.tensor([999.0, 999.0], device=device)
+    cond = {"crossattn": bf16(2, 77, sd15["context_dim"]), "cond_feat": bf16(2, 64, 64, 4)}
+    res = held_to_plain(lambda: net(x, ts, cond),
+                        (("the query's own tokens as the reference", own_tokens_as_reference()),))
+    by_path["raig"] = {"forward": check_held("(b) RAIG at 2x512x512", res, {
+        "spatial_attention[d40 n_k=n_q]": 12, "spatial_attention[d80 n_k=n_q]": 12})}
+    del net
+    part_stats("(b) RAIG", t1, device)
+
+    # (c) ControlNet3D, both modes
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    with device:
+        cn3d = ControlNet3D(**sd15)
+    cn3d = random_module(cn3d, device, seed)
+    x, hint = bf16(2, 17, 64, 96, 4), bf16(2, 17, 64, 96, 4)
+    ctx = bf16(2, 77, sd15["context_dim"])
+    stages = {}
+    for mode in (False, True):
+        cn3d.disable_temporal = mode
+        label = "centre frame" if mode else "17 frames"
+        res = held_to_plain(lambda: cn3d(x, hint, ts, context=ctx), (
+            ("kernels 1 and 2 with their batch halves swapped",
+             halves_swapped("spatial", "temporal")),))
+        stages[label] = check_held(f"(c) ControlNet3D, {label}, at 2x17x512x768", res, {
+            "spatial_attention[d40 n_k=n_q]": 1, "temporal_attention": 1})
+    by_path["controlnet3d"] = stages
+    del cn3d
+    part_stats("(c) ControlNet3D", t1, device)
+
+    # (d) the pseudo-3D UNet with the remaining options
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    with device:
+        unet = UNetModel(**dict(sd15, unet_type="pseudo-3d", disable_temporal_text_ca=False,
+                                use_linear_in_transformer=True, use_learnable_alpha=True,
+                                use_scale_shift_norm=True, adm_in_channels=ADM_CHANNELS))
+    unet = random_module(unet, device, seed)
+    alphas = [p.float() for n, p in unet.named_parameters() if "alpha_temporal" in n]
+    y = bf16(2, ADM_CHANNELS)
+    res = held_to_plain(lambda: unet(x, ts, context=ctx, y=y), (
+        ("kernels 1 and 2 with their batch halves swapped",
+         halves_swapped("spatial", "temporal")),))
+    print(f"[variants] (d) {len(alphas)} learnable alphas in "
+          f"[{min(a.min().item() for a in alphas):.3f}, "
+          f"{max(a.max().item() for a in alphas):.3f}]", flush=True)
+    by_path["unet_variants"] = {"forward": check_held(
+        "(d) pseudo-3D UNet (temporal text cross-attention, use_linear, alphas, scale-shift, "
+        "label_emb) at 2x17x512x768", res,
+        {"spatial_attention[d40 n_k=n_q]": 1, "temporal_attention": 1})}
+    del unet
+    part_stats("(d) pseudo-3D UNet options", t1, device)
+    print(f"[variants] phase 8 in {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def reset_launches():
     """Every launch count to 0: the attention kernels' and the probes' (kernel
     7's tile sweep among them)."""
@@ -1820,6 +2226,8 @@ def main() -> int:
     by_path["train"] = run_train(device, SEED)
     by_path.update(run_tvi2v_train(device, SEED))
     by_path["vae_train"] = run_vae_train(device, SEED)
+    # phase 8: the network variants
+    by_path.update(run_variants(device, SEED))
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
         rec["launches"] = rec["launches_by_path"][spec["path"]]

@@ -80,11 +80,32 @@ def test_unported_options_and_geometry_raise():
     ("disable_text_ca", True, "disable_text_ca"),  # a 2-D option: the UNet is pseudo-3D
 ])
 def test_config_rejects_targets_outside_the_slice(key, value, match):
+    """The RAIG target and ``disable_text_ca`` on a pseudo-3D UNet were
+    refused until the network variants were ported: both now build as the
+    JAX ``build_network`` builds them (RAIG's 2-D UNet with its reference
+    attention; a pseudo-3D UNet, which has no use for the 2-D option).  What
+    the port still refuses raises ``KeyError`` naming it: ``remat_policy``
+    (a jax.checkpoint_policies name) and an engine target it lacks."""
+    from ccedit_tpu import config as jax_config
+
     cfg = json.loads(json.dumps(config.TV2V_CONFIG))
     net = cfg["model"]["params"]["network_config"]
     (net if key == "target" else net["params"])[key] = value
-    with pytest.raises(KeyError, match=match):
-        config.build_engine(cfg)
+    with torch.device("meta"):
+        engine = config.build_engine(cfg, fake_annotator=True)
+    jnet = jax_config.build_network(net)
+    assert engine.network.raig == jnet.raig == (match == "ControlledUNetModel2DRAIG")
+    assert engine.network.unet.is_video == (jnet.unet.unet_type == "pseudo-3d")
+    refused = (("network_config", "remat_policy", "dots_saveable", "remat_policy"),
+               ("target", None, "x.DiffusionEngine", "DiffusionEngine"))
+    for where, option, bad, name in refused:
+        other = json.loads(json.dumps(cfg))
+        if where == "target":
+            other["model"]["target"] = bad
+        else:
+            other["model"]["params"][where]["params"][option] = bad
+        with pytest.raises(KeyError, match=name), torch.device("meta"):
+            config.build_engine(other, fake_annotator=True)
 
 
 def test_batched_draw_equals_single_draws(tiny_config):

@@ -1,8 +1,8 @@
 """Config and gate parity of the port against the JAX package, on the CPU:
 the sampler a ``sampler_config`` builds (its eta, s_noise and
 discretization params, and the EDM options, the EDM schedule and img2img
-strength the port once refused), the UNet options the port refuses
-(``adm_in_channels``), and kernel 1's dispatch gate ``supported`` with its
+strength the port once refused), ``adm_in_channels`` (once refused, now
+``label_emb`` in both), and kernel 1's dispatch gate ``supported`` with its
 element size a required keyword."""
 
 import json
@@ -16,6 +16,7 @@ import torch
 from ccedit_tpu import config as jax_config
 from ccedit_tpu.ops import spatial_attention as jax_sa
 from ccedit_tpu_torch import config
+from ccedit_tpu_torch.io.jax_params import from_jax
 from ccedit_tpu_torch.modules.clip import CLIPTextModel
 from ccedit_tpu_torch.ops import spatial_attention as sa
 
@@ -115,14 +116,39 @@ def test_unported_sampler_options_raise(target, params, match):
             config.build_sampler({"target": "DPMPP2MSampler", "params": {match: 1}})
 
 
-def test_adm_in_channels_raises(tiny_clip):
-    """The JAX package builds ``label_emb`` from ``adm_in_channels``; the
-    port has no vector conditioning and refuses the config instead of
-    dropping the option."""
-    cfg = _tiny_config(adm_in_channels=32)
-    assert jax_config.build_engine(cfg).network.unet.adm_in_channels == 32
-    with pytest.raises(KeyError, match="adm_in_channels"):
-        config.build_engine(cfg, fake_annotator=True)
+def test_adm_in_channels_builds_label_emb(tiny_clip):
+    """Both builders build ``label_emb`` from ``adm_in_channels`` (the port
+    once refused it), and the two networks agree on a ``vector`` cond with
+    the same weights (fp32, 1e-4 absolute); the vector moves the output."""
+    cfg = _tiny_config(adm_in_channels=12)
+    jnet = jax_config.build_engine(cfg).network
+    tnet = config.build_engine(cfg, fake_annotator=True).network.eval()
+    assert jnet.unet.adm_in_channels == 12
+    assert tuple(tnet.unet.label_emb[0][0].weight.shape) == (128, 12)
+    rs = np.random.RandomState(3)
+    f32 = lambda *s: rs.standard_normal(s).astype(np.float32)
+    x, ts = f32(1, 4, 8, 8, 4), np.array([300.0], np.float32)
+    cond = {"crossattn": f32(1, 7, 16), "vector": f32(1, 12),
+            "control_hint": rs.uniform(-1, 1, (1, 4, 64, 64, 3)).astype(np.float32)}
+    jcond = {k: jnp.asarray(v) for k, v in cond.items()}
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(ts),
+                            jcond)
+
+    def draw(path, s):
+        scale = np.sqrt(np.prod(s.shape[:-1])) if path[-1].key == "kernel" else 10.0
+        return (rs.standard_normal(s.shape) / scale
+                + (path[-1].key == "scale")).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, shapes)["params"]
+    tnet.unet.load_state_dict(from_jax("unet", params["unet"]))
+    tnet.controlnet.load_state_dict(from_jax("controlnet", params["controlnet"]))
+    ref = jnet.apply({"params": params}, jnp.asarray(x), jnp.asarray(ts), jcond)
+    with torch.no_grad():
+        tcond = {k: torch.from_numpy(v) for k, v in cond.items()}
+        out = tnet(torch.from_numpy(x), torch.from_numpy(ts), tcond)
+        other = tnet(torch.from_numpy(x), torch.from_numpy(ts), dict(tcond, vector=tcond["vector"] * 0))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    assert (out - other).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("itemsize", [1, 2, 4])

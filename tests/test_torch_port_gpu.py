@@ -642,3 +642,45 @@ def test_zoe_bf16_matches_fp32(zoe_on_card, frames):
         fault = zd.detect_depth_zoe(bf16, clip, rel_bias=False).float()
     assert out.shape == ref.shape == (frames, 512, 768) and bool(torch.isfinite(out).all())
     assert centred_cosine(out, ref) >= ZOE_COSINE > centred_cosine(fault, ref)
+
+
+@pytest.mark.parametrize("hw,ch", [(64, 320), (32, 640)])
+def test_raig_reference_attention_through_kernel_1(cuda, hw, ch):
+    """RAIG's ``SpatialTransformerCA`` at 512x512 doubled for CFG (levels 0
+    and 1: (2, 8, 4096, 40) and (2, 8, 1024, 80)), seeded random weights in
+    bf16, its reference cross-attention's K/V from a bank: kernel 1 runs the
+    self- and the reference attention, and the output is held to the same
+    module on plain attention as ``chip_smoke.py`` phase 8 (b) holds the
+    network (5e-2 of max|plain|); the query's own tokens as the bank give
+    another contribution of the reference sub-layer."""
+    from ccedit_tpu_torch.io.checkpoint import randomize_weights_
+    from ccedit_tpu_torch.modules.transformer import SpatialTransformerCA
+
+    g = torch.Generator(device=cuda).manual_seed(hw)
+    with cuda:
+        st = SpatialTransformerCA(ch, 8, ch // 8, context_dim=768)
+    randomize_weights_(st, g)
+    st = st.to(torch.bfloat16).eval()
+    x = torch.randn((2, hw, hw, ch), generator=g, device=cuda).to(torch.bfloat16)
+    ctx = torch.randn((2, 77, 768), generator=g, device=cuda).to(torch.bfloat16)
+    # a bank whose tokens are not the query's own kind (mean 2, not 0): under
+    # random weights the softmax is near uniform and reads the mean value
+    bank = (torch.randn((2, hw * hw, ch), generator=g, device=cuda) + 2).to(torch.bfloat16)
+    att.reset_launch_counts()
+    with torch.no_grad():
+        out = st(x, context=ctx, ref_context=bank).float()
+        counts = att.launch_counts()
+        saved = dict(att._ROUTES)
+        att._ROUTES.update({k: att.plain_attention for k in saved})
+        try:
+            ref = st(x, context=ctx, ref_context=bank).float()
+        finally:
+            att._ROUTES.update(saved)
+        own = st(x, context=ctx, ref_context=x.reshape(2, hw * hw, ch)).float()
+        body = st(x, context=ctx).float()
+    variant = f"spatial_attention[d{ch // 8} n_k=n_q]"
+    assert counts.get(variant, 0) == 2, counts  # the self- and the reference attention
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert torch.isfinite(out).all() and rel <= 5e-2, rel
+    # the reference sub-layer's own contribution moves with its bank
+    assert ((own - out).abs().max() / (out - body).abs().max()).item() > 0.2

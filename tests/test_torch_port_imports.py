@@ -1,6 +1,6 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
 included), its data parallelism and native decode binding, its samplers, ZoeDepth, the LoRA merge, its training modules
-(VAE training's too), the kernel-7 sweep script and ``chip_smoke.py``'s
+(VAE training's too), ``unet_extras``, the kernel-7 sweep script and ``chip_smoke.py``'s
 imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
 the GPU machine may not have."""
@@ -46,6 +46,7 @@ import ccedit_tpu_torch.io.lora
 import ccedit_tpu_torch.models.autoencoder_engine
 import ccedit_tpu_torch.modules.discriminator
 import ccedit_tpu_torch.modules.lpips
+import ccedit_tpu_torch.modules.unet_extras
 import ccedit_tpu_torch.ops.attention
 import ccedit_tpu_torch.ops.build
 import ccedit_tpu_torch.ops.flash_attention

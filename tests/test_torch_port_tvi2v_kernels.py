@@ -15,6 +15,7 @@ with and without ``attn_resolutions`` blocks.  Tolerances: 3e-5 absolute for the
 
 import copy
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,3 +172,118 @@ def test_vae_training_shapes_route_to_kernel_3(attn_resolutions, expected):
     for route, q_shape in calls:
         if route != "plain":
             assert q_shape[-1] in _KERNEL_HEAD_DIMS[route]
+
+
+_SD15 = dict(in_channels=4, out_channels=4, model_channels=320, attention_resolutions=[4, 2, 1],
+             num_res_blocks=2, channel_mult=[1, 2, 4, 4], num_heads=8, transformer_depth=1,
+             context_dim=768)
+
+
+@pytest.fixture(scope="module")
+def variant_shapes():
+    """{case: [(route, q shape, k shape), ...]} of the network variants at
+    full SD-1.5 widths on the meta device: the interpolation network of
+    ``INTERP_TRAIN_CONFIG`` at its batch 1 of 17x384x512 (and its VAE on the
+    first and last frames), RAIG's 2-D network at 512x512 doubled for CFG,
+    ControlNet3D in both modes and a pseudo-3D UNet with temporal text
+    cross-attention, Linear projections, learnable alphas, scale-shift norm
+    and ``label_emb`` at (2, 17, 64, 96)."""
+    from ccedit_tpu_torch.modules.controlnet import ControlNet3D
+    from ccedit_tpu_torch.modules.unet import UNetModel
+
+    calls = []
+
+    def recorder(route):
+        def record(q, k, v, scale):
+            calls.append((route, tuple(q.shape), tuple(k.shape)))
+            return torch.empty_like(q)
+        return record
+
+    appearance = config.TVI2V_CONFIG["model"]["params"]["network_config"]["params"][
+        "controlnet_img_config"]
+    with torch.device("meta"):
+        interp = config.build_network(
+            config.INTERP_TRAIN_CONFIG["model"]["params"]["network_config"])
+        raig = config.build_network({"target": "ControlledUNetModel2DRAIG", "params": dict(
+            _SD15, controlnet_img_config=appearance)})
+        cn3d = [ControlNet3D(disable_temporal=d, **_SD15) for d in (False, True)]
+        unet = UNetModel(unet_type="pseudo-3d", disable_temporal_text_ca=False,
+                         use_linear_in_transformer=True, use_learnable_alpha=True,
+                         use_scale_shift_norm=True, adm_in_channels=2816, **_SD15)
+        vae = config.build_vae(config.TV2V_CONFIG["model"]["params"]["first_stage_config"])
+    saved = dict(att._ROUTES)
+    att._ROUTES.update({name: recorder(name) for name in saved})
+    out = {}
+
+    def run(case, fn):
+        calls.clear()
+        fn()
+        out[case] = list(calls)
+
+    e = torch.empty
+    try:
+        with torch.no_grad(), torch.device("meta"):
+            run("interp", lambda: interp(e(1, 17, 48, 64, 4), e(1), {
+                "crossattn": e(1, 77, 768), "control_hint": e(1, 17, 384, 512, 3),
+                "interpolate_first_last": e(1, 2, 48, 64, 4)}))
+            run("interp_vae", lambda: vae.encode_moments(e(1, 2, 384, 512, 3)))
+            run("raig", lambda: raig(e(2, 64, 64, 4), e(2), {"crossattn": e(2, 77, 768),
+                                                             "cond_feat": e(2, 64, 64, 4)}))
+            for m, case in zip(cn3d, ("cn3d", "cn3d_centre")):
+                run(case, lambda: m(e(2, 17, 64, 96, 4), e(2, 17, 64, 96, 4), e(2),
+                                    context=e(2, 77, 768)))
+            run("unet", lambda: unet(e(2, 17, 64, 96, 4), e(2), context=e(2, 77, 768),
+                                     y=e(2, 2816)))
+    finally:
+        att._ROUTES.update(saved)
+    return out
+
+
+def _jax_route(q_shape, k_shape):
+    """The JAX dispatch's choice on a TPU for bf16 q and k: one of its
+    kernels ('kernel') or XLA ('plain')."""
+    from ccedit_tpu.ops import attention as jatt
+
+    q, k = (jax.ShapeDtypeStruct(s, jnp.bfloat16) for s in (q_shape, k_shape))
+    saved = jatt._is_tpu
+    jatt._is_tpu = lambda: True
+    try:
+        ok = jatt._kv_resident_ok(q, k) or jatt._flash_ok(q, k) or jatt._small_seq_ok(q, k)
+    finally:
+        jatt._is_tpu = saved
+    return "kernel" if ok else "plain"
+
+
+@pytest.mark.parametrize("case", ["interp", "interp_vae", "raig", "cn3d", "cn3d_centre", "unet"])
+def test_variant_shapes_route_as_the_jax_gate(variant_shapes, case):
+    """Every attention of the variants goes to a kernel exactly where the
+    JAX dispatch on a TPU would run one of its kernels, with that kernel's
+    head dim; the 17 x 77 temporal text cross-attention and the 256-token
+    level 2 at 512x512 stay plain."""
+    calls = variant_shapes[case]
+    assert calls
+    for route, q_shape, k_shape in calls:
+        assert (route == "plain") == (_jax_route(q_shape, k_shape) == "plain"), (route, q_shape,
+                                                                                k_shape)
+        if route != "plain":
+            assert q_shape[-1] in _KERNEL_HEAD_DIMS[route], (route, q_shape)
+    routes = {r for r, _, _ in calls}
+    want = {"interp": {("spatial", (17, 8, 3072, 40), (17, 8, 3072, 40)),
+                       ("spatial", (17, 8, 768, 80), (17, 8, 768, 80)),
+                       ("spatial", (2, 8, 3072, 40), (2, 8, 3072, 40)),  # first + last frames
+                       ("temporal", (3072, 8, 17, 40), (3072, 8, 17, 40))},
+            "interp_vae": {("flash", (2, 1, 3072, 512), (2, 1, 3072, 512))},
+            "raig": {("spatial", (2, 8, 4096, 40), (2, 8, 4096, 40)),
+                     ("plain", (2, 8, 256, 160), (2, 8, 256, 160))},
+            "cn3d": {("spatial", (34, 8, 6144, 40), (34, 8, 6144, 40)),
+                     ("temporal", (12288, 8, 17, 40), (12288, 8, 17, 40))},
+            "cn3d_centre": {("spatial", (2, 8, 6144, 40), (2, 8, 6144, 40))},
+            "unet": {("plain", (12288, 8, 17, 40), (12288, 8, 77, 40)),
+                     ("temporal", (12288, 8, 17, 40), (12288, 8, 17, 40)),
+                     ("spatial", (34, 8, 6144, 40), (34, 8, 6144, 40))}}[case]
+    assert want <= set(calls), (want - set(calls), routes)
+    if case == "raig":  # level 0: the UNet's 5 transformers' self- and reference
+        # attention, and the appearance branch's 2 self-attentions
+        assert sum(c == ("spatial", (2, 8, 4096, 40), (2, 8, 4096, 40)) for c in calls) == 12
+    if case == "cn3d_centre":  # the centre frame alone: temporal attention over T = 1
+        assert all(q[2] == 1 for r, q, _ in calls if r == "temporal")
