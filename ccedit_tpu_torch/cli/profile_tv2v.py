@@ -226,14 +226,16 @@ EDIT_CONFIGS = {"tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_Z
 TRAIN_WORKLOADS = ("train", "tvi2v_train", "interp_train", "vae_train")
 
 
-def build_edit(workload: str, device, seed: int, steps: int):
+def build_edit(workload: str, device, seed: int, steps: int, config=None):
     """The full-width engine of the ``tv2v``, ``tvi2v`` or ``tvi2v_zoe``
     edit (seeded random weights, bf16) and ``edit(n_steps, generator,
     **edit_clip keywords)``, which edits the synthetic 17x512x768 clip as
     the README's settings do: TV2V with the luminance depth stand-in at CFG
     7.5; TVI2V with a random DPT-Hybrid (``tvi2v_zoe``: ZoeD_M12_N), the
     centre frame with its colours shifted as the edited reference,
-    ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.  Returns
+    ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.  ``config``
+    replaces the workload's engine config (another structure hint, say; an
+    annotator read from its ``ckpt_path`` keeps its weights).  Returns
     (engine, edit, cfg_scale)."""
     tvi2v = workload != "tv2v"
     cfg_scale = 7.0 if tvi2v else 7.5
@@ -242,7 +244,7 @@ def build_edit(workload: str, device, seed: int, steps: int):
         ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(h),
          "--W", str(w), "--num_keyframes", str(t), "--sample_steps", str(steps),
          "--cfg_scale", str(cfg_scale)] + ([] if tvi2v else ["--fake_annotator"]))
-    engine, _ = load_engine(args, steps, EDIT_CONFIGS[workload])
+    engine, _ = load_engine(args, steps, config or EDIT_CONFIGS[workload])
     frames = moving_gradient_clip(t, h, w)
     extra = {}
     if tvi2v:  # the edited reference: the centre frame with its colours shifted

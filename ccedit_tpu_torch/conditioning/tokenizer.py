@@ -172,10 +172,17 @@ class HashTokenizer:
 
 def load_tokenizer(asset_dir: Optional[str] = None) -> object:
     """Find tokenizer assets in asset_dir (vocab.json + merges.txt or
-    bpe_simple_vocab_16e6.txt.gz); the hash stand-in without assets."""
+    bpe_simple_vocab_16e6.txt.gz); the hash stand-in without assets.
+    vocab.json + merges.txt go to the native C++ tokenizer where it is
+    built or can be (``native_tokenizer.available``), as in the JAX
+    package; a failed build raises rather than falling back."""
     if asset_dir:
         d = Path(asset_dir)
         if (d / "vocab.json").exists() and (d / "merges.txt").exists():
+            from .native_tokenizer import NativeClipTokenizer, available
+
+            if available():
+                return NativeClipTokenizer(str(d / "vocab.json"), str(d / "merges.txt"))
             return ClipTokenizer(str(d / "vocab.json"), str(d / "merges.txt"))
         gz = d / "bpe_simple_vocab_16e6.txt.gz"
         if gz.exists():

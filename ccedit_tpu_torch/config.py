@@ -43,9 +43,10 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from .conditioning.annotators.base import TARGETS as ANNOTATOR_TARGETS
 from .conditioning.annotators.base import build_annotator
 from .conditioning.conditioner import Conditioner, EmbedderSpec
-from .conditioning.embedders import CLIPTextEmbedder, IdentityEncoder, VAEEmbedder
+from .conditioning import embedders as E
 from .diffusion import (
     Denoiser,
     DiscreteDenoiser,
@@ -464,27 +465,87 @@ def build_autoencoder_engine(cfg: Dict):
     return AutoencodingEngine(_autoencoder_kl(_params(p.get("encoder_config"))), loss_cfg)
 
 
+def build_embedder(emb: Dict, asset_dir: Optional[str] = None,
+                   fake_annotator: bool = False):
+    """One embedder of a reference ``emb_models`` entry: every target of the
+    JAX ``_build_embedder``, with its defaults.  Any other target raises
+    ``KeyError`` naming it.  ``fake_annotator`` (the CLI's flag) opts a depth
+    annotator into the luminance stand-in."""
+    name, p = _tname(emb), _params(emb)
+    if name == "FrozenCLIPEmbedder":
+        return E.CLIPTextEmbedder(CLIPTextModel(), asset_dir=asset_dir,
+                                  output_layer=p.get("layer", "last"),
+                                  layer_idx=p.get("layer_idx"))
+    if name == "VAEEmbedder":
+        return E.VAEEmbedder()
+    if name == "IdentityEncoder":
+        return E.IdentityEncoder()
+    if name == "CustomIdentityEncoder":
+        return E.CustomIdentityEncoder(p.get("down_blur_factor"), p.get("down_blur_probs"),
+                                       p.get("downsample_factor", 1))
+    if name == "CustomIdentityDownCondEncoder":
+        return E.CustomIdentityDownCondEncoder(p.get("outdim", 256), p.get("down_blur_factor"),
+                                               p.get("down_blur_probs"))
+    if name == "ConcatTimestepEmbedderND":
+        return E.ConcatTimestepEmbedderND(p.get("outdim", 256))
+    if name == "ClassEmbedder":
+        return E.ClassEmbedder(p.get("embed_dim", 512), p.get("n_classes", 1000),
+                               add_sequence_dim=p.get("add_sequence_dim", False))
+    if name == "LowScaleEncoder":
+        return E.LowScaleEncoder(
+            max_noise_level=p.get("max_noise_level", 250), out_size=p.get("output_size"),
+            scale_factor=p.get("scale_factor", 1.0), num_timesteps=p.get("timesteps", 1000),
+            linear_start=p.get("linear_start", 0.00085), linear_end=p.get("linear_end", 0.0120))
+    if name == "SpatialRescaler":
+        return E.SpatialRescaler(
+            p.get("multiplier", p.get("factor", 0.5)), p.get("method", "bilinear"),
+            n_stages=p.get("n_stages", 1), out_channels=p.get("out_channels"),
+            kernel_size=p.get("kernel_size", 1), bias=p.get("bias", False),
+            in_channels=p.get("in_channels", 3))
+    if name == "InpaintingEncoder":
+        return E.InpaintingEncoder(p.get("mask_ratio_min", 0.3), p.get("mask_ratio_max", 0.5))
+    if name == "OutpaintingEncoder":
+        return E.OutpaintingEncoder(p.get("mask_ratio_min", 0.0), p.get("mask_ratio_max", 0.4))
+    if name == "GaussianEncoder":
+        enc_keys = ("ch", "ch_mult", "num_res_blocks", "attn_resolutions", "in_channels",
+                    "z_channels", "double_z", "resolution")
+        return E.GaussianEncoder(weight=p.get("weight", 1.0),
+                                 flatten_output=p.get("flatten_output", True),
+                                 **{k: p[k] for k in enc_keys if k in p})
+    if name == "FrozenT5Embedder":
+        return E.T5TextEmbedder(version=p.get("version", "google/t5-v1_1-xxl"),
+                                max_length=p.get("max_length", 77), spm_path=p.get("spm_path"))
+    if name == "FrozenByT5Embedder":
+        return E.T5TextEmbedder(version=p.get("version", "google/byt5-base"),
+                                max_length=p.get("max_length", 77), variant="byt5")
+    if name in ("FrozenOpenCLIPEmbedder", "FrozenOpenCLIPEmbedder2"):
+        return E.OpenCLIPTextEmbedder(
+            arch=p.get("arch", "ViT-H-14"), layer=p.get("layer", "last"),
+            legacy=p.get("legacy", True) or name == "FrozenOpenCLIPEmbedder",
+            always_return_pooled=p.get("always_return_pooled", False),
+            max_length=p.get("max_length", 77), asset_dir=asset_dir)
+    if name == "FrozenOpenCLIPImageEmbedder":
+        return E.OpenCLIPImageEmbedder(
+            arch=p.get("arch", "ViT-H-14"), unsqueeze_dim=p.get("unsqueeze_dim", False),
+            repeat_to_max_len=p.get("repeat_to_max_len", False),
+            max_length=p.get("max_length", 77), output_tokens=p.get("output_tokens", False))
+    if name == "FrozenCLIPT5Encoder":
+        return E.CLIPT5Embedder(asset_dir=asset_dir,
+                                clip_max_length=p.get("clip_max_length", 77),
+                                t5_max_length=p.get("t5_max_length", 77),
+                                t5_version=p.get("t5_version", "google/t5-v1_1-xl"))
+    if name in ANNOTATOR_TARGETS:
+        return build_annotator(name, dict(p, fake_annotator=fake_annotator
+                                          or p.get("fake_annotator", False)))
+    raise KeyError(f"unknown embedder target {name!r}")
+
+
 def build_conditioner(cfg: Dict, asset_dir: Optional[str] = None,
                       fake_annotator: bool = False) -> Conditioner:
-    specs = []
-    for emb in _params(cfg).get("emb_models", []):
-        name = _expect(emb, "FrozenCLIPEmbedder", "IdentityEncoder", "VAEEmbedder",
-                       "DepthMidasEncoder", "DepthZoeEncoder")
-        p = _params(emb)
-        if name == "FrozenCLIPEmbedder":
-            embedder = CLIPTextEmbedder(CLIPTextModel(), asset_dir=asset_dir,
-                                        output_layer=p.get("layer", "last"),
-                                        layer_idx=p.get("layer_idx"))
-        elif name == "IdentityEncoder":
-            embedder = IdentityEncoder()
-        elif name == "VAEEmbedder":
-            embedder = VAEEmbedder()
-        else:
-            embedder = build_annotator(name, dict(p, fake_annotator=fake_annotator
-                                                  or p.get("fake_annotator", False)))
-        specs.append(EmbedderSpec(embedder, emb.get("input_key", "txt"),
-                                  ucg_rate=float(emb.get("ucg_rate", 0.0)),
-                                  legacy_ucg_value=emb.get("legacy_ucg_value")))
+    specs = [EmbedderSpec(build_embedder(emb, asset_dir, fake_annotator),
+                          emb.get("input_key", "txt"), ucg_rate=float(emb.get("ucg_rate", 0.0)),
+                          legacy_ucg_value=emb.get("legacy_ucg_value"))
+             for emb in _params(cfg).get("emb_models", [])]
     return Conditioner(specs)
 
 

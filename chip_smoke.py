@@ -148,6 +148,26 @@ Phases:
      ``vector`` cond), each on (2, 17, 64, 96) through kernels 1 and 2,
      held to plain attention, refusing kernels 1 and 2 with their batch
      halves swapped.  Each part prints its seconds and peak memory.
+  9. conditioning, with seeded random checkpoints in each reference file's
+     layout (``annotators/random_weights.py``) read by ``build_annotator``:
+     (a) the eight structure hints (lineart standard and learned, HED and
+     PiDiNet soft edges, their scribbles, NormalBAE, openpose) on a
+     17x512x768 clip with edges and colour, through the conditioner's CHUNK
+     loop in bf16 (NormalBAE fp32), each printing its seconds; each
+     backbone family's maps on the first chunk held to the same module in
+     fp32 by channel-centred cosine (HINT_COSINE), which its planted fault
+     must fail (PiDiNet with its PDC fold left out, HED with the sigmoid
+     before the mean, NormalBAE with its refinements skipped, openpose
+     without the BGR flip); lineart-standard held to a float64 numpy
+     version, the scribble NMS to a scipy version (intersection over union
+     of the pixels either marks), and the pose assembly to
+     a person planted in synthetic maps.  (b) The TV2V 3-step edit of phase
+     4 with its depth hint replaced by ``SoftEdgeEncoder`` (PiDiNet) and by
+     ``OpenposeEncoder``, each launching kernels 1, 2 and 3.  (c) OpenCLIP
+     ViT-H/14 text (penultimate, legacy) and vision and T5 v1.1-XL with
+     CLIP-L through ``CLIPT5Embedder``, at full width in bf16 against fp32
+     (TOWER_COSINE), and the native BPE tokenizer, built with g++ and chosen
+     by ``load_tokenizer``, id for id against the Python one.  No step needs cv2.
   Launch counts are reset just before each path and read just after (per
   stage for the edits, per step in VAE training); every kernel of that path
   must have run (on the
@@ -391,6 +411,8 @@ PATH_KERNELS = {
     "tv2v_churn": ("spatial_attention", "temporal_attention", "flash_attention"),
     "tvi2v_zoe": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
                   "flash_attention", "flash_attention_encoder"),
+    "tv2v_softedge": ("spatial_attention", "temporal_attention", "flash_attention"),
+    "tv2v_openpose": ("spatial_attention", "temporal_attention", "flash_attention"),
 }
 
 
@@ -2168,6 +2190,479 @@ def run_variants(device, seed: int) -> dict:
     torch.cuda.empty_cache()
     return by_path
 
+# ---------------------------------------------------------------------------
+# phase 9: conditioning
+# ---------------------------------------------------------------------------
+
+# the hints of phase 9 (a): (label, reference target, params, backbone family)
+HINTS = (("lineart_standard", "LineartEncoder", {}, None),
+         ("lineart_model", "LineartEncoder", {"lineart_standard": False}, "lineart_model"),
+         ("softedge_hed", None, {}, "hed"),
+         ("softedge_pidinet", "SoftEdgeEncoder", {"safe": True}, "pidinet"),
+         ("scribble_hed", "ScribbleHEDEncoder", {}, "hed"),
+         ("scribble_pidinet", "ScribblePidiNetEncoder", {}, "pidinet"),
+         ("normal_bae", "NormalBaeEncoder", {}, "normal_bae"),
+         ("openpose", "OpenposeEncoder", {}, "openpose"))
+# phase 9 (b): the TV2V edit with its depth hint replaced
+HINT_EDITS = (("tv2v_softedge", "SoftEdgeEncoder", "pidinet"),
+              ("tv2v_openpose", "OpenposeEncoder", "openpose"))
+# a backbone family's maps on the clip's first chunk in bf16 against the same
+# module in fp32, by the cosine of the maps with each channel's mean taken
+# out (the pose network's 57 maps each carry their own offset); each family's
+# planted fault must fall below it.  NormalBAE stays fp32 (its refinements
+# pick pixels by kappa order, which bf16 rounding reshuffles), so its check
+# is exact and only its fault is informative.  First H100 reading: 0.99491
+# (PiDiNet, 16 residual blocks) to 0.99995 (HED) sound, 0.085 (PiDiNet
+# unfolded) to 0.867 (HED's sigmoid first) with the faults
+HINT_COSINE = 0.99
+# the text and image towers in bf16 against fp32, centred cosine
+TOWER_COSINE = 0.999
+# the host steps against their plain numpy versions: lineart-standard's
+# max |difference| (values in [-1, 1]); the NMS by the intersection over
+# union of the pixels either side marks (an empty union fails)
+LINEART_TOLERANCE = 1e-3
+NMS_IOU = 0.99
+# the heatmap head's bias is set so that this share of the first frame's
+# heatmap values passes 0.1, openpose's peak threshold: few peaks, so the
+# host assembly of a random network stays small
+POSE_HOT_SHARE = 1e-3
+
+
+def channel_centred_cosine(a, b) -> float:
+    """Cosine of two (N, H, W, C) maps, each channel less its own mean."""
+    a, b = a.double(), b.double()
+    return cosine(a - a.mean(dim=(0, 1, 2)), b - b.mean(dim=(0, 1, 2)))
+
+
+def family_maps(family: str, model, frames, fault: bool = False):
+    """A backbone family's maps on (N, H, W, 3) frames in [-1, 1], fp32;
+    ``fault`` plants the family's fault here (HED: the sigmoid on each
+    projection before their mean; NormalBAE: a copy whose refinement heads
+    return their points' own estimate, so the refinements change nothing;
+    openpose: the frames fed reversed, so that its BGR flip hands the
+    network RGB; PiDiNet's, the PDC fold left out, is planted in its
+    weights)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from ccedit_tpu_torch.conditioning.annotators.hed import detect_hed
+    from ccedit_tpu_torch.conditioning.annotators.lineart_model import detect_lineart
+    from ccedit_tpu_torch.conditioning.annotators.normalbae import detect_normalbae
+    from ccedit_tpu_torch.conditioning.annotators.openpose import openpose_maps
+    from ccedit_tpu_torch.conditioning.annotators.pidinet import detect_pidinet
+
+    class KeepInit(torch.nn.Module):
+        def forward(self, x):  # (B, C + 4, k) sampled points -> their estimate
+            return x[:, -4:]
+
+    if family == "lineart_model":
+        return detect_lineart(model, frames)
+    if family == "hed" and fault:
+        x = ((frames + 1.0) * 127.5).permute(0, 3, 1, 2).to(next(model.parameters()).dtype)
+        ups = [torch.sigmoid(F.interpolate(p.float(), size=frames.shape[1:3], mode="bilinear",
+                                           align_corners=False)) for p in model(x)]
+        return torch.stack(ups).mean(dim=0).permute(0, 2, 3, 1)
+    if family == "hed":
+        return detect_hed(model, frames)
+    if family == "pidinet":
+        return detect_pidinet(model, ((frames + 1.0) * 0.5).flip(-1))
+    if family == "normal_bae":
+        if fault:
+            model = copy.deepcopy(model)
+            for stage in ("res4", "res2", "res1"):
+                setattr(model.decoder, f"out_conv_{stage}", KeepInit())
+        return detect_normalbae(model, (frames + 1.0) * 0.5)
+    return torch.cat(openpose_maps(model, frames.flip(-1) if fault else frames), dim=-1)
+
+
+def write_hint_checkpoints(device, seed: int, first_frames) -> dict:
+    """Seeded random checkpoints of every backbone family, in the reference
+    files' layouts, written to ``build/chip_smoke_conditioning``; the pose
+    network's heatmap bias is set on ``first_frames`` (POSE_HOT_SHARE).
+    Returns {family: path}."""
+    import pathlib
+
+    import torch
+
+    from ccedit_tpu_torch.conditioning.annotators.openpose import (bodypose_from_state_dict,
+                                                                   openpose_maps)
+    from ccedit_tpu_torch.conditioning.annotators.random_weights import random_checkpoint
+
+    out_dir = pathlib.Path("build") / "chip_smoke_conditioning"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    paths = {}
+    for family, name in (("lineart_model", "sk_model.pth"), ("hed", "ControlNetHED.pth"),
+                         ("pidinet", "table5_pidinet.pth"), ("normal_bae", "scannet.pt"),
+                         ("openpose", "body_pose_model.pth")):
+        sd = random_checkpoint(family, gen)
+        if family == "openpose":
+            with torch.no_grad():
+                heat = openpose_maps(bodypose_from_state_dict(sd).to(device), first_frames)[0]
+            hot = torch.quantile(heat[..., :18].flatten()[::7], 1.0 - POSE_HOT_SHARE).item()
+            sd["Mconv7_stage6_L2.bias"] += 0.1 - hot
+        torch.save(_to_cpu(sd), out_dir / name)
+        paths[family] = str(out_dir / name)
+    return paths
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def structured_clip(t: int, h: int, w: int):
+    """The moving-gradient clip with hard edges and saturated colours in it
+    (a red box moving right, a blue disc moving left, a dark horizontal
+    line), so that every hint has edges, lines and colour to read."""
+    import numpy as np
+
+    from ccedit_tpu_torch.data.video import moving_gradient_clip
+
+    clip = moving_gradient_clip(t, h, w).copy()
+    yy, xx = np.mgrid[0:h, 0:w]
+    for f in range(t):
+        x0, y0 = int(w * (0.15 + 0.02 * f)), int(h * 0.3)
+        clip[f, y0:y0 + h // 4, x0:x0 + w // 6] = (200, 30, 30)
+        disc = (yy - 0.6 * h) ** 2 + (xx - w * (0.7 - 0.01 * f)) ** 2 < (0.12 * h) ** 2
+        clip[f][disc] = (30, 40, 220)
+        clip[f, int(0.8 * h):int(0.8 * h) + max(2, h // 128)] = 0
+    return clip
+
+
+def plain_lineart(frame):
+    """lineart-standard in float64 numpy (scipy's correlate1d with edge
+    replication, the lower median) on one (H, W, 3) frame in [-1, 1]."""
+    import numpy as np
+    from scipy.ndimage import correlate1d
+
+    x255 = (frame.astype(np.float64) + 1.0) * 0.5 * 255.0
+    r = np.arange(37) - 18.0
+    k = np.exp(-r ** 2 / 72.0)
+    k /= k.sum()
+    g = correlate1d(correlate1d(x255, k, axis=0, mode="nearest"), k, axis=1, mode="nearest")
+    intensity = np.clip((g - x255).min(axis=-1), 0.0, 255.0)
+    above = np.sort(intensity[intensity > 8.0])
+    med = above[(len(above) - 1) // 2] if len(above) else 0.0
+    out = np.clip(intensity / max(16.0, med) * 127.0, 0.0, 255.0)
+    return -(out / 255.0 * 2.0 - 1.0)
+
+
+def plain_nms(edge_u8):
+    """The scribble NMS in scipy: a float64 sigma-3 Gaussian (25 taps,
+    mirrored border), the pixels that are maxima along a line orientation,
+    then > 127."""
+    import numpy as np
+    from scipy.ndimage import correlate1d, maximum_filter
+
+    from ccedit_tpu_torch.conditioning.annotators.scribble import _LINES
+
+    r = np.arange(25) - 12.0
+    k = np.exp(-r ** 2 / 18.0)
+    k /= k.sum()
+    x = edge_u8.astype(np.float64)
+    x = correlate1d(correlate1d(x, k, axis=0, mode="mirror"), k, axis=1, mode="mirror")
+    x = x.astype(np.float32)
+    y = np.zeros_like(x)
+    for f in _LINES:
+        peak = maximum_filter(x, footprint=f.astype(bool), mode="constant", cval=-np.inf) == x
+        y[peak] = x[peak]
+    return np.where(y > 127, 255, 0).astype(np.uint8)
+
+
+def pose_roundtrip(h: int, w: int):
+    """A person planted as heatmap peaks and PAFs (one Gaussian per joint,
+    unit vectors along each limb) -> (the canvas the host assembly draws,
+    the canvas drawn from the planted joints)."""
+    import numpy as np
+
+    from ccedit_tpu_torch.conditioning.annotators import openpose as op
+
+    joints = np.array([[0.50, 0.15], [0.50, 0.25], [0.40, 0.25], [0.36, 0.40], [0.33, 0.55],
+                       [0.60, 0.25], [0.64, 0.40], [0.67, 0.55], [0.44, 0.55], [0.43, 0.72],
+                       [0.42, 0.90], [0.56, 0.55], [0.57, 0.72], [0.58, 0.90], [0.47, 0.12],
+                       [0.53, 0.12], [0.44, 0.13], [0.56, 0.13]])
+    px = np.round(joints * [w, h]).astype(int)
+    yy, xx = np.mgrid[0:h, 0:w]
+    heat = np.zeros((h, w, 19), np.float32)
+    for p, (x, y) in enumerate(px):
+        heat[..., p] = np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 18.0)
+    paf = np.zeros((h, w, 38), np.float32)
+    for k, (a, b) in enumerate(op.LIMB_SEQ):
+        pa, pb = px[a - 1].astype(float), px[b - 1].astype(float)
+        v = (pb - pa) / max(np.hypot(*(pb - pa)), 1e-3)
+        for s in np.linspace(0.0, 1.0, 200):
+            x, y = np.round(pa + s * (pb - pa)).astype(int)
+            paf[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4, op.MAP_IDX[k][0] - 19] = v[0]
+            paf[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4, op.MAP_IDX[k][1] - 19] = v[1]
+    cand = np.concatenate([px / [w, h], np.ones((18, 1)), np.arange(18)[:, None]], axis=1)
+    subset = np.concatenate([np.arange(18.0), [18.0, 18.0]])[None]
+    return op.pose_canvas(heat, paf), op.draw_bodypose(np.zeros((h, w, 3), np.uint8), cand,
+                                                       subset)
+
+
+def check_hints(device, seed: int, clip, paths: dict) -> None:
+    """Phase 9 (a): every hint on the clip through the conditioner's CHUNK
+    loop (bf16 backbones; NormalBAE fp32), each backbone family's maps held
+    to fp32 with its planted fault refused, and the host steps held to
+    their plain numpy versions."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ccedit_tpu_torch.conditioning.annotators.base import CHUNK, AnnotatorEmbedder, \
+        build_annotator
+    from ccedit_tpu_torch.conditioning.annotators.pidinet import PiDiNet
+    from ccedit_tpu_torch.conditioning.annotators.scribble import nms
+    from ccedit_tpu_torch.io.checkpoint import load_torch_state_dict
+
+    frames = clip.float() / 127.5 - 1.0
+    chunk = frames[:CHUNK]
+    checked = set()
+    for label, target, params, family in HINTS:
+        t0 = time.perf_counter()
+        if target is None:  # HED soft edge: no reference target of its own
+            emb = AnnotatorEmbedder(label, backbone=build_annotator(
+                "ScribbleHEDEncoder", {"ckpt_path": paths[family]}).backbone)
+        else:
+            emb = build_annotator(target, dict(params, ckpt_path=paths.get(family)))
+        emb = emb.to(device).to(torch.bfloat16).eval()
+        with torch.no_grad():
+            if family is not None and family not in checked:
+                checked.add(family)
+                net32 = copy.deepcopy(emb.backbone).float()
+                ref = family_maps(family, net32, chunk)
+                sound = channel_centred_cosine(family_maps(family, emb.backbone, chunk), ref)
+                fault = None  # lineart_model has no planted fault
+                if family == "pidinet":  # the raw PDC weights as plain 3x3 convs
+                    faulty = PiDiNet(pdcs=("cv",) * 16)
+                    faulty.load_state_dict(load_torch_state_dict(paths[family]))
+                    faulty = faulty.to(device).to(torch.bfloat16)
+                    fault = channel_centred_cosine(family_maps(family, faulty, chunk), ref)
+                    del faulty
+                elif family != "lineart_model":
+                    fault = channel_centred_cosine(
+                        family_maps(family, emb.backbone, chunk, True), ref)
+                del net32
+                print(f"[conditioning] {family} maps of the first chunk, bf16 vs fp32 on the "
+                      f"card: channel-centred cosine {sound:.6f}" + ("" if fault is None else
+                      f"; with the planted fault {fault:.6f}") + f" (limit {HINT_COSINE})",
+                      flush=True)
+                if not sound >= HINT_COSINE:
+                    raise RuntimeError(f"the bf16 {family} maps left the fp32 ones: {sound}")
+                if fault is not None and not fault < HINT_COSINE:
+                    raise RuntimeError(f"the {family} check passes its planted fault: {fault}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hint = emb(clip[None])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        if hint.shape != (1, T, H, W, 3) or not bool(torch.isfinite(hint).all()) \
+                or hint.abs().max().item() > 1.0:
+            raise RuntimeError(f"the {label} hint is {tuple(hint.shape)}, finite "
+                               f"{bool(torch.isfinite(hint).all())}, max |x| "
+                               f"{hint.abs().max().item()}")
+        print(f"[conditioning] {label} hint of {T}x{H}x{W}: {seconds:.3f} s "
+              f"(mean {hint.mean().item():.4f}, std {hint.std().item():.4f}; with its build "
+              f"and check {time.perf_counter() - t0:.1f} s)", flush=True)
+        if label == "lineart_standard":
+            err = float(np.abs(hint[0, 0, ..., 0].cpu().numpy()
+                               - plain_lineart(frames[0].cpu().numpy())).max())
+            print(f"[conditioning] lineart-standard on the card vs float64 numpy: max |diff| "
+                  f"{err:.2e} (tol {LINEART_TOLERANCE:.0e})", flush=True)
+            if not err <= LINEART_TOLERANCE:
+                raise RuntimeError(f"lineart-standard disagrees with its numpy version: {err}")
+        if label == "scribble_hed":
+            with torch.no_grad():
+                edge = family_maps("hed", emb.backbone.float(), frames[:1])[0, ..., 0]
+            edge_u8 = np.clip(edge.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+            ours, plain = nms(edge_u8, 127, 3.0) > 0, plain_nms(edge_u8) > 0
+            union = int((ours | plain).sum())
+            if union == 0:
+                raise RuntimeError("neither NMS marked a pixel: nothing was compared")
+            iou = int((ours & plain).sum()) / union
+            print(f"[conditioning] scribble NMS vs its scipy version: intersection over union "
+                  f"{iou:.6f} of the {union} pixels either marks (limit {NMS_IOU}); marked "
+                  f"{ours.mean():.6f} and {plain.mean():.6f} of the frame, "
+                  f"{(edge_u8 > 127).mean():.4f} of the edge above 127", flush=True)
+            if not iou >= NMS_IOU:
+                raise RuntimeError(f"the scribble NMS disagrees with scipy's: IoU {iou}")
+        del emb, hint
+        torch.cuda.empty_cache()
+    drawn, planted = pose_roundtrip(H, W)
+    lit = drawn.any(-1) | planted.any(-1)
+    agree = float((drawn == planted).all(-1)[lit].mean())
+    print(f"[conditioning] pose assembly of a planted person: {agree:.6f} of the {int(lit.sum())} "
+          "drawn pixels equal the planted pose's", flush=True)
+    if not agree == 1.0:
+        raise RuntimeError(f"the pose assembly did not recover the planted person: {agree}")
+
+
+def random_tower_(module, generator):
+    """Seeded random weights in place: matrices N(0, 1/fan_in), norm scales
+    1 + N(0, 0.1^2), other vectors N(0, 0.1^2).  Returns the state dict
+    drawn (the module's keys are the reference layout's)."""
+    import torch
+
+    sd = {}
+    for k, v in module.state_dict().items():
+        x = torch.randn(v.shape, generator=generator, device=generator.device)
+        if v.dim() >= 2:
+            x = x / max(1, v[0].numel()) ** 0.5
+        elif k.endswith("weight"):
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.1 * x
+        sd[k] = x
+    return sd
+
+
+def check_towers(device, seed: int, clip) -> None:
+    """Phase 9 (c): OpenCLIP ViT-H/14 text (penultimate, legacy) and vision,
+    and T5 v1.1-XL with CLIP-L through ``CLIPT5Embedder``, at full width in
+    bf16 against fp32, each loaded through the port's loaders; then the
+    native tokenizer, built with g++, against the Python one."""
+    import copy
+    import json as _json
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from ccedit_tpu_torch.conditioning import embedders as E
+    from ccedit_tpu_torch.conditioning import native_tokenizer
+    from ccedit_tpu_torch.conditioning.tokenizer import (ClipTokenizer, bytes_to_unicode,
+                                                         load_tokenizer)
+    from ccedit_tpu_torch.modules.clip import CLIPTextModel
+    from ccedit_tpu_torch.modules.openclip import (OpenCLIPTextModel, OpenCLIPVisionModel,
+                                                   load_openclip_text, load_openclip_vision)
+    from ccedit_tpu_torch.modules.t5 import T5Encoder, load_t5_encoder
+
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    prompt = ["a robot bear walking through the snow", "ugly, low quality"]
+    with device:
+        text = OpenCLIPTextModel()
+        vision = OpenCLIPVisionModel()
+        d_model, d_kv, d_ff, heads, layers = E.T5TextEmbedder.SIZES["google/t5-v1_1-xl"]
+        t5 = T5Encoder(d_model=d_model, d_kv=d_kv, d_ff=d_ff, heads=heads, layers=layers)
+        clip_l = CLIPTextModel()
+    load_openclip_text(text, random_tower_(text, gen))
+    load_openclip_vision(vision, {"visual." + k: v for k, v in random_tower_(vision, gen).items()})
+    t5_sd = random_tower_(t5, gen)
+    for k in t5_sd:  # T5's own init folds 1/sqrt(d_kv) into q, as it never scales its logits
+        if k.endswith("SelfAttention.q.weight"):
+            t5_sd[k] = t5_sd[k] * d_kv ** -0.5
+    load_t5_encoder(t5, t5_sd)
+    clip_l.load_state_dict(random_tower_(clip_l, gen))
+    t5_tokens = torch.randint(1, 32128, (2, 77), generator=gen, device=device)
+    t5_tokens[:, 24:] = 0
+    towers = {
+        "OpenCLIP ViT-H/14 text (penultimate, legacy)": (
+            E.OpenCLIPTextEmbedder(layer="penultimate", model=text), prompt, None),
+        "OpenCLIP ViT-H/14 vision": (
+            E.OpenCLIPImageEmbedder(model=vision), clip[[0, T - 1]].float() / 127.5 - 1.0, None),
+        "T5 v1.1-XL + CLIP-L (CLIPT5Embedder)": (
+            E.CLIPT5Embedder(clip=clip_l, t5=t5), None,
+            lambda emb: {"clip": emb.clip.prepare(prompt, device), "t5": t5_tokens}),
+    }
+    for label, (emb, value, prepare) in towers.items():
+        emb = emb.eval()
+        n = sum(p.numel() for p in emb.parameters())
+        prepared = prepare(emb) if prepare else emb.prepare(value, device)
+        emb16 = copy.deepcopy(emb).to(torch.bfloat16)
+        with torch.no_grad():
+            ref = emb(prepared)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = emb16(prepared)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        outs, refs = (out, ref) if isinstance(out, list) else ([out], [ref])
+        cosines = [centred_cosine(o.float(), r) for o, r in zip(outs, refs)]
+        print(f"[conditioning] {label}: {n / 1e6:.1f} M parameters, bf16 forward "
+              f"{seconds * 1e3:.1f} ms, output {[tuple(o.shape) for o in outs]}; centred cosine "
+              f"vs fp32 {', '.join(f'{c:.6f}' for c in cosines)} (limit {TOWER_COSINE})",
+              flush=True)
+        if not all(bool(torch.isfinite(o).all()) for o in outs) or \
+                not min(cosines) >= TOWER_COSINE:
+            raise RuntimeError(f"{label} in bf16 left fp32: {cosines}")
+        del emb, emb16, ref, out
+        torch.cuda.empty_cache()
+
+    d = pathlib.Path("build") / "chip_smoke_conditioning"
+    base = list(bytes_to_unicode().values())
+    vocab = {v: i for i, v in enumerate(base + [b + "</w>" for b in base])}
+    for extra in ("he", "lo</w>", "llo</w>", "ing</w>", "th", "in", "the</w>",
+                  "<|startoftext|>", "<|endoftext|>"):
+        vocab[extra] = len(vocab)
+    (d / "vocab.json").write_text(_json.dumps(vocab))
+    (d / "merges.txt").write_text("#version\nh e\nl o</w>\nl lo</w>\nt h\ni n\nth e</w>\n")
+    t1 = time.perf_counter()
+    lib = native_tokenizer.build_library()
+    built = time.perf_counter() - t1
+    native = load_tokenizer(str(d))  # the text encoders' own choice of tokenizer
+    if not isinstance(native, native_tokenizer.NativeClipTokenizer):
+        raise RuntimeError(f"load_tokenizer gave {type(native).__name__}, not the native one")
+    py = ClipTokenizer(str(d / "vocab.json"), str(d / "merges.txt"))
+    texts = prompt + ["hello the world", "The    QUICK brown fox, it's 42!", "",
+                      "punctuation... everywhere?! (yes)", "thing in the inn " * 20]
+    same = bool(np.array_equal(native(texts), py(texts)))
+    print(f"[conditioning] native tokenizer {lib.name} built with g++ in {built:.1f} s; "
+          f"{len(texts)} prompts id for id equal to the Python tokenizer's: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the native tokenizer disagrees with the Python one")
+
+
+def run_conditioning(device, seed: int) -> dict:
+    """Phase 9: (a) every structure hint on ``structured_clip``, (b) the TV2V
+    edit (on phase 4's clip) with
+    the PiDiNet soft edge and with openpose as its hint, (c) the text and
+    image towers and the native tokenizer.  Returns the edits' per-stage
+    counts, as paths."""
+    import copy
+
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit
+    from ccedit_tpu_torch.config import TV2V_CONFIG
+
+    t0 = time.perf_counter()
+    print(f"[conditioning] {torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated before "
+          "the phase", flush=True)
+    clip = torch.from_numpy(structured_clip(T, H, W)).to(device)
+    paths = write_hint_checkpoints(device, seed, clip[:1].float() / 127.5 - 1.0)
+    check_hints(device, seed, clip, paths)
+    print(f"[conditioning] (a) hints in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    by_path = {}
+    for path, target, family in HINT_EDITS:
+        t2 = time.perf_counter()
+        cfg = copy.deepcopy(TV2V_CONFIG)
+        specs = cfg["model"]["params"]["conditioner_config"]["params"]["emb_models"]
+        hint = next(s for s in specs if s["input_key"] == "control_hint")
+        hint.update(target=f"sgm.modules.encoders.modules.{target}",
+                    params={"ckpt_path": paths[family]})
+        engine, edit, cfg_scale = build_edit("tv2v", device, seed, STEPS, config=cfg)
+        print(f"[{path}] engine built in {time.perf_counter() - t2:.1f} s, its hint "
+              f"{target}, CFG {cfg_scale}", flush=True)
+        _, _, by_path[path] = edit_counted(edit, device, STEPS, seed, path)
+        del engine, edit
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[conditioning] (b) edits in {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    check_towers(device, seed, clip)
+    print(f"[conditioning] (c) towers and tokenizer in {time.perf_counter() - t1:.1f} s; "
+          f"phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
 
 def reset_launches():
     """Every launch count to 0: the attention kernels' and the probes' (kernel
@@ -2226,8 +2721,9 @@ def main() -> int:
     by_path["train"] = run_train(device, SEED)
     by_path.update(run_tvi2v_train(device, SEED))
     by_path["vae_train"] = run_vae_train(device, SEED)
-    # phase 8: the network variants
+    # phase 8: the network variants; phase 9: conditioning
     by_path.update(run_variants(device, SEED))
+    by_path.update(run_conditioning(device, SEED))
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
         rec["launches"] = rec["launches_by_path"][spec["path"]]

@@ -684,3 +684,58 @@ def test_raig_reference_attention_through_kernel_1(cuda, hw, ch):
     assert torch.isfinite(out).all() and rel <= 5e-2, rel
     # the reference sub-layer's own contribution moves with its bank
     assert ((own - out).abs().max() / (out - body).abs().max()).item() > 0.2
+
+
+# the structure hints (phase 9): each kind's hint on the card against the same
+# module on the CPU, both fp32 (TF32 off), on a 2-frame 128x192 clip with
+# edges and colour, by centred cosine; the scribbles by the intersection
+# over union of their stroke pixels; openpose by its network's maps (its
+# host assembly is discrete, and held by phase 9 to a planted person)
+HINT_KINDS = (("LineartEncoder", {}, None), ("LineartEncoder", {"lineart_standard": False},
+                                             "lineart_model"),
+              ("softedge_hed", {}, "hed"), ("SoftEdgeEncoder", {"safe": True}, "pidinet"),
+              ("ScribbleHEDEncoder", {}, "hed"), ("ScribblePidiNetEncoder", {}, "pidinet"),
+              ("NormalBaeEncoder", {}, "normal_bae"), ("OpenposeEncoder", {}, "openpose"))
+
+
+@pytest.mark.parametrize("target,params,family", HINT_KINDS,
+                         ids=[f"{t}-{i}" for i, (t, _, _) in enumerate(HINT_KINDS)])
+def test_hint_on_the_card_equals_the_cpu_one(cuda, tmp_path, target, params, family):
+    from chip_smoke import structured_clip
+    from ccedit_tpu_torch.conditioning.annotators.base import AnnotatorEmbedder, build_annotator
+    from ccedit_tpu_torch.conditioning.annotators.random_weights import random_checkpoint
+
+    if family is not None:
+        params = dict(params, ckpt_path=str(tmp_path / f"{family}.pt"))
+        torch.save(random_checkpoint(family, torch.Generator().manual_seed(1)),
+                   params["ckpt_path"])
+    if target == "softedge_hed":  # no reference target of its own
+        emb = AnnotatorEmbedder("softedge_hed", backbone=build_annotator(
+            "ScribbleHEDEncoder", params).backbone)
+    else:
+        emb = build_annotator(target, params)
+    clip = torch.from_numpy(structured_clip(2, 128, 192))[None]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = emb.eval()(clip).double()
+            card = copy.deepcopy(emb).to(cuda)
+            out = card(clip.to(cuda)).double().cpu()
+            if target == "OpenposeEncoder":
+                from ccedit_tpu_torch.conditioning.annotators.openpose import openpose_maps
+
+                frames = clip[0].float() / 127.5 - 1.0
+                ref = torch.cat(openpose_maps(emb.backbone, frames), -1).double()[None]
+                out = torch.cat(openpose_maps(card.backbone, frames.to(cuda)), -1)
+                out = out.double().cpu()[None]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    if target.startswith("Scribble"):  # strokes are -1: IoU of the stroke pixels
+        ours, theirs = (out < 0).all(-1), (ref < 0).all(-1)
+        union = (ours | theirs).sum().item()
+        assert union > 0 and (ours & theirs).sum().item() / union >= 0.99
+    else:
+        a, b = out - out.mean(), ref - ref.mean()
+        assert (a.flatten() @ b.flatten() / (a.norm() * b.norm())).item() >= 0.9999

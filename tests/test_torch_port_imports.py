@@ -1,9 +1,12 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
 included), its data parallelism and native decode binding, its samplers, ZoeDepth, the LoRA merge, its training modules
-(VAE training's too), ``unet_extras``, the kernel-7 sweep script and ``chip_smoke.py``'s
+(VAE training's too), ``unet_extras``, the kernel-7 sweep script, every
+structure annotator, embedder and text tower and the native tokenizer
+binding (which builds nothing at import), and ``chip_smoke.py``'s
 imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
-the GPU machine may not have."""
+the GPU machine may not have; the annotators also run without cv2
+(``test_torch_port_annotators.py``)."""
 
 import subprocess
 import sys
@@ -36,6 +39,20 @@ import ccedit_tpu_torch.train.lr_schedule
 import ccedit_tpu_torch.train.trainer
 import ccedit_tpu_torch.conditioning.annotators.dpt_midas
 import ccedit_tpu_torch.conditioning.annotators.zoedepth
+import ccedit_tpu_torch.conditioning.annotators.base
+import ccedit_tpu_torch.conditioning.annotators.hed
+import ccedit_tpu_torch.conditioning.annotators.imgproc
+import ccedit_tpu_torch.conditioning.annotators.lineart
+import ccedit_tpu_torch.conditioning.annotators.lineart_model
+import ccedit_tpu_torch.conditioning.annotators.normalbae
+import ccedit_tpu_torch.conditioning.annotators.openpose
+import ccedit_tpu_torch.conditioning.annotators.pidinet
+import ccedit_tpu_torch.conditioning.annotators.random_weights
+import ccedit_tpu_torch.conditioning.annotators.scribble
+import ccedit_tpu_torch.conditioning.embedders
+import ccedit_tpu_torch.conditioning.native_tokenizer
+import ccedit_tpu_torch.modules.openclip
+import ccedit_tpu_torch.modules.t5
 import ccedit_tpu_torch.diffusion.denoiser
 import ccedit_tpu_torch.diffusion.discretization
 import ccedit_tpu_torch.diffusion.samplers
@@ -53,6 +70,7 @@ import ccedit_tpu_torch.ops.flash_attention
 import ccedit_tpu_torch.scripts.profile_blocks
 import chip_smoke
 chip_smoke.reset_launches()
+assert ccedit_tpu_torch.conditioning.native_tokenizer._LIB is None  # built at first use only
 print(sorted(m for m in ("jax", "flax", "ccedit_tpu", "cv2", "PIL", "imageio", "yaml")
              if m in sys.modules))
 """

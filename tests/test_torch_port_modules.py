@@ -27,6 +27,7 @@ from ccedit_tpu.modules import controlnet as jcn
 from ccedit_tpu.modules import transformer as jtr
 from ccedit_tpu.modules import unet as jun
 from ccedit_tpu.modules import vae as jvae
+from ccedit_tpu_torch.conditioning import native_tokenizer
 from ccedit_tpu_torch.conditioning import tokenizer as port_tok
 from ccedit_tpu_torch.diffusion import DiscreteDenoiser, DPMPP2SAncestralSampler, get_ancestral_step
 from ccedit_tpu_torch.diffusion import LegacyDDPMDiscretization
@@ -209,9 +210,11 @@ def test_tokenizers_token_for_token(tmp_path):
     (tmp_path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
     ours = port_tok.load_tokenizer(str(tmp_path))
     theirs = jax_tok.ClipTokenizer(str(tmp_path / "vocab.json"), str(tmp_path / "merges.txt"))
-    assert isinstance(ours, port_tok.ClipTokenizer)
+    assert isinstance(ours, native_tokenizer.NativeClipTokenizer)  # g++ builds it here
+    python = port_tok.ClipTokenizer(str(tmp_path / "vocab.json"), str(tmp_path / "merges.txt"))
     prompts = [p for p in prompts if "!" not in p] + ["a robot bear", "bear bot robot"]
     assert np.array_equal(ours(prompts), theirs(prompts))
+    assert np.array_equal(python(prompts), theirs(prompts))
 
 
 def test_schedule_and_sampler_multipliers():
