@@ -127,7 +127,8 @@ def _randomize(engine, generator: torch.Generator) -> None:
     but an annotator loaded from its own checkpoint; ZoeDepth with its
     live-block init (``randomize_zoedepth_``)."""
     randomize_weights_(engine.network, generator)
-    randomize_weights_(engine.vae, generator)
+    if engine.vae is not None:
+        randomize_weights_(engine.vae, generator)
     for emb in engine.conditioner.embedders:
         if isinstance(emb, AnnotatorEmbedder) and emb.backbone is not None:
             if emb.backbone_loaded:
@@ -142,7 +143,8 @@ def load_engine(args, num_steps: int, default_config=TV2V_CONFIG):
     """The engine on ``args.device`` with checkpoint or seeded random weights
     (``default_config`` when no ``--config_path``) and the sampler of
     ``--sampler_name`` on the LegacyDDPM schedule, pruned to
-    ``--sdedit_denoise_strength`` when it is set (the JAX ``load_engine``).
+    ``--sdedit_denoise_strength`` when it is set (the JAX ``load_engine``;
+    the image CLIs have no such flag).
     With a checkpoint, a depth annotator needs its own weights
     (``ckpt_path`` in its embedder params) or ``--fake_annotator``."""
     cfg = load_config(args.config_path) if args.config_path else default_config
@@ -151,7 +153,7 @@ def load_engine(args, num_steps: int, default_config=TV2V_CONFIG):
         engine = build_engine(cfg, asset_dir=args.tokenizer_assets or None,
                               guider_scale=args.cfg_scale, num_steps=num_steps,
                               fake_annotator=args.fake_annotator)
-    strength = args.sdedit_denoise_strength
+    strength = getattr(args, "sdedit_denoise_strength", 0.0)
     engine.sampler = make_sampler(
         SAMPLER_NAMES[args.sampler_name], num_steps=num_steps,
         discretization=make_discretization(
@@ -166,7 +168,7 @@ def load_engine(args, num_steps: int, default_config=TV2V_CONFIG):
                                    "--fake_annotator")
     else:
         _randomize(engine, torch.Generator(device=device).manual_seed(args.seed))
-    for m in (engine.network, engine.vae, engine.conditioner):
+    for m in engine.modules:
         m.to(dtype=torch.bfloat16 if args.bf16 else torch.float32).eval()
     return engine, cfg
 
@@ -250,13 +252,16 @@ class _Stopwatch:
         return time.perf_counter()
 
     def lap(self, name: str) -> None:
+        """Close stage ``name``; a stage that runs again adds to its total."""
         if self.out is not None:
             now = self._now()
-            self.out[name] = now - self.t
+            self.out[name] = self.out.get(name, 0.0) + now - self.t
             self.t = now
         if self.launches is not None:
             counts = launch_counts()
-            self.launches[name] = {k: n - self.counts.get(k, 0) for k, n in counts.items()}
+            prev = self.launches.get(name, {})
+            self.launches[name] = {k: prev.get(k, 0) + n - self.counts.get(k, 0)
+                                   for k, n in counts.items()}
             self.counts = counts
 
 

@@ -8,6 +8,7 @@ training step or a VAE GAN training step, on one GPU.
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload tvi2v_train   # likewise, TVI2V
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload interp_train   # likewise, interpolation
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
+    python -m ccedit_tpu_torch.cli.profile_tv2v --workload txt2img   # SD-2.1-768, 50 Euler steps
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
 with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
@@ -37,7 +38,13 @@ autoencoder of ``VAE_TRAIN_CONFIG`` with a full VGG16 LPIPS and the
 PatchGAN (seeded random weights, fp32 masters, bf16 autocast, the GAN term
 live from step 0) and times ``VAETrainer.train_step`` the same way on 12
 synthetic 256x256 images a step (the sd-vae-ft-mse fine-tune's per-GPU
-batch).  The int8 QK^T attention (kernel 1c) is turned
+batch).  The ``txt2img`` workload builds SD-2.1-768-v (``SD21_768_CONFIG``:
+seeded random weights, bf16, OpenCLIP ViT-H/14 text, the hash tokenizer),
+draws one warm-up image at 2 steps, then times one 768x768 image through
+``sampling_image.sample_images`` at ``--steps`` (default 50) Euler steps,
+CFG 7.5, with its stage seconds, network rows (the UNet's calls, each on
+the CFG-doubled batch) and kernel launches, and profiles an image at
+``--profile_steps``.  The int8 QK^T attention (kernel 1c) is turned
 on by the environment, ``CCEDIT_QUANT_QK=1`` (or ``CCEDIT_INT8=1``), as in
 the JAX package; the JSON line records it as ``quantized_qk``.  Prints one
 JSON line; the trace goes to
@@ -187,8 +194,7 @@ def profile_train(a, device, smi: str) -> dict:
 
     timed = _time_train_steps(a, device, step, float)
     n_train = sum(p.numel() for p in engine.trainable_parameters().values())
-    n_total = sum(p.numel() for m in (engine.network, engine.vae, engine.conditioner)
-                  for p in m.parameters())
+    n_total = sum(p.numel() for m in engine.modules for p in m.parameters())
     return {"gpu": smi, "workload": a.workload, "quantized_qk": quantized_qk_enabled(),
             "batch": bs, "frames": t, "height": h, "width": w,
             "freeze_policy": engine.freeze_policy, "params_trainable": n_train,
@@ -223,6 +229,65 @@ EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
 
 
 EDIT_CONFIGS = {"tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_ZOE_CONFIG}
+IMAGE_SIZE = 768  # SD-2.1-768's images: 768x768
+IMAGE_PROMPT = "a professional photograph of an astronaut riding a horse"
+
+
+def build_txt2img(device, seed: int, steps: int, size: int = IMAGE_SIZE,
+                  extra=()):
+    """The full-width SD-2.1-768 image session (``SD21_768_CONFIG``,
+    seeded random weights, bf16) and its request arguments: ``size`` x
+    ``size``, Euler at ``steps`` steps, CFG 7.5; ``extra`` are more
+    ``sampling_image`` flags.  Returns (session, args)."""
+    from .sampling_image import add_image_args, build_image_session
+
+    args = add_image_args(argparse.ArgumentParser()).parse_args(
+        ["--config_path", "sd21_768", "--bf16", "--device", str(device), "--seed", str(seed),
+         "--H", str(size), "--W", str(size), "--sample_steps", str(steps),
+         "--sampler_name", "EulerEDMSampler", "--cfg_scale", "7.5",
+         "--prompt", IMAGE_PROMPT, "--negative_prompt", "ugly, low quality"] + list(extra))
+    return build_image_session(args), args
+
+
+def count_rows(network):
+    """A forward hook counting ``network``'s calls: ``rows()`` reads it."""
+    calls = [0]
+    handle = network.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+    return (lambda: calls[0]), handle
+
+
+def profile_txt2img(a, device, smi: str) -> dict:
+    """Time and profile one SD-2.1-768 txt2img image."""
+    from ..ops.attention import launch_counts, reset_launch_counts
+    from .sampling_image import sample_images
+
+    steps = a.steps or 50
+    session, args = build_txt2img(device, a.seed, steps)
+    warm = argparse.Namespace(**vars(args))
+    warm.sample_steps = 2
+    sample_images(session, warm)  # warm-up: cuDNN/cuBLAS algorithm selection
+    rows, hook = count_rows(session.engine.network)
+    stages, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 1e9
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    image = sample_images(session, args, stage_seconds=stages, stage_launches=launches)[0]
+    total = time.perf_counter() - t0
+    n_rows = rows()
+    hook.remove()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    prof_args = argparse.Namespace(**vars(args))
+    prof_args.sample_steps = a.profile_steps
+    profile = _profile(lambda: sample_images(session, prof_args), Path(a.out))
+    return {"gpu": smi, "workload": "txt2img", "quantized_qk": quantized_qk_enabled(),
+            "cfg_scale": args.cfg_scale, "height": args.H, "width": args.W, "steps": steps,
+            "rows": n_rows, "image_seconds": total, "stage_seconds": stages,
+            "sample_seconds_per_row": stages["sample"] / n_rows, "peak_memory_gb": peak,
+            "resident_memory_gb": resident, "launches": counts,
+            "image_mean": float(image.mean()), "image_std": float(image.std()),
+            "profile": dict(profile, steps=a.profile_steps)}
 TRAIN_WORKLOADS = ("train", "tvi2v_train", "interp_train", "vae_train")
 
 
@@ -260,10 +325,11 @@ def build_edit(workload: str, device, seed: int, steps: int, config=None):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + TRAIN_WORKLOADS,
+    ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + TRAIN_WORKLOADS + ("txt2img",),
                     default="tv2v")
     ap.add_argument("--steps", type=int, default=None,
-                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v and tvi2v_zoe); "
+                    help="sampling steps (default: 30 for tv2v, 50 for tvi2v, tvi2v_zoe and "
+                         "txt2img); "
                          "timed training steps for the training workloads (default 5)")
     # one profiled training step reads a busy share of 58-75 % where two
     # read 97 %: the profiler's start falls inside a single step's window
@@ -279,6 +345,9 @@ def main(argv=None) -> None:
     if a.workload in TRAIN_WORKLOADS:
         profile = profile_vae_train if a.workload == "vae_train" else profile_train
         print(json.dumps(profile(a, device, smi)))
+        return
+    if a.workload == "txt2img":
+        print(json.dumps(profile_txt2img(a, device, smi)))
         return
     steps = a.steps or (30 if a.workload == "tv2v" else 50)
     _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)

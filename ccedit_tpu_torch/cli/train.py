@@ -13,7 +13,9 @@ reference checkpoint loaded through ``io/checkpoint.py``, else seeded random
 weights (``randomize_weights_``).  Data: WebVid from the config's
 ``data.params.train.params``, or with ``--synthetic_data`` (or no data
 config) ``SyntheticVideoDataset`` clips at the config's ``video_length`` and
-``resolution`` (default 8 frames of 64x64).  On CUDA ``--bf16`` is needed
+``resolution`` (default 8 frames of 64x64); a toy config's data target
+(``sgm.data.mnist.MNISTLoader``, ``sgm.data.cifar10.CIFAR10Loader``, as in
+``TOY_MNIST_CONFIG``) reads ``data/toy.py``'s images.  On CUDA ``--bf16`` is needed
 (fp32 masters, bf16 autocast: the kernels take bf16).  ``--sample_every N``
 samples ``--sample_steps`` steps from the batch's conditioning at step 1
 and every N steps into ``{run}/images/``.
@@ -44,7 +46,9 @@ from ..io.checkpoint import load_reference_checkpoint, load_torch_state_dict, ra
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("-b", "--base", nargs="*", default=[], help="config yaml(s), merged left-to-right")
+    p.add_argument("-b", "--base", nargs="*", default=[],
+                   help="config yaml(s) or built-in config names (toy_mnist, ...), merged "
+                        "left-to-right")
     p.add_argument("-n", "--name", type=str, default="")
     p.add_argument("-r", "--resume", type=str, default="", help="run directory to resume")
     p.add_argument("-l", "--logdir", type=str, default="logs")
@@ -80,7 +84,7 @@ def build_train_engine(cfg: Dict, device: torch.device, seed: int,
     zero-initialised temporal layers included)."""
     with device:
         engine = build_engine(cfg, asset_dir=tokenizer_assets or None)
-    modules = (engine.network, engine.vae, engine.conditioner)
+    modules = engine.modules
     if init_ckpt:
         load_reference_checkpoint(engine, load_torch_state_dict(init_ckpt))
     else:
@@ -97,9 +101,16 @@ def build_dataloader(cfg: Dict, args, rank: int = 0, world: int = 1):
     batch size."""
     from ..data.dataset import DataLoader, SyntheticVideoDataset, WebVidDataset
 
+    data_target = str((cfg.get("data") or {}).get("target") or "")
     data_cfg = (cfg.get("data") or {}).get("params") or {}
     train_cfg = ((data_cfg.get("train") or {}).get("params")) or {}
     bs = args.batch_size or data_cfg.get("batch_size", 1)
+    if "mnist" in data_target.lower() or "cifar" in data_target.lower():
+        # the toy image configs: IDX/pickle files, else the synthetic set
+        from ..data.toy import build_toy_dataset
+
+        ds = build_toy_dataset(data_target, data_cfg, train=True, seed=args.seed)
+        return DataLoader(ds, batch_size=bs, seed=args.seed, rank=rank, world=world), bs
     if args.synthetic_data or "csv_path" not in train_cfg:
         ds = SyntheticVideoDataset(n_items=64, num_frames=train_cfg.get("video_length", 8),
                                    size_hw=tuple(train_cfg.get("resolution", (64, 64))),

@@ -243,6 +243,119 @@ def _interp_train_config() -> Dict:
 
 INTERP_TRAIN_CONFIG: Dict = _interp_train_config()
 
+_SD_VAE = {
+    "target": "sgm.models.autoencoder.AutoencoderKLInferenceWrapper",
+    "params": {"embed_dim": 4, "ddconfig": {
+        "double_z": True, "z_channels": 4, "resolution": 256, "in_channels": 3, "out_ch": 3,
+        "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2, "attn_resolutions": [],
+        "dropout": 0.0}},
+}
+
+# Stable Diffusion 2.1 at 768x768 (v-prediction), in the layout of sgm's
+# ``configs/inference/sd_2_1_768.yaml``: ``DiffusionEngine``, a 2-D
+# ``UNetModel`` (320 channels x [1, 2, 4, 4], 2 res blocks, attention at
+# [4, 2, 1], 64-channel heads, one Linear-projection transformer a block,
+# context 1024), OpenCLIP ViT-H/14 text at its penultimate layer,
+# ``DiscreteDenoiser`` with ``VScaling`` on LegacyDDPM, the SD KL-f8 VAE.
+# ``sampling_image`` draws 768x768 images from it.
+SD21_768_CONFIG: Dict = {"model": {
+    "target": "sgm.models.diffusion.DiffusionEngine",
+    "params": {
+        "scale_factor": 0.18215,
+        "disable_first_stage_autocast": True,
+        "denoiser_config": {
+            "target": "sgm.modules.diffusionmodules.denoiser.DiscreteDenoiser",
+            "params": {"num_idx": 1000,
+                       "scaling_config": {"target": "sgm.modules.diffusionmodules.denoiser_scaling.VScaling"},
+                       "discretization_config": {"target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization"}},
+        },
+        "network_config": {
+            "target": "sgm.modules.diffusionmodules.openaimodel.UNetModel",
+            "params": {"use_checkpoint": True, "in_channels": 4, "out_channels": 4,
+                       "model_channels": 320, "attention_resolutions": [4, 2, 1],
+                       "num_res_blocks": 2, "channel_mult": [1, 2, 4, 4],
+                       "num_head_channels": 64, "use_linear_in_transformer": True,
+                       "transformer_depth": 1, "context_dim": 1024},
+        },
+        "conditioner_config": {
+            "target": "sgm.modules.GeneralConditioner",
+            "params": {"emb_models": [
+                {"is_trainable": False, "input_key": "txt",
+                 "target": "sgm.modules.encoders.modules.FrozenOpenCLIPEmbedder",
+                 "params": {"freeze": True, "layer": "penultimate"}},
+            ]},
+        },
+        "first_stage_config": copy.deepcopy(_SD_VAE),
+    },
+}}
+
+# The class-conditional pixel-space toy model of sgm's
+# ``configs/example_training/toy/mnist_cond.yaml``, in the layout of the sgm
+# version the reference builds on (the loss weighting under the denoiser,
+# ``denoiser_weighting``): no autoencoder (``IdentityFirstStage``), a 2-D
+# ``UNetModel`` on 28x28x1 (32 channels x [1, 2, 2], 4 res blocks, no
+# attention, a 128-wide ``sequential`` label embedding), a ``ClassEmbedder``
+# (10 classes, ucg 0.2), EDM scaling and weighting at sigma_data 1.0, EDM
+# sigma sampling, Euler-EDM at 50 steps with CFG 3; MNIST at batch 512.
+# ``cli/train.py`` reads its ``data.target`` as the toy branch.
+TOY_MNIST_CONFIG: Dict = {
+    "model": {
+        "base_learning_rate": 1.0e-4,
+        "target": "sgm.models.diffusion.DiffusionEngine",
+        "params": {
+            "denoiser_config": {
+                "target": "sgm.modules.diffusionmodules.denoiser.Denoiser",
+                "params": {
+                    "weighting_config": {
+                        "target": "sgm.modules.diffusionmodules.denoiser_weighting.EDMWeighting",
+                        "params": {"sigma_data": 1.0}},
+                    "scaling_config": {
+                        "target": "sgm.modules.diffusionmodules.denoiser_scaling.EDMScaling",
+                        "params": {"sigma_data": 1.0}}},
+            },
+            "network_config": {
+                "target": "sgm.modules.diffusionmodules.openaimodel.UNetModel",
+                "params": {"in_channels": 1, "out_channels": 1, "model_channels": 32,
+                           "attention_resolutions": [], "num_res_blocks": 4,
+                           "channel_mult": [1, 2, 2], "num_head_channels": 32,
+                           "num_classes": "sequential", "adm_in_channels": 128},
+            },
+            "conditioner_config": {
+                "target": "sgm.modules.GeneralConditioner",
+                "params": {"emb_models": [
+                    {"is_trainable": True, "input_key": "cls", "ucg_rate": 0.2,
+                     "target": "sgm.modules.encoders.modules.ClassEmbedder",
+                     "params": {"embed_dim": 128, "n_classes": 10}},
+                ]},
+            },
+            "first_stage_config": {"target": "sgm.models.autoencoder.IdentityFirstStage"},
+            "loss_fn_config": {
+                "target": "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss",
+                "params": {"sigma_sampler_config": {
+                    "target": "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling"}},
+            },
+            "sampler_config": {
+                "target": "sgm.modules.diffusionmodules.sampling.EulerEDMSampler",
+                "params": {"num_steps": 50,
+                           "discretization_config": {
+                               "target": "sgm.modules.diffusionmodules.discretizer.EDMDiscretization"},
+                           "guider_config": {
+                               "target": "sgm.modules.diffusionmodules.guiders.VanillaCFG",
+                               "params": {"scale": 3.0}}},
+            },
+        },
+    },
+    "data": {"target": "sgm.data.mnist.MNISTLoader",
+             "params": {"batch_size": 512, "num_workers": 1}},
+}
+
+# the built-in configs by the name a CLI's --config_path may give instead of
+# a YAML file (the GPU machine has no PyYAML)
+BUILTIN_CONFIGS: Dict[str, Dict] = {
+    "tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_ZOE_CONFIG,
+    "sd21_768": SD21_768_CONFIG, "toy_mnist": TOY_MNIST_CONFIG,
+}
+
 # The SD KL-f8 autoencoder (the edits' VAE: ch 128, ch_mult 1,2,4,4, 2 res
 # blocks, 4 latent channels, no attention but the mid blocks') with a full
 # VGG16 LPIPS and the n_layers = 3, ndf = 64 PatchGAN, in the reference's
@@ -275,6 +388,10 @@ VAE_TRAIN_CONFIG: Dict = {
 
 
 def load_config(path: str) -> Dict:
+    """A YAML file's config, or a copy of the built-in one named ``path``
+    (``BUILTIN_CONFIGS``: no PyYAML needed)."""
+    if path in BUILTIN_CONFIGS:
+        return copy.deepcopy(BUILTIN_CONFIGS[path])
     import yaml
 
     with open(path) as f:
@@ -406,6 +523,10 @@ def build_network(cfg: Dict) -> CCEditNetwork:
     name = _tname(cfg)
     p = _params(cfg)
     kw = _unet_kwargs(p)
+    # no context_dim (the toy configs): the JAX package's transformers then
+    # attend x to itself in attn2 too (flax sizes the k/v projections from
+    # x), so the port sizes them from x as well
+    kw.setdefault("context_dim", None)
     raig = name == "ControlledUNetModel2DRAIG"
     if raig:
         kw["enable_ref_attn"] = True
@@ -421,8 +542,13 @@ def build_network(cfg: Dict) -> CCEditNetwork:
                          interpolate=name == "ControlledUNetModel3DTV2VInterpolate", raig=raig)
 
 
-def build_vae(cfg: Dict) -> AutoencoderKL:
-    _expect(cfg, "AutoencoderKL", "AutoencoderKLInferenceWrapper")
+def build_vae(cfg: Dict) -> Optional[AutoencoderKL]:
+    """The first stage; ``None`` for ``IdentityFirstStage``, which means no
+    autoencoder: the engine diffuses pixels (the toy configs), as the JAX
+    ``build_vae``."""
+    if _expect(cfg, "AutoencoderKL", "AutoencoderKLInferenceWrapper",
+               "IdentityFirstStage") == "IdentityFirstStage":
+        return None
     p = _params(cfg)
     return _autoencoder_kl(p.get("ddconfig", {}), p.get("embed_dim", 4))
 
@@ -597,11 +723,16 @@ _FREEZE_MAP = {"none": "none", "spatial": "spatial", "spatial_openlora": "spatia
 _TV2V_FREEZE = {"spatial": "spatial_tv2v", "spatial_openlora": "spatial_tv2v_openlora"}
 
 
-def freeze_policy(model_params: Dict) -> str:
-    """The freeze policy of a VideoDiffusionEngineTV2V's (or
-    VideoDiffusionEngineTV2VInterpolate's) ``freeze_model``."""
+_TV2V_ENGINES = ("VideoDiffusionEngineTV2V", "VideoDiffusionEngineTV2VInterpolate")
+
+
+def freeze_policy(model_params: Dict, engine: str = "VideoDiffusionEngineTV2V") -> str:
+    """The freeze policy of an engine's ``freeze_model``: the TV2V engines
+    (``VideoDiffusionEngineTV2V``, ``VideoDiffusionEngineTV2VInterpolate``)
+    map ``spatial`` to ``spatial_tv2v``, every other engine keeps it, as the
+    JAX ``build_engine``."""
     freeze = _FREEZE_MAP.get(model_params.get("freeze_model", "none"), "none")
-    return _TV2V_FREEZE.get(freeze, freeze)
+    return _TV2V_FREEZE.get(freeze, freeze) if engine in _TV2V_ENGINES else freeze
 
 
 _SCALING = {"EpsScaling": "eps", "EDMScaling": "edm", "VScaling": "v"}
@@ -657,12 +788,16 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
                  guider_scale: float = 7.5, num_steps: Optional[int] = None,
                  fake_annotator: bool = False) -> CCEditEngine:
     """CCEditEngine from a reference-format config (``TV2V_CONFIG`` when
-    None; ``TVI2V_CONFIG`` for the reference-guided edit).  Modules are
-    built on the current default device with PyTorch's default
+    None; ``TVI2V_CONFIG`` for the reference-guided edit, ``SD21_768_CONFIG``
+    for 2-D sampling).  Any model target builds, as in the JAX
+    ``build_engine`` (sgm's ``DiffusionEngine`` and the video engines alike):
+    the network, denoiser, sampler and guider come from their own configs,
+    the VAE only from a ``first_stage_config`` (none for
+    ``IdentityFirstStage``), and the freeze policy by ``freeze_policy``.
+    Modules are built on the current default device with PyTorch's default
     initialisation; load or randomise weights afterwards."""
     cfg = copy.deepcopy(cfg if cfg is not None else TV2V_CONFIG)
     model_cfg = cfg.get("model", cfg)
-    _expect(model_cfg, "VideoDiffusionEngineTV2V", "VideoDiffusionEngineTV2VInterpolate")
     p = _params(model_cfg)
     denoiser = build_denoiser(p["denoiser_config"])
     guider = VanillaCFG(scale=guider_scale)
@@ -679,11 +814,11 @@ def build_engine(cfg: Optional[Dict] = None, asset_dir: Optional[str] = None,
         sampler=sampler,
         conditioner=build_conditioner(p.get("conditioner_config", {}), asset_dir,
                                       fake_annotator),
-        vae=build_vae(p["first_stage_config"]),
+        vae=build_vae(p["first_stage_config"]) if "first_stage_config" in p else None,
         guider=guider,
         scale_factor=p.get("scale_factor", 0.18215),
         loss_fn=build_loss(p.get("loss_fn_config")),
         input_key=p.get("input_key", "jpg"),
-        freeze_policy=freeze_policy(p),
+        freeze_policy=freeze_policy(p, _tname(model_cfg)),
         use_ema=bool(p.get("use_ema", False)),
     )

@@ -27,7 +27,8 @@
 //      80- or 160-byte pieces of 640-byte rows; neighbouring heads' blocks
 //      run together and share the L2's sectors).
 //   2. quantize_kernel: one thread per 16-byte vector of the output, which
-//      is contiguous (B, H, N, DK) int8, DK = D rounded up to 16 (40 -> 48),
+//      is contiguous (B, H, N, DK) int8, DK = D rounded up to 16 (40 -> 48;
+//      64 and 80 need no padding),
 //      the columns past D zero: kernel 1c's TMA maps read it.  A thread
 //      reads the one or two 16-byte vectors of x under its output vector
 //      and writes one 16-byte store.  The thread of each (b, h)'s first q

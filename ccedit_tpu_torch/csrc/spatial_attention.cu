@@ -1,7 +1,8 @@
 // Kernel 1: exact softmax attention for the UNet/ControlNet spatial
 // attention, head_dim 40 (level 0, 6144 tokens), 80 (level 1, 1536) and 160
 // (level 2 at geometries of 512 tokens and more, e.g. 1024 at 1024x1024),
-// any n_k: the CFCA "center_self" cross-frame attention of the TVI2V
+// and 64 (every level of an SD-2.x UNet, num_head_channels 64: 9216, 2304
+// and 576 tokens at 768x768), any n_k: the CFCA "center_self" cross-frame attention of the TVI2V
 // network attends 6144 queries to 12288 keys (row 1b).  Redesigned for
 // Hopper; the kernel itself is spatial_attention.cuh's template, shared
 // with kernel 1c (spatial_attention_int8.cu) and kernel 5's probes
@@ -46,6 +47,9 @@ extern "C" int ccedit_spatial_attention(
   switch (head_dim) {
     case 40:
       return launch_spatial<40, Bf16QK<40>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,
+                                            sk, sv, so, scale_log2, st);
+    case 64:
+      return launch_spatial<64, Bf16QK<64>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,
                                             sk, sv, so, scale_log2, st);
     case 80:
       return launch_spatial<80, Bf16QK<80>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,

@@ -72,6 +72,8 @@
 //   bf16 d = 160: BN 64,  3 stages: 48 KB + 3 x 48 KB = 192 KB
 //   s8 d = 40:    BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB
 //   s8 d = 80:    BN 128, 4 stages: 16 KB + 4 x 48 KB = 208 KB
+//   bf16 and s8 d = 64: BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB (a
+//     row is exactly one 128-byte chunk: the TMA box's natural width)
 //   kernel 5, d = 40, 4 stages: qkt and softmax 16 KB + 4 x 16 KB (K only);
 //     tr bf16 Q 2 x 48 x 128 B = 12 KB, a stage K 12 KB + V^T 2 x 40 x 128
 //     B = 10 KB (qkt 12 + 4 x 12 KB, full 12 + 4 x 22 KB)

@@ -1,5 +1,5 @@
 // Kernel 4: the backward of kernel 1 (exact softmax attention), dq, dk and dv
-// for head_dim 40, 80 and 160 and any n_q and n_k: the UNet's spatial
+// for head_dim 40, 64, 80 and 160 and any n_q and n_k: the UNet's spatial
 // self-attention in training, (48, 8, 3072, 40) and (48, 8, 768, 80) at the
 // recipe's 12 frames of 384x512, batch 4, and the CFCA's n_k = 2 * n_q.
 //
@@ -57,6 +57,7 @@
 // Shared memory: K + V 2 x 128 x chunks x 128 B, a stage Q + dO 2 x 64 x
 // chunks x 128 B + 512 B of lse and delta, dS^T 2 x 16 KB:
 //   d = 40:  32 KB + 4 stages x 16.5 KB + 32 KB = 131 KB
+//   d = 64:  the same (one 128-byte chunk a row, no zero columns)
 //   d = 80:  64 KB + 3 stages x 32.5 KB + 32 KB = 194 KB
 //   d = 160: 96 KB + 2 stages x 48.5 KB + 32 KB = 225 KB (of 227)
 // Registers of a consumer thread: dK and dV D/2 fp32 each (20 / 40 / 80),
@@ -451,6 +452,8 @@ extern "C" int ccedit_spatial_attention_bwd(
   switch (head_dim) {
     case 40:
       return ccedit::launch_bwd<40>(a, st);
+    case 64:
+      return ccedit::launch_bwd<64>(a, st);
     case 80:
       return ccedit::launch_bwd<80>(a, st);
     case 160:

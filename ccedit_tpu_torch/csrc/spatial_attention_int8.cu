@@ -1,5 +1,5 @@
 // Kernel 1c: kernel 1 with an int8 Q.K^T (the opt-in int8 QK^T path,
-// head_dim 40 and 80, any n_k), after its quantizing pre-pass
+// head_dim 40, 64 and 80, any n_k), after its quantizing pre-pass
 // (quantize_qk.cu).  Redesigned for Hopper: the kernel is
 // spatial_attention.cuh's template, kernel 1's warp-specialised ping-pong
 // design (a producer warpgroup issuing TMA loads into a full/empty mbarrier
@@ -15,12 +15,12 @@
 // the QK^T half of the tensor time, which is not the bound.
 //
 // Q.K^T: q8 and k8 arrive from the pre-pass as contiguous int8 (B, H, N,
-// DK) rows, DK = head_dim rounded up to 16 bytes (40 -> 48, 80 -> 80) with
+// DK) rows, DK = head_dim rounded up to 16 bytes (40 -> 48, 64 -> 64, 80 -> 80) with
 // zero columns past head_dim.  Their tensor maps load one 128-byte-swizzled
 // chunk a row (128 int8 columns; the box's columns past DK arrive as
 // zeros), so Q is 16 KB and a K tile of 128 keys 16 KB, and S = Q.K^T is
 // wgmma m64n128k32 .s32.s8.s8 over D rounded up to 32 bytes (2 steps at d =
-// 40, 3 at d = 80), with the descriptors of a bf16 chunk (hopper.cuh's
+// 40 and 64, 3 at d = 80), with the descriptors of a bf16 chunk (hopper.cuh's
 // header): the policy Int8QK in spatial_attention.cuh.  Integer sums are
 // exact; so is their fp32 conversion (|S| <= 127^2 * 80 < 2^24).  The
 // (batch, head)'s folded scale, scale * amax_q * amax_k / 127^2
@@ -50,6 +50,9 @@ extern "C" int ccedit_spatial_attention_int8(
   switch (head_dim) {
     case 40:
       return launch_spatial<40, Int8QK<40>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,
+                                            sq, sk, sv, so, 0.f, st);
+    case 64:
+      return launch_spatial<64, Int8QK<64>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,
                                             sq, sk, sv, so, 0.f, st);
     case 80:
       return launch_spatial<80, Int8QK<80>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,

@@ -4,7 +4,9 @@ Clips are uint8 (T, H, W, 3).  The decoders (the native threaded decode of
 PIL for frame directories, imageio for gifs) are imported inside the
 functions that use them.  The validation-sampling writers (``to_uint8``,
 ``save_panel_grid``, and gifs without imageio) need only numpy and zlib,
-which every machine the port runs on has."""
+which every machine the port runs on has; so do the PNG reader
+(``read_png``) and ``load_image``'s PIL-exact bicubic resize, which the
+image CLIs use."""
 
 from __future__ import annotations
 
@@ -33,11 +35,13 @@ def select_keyframe_indices(n_frames: int, origin_fps: float, target_fps: float,
 
 def _read_frames(path: str) -> Tuple[List[np.ndarray], Optional[float]]:
     if os.path.isdir(path):
-        from PIL import Image
-
         files = sorted(f for f in Path(path).iterdir() if f.suffix.lower() in IMAGE_EXTS)
         if not files:
             raise IOError(f"no frames in {path}")
+        if all(f.suffix.lower() == ".png" for f in files):  # no PIL needed
+            return [_rgb(read_png(f)) for f in files], None
+        from PIL import Image
+
         return [np.asarray(Image.open(f).convert("RGB")) for f in files], None
     if path.lower().endswith(".gif"):
         import imageio.v3 as iio
@@ -97,8 +101,10 @@ def load_video_keyframes(path: str, origin_fps: Optional[float] = None,
     """(T, H, W, 3) uint8 keyframes, bicubic-resized to ``size_hw``.  A
     video file goes through the native decode when its library loads (the
     selected frames decoded and resized by OpenCV's bicubic in C++ threads,
-    as in the JAX loader), else through cv2 and PIL's bicubic; at the
-    file's own size the two return the same frames."""
+    as in the JAX loader), else through cv2 (a directory of PNG frames
+    through ``read_png``) and PIL's bicubic (``resize_bicubic_u8``, the same
+    arithmetic without PIL); at the file's own size the two return the same
+    frames."""
     from . import native_decode
 
     p = str(path)
@@ -111,23 +117,147 @@ def load_video_keyframes(path: str, origin_fps: Optional[float] = None,
                 return native_decode.decode_clip_u8(p, idx, size_hw[0], size_hw[1])
             except IOError:
                 pass  # the container over-reported its frame count: decode them all
-    from PIL import Image
-
     frames, file_fps = _read_frames(p)
     fps = origin_fps or file_fps or 30.0
     idx = select_keyframe_indices(len(frames), fps, target_fps, num_keyframes)
-    out = [np.asarray(Image.fromarray(frames[i]).resize((size_hw[1], size_hw[0]), Image.BICUBIC))
-           for i in idx]
+    out = [resize_bicubic_u8(frames[i], size_hw) for i in idx]
     return np.ascontiguousarray(np.stack(out))
 
 
-def load_image(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
-    """The TVI2V reference frame: RGB, bicubic-resized to ``size_hw``,
-    (H, W, 3) float32 in [-1, 1]."""
-    from PIL import Image
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type: gray, RGB, RGBA
 
-    img = Image.open(path).convert("RGB").resize((size_hw[1], size_hw[0]), Image.BICUBIC)
-    return np.asarray(img).astype(np.float32) / 127.5 - 1.0
+
+def _unfilter_serial(f: int, line: list, prev: list, bpp: int) -> list:
+    """PNG's average (3) and Paeth (4) filters, byte by byte: each byte
+    depends on the one a pixel to its left."""
+    cur = [0] * len(line)
+    for i, x in enumerate(line):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        if f == 3:
+            cur[i] = (x + ((a + b) >> 1)) & 255
+            continue
+        c = prev[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        cur[i] = (x + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
+    return cur
+
+
+def read_png(src) -> np.ndarray:
+    """An 8-bit, non-interlaced gray, RGB or RGBA PNG (a path or its bytes)
+    as uint8 (H, W, C), C = 1, 3 or 4 (numpy and zlib only).  Every other
+    PNG raises ``ValueError``."""
+    data = src if isinstance(src, (bytes, bytearray)) else Path(src).read_bytes()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("a PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"PNG bit depth {depth}, colour type {ctype}, interlace {interlace}: "
+                         "only 8-bit non-interlaced gray, RGB and RGBA are read")
+    bpp = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
+    filters, rows = raw[:, 0], raw[:, 1:].astype(np.int32)
+    out = np.zeros((h, w * bpp), np.int32)
+    prev = np.zeros(w * bpp, np.int32)
+    for y in range(h):
+        f, line = filters[y], rows[y]
+        if f == 0:
+            cur = line
+        elif f == 2:  # up
+            cur = (line + prev) & 255
+        elif f == 1:  # sub: a running sum per channel
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 255
+        elif f in (3, 4):
+            cur = np.asarray(_unfilter_serial(int(f), line.tolist(), prev.tolist(), bpp),
+                             np.int32)
+        else:
+            raise ValueError(f"PNG filter type {f}")
+        out[y], prev = cur, cur
+    return out.astype(np.uint8).reshape(h, w, bpp)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter (a = -0.5)."""
+    x = np.abs(x)
+    return np.where(x < 1.0, (1.5 * x - 2.5) * x * x + 1.0,
+                    np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5, 0.0))
+
+
+def _pil_coefficients(n_in: int, n_out: int):
+    """PIL's 8-bit resampling coefficients on one axis (``precompute_coeffs``
+    and ``normalize_coeffs_8bpc``): each output's first input and its
+    fixed-point weights, 22 fractional bits."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(n_out, np.int64)
+    weights = np.zeros((n_out, ksize), np.int64)
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center - (-support) + 0.5), n_in)
+        w = _bicubic((np.arange(lo, hi) - center + 0.5) / filterscale)
+        if w.sum() != 0.0:
+            w = w / w.sum()
+        first[i] = lo
+        weights[i, :hi - lo] = np.where(w < 0, np.trunc(w * (1 << 22) - 0.5),
+                                        np.trunc(w * (1 << 22) + 0.5))
+    return first, weights
+
+
+def _pil_resample(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    first, weights = _pil_coefficients(img.shape[axis], n_out)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    taps = np.clip(first[:, None] + np.arange(weights.shape[1]), 0, src.shape[0] - 1)
+    acc = np.full((n_out,) + src.shape[1:], 1 << 21, np.int64)
+    for j in range(weights.shape[1]):
+        acc += src[taps[:, j]] * weights[:, j].reshape((-1,) + (1,) * (src.ndim - 1))
+    return np.moveaxis(np.clip(acc >> 22, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_bicubic_u8(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W, C) resized as PIL's ``Image.resize(..., BICUBIC)``
+    does: the horizontal pass, then the vertical one, each rounded to 8
+    bits, on PIL's fixed-point coefficients (antialiased when shrinking)."""
+    if img.shape[1] != size_hw[1]:
+        img = _pil_resample(img, size_hw[1], 1)
+    if img.shape[0] != size_hw[0]:
+        img = _pil_resample(img, size_hw[0], 0)
+    return img
+
+
+def load_image(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
+    """The TVI2V reference frame and the img2img source: RGB (gray
+    repeated, alpha dropped, as PIL's ``convert("RGB")``), bicubic-resized
+    to ``size_hw`` as PIL does, (H, W, 3) float32 in [-1, 1].  Reads PNG
+    only (``read_png``); any other format needs PIL, which the image CLIs
+    do not use."""
+    if Path(path).suffix.lower() != ".png":
+        raise ValueError(f"{path}: load_image reads PNG only (other formats need PIL); "
+                         "convert the image to PNG")
+    return resize_bicubic_u8(_rgb(read_png(path)), size_hw).astype(np.float32) / 127.5 - 1.0
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """A ``read_png`` image as RGB: gray repeated, alpha dropped (PIL's
+    ``convert("RGB")``)."""
+    return np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[..., :3]
 
 
 def to_uint8(frames: np.ndarray) -> np.ndarray:
@@ -137,8 +267,9 @@ def to_uint8(frames: np.ndarray) -> np.ndarray:
     return np.clip((frames + 1.0) * 127.5, 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """A uint8 (H, W, 3) image as an 8-bit RGB PNG (numpy and zlib only)."""
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """A uint8 (H, W, 3) image as the bytes of an 8-bit RGB PNG (numpy and
+    zlib only)."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     h, w = rgb.shape[:2]
 
@@ -147,9 +278,14 @@ def write_png(path: str, rgb: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    return (_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """A uint8 (H, W, 3) image as an 8-bit RGB PNG file (``png_bytes``)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+        f.write(png_bytes(rgb))
 
 
 def gif_palette_index(frames: np.ndarray) -> np.ndarray:

@@ -82,10 +82,18 @@ def load_reference_checkpoint(engine, sd: Dict[str, torch.Tensor]) -> None:
     for name in ("controlnet", "controlnet_img"):
         if getattr(net, name) is not None:
             getattr(net, name).load_state_dict(parts[name], strict=True)
-    engine.vae.load_reference_state_dict(parts["vae"])
-    for embedder in engine.conditioner.embedders:
+    if engine.vae is not None:
+        engine.vae.load_reference_state_dict(parts["vae"])
+    for i, embedder in enumerate(engine.conditioner.embedders):
         if hasattr(embedder, "transformer"):
             embedder.transformer.load_state_dict(parts["clip"], strict=True)
+        elif type(embedder).__name__ == "OpenCLIPTextEmbedder":  # SD 2.x's text tower
+            from ..modules.openclip import load_openclip_text
+
+            text = (sub_state_dict(sd, "cond_stage_model.model.")
+                    or sub_state_dict(sd, f"conditioner.embedders.{i}.model."))
+            if text:
+                load_openclip_text(embedder.model, text)
 
 
 @torch.no_grad()

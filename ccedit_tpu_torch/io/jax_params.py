@@ -4,9 +4,10 @@
 ``ccedit_tpu/io/torch_convert.py``'s ``convert_unet`` / ``convert_controlnet``
 / ``convert_vae`` / ``convert_clip``, of ``convert_dpt_midas``, of
 ``ccedit_tpu/modules/lpips.py::convert_lpips`` (taming's ``vgg.pth`` layout),
-of the NLayerDiscriminator layout (taming's ``main.{i}``) and of
-``convert_zoedepth`` (HF ``ZoeDepthForDepthEstimation``), and of sgm's
-``EncoderUNetModel`` layout: it takes a
+of the NLayerDiscriminator layout (taming's ``main.{i}``), of
+``convert_zoedepth`` (HF ``ZoeDepthForDepthEstimation``), of sgm's
+``EncoderUNetModel`` layout and of ``ccedit_tpu/modules/inception.py::
+convert_inception`` (``pytorch_fid``'s InceptionV3): it takes a
 flax parameter tree (nested dicts of numpy arrays) and returns a state dict
 in the reference sgm/LDM/HF/MiDaS key layout, which the port's modules load
 as it is.  Layouts:
@@ -128,6 +129,10 @@ _ZOE = [
 # VGG16: the JAX conv index -> taming's (slice, torchvision features index)
 _VGG_SLICE = (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5)
 _VGG_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_INCEPTION = [
+    (r"/bn_scale$", "/bn/weight"), (r"/bn_bias$", "/bn/bias"),
+    (r"/bn_mean$", "/bn/running_mean"), (r"/bn_var$", "/bn/running_var"),
+]
 _LPIPS = [
     (r"^net/conv_(\d+)/", lambda m: f"net.slice{_VGG_SLICE[int(m[1])]}.{_VGG_INDEX[int(m[1])]}/"),
     (r"^lin_(\d)/", r"lin\1.model.1/"),
@@ -271,7 +276,7 @@ def _encoder_unet(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     """kind: 'unet' | 'controlnet' | 'encoder_unet' | 'vae' | 'clip' | 'dpt' |
-    'lpips' | 'disc' | 'zoedepth'.
+    'lpips' | 'disc' | 'zoedepth' | 'inception'.
     ``params`` is the flax tree of that module (``{"params": ...}`` is
     unwrapped).  Returns the reference-layout state dict, fp32 torch
     tensors."""
@@ -299,7 +304,8 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
         rules, prefix = _disc_rules(sum(p.startswith("bn_") for p in params)), ""
     else:
         rules, prefix = {"vae": (_VAE, ""), "clip": (_CLIP, "text_model."), "dpt": (_DPT, ""),
-                         "lpips": (_LPIPS, ""), "zoedepth": (_ZOE, "")}[kind]
+                         "lpips": (_LPIPS, ""), "zoedepth": (_ZOE, ""),
+                         "inception": (_INCEPTION, "")}[kind]
     for path, value in flat.items():
         m = re.match(r"^reassemble_resize_(\d)_kernel$", path)  # ConvTranspose (kh, kw, I, O)
         if kind == "zoedepth" and m:

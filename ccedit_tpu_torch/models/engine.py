@@ -62,6 +62,11 @@ class CCEditEngine:
                 spec.embedder.encode = self.encode_first_stage
 
     @property
+    def modules(self) -> tuple:
+        """The network, the VAE (when there is one) and the conditioner."""
+        return tuple(m for m in (self.network, self.vae, self.conditioner) if m is not None)
+
+    @property
     def network_dtype(self) -> torch.dtype:
         return next(self.network.parameters()).dtype
 

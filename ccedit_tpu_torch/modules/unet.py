@@ -101,6 +101,7 @@ class UNetModel(nn.Module):
         if unet_type not in ("2d", "pseudo-3d"):
             raise ValueError(f"unet_type {unet_type!r}")
         self.is_video = unet_type == "pseudo-3d"
+        self.in_channels = in_channels
         self.model_channels = model_channels
         self.num_res_blocks = (tuple(num_res_blocks) if isinstance(num_res_blocks, (list, tuple))
                                else num_res_blocks)

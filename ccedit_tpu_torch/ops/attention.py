@@ -6,9 +6,10 @@ kernel gets only the head dims its module lists in ``HEAD_DIMS``:
 
 * temporal kernel (2): n_q == n_k <= 32, B*H >= 2048, d % 8 == 0, d <= 256 —
   the pseudo-3D temporal attention at UNet levels 0-2;
-* spatial kernel (1): n_q, n_k >= 512 and d in (40, 80, 160) — spatial
+* spatial kernel (1): n_q, n_k >= 512 and d in (40, 64, 80, 160) — spatial
   self-attention at UNet/ControlNet levels 0 and 1 (and level 2 from 512
-  tokens on), and the CFCA cross-frame attention (n_k = 2 * n_q);
+  tokens on), the CFCA cross-frame attention (n_k = 2 * n_q), and an SD-2.x
+  UNet's (num_head_channels 64) at every level from 512 tokens on;
 * flash kernel (3): n_q, n_k >= 512 and d = 512 — the VAE encoder's and
   decoder's mid-block attention;
 * plain math everywhere else, as the JAX package sends to XLA what its
@@ -19,7 +20,7 @@ kernel gets only the head dims its module lists in ``HEAD_DIMS``:
 Each kernel wrapper then takes its plain version for a CPU tensor and
 launches its kernel (or raises) for a CUDA tensor.  Every route is
 differentiable: kernels 1 and 3 through autograd Functions whose backward is
-kernel 4 (d 40/80/160 and d = 512), kernel 2 through the plain recompute, as
+kernel 4 (d 40/64/80/160 and d = 512), kernel 2 through the plain recompute, as
 in the JAX package.
 
 The int8 QK^T opt-in (``set_quantized_qk``, or ``CCEDIT_QUANT_QK=1``, or

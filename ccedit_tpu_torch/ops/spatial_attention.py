@@ -1,5 +1,6 @@
-"""Kernel 1: spatial attention (head_dim 40 / 80 / 160, any n_k), its int8
-QK^T variant, kernel 1c (head_dim 40 / 80), and its backward, kernel 4 —
+"""Kernel 1: spatial attention (head_dim 40 / 64 / 80 / 160, any n_k), its
+int8 QK^T variant, kernel 1c (head_dim 40 / 64 / 80), and its backward,
+kernel 4 —
 wrappers, plain versions and launch counts.
 
 Port of ``ccedit_tpu/ops/spatial_attention.py::kv_resident_attention``, both
@@ -42,8 +43,8 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (40, 80, 160)
-INT8_HEAD_DIMS = (40, 80)  # the JAX gate quantizes only d <= 128
+HEAD_DIMS = (40, 64, 80, 160)
+INT8_HEAD_DIMS = (40, 64, 80)  # the JAX gate quantizes only d <= 128
 _LOG2E = 1.0 / math.log(2.0)  # exp(x) == exp2(x * log2(e))
 
 # the JAX kernel's VMEM budget (ccedit_tpu/ops/spatial_attention.py:50-56,

@@ -215,11 +215,11 @@ LATENT_COSINE = 0.99
 # (a few fp32 roundings, far inside the limit)
 BWD_TOLERANCE = 2e-2
 # the shapes at which kernel 4 with delta left out must fail it: the
-# training shapes (TV2V's, and TVI2V's CFCA at n_k = 2 n_q), and every d =
-# 512 shape (VAE training)
+# training shapes (TV2V's, and TVI2V's CFCA at n_k = 2 n_q), every d = 512
+# shape (VAE training) and every d = 64 one (an SD-2.x UNet's)
 DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80), (17, 8, 3072, 40),
                       (17, 8, 768, 80), (12, 1, 1024, 512), (4, 1, 4096, 512),
-                      (2, 1, 600, 512))
+                      (2, 1, 600, 512), (2, 10, 2304, 64), (2, 8, 600, 64))
 # relative error of a full bf16 network forward, kernels vs plain attention:
 # bf16 rounding differences inside attention compound through ~70 layers
 ROUTE_TOLERANCE = 5e-2
@@ -367,6 +367,35 @@ KERNELS = (
                  ((2, 8, 600, 40), 600, 2), ((2, 8, 600, 40), 1200, 2),
                  ((2, 8, 600, 80), 600, 2)),
          count=lambda st: sum(c.get("spatial_attention_bwd", 0) for c in st.values())),
+    # head_dim 64, SD-2.1-768's heads: kernel 1 at its three levels (CFG
+    # 2 x 5, 10, 20 heads of 9216, 2304, 576 tokens), kernel 1c and its
+    # pre-pass at the two whose n_q is a multiple of 128 (the JAX gate's),
+    # kernel 4 at level 1 and a ragged shape; each row also refuses its
+    # planted fault (kernel 1: log2 e left out of its scale; kernel 1c and
+    # the pre-pass: the dequant factor left out of the folded scales;
+    # kernel 4: delta left out, DELTA_FAULT_SHAPES)
+    dict(name="spatial_attention_d64", kernel="spatial", path="txt2img", fault="log2e",
+         source="ccedit_tpu_torch/csrc/spatial_attention.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:113",
+         shapes=(((2, 5, 9216, 64), 9216, 2), ((2, 10, 2304, 64), 2304, 2),
+                 ((2, 20, 576, 64), 576, 2)),
+         count=lambda st: _variant_sum(st, "d64", "n_k=n_q")),
+    dict(name="spatial_attention_1c_d64", kernel="spatial_int8", path="txt2img_int8",
+         fault="dequant", source="ccedit_tpu_torch/csrc/spatial_attention_int8.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:202",
+         shapes=(((2, 5, 9216, 64), 9216, 2), ((2, 10, 2304, 64), 2304, 2)),
+         count=lambda st: _variant_sum(st, "int8 d64", "n_k")),
+    dict(name="quantize_qk_d64", kernel="prepass", path="txt2img_int8", fault="dequant",
+         source="ccedit_tpu_torch/csrc/quantize_qk.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:191",
+         shapes=(((2, 5, 9216, 64), 9216, 2), ((2, 10, 2304, 64), 2304, 2)),
+         count=lambda st: sum(c.get("quantize_qk", 0) for c in st.values())),
+    dict(name="spatial_attention_bwd_d64", kernel="spatial_bwd", path="txt2img_train",
+         source="ccedit_tpu_torch/csrc/spatial_attention_bwd.cu",
+         replaces="ccedit_tpu/ops/attention.py:173",
+         shapes=(((2, 10, 2304, 64), 2304, 2), ((2, 8, 600, 64), 600, 2)),
+         count=lambda st: sum(c.get("spatial_attention_bwd[d64 n_k=n_q]", 0)
+                              for c in st.values())),
     dict(name="flash_attention_lse", kernel="flash_lse", path="vae_train",
          source="ccedit_tpu_torch/csrc/flash_attention.cu",
          replaces="ccedit_tpu/ops/attention.py:203",
@@ -413,6 +442,14 @@ PATH_KERNELS = {
                   "flash_attention", "flash_attention_encoder"),
     "tv2v_softedge": ("spatial_attention", "temporal_attention", "flash_attention"),
     "tv2v_openpose": ("spatial_attention", "temporal_attention", "flash_attention"),
+    "txt2img": ("spatial_attention_d64", "flash_attention"),
+    "img2img": ("spatial_attention_d64", "flash_attention", "flash_attention_encoder"),
+    "txt2img_int8": ("spatial_attention_d64", "spatial_attention_1c_d64", "quantize_qk_d64",
+                     "flash_attention"),
+    "txt2img_train": ("spatial_attention_d64", "spatial_attention_bwd_d64"),
+    "demo": ("spatial_attention_d64",),
+    "auto_pipeline": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
+                      "flash_attention_encoder"),
 }
 
 
@@ -546,7 +583,7 @@ def tie_inputs(shape, n_k, gen, device):
     return q, k
 
 
-def check_prepass(shape, n_k, gen, device) -> dict:
+def check_prepass(shape, n_k, gen, device, fault: str = "") -> dict:
     """Kernel 1c's pre-pass (``csrc/quantize_qk.cu``) at one shape: q8, k8
     and the folded scales equal, bit for bit, to its plain version on the
     same tensors (``plain_prepass``: ``quantize_qk``, the JAX pre-pass bit
@@ -570,11 +607,18 @@ def check_prepass(shape, n_k, gen, device) -> dict:
     quantize_ms = cuda_time_ms(lambda: sa.quantize_qk(q, k, scale), 5)
     plain_ms = cuda_time_ms(lambda: sa.plain_prepass(q, k, scale), 5)
     bound = roofline.prepass_bound(*shape[:3], n_k, shape[3])
+    note = ""
+    if fault == "dequant":  # the same check must refuse the scales without the dequant factor
+        faulty = without_dequant(sa.prepass)(q, k, scale)
+        same_fault = [torch.equal(a, b) for a, b in zip(faulty, want)]
+        note = f"; with the dequant factor left out equal {same_fault}"
+        if all(same_fault):
+            raise RuntimeError(f"the pre-pass check at {shape} passes the dequant fault")
     print(f"[kernels] quantize_qk (pre-pass) q {shape} n_k {n_k}: {ms:.4f} ms (bound "
           f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}); quantize_qk {quantize_ms:.4f} ms, "
           f"plain (quantize_qk + pad) {plain_ms:.4f} ms; q8/k8/scales bit-identical to the "
-          f"plain version: {same} ({ties} ties in q's planted head), max_abs_err {err:.3e}",
-          flush=True)
+          f"plain version: {same} ({ties} ties in q's planted head), max_abs_err {err:.3e}"
+          f"{note}", flush=True)
     if not all(same) or ties < 100:
         raise RuntimeError(f"the pre-pass at {shape} x {n_k} differs from quantize_qk: "
                            f"equal {same}, max_abs_err {err}, {ties} ties planted")
@@ -582,6 +626,23 @@ def check_prepass(shape, n_k, gen, device) -> dict:
                 max_rel_err=0.0, bit_identical=True, ties=ties, compared_ms=ms,
                 plain_ms=plain_ms, quantize_qk_ms=quantize_ms, ms=ms, library_ms=None,
                 library="none (no single PyTorch call quantizes per (batch, head))", **bound)
+
+
+def planted_forward_fault(fault: str, q, k, v, scale):
+    """A forward row's planted fault: "log2e", kernel 1 with log2 e left out
+    of its exp2 scale (exp2(s * scale) for exp(s * scale)); "dequant",
+    kernel 1c with the dequant factor left out of the folded scales
+    (``without_dequant`` around the pre-pass its forward looks up)."""
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+
+    if fault == "log2e":
+        return sa._forward(q, k, v, scale / sa._LOG2E)
+    prepass = sa.prepass
+    sa.prepass = without_dequant(prepass)
+    try:
+        return sa.kv_resident_attention(q, k, v, scale, quantized_qk=True)
+    finally:
+        sa.prepass = prepass
 
 
 def cosine(a, b) -> float:
@@ -622,7 +683,7 @@ def check_kernels(device) -> list:
                 torch.cuda.empty_cache()
                 continue
             if spec["kernel"] == "prepass":
-                per_shape.append(check_prepass(shape, n_k, gen, device))
+                per_shape.append(check_prepass(shape, n_k, gen, device, spec.get("fault", "")))
                 torch.cuda.empty_cache()
                 continue
             kernel, plain = fns[spec["kernel"]]
@@ -660,6 +721,18 @@ def check_kernels(device) -> list:
                 if spec["kernel"] == "spatial_int8":  # against exact kernel 1 on the same slice
                     extra["cosine_to_exact"] = min(extra.get("cosine_to_exact", 1.0), cosine(
                         out, sa.kv_resident_attention(qs, ks, vs, scale)))
+                if spec.get("fault"):  # the same comparison must refuse the planted fault
+                    bad = planted_forward_fault(spec["fault"], qs, ks, vs, scale)
+                    f_rel = ((bad.float() - ref.float()).abs().max()
+                             / ref.float().abs().max()).item()
+                    f_cos = cosine(bad, ref)
+                    extra["fault_rel"] = min(extra.get("fault_rel", math.inf), f_rel)
+                    extra["fault_cosine"] = max(extra.get("fault_cosine", -1.0), f_cos)
+                    if f_rel <= TOLERANCE and f_cos >= COSINE:
+                        raise RuntimeError(f"{name} at {shape}: the check passes the planted "
+                                           f"fault {spec['fault']} (relative {f_rel}, cosine "
+                                           f"{f_cos})")
+                    del bad
             if spec["kernel"] in ("spatial", "flash_lse"):
                 extra["lse_max_abs_err"] = lse_err
                 note = f", lse max_abs_err {lse_err:.3e} (tol {LSE_TOLERANCE:.0e})"
@@ -670,6 +743,9 @@ def check_kernels(device) -> list:
                         f"{INT8_COSINE}), its pre-pass at the full shape "
                         f"{extra['prepass_ms']:.4f} ms (quantize_qk {extra['quantize_qk_ms']:.4f} "
                         f"ms)")
+            if spec.get("fault"):
+                note += (f"; planted fault {spec['fault']}: relative {extra['fault_rel']:.3e}, "
+                         f"cosine {extra['fault_cosine']:.6f} (refused)")
             ms = cuda_time_ms(lambda: kernel(qs, ks, vs, scale), 5)
             plain_ms = cuda_time_ms(lambda: plain(qs, ks, vs, scale), 3)
             cmp_shape = (nb,) + tuple(shape[1:])
@@ -2664,6 +2740,479 @@ def run_conditioning(device, seed: int) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 10: image sampling and the secondary entry points
+# ---------------------------------------------------------------------------
+
+IMAGE_DIR = "build/chip_smoke_image"
+IMAGE_SIZE = 768  # SD-2.1-768's images
+# kernel 1 launches a network row at head_dim 64 (SD-2.1-768 at 768x768):
+# 5 spatial self-attentions a level (input blocks 1, 2; output blocks 9-11
+# at level 0, likewise at levels 1 and 2), 10 of them at a multiple of 128
+# tokens (9216, 2304), 5 at 576; the middle block's 144 tokens stay plain
+D64_PER_ROW, D64_ALIGNED_PER_ROW = 15, 10
+# the d = 64 gradient check: the UNet's attn1 q/k projections through kernels
+# 1 and 4 at (2, 64, 64, 4) latents (4096 and 1024 tokens) against plain
+# attention, GRAD_TOLERANCE; kernel 4's dq and dk zeroed must exceed it
+GRAD_D64_LATENT = 64
+# phase 10 (d): InceptionV3's 2048-d features in bf16 against fp32 by cosine
+INCEPTION_COSINE = 0.999
+INCEPTION_IMAGES = 32  # images a set for FID
+# phase 10 (e): the safety filter's images and the one its planted head flags
+SAFETY_IMAGES, SAFETY_FLAGGED = 4, 1
+
+
+def image_args(args, **changes):
+    """A copy of ``sampling_image`` arguments with ``changes``."""
+    import argparse
+
+    out = argparse.Namespace(**vars(args))
+    for k, v in changes.items():
+        setattr(out, k, v)
+    return out
+
+
+def image_counted(session, args, label: str, rows_of):
+    """One ``sample_images`` call with the launch counts reset just before it
+    and read, per stage, just after; the final latents captured from the
+    engine's ``sample``.  Returns (uint8 image, latents, per-stage counts,
+    network rows)."""
+    import torch
+
+    from ccedit_tpu_torch.cli.sampling_image import sample_images
+    from ccedit_tpu_torch.ops import attention as att
+
+    engine = session.engine
+    captured, sample = [], engine.sample
+    engine.sample = lambda *a, **k: captured.append(sample(*a, **k)) or captured[-1]
+    stages, launches = {}, {}
+    rows0 = rows_of()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        image = sample_images(session, args, stage_seconds=stages, stage_launches=launches)[0]
+    finally:
+        engine.sample = sample
+    total = time.perf_counter() - t0
+    counts = att.launch_counts()
+    summed = {k: sum(c.get(k, 0) for c in launches.values()) for k in counts}
+    if summed != counts:
+        raise RuntimeError(f"per-stage launch counts {summed} do not add up to {counts}")
+    rows = rows_of() - rows0
+    print(f"[{label}] {args.H}x{args.W}, {args.sample_steps} steps, {rows} network rows: "
+          f"{total:.2f} s; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"; image mean {image.mean():.2f}, std {image.std():.2f}", flush=True)
+    print(f"[{label}] kernel launches by stage {json.dumps(launches)}", flush=True)
+    if image.dtype.name != "uint8" or image.shape != (args.H, args.W, 3):
+        raise RuntimeError(f"{label}: sample_images returned {image.dtype} {image.shape}")
+    if not bool(torch.isfinite(captured[-1]).all()):
+        raise FloatingPointError(f"{label}: the final latents are not finite")
+    return image, captured[-1], launches, rows
+
+
+def stage_sum(launches, key: str) -> int:
+    return sum(c.get(key, 0) for c in launches.values())
+
+
+def check_d64_grads(engine, device, seed: int) -> dict:
+    """Kernel 4 at head_dim 64 on SD-2.1's UNet: the gradients of its attn1
+    q and k projections through kernels 1 and 4 at (2, 64, 64, 4) latents
+    against plain attention, refusing kernel 4 with dq and dk zeroed.
+    Returns the launch counts of the run through the kernels."""
+    import torch
+
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+
+    net = engine.network
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    s = GRAD_D64_LATENT
+    x = torch.randn((2, s, s, 4), generator=gen, device=device).to(torch.bfloat16)
+    ts = torch.tensor([500, 300], device=device)
+    cond = {"crossattn": torch.randn((2, 77, 1024), generator=gen, device=device)
+            .to(torch.bfloat16)}
+    params = {n: p for n, p in net.named_parameters()
+              if n.endswith(("attn1.to_q.weight", "attn1.to_k.weight"))}
+    flags = {n: p.requires_grad for n, p in net.named_parameters()}
+    for n, p in net.named_parameters():
+        p.requires_grad_(n in params)
+    try:
+        g_k, g_p, g_f, counts = grads_three_ways(
+            params, lambda: net(x, ts, cond).float().square().mean().backward(),
+            sa.SpatialAttention)
+    finally:
+        for n, p in net.named_parameters():
+            p.requires_grad_(flags[n])
+    err, fault = grad_errors(g_k, g_p), grad_errors(g_f["dq = dk = 0"], g_p)
+    print(f"[txt2img_train] attn1 q/k gradients of {len(params)} tensors at (2, {s}, {s}, 4) "
+          f"through kernels 1 + 4 vs plain attention: worst tensor {err['worst_leaf']:.3e} "
+          f"({err['worst_leaf_name']}), whole {err['whole']:.3e} (tol {GRAD_TOLERANCE:.0e}); "
+          f"with dq = dk = 0 worst {fault['worst_leaf']:.3e}; launches {json.dumps(counts)}",
+          flush=True)
+    if not err["worst_leaf"] <= GRAD_TOLERANCE:
+        raise RuntimeError(f"the d = 64 gradients through kernel 4 disagree: {err}")
+    if not fault["worst_leaf"] > GRAD_TOLERANCE:
+        raise RuntimeError(f"the d = 64 gradient check passes kernel 4 without dq, dk: {fault}")
+    return counts
+
+
+def run_txt2img(device, seed: int) -> tuple:
+    """Phase 10 (a): SD-2.1-768 at full width.  Returns (session, args,
+    by_path, the txt2img image)."""
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_txt2img, count_rows
+    from ccedit_tpu_torch.data.video import write_png
+    from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.ops import spatial_attention as sa
+
+    t0 = time.perf_counter()
+    vocab = pathlib.Path("build") / "chip_smoke_conditioning"  # phase 9's synthetic BPE files
+    session, args = build_txt2img(device, seed, STEPS, IMAGE_SIZE,
+                                  ["--tokenizer_assets", str(vocab)])
+    engine = session.engine
+    n = {k: sum(p.numel() for p in m.parameters()) for k, m in
+         (("network", engine.network), ("vae", engine.vae), ("conditioner", engine.conditioner))}
+    print(f"[txt2img] SD-2.1-768 built in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n.items())
+          + f" parameters, bf16, tokenizer {type(engine.conditioner.embedders[0].tokenizer).__name__}",
+          flush=True)
+
+    # the network through the kernels against plain attention at 768x768
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    f = IMAGE_SIZE // 8
+    x = torch.randn((2, f, f, 4), generator=gen, device=device).to(torch.bfloat16)
+    ts = torch.tensor([700, 700], device=device)
+    cond = {"crossattn": torch.randn((2, 77, 1024), generator=gen, device=device)
+            .to(torch.bfloat16)}
+    res = held_to_plain(lambda: engine.network(x, ts, cond),
+                        faults=(("spatial halves swapped", halves_swapped("spatial")),))
+    counts = check_held(f"txt2img network at (2, {f}, {f}, 4)", res,
+                        {"spatial_attention[d64 n_k=n_q]": D64_PER_ROW})
+    by_path = {"txt2img_network": {"forward": counts}}
+    del x, cond
+
+    rows, hook = count_rows(engine.network)
+    try:
+        image, exact, by_path["txt2img"], n_rows = image_counted(session, args, "txt2img", rows)
+        d64 = stage_sum(by_path["txt2img"], "spatial_attention[d64 n_k=n_q]")
+        k3 = stage_sum(by_path["txt2img"], "flash_attention")
+        if d64 != D64_PER_ROW * n_rows or k3 != 1:
+            raise RuntimeError(f"txt2img launched kernel 1 at d = 64 {d64} times (want "
+                               f"{D64_PER_ROW} x {n_rows} rows) and kernel 3 {k3} (want 1)")
+        out_dir = pathlib.Path(IMAGE_DIR)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        write_png(str(out_dir / "txt2img.png"), image)
+
+        img2img = image_args(args, init_image=str(out_dir / "txt2img.png"),
+                             img2img_strength=0.75)
+        _, _, by_path["img2img"], rows_i = image_counted(session, img2img, "img2img", rows)
+        k3 = stage_sum(by_path["img2img"], "flash_attention")
+        if k3 != 2 or by_path["img2img"].get("encode", {}).get("flash_attention", 0) != 1:
+            raise RuntimeError(f"img2img launched kernel 3 {k3} times (want the encoder's and "
+                               "the decoder's)")
+
+        prepass = sa.prepass
+        try:
+            att.set_quantized_qk(True)
+            _, quant, by_path["txt2img_int8"], rows_q = image_counted(
+                session, args, "txt2img_int8", rows)
+            sa.prepass = without_dequant(prepass)
+            _, fault, _, _ = image_counted(session, args, "txt2img_int8 fault", rows)
+        finally:
+            sa.prepass = prepass
+            att.set_quantized_qk(False)
+    finally:
+        hook.remove()
+    int8 = stage_sum(by_path["txt2img_int8"], "spatial_attention[int8 d64 n_k=n_q]")
+    left = stage_sum(by_path["txt2img_int8"], "spatial_attention[d64 n_k=n_q]")
+    if int8 != D64_ALIGNED_PER_ROW * rows_q or left != (D64_PER_ROW - D64_ALIGNED_PER_ROW) * rows_q:
+        raise RuntimeError(f"the quantized image launched kernel 1c {int8} times and exact "
+                           f"kernel 1 {left} (want {D64_ALIGNED_PER_ROW} and "
+                           f"{D64_PER_ROW - D64_ALIGNED_PER_ROW} a row, {rows_q} rows)")
+    cos_q, cos_f = cosine(quant, exact), cosine(fault, exact)
+    print(f"[txt2img_int8] final latents vs the exact image's: cosine {cos_q:.6f}, with the "
+          f"dequant factor left out {cos_f:.6f} (limit {LATENT_COSINE})", flush=True)
+    if not cos_q >= LATENT_COSINE or not cos_f < LATENT_COSINE:
+        raise RuntimeError(f"the quantized image's latent check: {cos_q} sound, {cos_f} with "
+                           "the fault")
+    by_path["txt2img_train"] = {"backward": check_d64_grads(engine, device, seed)}
+    print(f"[txt2img] (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return session, args, by_path, np.ascontiguousarray(image)
+
+
+def post(url: str, body: bytes, content_type: str) -> str:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": content_type})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if resp.status != 200:
+            raise RuntimeError(f"POST {url}: HTTP {resp.status}")
+        return resp.read().decode()
+
+
+def page_images(page: str) -> list:
+    """The base64 PNGs of a demo page, decoded by the port's reader."""
+    import base64
+    import re
+
+    from ccedit_tpu_torch.data.video import read_png
+
+    return [read_png(base64.b64decode(b))
+            for b in re.findall(r"data:image/png;base64,([A-Za-z0-9+/=]+)", page)]
+
+
+def run_demo(session, args, image) -> dict:
+    """Phase 10 (b): the demo served on 127.0.0.1:0 in a thread, its model
+    session the one of (a); a url-encoded txt2img POST and a multipart
+    img2img POST, each answered with a decodable PNG."""
+    import threading
+    import urllib.parse
+
+    from ccedit_tpu_torch.cli import demo
+    from ccedit_tpu_torch.data.video import png_bytes
+    from ccedit_tpu_torch.ops import attention as att
+
+    t0 = time.perf_counter()
+    base = image_args(args, save_path=f"{IMAGE_DIR}/demo")
+    state = demo.DemoState(base, {"sd21_768": {"config": "sd21_768", "ckpt": ""}})
+    state.sessions["sd21_768"] = session  # warm: the model of (a)
+    server = demo.serve(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    fields = {"prompt": "a red fox in the snow", "seed": "3", "H": str(IMAGE_SIZE),
+              "W": str(IMAGE_SIZE), "sample_steps": str(STEPS), "cfg_scale": "7.5",
+              "num_samples": "1", "sampler_name": "EulerEDMSampler"}
+    reset_launches()
+    try:
+        pages = [post(url, urllib.parse.urlencode(fields).encode(),
+                      "application/x-www-form-urlencoded")]
+        boundary = "----ccedit-chip-smoke"
+        parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'
+                 .encode() for k, v in dict(fields, img2img_strength="0.5").items()]
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="init_image"; '
+                     f'filename="init.png"\r\nContent-Type: image/png\r\n\r\n'.encode()
+                     + png_bytes(image) + b"\r\n")
+        pages.append(post(url, b"".join(parts) + f"--{boundary}--\r\n".encode(),
+                          f"multipart/form-data; boundary={boundary}"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    counts = att.launch_counts()
+    for label, page in zip(("txt2img", "img2img"), pages):
+        images = page_images(page)
+        if len(images) != 1 or images[0].shape != (IMAGE_SIZE, IMAGE_SIZE, 3):
+            raise RuntimeError(f"the demo's {label} page holds {[i.shape for i in images]}")
+        print(f"[demo] {label} POST: one {images[0].shape} PNG, mean {images[0].mean():.2f}",
+              flush=True)
+    print(f"[demo] (b) in {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts)}",
+          flush=True)
+    return {"demo": {"requests": counts}}
+
+
+def run_auto_pipeline(device) -> dict:
+    """Phase 10 (c): ``auto_pipeline`` on the bear clip's frames at 512x768
+    (8 keyframes, 3 steps a stage, the TVI2V config with seeded random
+    weights, bf16): the centre frame, its img2img edit and the TVI2V video,
+    each step's kernel launches counted."""
+    import pathlib
+
+    from ccedit_tpu_torch.assets import BEAR_FRAMES
+    from ccedit_tpu_torch.cli import auto_pipeline, extract_centerframe, sampling_image
+    from ccedit_tpu_torch.cli import sampling_tv2v_ref
+    from ccedit_tpu_torch.data.video import read_png
+    from ccedit_tpu_torch.ops import attention as att
+
+    t0 = time.perf_counter()
+    save = pathlib.Path(IMAGE_DIR) / "auto"
+    stages, mains = {}, {}
+    for label, module in (("centerframe", extract_centerframe), ("frame_edit", sampling_image),
+                          ("tvi2v", sampling_tv2v_ref)):
+        mains[module] = module.main
+
+        def counted(argv, _main=module.main, _label=label):
+            reset_launches()
+            t1 = time.perf_counter()
+            try:
+                return _main(argv)
+            finally:
+                stages[_label] = att.launch_counts()
+                print(f"[auto_pipeline] {_label} in {time.perf_counter() - t1:.1f} s", flush=True)
+
+        module.main = counted
+    try:
+        out = auto_pipeline.main([
+            "--video_path", str(BEAR_FRAMES), "--prompt", "a robot bear walking through the snow",
+            "--config_path", "tvi2v", "--save_path", str(save), "--H", str(H), "--W", str(W),
+            "--original_fps", "3", "--target_fps", "3", "--num_keyframes", "8",
+            "--sample_steps", str(STEPS), "--cfg_scale", "7", "--bf16", "--device", str(device),
+            "--save_type", "gif"])
+    finally:
+        for module, main_fn in mains.items():
+            module.main = main_fn
+    centre, edited = read_png(out["centerframe"]), read_png(out["edited_frame"])
+    videos = sorted(p.name for p in out["tvi2v"].iterdir())
+    tv = stages["tvi2v"]
+    print(f"[auto_pipeline] centre frame {centre.shape}, edited frame {edited.shape}, "
+          f"{out['tvi2v']}: {videos}; TVI2V launches {json.dumps(tv)}", flush=True)
+    if centre.shape != (H, W, 3) or edited.shape != (H, W, 3) or \
+            "bear_original_00.gif" not in videos:
+        raise RuntimeError(f"auto_pipeline wrote {centre.shape}, {edited.shape}, {videos}")
+    want = ("spatial_attention[d40 n_k=n_q]", "spatial_attention[d40 n_k!=n_q]",
+            "temporal_attention")
+    if any(tv.get(k, 0) <= 0 for k in want) or tv.get("flash_attention", 0) < 2:
+        raise RuntimeError(f"the TVI2V stage missed a kernel (1, 1b, 2, or 3 in the encoder "
+                           f"and the decoder): {tv}")
+    print(f"[auto_pipeline] (c) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"auto_pipeline": stages}
+
+
+def run_inception(device, seed: int) -> None:
+    """Phase 10 (d): InceptionV3 at full width with seeded random weights:
+    the 2048-d features of a batch in bf16 against fp32 by cosine; FID of a
+    set of images against itself near 0, against the set brightened
+    larger."""
+    import numpy as np
+    import torch
+
+    from ccedit_tpu_torch.modules.inception import randomize_inception_
+    from ccedit_tpu_torch.utils import fid
+
+    t0 = time.perf_counter()
+    model = fid.fid_inception(device)
+    randomize_inception_(model, torch.Generator(device=device).manual_seed(seed))
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:IMAGE_SIZE // 2, 0:IMAGE_SIZE // 2] / (IMAGE_SIZE // 2)
+    base = [np.clip(np.stack([np.sin(6 * xx * (1 + i % 5) + i), np.cos(5 * yy + i),
+                              xx * yy], -1) * 0.5 + 0.5 + rs.normal(0, 0.05, xx.shape + (3,)),
+                    0, 1).astype(np.float32) for i in range(INCEPTION_IMAGES)]
+    x = torch.from_numpy(np.stack(base[:8])).to(device)
+    with torch.no_grad():
+        f32 = model(x)[-1].float()
+        f16 = model.to(torch.bfloat16)(x)[-1].float()
+    model.float()
+    cos = cosine(f16, f32)
+    feats = fid.activations(model, base, batch_size=16)
+    shifted = fid.activations(model, [np.clip(b + 0.25, 0, 1) for b in base], batch_size=16)
+    stats = fid.statistics(feats)
+    self_fid = fid.frechet_distance(*stats, *stats)
+    shift_fid = fid.frechet_distance(*stats, *fid.statistics(shifted))
+    print(f"[inception] features {tuple(f32.shape)} bf16 vs fp32 cosine {cos:.6f} (limit "
+          f"{INCEPTION_COSINE}); FID of {INCEPTION_IMAGES} images against themselves "
+          f"{self_fid:.4e}, against the brightened set {shift_fid:.4e}; "
+          f"(d) in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not cos >= INCEPTION_COSINE or not abs(self_fid) < 1e-3 * shift_fid:
+        raise RuntimeError(f"InceptionV3/FID check: cosine {cos}, FID self {self_fid}, "
+                           f"shifted {shift_fid}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_safety(device, seed: int, image) -> None:
+    """Phase 10 (e): the DeepFloyd filter with a seeded random CLIP ViT-L/14
+    and a planted p head (``.npz``, read by ``from_files``) that flags
+    exactly image SAFETY_FLAGGED: only that one may come back blurred; then
+    the watermark's round trip through a PNG."""
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from ccedit_tpu_torch.cli.detect_watermark import detect
+    from ccedit_tpu_torch.data.video import write_png
+    from ccedit_tpu_torch.io.checkpoint import randomize_weights_
+    from ccedit_tpu_torch.utils import safety, watermark
+
+    t0 = time.perf_counter()
+    with torch.device(device):
+        clip = safety.clip_vit_l14()
+    randomize_weights_(clip, torch.Generator(device=device).manual_seed(seed)).eval()
+    base = torch.from_numpy(image).to(device).float() / 255.0
+    imgs = torch.stack([base.roll(97 * i, dims=1) if i % 2 else base.flip(0).roll(31 * i, 0)
+                        for i in range(SAFETY_IMAGES)])
+    with torch.no_grad():
+        feats = clip(safety.clip_process_images(imgs)).float().cpu().numpy().astype(np.float16)
+    target = -np.ones(SAFETY_IMAGES)
+    target[SAFETY_FLAGGED] = 4.0  # logits: the flagged image's far above 0, the rest below
+    weights = np.linalg.lstsq(feats.astype(np.float64), target, rcond=None)[0]
+    heads = pathlib.Path(IMAGE_DIR) / "safety"
+    heads.mkdir(parents=True, exist_ok=True)
+    np.savez(heads / "p_head_v1.npz", weights=weights[None].astype(np.float32),
+             biases=np.zeros(1, np.float32))
+    filt = safety.DeepFloydDataFiltering.from_files(p_head_path=str(heads / "p_head_v1.npz"))
+    filt.model = clip
+    with torch.no_grad():
+        out = filt(imgs)
+    changed = [not torch.equal(out[i], imgs[i]) for i in range(SAFETY_IMAGES)]
+    blur = safety.gaussian_blur(imgs)[SAFETY_FLAGGED]
+    print(f"[safety] CLIP ViT-L/14 {sum(p.numel() for p in clip.parameters()) / 1e6:.1f} M, "
+          f"flags {filt.flags(imgs).tolist()}, changed {changed}; the flagged image equals "
+          f"its blur: {torch.equal(out[SAFETY_FLAGGED], blur)}", flush=True)
+    if changed != [i == SAFETY_FLAGGED for i in range(SAFETY_IMAGES)] or \
+            not torch.equal(out[SAFETY_FLAGGED], blur):
+        raise RuntimeError(f"the safety filter changed {changed}")
+    marked = watermark.WatermarkEmbedder()(imgs[:1].cpu().numpy())
+    write_png(str(heads / "marked.png"), np.round(marked[0] * 255).astype(np.uint8))
+    write_png(str(heads / "clean.png"), image)
+    bits_ok = watermark.decode_lsb(marked) == watermark.WATERMARK_BITS
+    found, clean = detect(str(heads / "marked.png")), detect(str(heads / "clean.png"))
+    print(f"[safety] watermark bits read back {bits_ok}; detect: marked {found}, clean {clean}; "
+          f"(e) in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not bits_ok or not found or clean:
+        raise RuntimeError("the watermark's round trip failed")
+    del clip, filt
+    torch.cuda.empty_cache()
+
+
+def run_toy_train(device) -> None:
+    """Phase 10 (f): three ``cli.train`` steps of ``TOY_MNIST_CONFIG`` on the
+    card (pixel space, the synthetic MNIST set, batch 512 of 28x28x1, bf16
+    autocast).  Its one attention (the middle block's, 49 tokens) is plain:
+    this part runs no kernel."""
+    import math as _math
+
+    from ccedit_tpu_torch.cli import train
+
+    t0 = time.perf_counter()
+    _, result = train.main(["-b", "toy_mnist", "--max_steps", "3", "--device", str(device),
+                            "--bf16", "-l", f"{IMAGE_DIR}/toy_logs", "--log_every", "1",
+                            "--ckpt_every", "1000", "--seed", "0"])
+    losses = [float(x) for x in result.losses]
+    print(f"[toy_train] TOY_MNIST_CONFIG: {result.step} steps, losses {losses}; (f) in "
+          f"{time.perf_counter() - t0:.1f} s (no kernel on this path)", flush=True)
+    if result.step != 3 or not all(_math.isfinite(x) for x in losses):
+        raise RuntimeError(f"toy training ended at step {result.step}, losses {losses}")
+
+
+def run_image(device, seed: int) -> dict:
+    """Phase 10: (a) SD-2.1-768 txt2img, img2img and int8, with the d = 64
+    gradient check; (b) the demo; (c) the auto pipeline; (d) InceptionV3 and
+    FID; (e) the safety filter and the watermark; (f) toy training.
+    Returns the per-stage launch counts, as paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"[image] {torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated before the "
+          "phase", flush=True)
+    session, args, by_path, image = run_txt2img(device, seed)
+    by_path.update(run_demo(session, args, image))
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(run_auto_pipeline(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_inception(device, seed)
+    run_safety(device, seed, image)
+    run_toy_train(device)
+    print(f"[image] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def reset_launches():
     """Every launch count to 0: the attention kernels' and the probes' (kernel
     7's tile sweep among them)."""
@@ -2724,6 +3273,8 @@ def main() -> int:
     # phase 8: the network variants; phase 9: conditioning
     by_path.update(run_variants(device, SEED))
     by_path.update(run_conditioning(device, SEED))
+    # phase 10: image sampling and the secondary entry points
+    by_path.update(run_image(device, SEED))
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
         rec["launches"] = rec["launches_by_path"][spec["path"]]

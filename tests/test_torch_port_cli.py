@@ -85,7 +85,10 @@ def test_config_rejects_targets_outside_the_slice(key, value, match):
     JAX ``build_network`` builds them (RAIG's 2-D UNet with its reference
     attention; a pseudo-3D UNet, which has no use for the 2-D option).  What
     the port still refuses raises ``KeyError`` naming it: ``remat_policy``
-    (a jax.checkpoint_policies name) and an engine target it lacks."""
+    (a jax.checkpoint_policies name).  An engine target other than the
+    video engines (sgm's ``DiffusionEngine``) was refused too until image
+    sampling was ported: it builds now, as in the JAX ``build_engine``,
+    without the TV2V engines' freeze-policy mapping."""
     from ccedit_tpu import config as jax_config
 
     cfg = json.loads(json.dumps(config.TV2V_CONFIG))
@@ -96,16 +99,16 @@ def test_config_rejects_targets_outside_the_slice(key, value, match):
     jnet = jax_config.build_network(net)
     assert engine.network.raig == jnet.raig == (match == "ControlledUNetModel2DRAIG")
     assert engine.network.unet.is_video == (jnet.unet.unet_type == "pseudo-3d")
-    refused = (("network_config", "remat_policy", "dots_saveable", "remat_policy"),
-               ("target", None, "x.DiffusionEngine", "DiffusionEngine"))
-    for where, option, bad, name in refused:
-        other = json.loads(json.dumps(cfg))
-        if where == "target":
-            other["model"]["target"] = bad
-        else:
-            other["model"]["params"][where]["params"][option] = bad
-        with pytest.raises(KeyError, match=name), torch.device("meta"):
-            config.build_engine(other, fake_annotator=True)
+    other = json.loads(json.dumps(cfg))
+    other["model"]["params"]["network_config"]["params"]["remat_policy"] = "dots_saveable"
+    with pytest.raises(KeyError, match="remat_policy"), torch.device("meta"):
+        config.build_engine(other, fake_annotator=True)
+    other = json.loads(json.dumps(cfg))
+    other["model"]["target"] = "x.DiffusionEngine"
+    other["model"]["params"]["freeze_model"] = "spatial"
+    with torch.device("meta"):
+        engine = config.build_engine(other, fake_annotator=True)
+    assert engine.freeze_policy == jax_config.build_engine(other).freeze_policy == "spatial"
 
 
 def test_batched_draw_equals_single_draws(tiny_config):

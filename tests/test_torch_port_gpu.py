@@ -739,3 +739,89 @@ def test_hint_on_the_card_equals_the_cpu_one(cuda, tmp_path, target, params, fam
     else:
         a, b = out - out.mean(), ref - ref.mean()
         assert (a.flatten() @ b.flatten() / (a.norm() * b.norm())).item() >= 0.9999
+
+
+# ---- head_dim 64: SD-2.x's heads (kernels 1, 1c with its pre-pass, 4) ----
+
+@pytest.mark.parametrize("shape", [(2, 5, 9216, 64), (2, 10, 2304, 64), (2, 20, 576, 64),
+                                   (2, 3, 1000, 64)])
+def test_d64_kernel1_matches_plain(cuda, shape):
+    """Kernel 1's d = 64 instantiation at SD-2.1-768's three levels (576:
+    ragged, a shape the JAX gate leaves to XLA) and a ragged n_q; the same
+    check must refuse the kernel with log2 e left out of its scale."""
+    q, k, v = _qkv(shape, shape[2], cuda, seed=sum(shape))
+    scale = 64 ** -0.5
+    before = att.launch_counts().get("spatial_attention[d64 n_k=n_q]", 0)
+    out = att.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert att.launch_counts()["spatial_attention[d64 n_k=n_q]"] == before + 1
+    ref = sa.plain_spatial_attention(q, k, v, scale)
+    assert _agrees(out, ref)
+    assert not _agrees(sa._forward(q, k, v, scale / sa._LOG2E), ref)
+
+
+@pytest.mark.parametrize("shape,quantized", [((2, 5, 9216, 64), True), ((2, 10, 2304, 64), True),
+                                             ((2, 20, 576, 64), False)])
+def test_d64_int8_switch_quantizes_where_the_jax_gate_holds(cuda, shape, quantized):
+    q, k, v = _qkv(shape, shape[2], cuda, seed=sum(shape) + 1)
+    scale = 64 ** -0.5
+    att.set_quantized_qk(True)
+    try:
+        before = att.launch_counts()
+        out = att.dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        after = att.launch_counts()
+    finally:
+        att.set_quantized_qk(False)
+    key = "spatial_attention[int8 d64 n_k=n_q]" if quantized else "spatial_attention[d64 n_k=n_q]"
+    assert after[key] == before.get(key, 0) + 1
+    assert after["quantize_qk"] == before["quantize_qk"] + int(quantized)
+    plain = sa.plain_spatial_attention_int8 if quantized else sa.plain_spatial_attention
+    assert _agrees(out, plain(q, k, v, scale))
+    assert _cosine(out, sa.plain_spatial_attention(q, k, v, scale)) > 0.9995
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 9216, 64), (2, 10, 2304, 64)])
+def test_d64_prepass_equals_its_plain_version(cuda, shape):
+    q, k, _ = _qkv(shape, shape[2], cuda, seed=sum(shape) + 2)
+    for x, (b, h) in ((q, (0, 0)), (k, (-1, -1))):
+        x[b, h] = torch.round(x[b, h].float() * 20).div(2).to(x.dtype)
+        x[b, h, 0, 0] = 127.0
+    scale = 64 ** -0.5
+    got, want = sa.prepass(q, k, scale), sa.plain_prepass(q, k, scale)
+    assert got[0].shape[-1] == 64  # 64-byte rows, no padding
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,n_k", [((2, 10, 2304, 64), 2304), ((2, 8, 600, 64), 600),
+                                        ((1, 2, 300, 64), 700)])
+def test_d64_backward_kernel_matches_plain(cuda, shape, n_k):
+    q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
+    do = _qkv(shape, shape[2], cuda, seed=13)[0]
+    scale = 64 ** -0.5
+    b, h, n_q, _ = shape
+    lse = torch.empty((b * h, n_q), device=cuda, dtype=torch.float32)
+    out = sa._forward(q, k, v, scale, lse)
+    key = f"spatial_attention_bwd[{sa.variant(q, k)}]"
+    before = att.launch_counts().get(key, 0)
+    grads = sa.spatial_attention_bwd(q, k, v, out, do, lse, scale)
+    faulty = sa.spatial_attention_bwd(q, k, v, torch.zeros_like(out), do, lse, scale)
+    torch.cuda.synchronize()
+    assert att.launch_counts()[key] == before + 2
+    refs = sa.plain_spatial_attention_bwd(q, k, v, do, scale)
+    rels = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            for g, r in zip(grads, refs)]
+    assert all(torch.isfinite(g.float()).all() for g in grads) and max(rels) <= TOL
+    fault = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+             for g, r in zip(faulty, refs)]
+    assert max(fault) > TOL  # delta left out
+
+
+def test_d64_autograd_launches_kernel_4(cuda):
+    q, k, v = (x.detach().requires_grad_(True) for x in _qkv((1, 5, 1024, 64), 1024, cuda, 9))
+    before = att.launch_counts().get("spatial_attention_bwd[d64 n_k=n_q]", 0)
+    att.dot_product_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert att.launch_counts()["spatial_attention_bwd[d64 n_k=n_q]"] == before + 1
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))

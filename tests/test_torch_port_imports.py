@@ -2,11 +2,15 @@
 included), its data parallelism and native decode binding, its samplers, ZoeDepth, the LoRA merge, its training modules
 (VAE training's too), ``unet_extras``, the kernel-7 sweep script, every
 structure annotator, embedder and text tower and the native tokenizer
-binding (which builds nothing at import), and ``chip_smoke.py``'s
-imports pulls in
+binding (which builds nothing at import), the image CLIs, InceptionV3,
+FID, the safety filter, the watermark, the toy and tar-shard datasets, and
+``chip_smoke.py``'s imports pulls in
 neither JAX/flax nor the file-IO libraries (cv2, PIL, imageio, yaml), which
 the GPU machine may not have; the annotators also run without cv2
-(``test_torch_port_annotators.py``)."""
+(``test_torch_port_annotators.py``).  With those libraries blocked outright
+the image slice's modules import and their host IO runs: the PNG reader and
+writer, the frame-directory keyframe loader, a built-in config by name, the
+toy set, the flat YAML, the multipart parser and the watermark."""
 
 import subprocess
 import sys
@@ -68,6 +72,19 @@ import ccedit_tpu_torch.ops.attention
 import ccedit_tpu_torch.ops.build
 import ccedit_tpu_torch.ops.flash_attention
 import ccedit_tpu_torch.scripts.profile_blocks
+import ccedit_tpu_torch.assets
+import ccedit_tpu_torch.cli.auto_pipeline
+import ccedit_tpu_torch.cli.demo
+import ccedit_tpu_torch.cli.detect_watermark
+import ccedit_tpu_torch.cli.extract_centerframe
+import ccedit_tpu_torch.cli.pnp_generate_config
+import ccedit_tpu_torch.cli.sampling_image
+import ccedit_tpu_torch.data.toy
+import ccedit_tpu_torch.data.webdataset
+import ccedit_tpu_torch.modules.inception
+import ccedit_tpu_torch.utils.fid
+import ccedit_tpu_torch.utils.safety
+import ccedit_tpu_torch.utils.watermark
 import chip_smoke
 chip_smoke.reset_launches()
 assert ccedit_tpu_torch.conditioning.native_tokenizer._LIB is None  # built at first use only
@@ -81,6 +98,60 @@ def test_port_imports_no_jax_and_no_io_libraries():
                          capture_output=True, text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+BLOCKED = """
+import sys
+sys.path.insert(0, {root!r})
+BLOCK = ("jax", "flax", "ccedit_tpu", "cv2", "PIL", "imageio", "yaml")
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError(f"{{name}} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+import numpy as np
+import ccedit_tpu_torch.assets as assets
+import ccedit_tpu_torch.cli.auto_pipeline
+import ccedit_tpu_torch.cli.demo as demo
+import ccedit_tpu_torch.cli.detect_watermark as dw
+import ccedit_tpu_torch.cli.extract_centerframe
+import ccedit_tpu_torch.cli.pnp_generate_config as pnp
+import ccedit_tpu_torch.cli.sampling_image
+import ccedit_tpu_torch.config as config
+import ccedit_tpu_torch.data.toy as toy
+import ccedit_tpu_torch.data.video as video
+import ccedit_tpu_torch.data.webdataset
+import ccedit_tpu_torch.modules.inception
+import ccedit_tpu_torch.utils.fid
+import ccedit_tpu_torch.utils.safety
+import ccedit_tpu_torch.utils.watermark as wm
+# what the GPU machine runs of them needs none of the blocked modules
+frames = video.load_video_keyframes(str(assets.BEAR_FRAMES), 3, 3, 4, (64, 96))
+assert frames.shape == (4, 64, 96, 3)
+png = video.png_bytes(frames[0])
+assert (video.read_png(png) == frames[0]).all()
+assert config.load_config("sd21_768")["model"]["params"]["network_config"]["params"][
+    "num_head_channels"] == 64
+assert toy.MNISTDataset(n_synthetic=4)[0]["jpg"].shape == (28, 28, 1)
+assert pnp.flat_yaml({{"a": "1.5", "b": 2}}) == 'a: "1.5"\\nb: 2\\n'
+assert demo.parse_multipart(b"--x\\r\\nContent-Disposition: form-data; name=\\"p\\"\\r\\n\\r\\nv\\r\\n--x--\\r\\n",
+                            "multipart/form-data; boundary=x") == ({{"p": "v"}}, {{}})
+marked = wm.WatermarkEmbedder()(frames[:1].astype(np.float32) / 255.0)
+assert wm.decode_lsb(marked) == wm.WATERMARK_BITS
+print("ok")
+"""
+
+
+def test_new_modules_import_and_run_with_jax_and_io_libraries_blocked():
+    out = subprocess.run([sys.executable, "-c", BLOCKED.format(root=str(ROOT))],
+                         capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
