@@ -11,6 +11,9 @@ VAE swaps, job gathering, ``log_info.json`` resume ledger and saving;
 height and width must be multiples of 64 (an odd latent geometry cannot
 round-trip the UNet's down/up skips); the shape bucket grid and the TPU
 compile workarounds are not ported, so ``--exact_shapes`` changes nothing.
+With ``clip_shard=True`` under ``torchrun`` (one process a GPU) every rank
+conditions the whole clip, the sample runs split over the ranks
+(``parallel/sampling.py``) and rank 0 decodes the gathered latents.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from ..io.checkpoint import (load_partial, load_reference_checkpoint, load_torch
                              randomize_weights_, reference_parts, sub_state_dict)
 from ..io.lora import merge_kohya_lora
 from ..ops.attention import launch_counts
+from ..parallel.mesh import rank as process_rank
+from ..parallel.sampling import gather_clip, make_frame_sharded_sample
 
 PRIOR_TYPES = ("video", "ref", "video_ref")
 
@@ -270,10 +275,12 @@ def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               return_latents: bool = False, **kw):
     """Edit one clip: (T, H, W, 3) uint8 -> (T, H, W, 3) uint8 (and, with
     ``return_latents``, the sampled latents (1, T, h, w, 4) before decoding).
-    One draw of ``edit_clips``, whose keywords it takes."""
+    One draw of ``edit_clips``, whose keywords it takes (``clip_shard``: the
+    frames are None on the ranks other than 0)."""
     out, latents = edit_clips(engine, frames_u8, prompt, negative_prompt, cfg_scale,
                               num_steps, generator, **kw)
-    return (out[0], latents) if return_latents else out[0]
+    frames = None if out is None else out[0]
+    return (frames, latents) if return_latents else frames
 
 
 def _repeat_batch(tree: Dict, n: int) -> Dict:
@@ -291,7 +298,8 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
                prior_coefficient_x: float = 0.0, prior_coefficient_noise: float = 1.0,
                stage_launches: Optional[Dict[str, Dict[str, int]]] = None,
                batch_size: int = 1, init_noise: Optional[torch.Tensor] = None,
-               loop_noise=None, sdedit: bool = False, inpainting: bool = False):
+               loop_noise=None, sdedit: bool = False, inpainting: bool = False,
+               clip_shard: bool = False):
     """Edit one clip ``batch_size`` times in one sampler call: (T, H, W, 3)
     uint8 -> (batch_size, T, H, W, 3) uint8 and the sampled latents
     (batch_size, T, h, w, 4) before decoding.  The conditioning is computed
@@ -317,7 +325,13 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
     encoder: the reference and the x-prior; only when either is used),
     ``sample`` (the ControlNet hint pyramid, once, then the sampler loop) and
     ``decode`` (VAE decode and uint8 quantisation).  The modules carry their
-    weights, so unlike the JAX function there is no params argument."""
+    weights, so unlike the JAX function there is no params argument.
+
+    ``clip_shard`` (under ``torchrun``, every rank calling with the same
+    arguments and generator seed): the sample stage runs ONE clip split over
+    the ranks (``make_frame_sharded_sample``: the frame axis when T divides
+    the world, else the height axis), every rank gets the whole latents, and
+    only rank 0 decodes them; the others return None for the frames."""
     if prior_type not in PRIOR_TYPES:
         raise ValueError(f"prior_type {prior_type!r} (one of {PRIOR_TYPES})")
     if sdedit and prior_coefficient_x != 0:
@@ -358,14 +372,21 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
             x_prior = x_prior.repeat_interleave(batch_size, dim=0)
         if mask is not None:
             mask = mask.repeat_interleave(batch_size, dim=0)
-    latents = engine.sample(c, uc, (batch_size, t, h // f, w // f, 4), num_steps=num_steps,
-                            generator=generator, init_noise=init_noise, loop_noise=loop_noise,
-                            guider_scale=cfg_scale, x_prior=x_prior,
-                            prior_coefficient=prior_coefficient_x,
-                            prior_noise_coefficient=prior_coefficient_noise,
-                            mode="sdedit" if sdedit else "full",
-                            inpaint_x0=x_prior if inpainting else None, inpaint_mask=mask)
+    shape = (batch_size, t, h // f, w // f, 4)
+    kw = dict(generator=generator, init_noise=init_noise, loop_noise=loop_noise,
+              guider_scale=cfg_scale, x_prior=x_prior, prior_coefficient=prior_coefficient_x,
+              prior_noise_coefficient=prior_coefficient_noise,
+              mode="sdedit" if sdedit else "full",
+              inpaint_x0=x_prior if inpainting else None, inpaint_mask=mask)
+    if clip_shard:
+        call = make_frame_sharded_sample(engine, shape, num_steps)
+        latents = gather_clip(call(c, uc, **kw), call.axis)
+    else:
+        latents = engine.sample(c, uc, shape, num_steps=num_steps, **kw)
     watch.lap("sample")
+    if clip_shard and process_rank() != 0:
+        watch.lap("decode")
+        return None, latents
     decoded = engine.decode_first_stage(latents).float()
     if not bool(torch.isfinite(decoded).all()):
         raise FloatingPointError("the decoded clip has non-finite values")

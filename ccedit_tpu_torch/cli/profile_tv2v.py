@@ -9,6 +9,7 @@ training step or a VAE GAN training step, on one GPU.
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload interp_train   # likewise, interpolation
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload vae_train   # likewise, VAETrainer
     python -m ccedit_tpu_torch.cli.profile_tv2v --workload txt2img   # SD-2.1-768, 50 Euler steps
+    torchrun --nproc_per_node 4 -m ccedit_tpu_torch.cli.profile_tv2v --clip_shard   # one clip, 4 GPUs
 
 Builds the SD-1.5 engine of the workload (seeded random weights, bf16; TV2V
 with the luminance depth stand-in at CFG 7.5, TVI2V with a random full-size
@@ -49,6 +50,21 @@ on by the environment, ``CCEDIT_QUANT_QK=1`` (or ``CCEDIT_INT8=1``), as in
 the JAX package; the JSON line records it as ``quantized_qk``.  Prints one
 JSON line; the trace goes to
 ``--out``.
+
+``--clip_shard`` (the ``tv2v``/``tvi2v`` edits, under ``torchrun``, one
+process a GPU, NCCL): every rank builds the same seeded engine and
+conditions the whole clip, the sample runs ONE clip split over the ranks
+(``parallel/sampling.py``: the frame axis when ``--frames`` divides the
+world, else the height axis), and rank 0 decodes the gathered latents.
+Rank 0 prints the JSON line with the world, the axis, the edit and stage
+seconds, the seconds per row, every rank's peak memory, the busy share of
+rank 0's profile, the device seconds of its NCCL kernels by kind (SendRecv
+is the halos under a height or width split and the all-to-alls under a
+frame split; AllReduce the GroupNorm statistics; AllGather the k/v
+gathers, and once an edit the latents; Broadcast the centre frame), and
+the collectives a row issues by kind with the bytes rank 0 receives
+(``parallel/shard.py::census``).  NCCL kernel time includes the time a
+rank waits for the others.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ import json
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,6 +88,7 @@ from .pipeline import base_parser, edit_clip, load_engine
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _GROUPS = (  # matched against "launching op + kernel name"; first match wins
     ("attention kernels (ours)", ("ccedit::",)),
+    ("collectives (NCCL)", ("nccl",)),
     ("convolution", ("convolution", "fprop", "nchwtonhwc", "nhwctonchw")),
     ("gemm", ("::mm", "addmm", "bmm", "gemm", "nvjet", "cublas")),
     ("normalisation", ("norm", "welford", "rowwisemoments")),
@@ -119,6 +137,8 @@ def summarise_trace(trace_path: Path, wall_seconds: float, top: int = 25) -> dic
             "device_busy_share": busy / wall_seconds,
             "groups_seconds": dict(by_group.most_common()),
             "top_kernels_seconds": dict((k[:120], v) for k, v in by_kernel.most_common(top)),
+            "nccl_kernels_seconds": {k[:120]: v for k, v in by_kernel.items()
+                                     if "nccl" in k.lower()},
             "top_ops_seconds": dict((k[:160], v) for k, v in by_op.most_common(top))}
 
 
@@ -226,6 +246,8 @@ def profile_vae_train(a, device, smi: str) -> dict:
 
 
 EDIT_GEOMETRY = (17, 512, 768)  # frames, height, width
+NCCL_KINDS = (("allgather", "kv_all_gather"), ("allreduce", "norm_all_reduce"),
+              ("broadcast", "broadcast"), ("sendrecv", "halo"))
 
 
 EDIT_CONFIGS = {"tv2v": TV2V_CONFIG, "tvi2v": TVI2V_CONFIG, "tvi2v_zoe": TVI2V_ZOE_CONFIG}
@@ -291,7 +313,8 @@ def profile_txt2img(a, device, smi: str) -> dict:
 TRAIN_WORKLOADS = ("train", "tvi2v_train", "interp_train", "vae_train")
 
 
-def build_edit(workload: str, device, seed: int, steps: int, config=None):
+def build_edit(workload: str, device, seed: int, steps: int, config=None,
+               frames: Optional[int] = None, clip_shard: bool = False):
     """The full-width engine of the ``tv2v``, ``tvi2v`` or ``tvi2v_zoe``
     edit (seeded random weights, bf16) and ``edit(n_steps, generator,
     **edit_clip keywords)``, which edits the synthetic 17x512x768 clip as
@@ -300,11 +323,14 @@ def build_edit(workload: str, device, seed: int, steps: int, config=None):
     centre frame with its colours shifted as the edited reference,
     ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.  ``config``
     replaces the workload's engine config (another structure hint, say; an
-    annotator read from its ``ckpt_path`` keeps its weights).  Returns
+    annotator read from its ``ckpt_path`` keeps its weights); ``frames``
+    replaces the clip's 17 keyframes; ``clip_shard`` samples the clip split
+    over the ranks of a ``torchrun`` launch (``edit_clips``).  Returns
     (engine, edit, cfg_scale)."""
     tvi2v = workload != "tv2v"
     cfg_scale = 7.0 if tvi2v else 7.5
     t, h, w = EDIT_GEOMETRY
+    t = frames or t
     args = base_parser().parse_args(
         ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(h),
          "--W", str(w), "--num_keyframes", str(t), "--sample_steps", str(steps),
@@ -317,10 +343,88 @@ def build_edit(workload: str, device, seed: int, steps: int, config=None):
                      prior_type="ref", prior_coefficient_x=0.03)
 
     def edit(n_steps, generator, **kw):
+        kw.setdefault("clip_shard", clip_shard)
         return edit_clip(engine, frames, "a robot bear walking through the snow",
                          "ugly, low quality", cfg_scale, n_steps, generator, **extra, **kw)
 
     return engine, edit, cfg_scale
+
+
+def nccl_seconds(kernels: dict, axis: int) -> dict:
+    """Device seconds of a trace's NCCL kernels by the collective kind each
+    NCCL operation carries here (``axis`` 1: SendRecv is the all-to-all)."""
+    out = collections.Counter()
+    for name, sec in kernels.items():
+        low = name.lower()
+        kind = next((k for key, k in NCCL_KINDS if key in low), "other")
+        if kind == "halo" and axis == 1:
+            kind = "all_to_all"
+        out[kind] += sec
+    return dict(out)
+
+
+def profile_clip_shard(a, smi: str) -> Optional[dict]:
+    """Time and profile the edit with its sample split over the ranks of a
+    ``torchrun`` launch; rank 0 returns the JSON line, the others None."""
+    import torch.distributed as dist
+
+    from ..ops.attention import launch_counts, reset_launch_counts
+    from ..parallel.mesh import init_distributed
+    from ..parallel.sampling import pick_clip_axis
+    from ..parallel.shard import AXES, census
+
+    device = init_distributed("cuda")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    steps = a.steps or (30 if a.workload == "tv2v" else 50)
+    t, h, w = EDIT_GEOMETRY
+    t = a.frames or t
+    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=t, clip_shard=True)
+    gen = torch.Generator(device=device).manual_seed(a.seed)
+    axis = pick_clip_axis(world, (1, t, h // 8, w // 8, 4))
+
+    edit(1, gen)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
+    stages = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 1e9
+    reset_launch_counts()
+    with census() as records:
+        t0 = time.perf_counter()
+        edit(steps, gen, stage_seconds=stages)
+        total = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    rows = 2 * steps - 1
+    per_row = collections.defaultdict(lambda: [0, 0])
+    for r in records:
+        per_row[r["kind"]][0] += 1
+        per_row[r["kind"]][1] += r["bytes"]
+    profile = _profile(lambda: edit(a.profile_steps, gen), Path(a.out) / f"rank{rank}")
+    peaks = [(peak, resident, total)]
+    if dist.is_initialized():
+        peaks = [None] * world
+        dist.all_gather_object(peaks, (peak, resident, total))
+        dist.destroy_process_group()
+    if rank != 0:
+        return None
+    p_rows = 2 * a.profile_steps - 1
+    nccl = nccl_seconds(profile["nccl_kernels_seconds"], axis)
+    return {
+        "gpu": smi, "workload": a.workload, "clip_shard": True, "world": world,
+        "axis": AXES[axis],
+        "quantized_qk": quantized_qk_enabled(), "cfg_scale": cfg_scale,
+        "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
+        "edit_seconds": total, "stage_seconds": stages,
+        "sample_seconds_per_row": stages["sample"] / rows,
+        "peak_memory_gb_by_rank": [p[0] for p in peaks],
+        "resident_memory_gb_by_rank": [p[1] for p in peaks],
+        "edit_seconds_by_rank": [p[2] for p in peaks],
+        "collectives_per_row": {k: {"count": n / rows, "mb_received": b / rows / 1e6}
+                                for k, (n, b) in sorted(per_row.items())},
+        "launches": launches,
+        "nccl_seconds_per_row": {k: v / p_rows for k, v in nccl.items()},
+        "profile": dict(profile, steps=a.profile_steps, rows=p_rows),
+    }
 
 
 def main(argv=None) -> None:
@@ -336,12 +440,23 @@ def main(argv=None) -> None:
     ap.add_argument("--profile_steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="build/profile_tv2v")
+    ap.add_argument("--clip_shard", action="store_true",
+                    help="tv2v/tvi2v under torchrun: one clip split over the ranks' GPUs")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="keyframes of the edit (default 17); 16 splits on the frame axis")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_tv2v needs a CUDA device")
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if a.clip_shard:
+        if a.workload not in ("tv2v", "tvi2v"):
+            raise SystemExit("--clip_shard profiles the tv2v and tvi2v edits")
+        result = profile_clip_shard(a, smi)
+        if result is not None:
+            print(json.dumps(result))
+        return
     if a.workload in TRAIN_WORKLOADS:
         profile = profile_vae_train if a.workload == "vae_train" else profile_train
         print(json.dumps(profile(a, device, smi)))

@@ -20,7 +20,8 @@ also holds the pre-step hook's draws (the noised clean latent of
 inpainting and blending), which the reference makes before each step's
 own.  A missing entry is drawn from ``generator``.  Loop noise is drawn
 only where it is used: where next_sigma > 0 (ancestral) or gamma > 0
-(EDM churn).
+(EDM churn).  Under a clip shard each draw is the whole clip's, of which
+this rank keeps its block (``parallel/shard.py::clip_randn``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.shard import active, clip_randn
 from .discretization import Discretization, LegacyDDPMDiscretization
 
 
@@ -88,7 +90,7 @@ class _Noise:
         rows = self.rows.get(kind)
         if rows is not None:
             return rows[i].to(x)
-        return torch.randn(x.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        return clip_randn(x.shape, self.generator, x.device, x.dtype)
 
 
 def _pre_step(mode: str, x0: torch.Tensor, mask: Optional[torch.Tensor]) -> Callable:
@@ -102,6 +104,10 @@ def _pre_step(mode: str, x0: torch.Tensor, mask: Optional[torch.Tensor]) -> Call
         img_orig = (x0 + noise * float(s)) / float(np.sqrt(np.float32(1.0) + s * s))
         if mode == "inpaint":
             return x * mask + img_orig * (1.0 - mask)
+        shard = active()
+        if shard is not None and shard.frame:
+            raise NotImplementedError("blending under a frame shard: it moves frames "
+                                      "between ranks")
         t = x.shape[1]
         out = x.clone()
         out[:, : t // 2] = img_orig[:, t // 2 + 1:]

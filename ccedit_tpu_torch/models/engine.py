@@ -30,6 +30,7 @@ from ..diffusion.guidance import IdentityGuider, VanillaCFG
 from ..diffusion.samplers import BaseSampler
 from ..modules.controlnet import CCEditNetwork
 from ..modules.vae import AutoencoderKL, DiagonalGaussian
+from ..parallel.shard import clip_randn
 from ..train.ema import Ema
 from ..train.freeze import freeze_mask
 
@@ -156,15 +157,17 @@ class CCEditEngine:
         ``init_noise`` replaces the start-of-chain gaussian and
         ``loop_noise`` the sampler's draws (rows of the executed steps, or
         ``{"loop": rows, "pre": rows}`` with inpainting's second stream);
-        otherwise both come from ``generator``."""
+        otherwise both come from ``generator``.  Under a clip shard
+        (``parallel/sampling.py``) ``shape`` and every clip-shaped argument
+        are this rank's block, and each draw is the whole clip's, of which
+        the block is kept."""
         device = next(self.network.parameters()).device
         if init_noise is not None:
             noise = init_noise.to(device=device, dtype=torch.float32)
             if tuple(noise.shape) != tuple(shape):
                 raise ValueError(f"init_noise shape {tuple(noise.shape)} != {tuple(shape)}")
         else:
-            noise = torch.randn(tuple(shape), generator=generator, device=device,
-                                dtype=torch.float32)
+            noise = clip_randn(shape, generator, device)
         if mode == "sdedit":
             if x_prior is None:
                 raise ValueError("mode 'sdedit' needs the clean video latent (x_prior)")

@@ -208,11 +208,13 @@ class ResBlock3D(nn.Module):
         else:
             self.alpha_temporal1 = self.alpha_temporal2 = None
         self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(), conv2d(channels, out))
-        self.in_layers_temporal = nn.Sequential(group_norm(out), nn.SiLU(), temporal_conv(out, out, k))
+        self.in_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
+                                                temporal_conv(out, out, k))
         self.emb_layers = _emb_layers(emb_channels, out, use_scale_shift_norm, skip_t_emb)
         self.out_layers = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
                                         conv2d(out, out, zero=True))
-        self.out_layers_temporal = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
+        self.out_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
+                                                 nn.Identity(),
                                                  temporal_conv(out, out, k))
         if out == channels:
             self.skip_connection = None

@@ -15,6 +15,12 @@ trunk; ControlNet3D adds ``zero_convs_temporal.{i}.0`` and
 ``model.diffusion_model.``, ``model.diffusion_model.controlnet.`` and
 ``model.diffusion_model.controlnet_img.`` sub-dicts load into them as they
 are.
+
+Under a clip shard (``parallel/shard.py``) the appearance branch runs on the
+clip's centre frame: under a height or width shard on this rank's rows of
+it, with the same rows of the replicated ``cond_feat`` (and of
+``interpolate_first_last``); under a frame shard on the whole centre frame,
+broadcast by the rank that holds it, on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.video import fold_time, unfold_time
+from ..parallel.shard import active, unsharded
 from .blocks import spatial_temporal
 from .layers import conv2d, temporal_conv
 from .unet import UNetModel, per_level
@@ -152,6 +159,12 @@ class ControlNet3D(UNetModel):
 
     def forward(self, x, hint, timesteps, context=None, y=None):
         if self.disable_temporal:
+            shard = active()
+            if shard is not None and shard.frame:  # every rank runs the whole centre frame
+                x = shard.centre_frame(x)
+                hint = shard.centre_frame(hint) if hint.dim() == 5 else hint
+                with unsharded():
+                    return self.forward(x[:, None], hint[:, None], timesteps, context, y)
             t_mid = x.shape[1] // 2
             x = x[:, t_mid:t_mid + 1]
             hint = hint[:, t_mid:t_mid + 1] if hint.dim() == 5 else hint[:, None]
@@ -255,7 +268,11 @@ class CCEditNetwork(nn.Module):
         if cond.get("concat") is not None:
             x = torch.cat([x, cond["concat"]], dim=-1)
         cn_img = self.controlnet_img
+        shard = active()
+        spatial = shard is not None and shard.spatial
         if self.raig:
+            if shard is not None and shard.world > 1:
+                raise NotImplementedError("RAIG's 2-D network under a clip shard")
             bank = []
             cn_img(x, cn_img.encode_hint(cond["cond_feat"]), timesteps, context=context, y=y,
                    bank=bank)
@@ -272,7 +289,11 @@ class CCEditNetwork(nn.Module):
                 control = self.controlnet(x, feats, timesteps, context=context, y=y)
         img_control = ref_contexts = interpolate_control = None
         if self.interpolate:
-            ifl = cond["interpolate_first_last"]
+            if shard is not None and shard.frame:
+                raise NotImplementedError("the interpolation network under a frame shard: "
+                                          "the first and last frames lie on two ranks")
+            ifl = cond["interpolate_first_last"]  # (B, 2, h, w, C): split like the latents
+            ifl = shard.block(ifl, shard.axis) if spatial else ifl
             double = lambda a: None if a is None else torch.cat([a, a], dim=0)
             taps = cn_img(torch.cat([x[:, 0], x[:, -1]], dim=0),
                           cn_img.encode_hint(torch.cat([ifl[:, 0], ifl[:, 1]], dim=0)),
@@ -280,8 +301,12 @@ class CCEditNetwork(nn.Module):
             interpolate_control = tuple(zip(*(c.chunk(2, dim=0) for c in taps)))
         elif cn_img is not None and "cond_feat" in cond:
             bank = [] if self.crossframe_type == "reference" else None
-            img_control = cn_img(x[:, x.shape[1] // 2], cn_img.encode_hint(cond["cond_feat"]),
-                                 timesteps, context=context, y=y, bank=bank)
+            centre = (shard.centre_frame(x) if shard is not None and shard.frame
+                      else x[:, x.shape[1] // 2])
+            feat = cond["cond_feat"]  # (B, h, w, C): this rank's rows of it
+            feat = shard.block(feat, shard.axis - 1) if spatial else feat
+            img_control = cn_img(centre, cn_img.encode_hint(feat), timesteps, context=context,
+                                 y=y, bank=bank)
             if bank is not None:
                 ref_contexts = [_tokens(a) for a in bank]
         return self.unet(x, timesteps, context=context, y=y, control=control,

@@ -6,6 +6,13 @@ a channels-first view of that memory, so cuDNN runs them in its
 channels-last format; parameters keep PyTorch's (O, I, kh, kw) layout and the
 reference sgm names (``weight``, ``bias``).  ``QDense``/``QConv`` (the JAX
 package's opt-in int8 path) become plain ``nn.Linear``/conv.
+
+Under a spatial clip shard (``parallel/shard.py``: the clip's rows or
+columns split over the ranks) ``Conv2d`` takes halo rows from its
+neighbours and a ``GroupNorm`` that normalises images all-reduces its
+statistics; a ``temporal`` GroupNorm (the pseudo-3D blocks' temporal
+preludes, the transformers' temporal norms) normalises (H*B*W, T, C) rows,
+which every shard keeps whole on one rank, and stays local.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.shard import active
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -32,10 +41,28 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class Conv2d(nn.Conv2d):
-    """(N, H, W, C) -> (N, H', W', C') convolution."""
+    """(N, H, W, C) -> (N, H', W', C') convolution.  Under a spatial clip
+    shard a k > 1 convolution reads ``padding`` rows of the previous rank's
+    block and k - stride - padding of the next one's (zero rows at the
+    clip's edges), then convolves its block without padding on that axis:
+    k // 2 rows each side at stride 1, the row above alone at stride 2."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        shard = active()
+        if shard is None or not shard.spatial or self.kernel_size == (1, 1):
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        dim = shard.axis - 1  # H (1) or W (2) of (N, H, W, C)
+        i = dim - 1
+        k, s, p = self.kernel_size[i], self.stride[i], self.padding[i]
+        after = k - s - p
+        if x.shape[dim] % s or after < 0:
+            raise ValueError(f"a {k}x{k} stride-{s} convolution cannot split a block of "
+                             f"{x.shape[dim]} rows of {tuple(x.shape)}")
+        padding = list(self.padding)
+        padding[i] = 0
+        y = F.conv2d(shard.halo(x, dim, p, after).permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, tuple(padding), self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
 
 
 class Conv1d(nn.Conv1d):
@@ -71,16 +98,48 @@ def zero_module(module: nn.Module) -> nn.Module:
 
 
 class GroupNorm(nn.GroupNorm):
-    """Group norm over a channels-last tensor (N, ..., C)."""
+    """Group norm over a channels-last tensor (N, ..., C).  ``temporal``:
+    it normalises folded (H*B*W, T, C) rows.  Otherwise it normalises
+    images (N, H, W, C), or (B, T, H, W, C) clips, whose statistics span a
+    spatial clip shard's rows (and a frame shard's frames for a clip): there
+    each rank's per-(sample, group) sum and sum of squares (fp32 moments,
+    summed in fp64) are all-reduced."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 affine: bool = True, temporal: bool = False):
+        super().__init__(num_groups, num_channels, eps=eps, affine=affine)
+        self.temporal = temporal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = active()
+        if (shard is not None and not self.temporal
+                and (shard.spatial or (shard.frame and x.dim() == 5))):
+            return self._sharded(x, shard)
         y = F.group_norm(x.movedim(-1, 1), self.num_groups, self.weight,
                          self.bias, self.eps)
         return y.movedim(1, -1)
 
+    def _sharded(self, x: torch.Tensor, shard) -> torch.Tensor:
+        n, c, g = x.shape[0], x.shape[-1], self.num_groups
+        xg = x.reshape(n, -1, g, c // g).float()
+        var, mean = (m.double() for m in torch.var_mean(xg, dim=(1, 3), correction=0))
+        count = xg.shape[1] * xg.shape[3]
+        # (2, N, G) sum and sum of squares, in fp64 so that the variance's
+        # E[x^2] - E[x]^2 does not cancel the fp32 statistics' digits away
+        stats = torch.stack([mean, var + mean * mean]) * count
+        shard.all_reduce_stats(stats)
+        total = count * shard.world
+        mean = stats[0] / total
+        var = (stats[1] / total - mean * mean).clamp_min(0.0)
+        scale = (torch.rsqrt(var + self.eps)[..., None]
+                 * self.weight.double().view(g, c // g)).float()
+        shift = (self.bias.double().view(g, c // g) - mean[..., None] * scale).float()
+        shape = (n,) + (1,) * (x.dim() - 2) + (c,)
+        return (xg.view(x.shape) * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
 
-def group_norm(channels: int, eps: float = 1e-5) -> GroupNorm:
-    return GroupNorm(32, channels, eps=eps)
+
+def group_norm(channels: int, eps: float = 1e-5, temporal: bool = False) -> GroupNorm:
+    return GroupNorm(32, channels, eps=eps, temporal=temporal)
 
 
 class TimeEmbed(nn.Sequential):

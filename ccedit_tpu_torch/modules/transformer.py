@@ -15,6 +15,13 @@ reuse (``kv_reuse_every``), ``disable_temporal_text_ca=False`` (the temporal
 blocks are full blocks whose cross-attention reads the text context, one
 copy per (h, w) row) and ``use_learnable_alpha`` (``alpha_temporal`` blends
 the temporal branch with its input).
+
+Under a spatial clip shard (``parallel/shard.py``) the attentions whose keys
+are clip tokens (``token_kv``: the spatial self-attentions, the CFCA and
+the reference attentions) gather k and v along the token axis and keep q
+local; the text cross-attention and the temporal attentions need nothing.
+Under a frame shard the CFCA's centre frame comes from the rank that holds
+it.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.video import fold_time, repeat_ctx_temporal, temporal_to_tokens, tokens_to_temporal
+from ..parallel.shard import active
 from .layers import Conv1d, conv2d, group_norm, zero_module
 
 LN_EPS = 1e-6
@@ -36,11 +44,15 @@ class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when context is None.  q/k/v
     projections have no bias, the output projection does (``to_out.0``).
     ``kv_reuse_every=n`` (TokenFlow's cross-frame reuse): every n-th batch
-    entry's keys and values serve it and the n - 1 entries after it."""
+    entry's keys and values serve it and the n - 1 entries after it.
+    ``token_kv``: k and v come from clip tokens, split like the queries
+    under a spatial clip shard, whose blocks ``forward`` gathers
+    (``kv_segments`` runs of tokens, each gathered in place)."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, token_kv: bool = False):
         super().__init__()
+        self.token_kv = token_kv
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
@@ -49,15 +61,21 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Identity())
 
-    def forward(self, x, context=None, kv_reuse_every: int = 0):
+    def forward(self, x, context=None, kv_reuse_every: int = 0, kv_segments: int = 1):
         context = x if context is None else context
         k, v = self.to_k(context), self.to_v(context)
+        shard = active()
         if kv_reuse_every:
             n = kv_reuse_every
             if k.shape[0] % n:
                 raise ValueError(f"batch {k.shape[0]} is not a multiple of kv_reuse_every {n}")
+            if shard is not None and shard.frame:
+                raise NotImplementedError("kv_reuse_every under a frame shard: the reused "
+                                          "frames may lie on another rank")
             k = torch.repeat_interleave(k[::n], n, dim=0)
             v = torch.repeat_interleave(v[::n], n, dim=0)
+        if self.token_kv and shard is not None and shard.spatial:
+            k, v = shard.gather_tokens(k, kv_segments), shard.gather_tokens(v, kv_segments)
 
         def split_heads(t):  # (B, L, H*D) -> (B, H, L, D), a view
             b, l, _ = t.shape
@@ -92,14 +110,17 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """self-attn -> text cross-attn -> GEGLU FF, pre-LN residuals.  With
-    ``disable_self_attn`` the first attention reads the context too."""
+    ``disable_self_attn`` the first attention reads the context too.
+    ``token_kv``: the self-attention's tokens are a clip's (spatial)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None, disable_self_attn: bool = False):
+                 context_dim: Optional[int] = None, disable_self_attn: bool = False,
+                 token_kv: bool = False):
         super().__init__()
         self.disable_self_attn = disable_self_attn
         self.attn1 = CrossAttention(dim, n_heads, d_head,
-                                    context_dim=context_dim if disable_self_attn else None)
+                                    context_dim=context_dim if disable_self_attn else None,
+                                    token_kv=token_kv and not disable_self_attn)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -117,18 +138,20 @@ class BasicTransformerBlock(nn.Module):
 
 class BasicTransformerSingleLayerBlock(nn.Module):
     """One attention + FF.  Used as self-attention with ``context=x``, whose
-    context is the un-normalised x."""
+    context is the un-normalised x.  ``token_kv``: the attention's keys are
+    clip tokens (``kv_segments`` runs of them)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, token_kv: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim)
+        self.attn1 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim,
+                                    token_kv=token_kv)
         self.ff = FeedForward(dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x, context=None):
-        x = x + self.attn1(self.norm1(x), context=context)
+    def forward(self, x, context=None, kv_segments: int = 1):
+        x = x + self.attn1(self.norm1(x), context=context, kv_segments=kv_segments)
         return x + self.ff(self.norm2(x))
 
 
@@ -160,9 +183,10 @@ class SpatialTransformer(nn.Module):
         self.proj_in = proj(in_channels, inner, use_linear)
         self.disable_text_ca = disable_text_ca
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerSingleLayerBlock(inner, n_heads, d_head) if disable_text_ca
+            BasicTransformerSingleLayerBlock(inner, n_heads, d_head, token_kv=True)
+            if disable_text_ca
             else BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim,
-                                       disable_self_attn=disable_self_attn)
+                                       disable_self_attn=disable_self_attn, token_kv=True)
             for _ in range(depth))
         self.proj_out = proj(inner, in_channels, use_linear, zero=True)
 
@@ -196,7 +220,7 @@ class SpatialTransformerCA(SpatialTransformer):
         self.norm_ca = group_norm(in_channels, eps=1e-6)
         self.proj_in_ca = proj(in_channels, inner, use_linear)
         self.transformer_blocks_ca = nn.ModuleList(
-            [BasicTransformerSingleLayerBlock(inner, n_heads, d_head)])
+            [BasicTransformerSingleLayerBlock(inner, n_heads, d_head, token_kv=True)])
         self.proj_out_ca = proj(inner, in_channels, use_linear, zero=True)
 
     def forward(self, x, context=None, ref_context=None, kv_reuse_every: int = 0):
@@ -230,10 +254,10 @@ class SpatialTransformer3D(nn.Module):
         self.proj_in = proj(in_channels, inner, use_linear)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim,
-                                  disable_self_attn=disable_self_attn)
+                                  disable_self_attn=disable_self_attn, token_kv=True)
             for _ in range(depth))
         self.proj_out = proj(inner, in_channels, use_linear, zero=True)
-        self.norm_temporal = group_norm(in_channels, eps=1e-6)
+        self.norm_temporal = group_norm(in_channels, eps=1e-6, temporal=True)
         self.proj_in_temporal = temporal_proj(in_channels, inner, use_linear)
         self.transformer_blocks_temporal = nn.ModuleList(
             BasicTransformerSingleLayerBlock(inner, n_heads, d_head) if disable_temporal_text_ca
@@ -295,22 +319,27 @@ class SpatialTransformer3DCA(SpatialTransformer3D):
         self.norm_temporal_ca = group_norm(in_channels, eps=1e-6)
         self.proj_in_temporal_ca = proj(in_channels, inner, use_linear)
         self.transformer_blocks_temporal_ca = nn.ModuleList(
-            [BasicTransformerSingleLayerBlock(inner, n_heads, d_head)])
+            [BasicTransformerSingleLayerBlock(inner, n_heads, d_head, token_kv=True)])
         self.proj_out_temporal_ca = proj(inner, in_channels, use_linear, zero=True)
 
     def _cfca(self, x, b, t, ref_context):
         n, h, w, _ = x.shape
         y = self.proj_in_temporal_ca(self.norm_temporal_ca(x)).reshape(n, h * w, -1)
+        segments = 1
         if ref_context is not None:
             anchor = torch.repeat_interleave(ref_context, t, dim=0)  # (B*T, hw, C)
         elif self.ca_type == "self":
             anchor = y
         else:
-            centre = y.reshape(b, t, h * w, -1)[:, t // 2]
+            shard = active()
+            frames = y.reshape(b, t, h * w, -1)
+            centre = (shard.centre_frame(frames) if shard is not None and shard.frame
+                      else frames[:, t // 2])
             anchor = torch.repeat_interleave(centre, t, dim=0)  # b-major
             if self.ca_type == "center_self":
                 anchor = torch.cat([anchor, y], dim=1)
-        y = self.transformer_blocks_temporal_ca[0](y, context=anchor)
+                segments = 2
+        y = self.transformer_blocks_temporal_ca[0](y, context=anchor, kv_segments=segments)
         return self.proj_out_temporal_ca(y.reshape(n, h, w, -1)) + x
 
     def forward(self, x, context=None, ref_context=None):

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.shard import active
 from .blocks import Downsample, Downsample3D, ResBlock, ResBlock3D, Upsample, Upsample3D, spatial_temporal
 from .layers import TimeEmbed, conv2d, group_norm, temporal_conv, timestep_embedding
 from .transformer import (SpatialTransformer, SpatialTransformer3D, SpatialTransformer3DCA,
@@ -48,6 +49,14 @@ def _add_to_frame(h: torch.Tensor, frame: int, c: torch.Tensor) -> torch.Tensor:
     nothing else holds."""
     h[:, frame] += c
     return h
+
+
+def centre_index(t: int) -> Optional[int]:
+    """The index of the clip's centre frame in a (B, t, ...) tensor: t // 2,
+    or under a frame shard the local index on the rank that holds it and
+    None on the others."""
+    shard = active()
+    return shard.local_centre() if shard is not None and shard.frame else t // 2
 
 
 def heads_dims(ch: int, num_heads: int, num_head_channels: int,
@@ -243,7 +252,10 @@ class UNetModel(nn.Module):
 
         def inject(h, centre: bool):
             if img_control is not None and centre:
-                h = _add_to_frame(h, h.shape[1] // 2, img_control.pop(0))
+                c = img_control.pop(0)
+                frame = centre_index(h.shape[1])
+                if frame is not None:
+                    h = _add_to_frame(h, frame, c)
             if ic_first is not None:  # at T = 1 both land on the one frame
                 h = _add_to_frame(h, 0, ic_first.pop(0))
                 h = _add_to_frame(h, h.shape[1] - 1, ic_last.pop(0))

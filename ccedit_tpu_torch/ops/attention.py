@@ -31,6 +31,17 @@ element size (``quantizes``).  Every other shape stays exact, among them
 the port's own additions to kernel 1's route, head_dim 160 and n_q that is
 not a multiple of 128.  The port has no W8A8 path (``ops/quant.py`` is not
 ported), so ``CCEDIT_INT8`` turns on only the QK^T half, with a warning.
+
+Under single-clip sharding (``mesh_context``, ``parallel/shard.py``: the
+JAX package's ``mesh_context`` and ``_sharded_attention``) the call site,
+which knows whether its keys are clip tokens, gathers k and v along the
+token axis before this dispatch and q stays local (JAX's token branch); a
+frame split needs nothing here (JAX's batch branch: the fold's all-to-all
+hands each rank whole rows).  The route is then chosen on the local shapes,
+as the JAX kernels are re-gated inside ``shard_map``: kernel 1 runs at the
+local n_q against the gathered n_k, and a level whose local queries fall
+under 512 goes plain.  The int8 switch takes q's amax over the rank's block
+and k's over the gathered k.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel.shard import mesh_context  # noqa: F401  (the JAX name)
 from . import flash_attention as fa
 from . import spatial_attention as sa
 from . import temporal_attention as ta

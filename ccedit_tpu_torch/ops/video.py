@@ -5,11 +5,19 @@ package:
   video   : (B, T, H, W, C)
   spatial : (B*T, H, W, C)
   temporal: (H*B*W, T, C)  — rows in h-major order
+
+Under a frame shard (``parallel/shard.py``: the clip's frames split over the
+ranks) the fold to temporal rows is an all-to-all: each rank gives up its
+frames of the other ranks' blocks of rows and gets every frame of its own
+block; the unfold trades them back.  Under a height or width shard the fold
+is local, as the h-major order keeps a row's frames together.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.shard import active
 
 
 def fold_time(x: torch.Tensor) -> torch.Tensor:
@@ -30,17 +38,25 @@ def tokens_to_temporal(x: torch.Tensor, batch: int) -> torch.Tensor:
     bt, h, w, c = x.shape
     t = bt // batch
     x = x.reshape(batch, t, h, w, c).permute(2, 0, 3, 1, 4)  # (H, B, W, T, C)
-    return x.reshape(batch * h * w, t, c)
+    x = x.reshape(batch * h * w, t, c)
+    shard = active()
+    return shard.frames_to_rows(x) if shard is not None and shard.frame else x
 
 
 def temporal_to_tokens(x: torch.Tensor, batch: int, h: int, w: int) -> torch.Tensor:
     """(H*B*W, T, C) -> (B*T, H, W, C), inverse of ``tokens_to_temporal``."""
+    shard = active()
+    if shard is not None and shard.frame:
+        x = shard.rows_to_frames(x)
     _, t, c = x.shape
     x = x.reshape(h, batch, w, t, c).permute(1, 3, 0, 2, 4)  # (B, T, H, W, C)
     return x.reshape(batch * t, h, w, c)
 
 
 def repeat_ctx_temporal(context: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(B, L, D) -> (H*B*W, L, D), aligned with ``tokens_to_temporal``."""
+    """(B, L, D) -> (H*B*W, L, D), aligned with ``tokens_to_temporal`` (this
+    rank's block of the rows under a frame shard)."""
     inner = torch.repeat_interleave(context, w, dim=0)  # (B*W, L, D), b-major
-    return inner.repeat(h, 1, 1)
+    rows = inner.repeat(h, 1, 1)
+    shard = active()
+    return shard.block(rows, 0) if shard is not None and shard.frame else rows

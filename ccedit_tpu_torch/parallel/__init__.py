@@ -1,2 +1,4 @@
-"""Data parallelism over ``torch.distributed`` (``mesh.py``) and ZeRO-1
-optimizer-state sharding (``zero.py``)."""
+"""Data parallelism over ``torch.distributed`` (``mesh.py``), ZeRO-1
+optimizer-state sharding (``zero.py``) and single-clip sharding: one clip's
+sample split over the ranks (``sampling.py``, with the shard context and its
+collectives in ``shard.py``)."""

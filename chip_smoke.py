@@ -168,6 +168,27 @@ Phases:
      CLIP-L through ``CLIPT5Embedder``, at full width in bf16 against fp32
      (TOWER_COSINE), and the native BPE tokenizer, built with g++ and chosen
      by ``load_tokenizer``, id for id against the Python one.  No step needs cv2.
+ 10. image sampling and the secondary entry points (``run_image``): SD-2.1-768
+     at full width, the demo, the auto pipeline, InceptionV3 and FID, the
+     safety filter and the watermark, the toy trainer.
+ 11. one clip over the cards (``run_clip_shard``): ``torchrun`` starts
+     min(4, cards) ranks of this script (``--clip-shard-rank``, NCCL), each
+     building the full-width TV2V engine from the same seed.  A TV2V
+     network row (17x512x768, CFG-doubled, bf16, through the kernels) split
+     on the height axis (``parallel/sampling.py::pick_clip_axis``) and
+     gathered is held to the same row on one card (ROUTE_TOLERANCE, cosine
+     CLIP_COSINE), and each planted fault of ``clip_shard_fault`` (halos
+     left out, the GroupNorm on local statistics, k/v not gathered) must
+     fail that check; a row at 16 frames on the frame axis likewise; then a
+     3-step TV2V and a 3-step TVI2V edit sampled split over the ranks (rank
+     0 decodes) are held to the one-card edit from the same seed by their
+     final latents' cosine (LATENT_COSINE), with every rank's launches by
+     stage: kernel 1 only at the gathered n_k in the sharded TV2V sample,
+     1b, 2 and 3 on the TVI2V path.  On a single card the phase runs at
+     world 1 through the same code, where the sharded samples must equal
+     the one-card ones bit for bit and the faults cannot act (the phase
+     says so).  Phase 3 holds kernels 1 and 1b at the gathered shapes
+     (n_k = 4 n_q and 2 n_q; 8 n_q and 4 n_q for 1b) with the log2 e fault.
   Launch counts are reset just before each path and read just after (per
   stage for the edits, per step in VAE training); every kernel of that path
   must have run (on the
@@ -184,6 +205,7 @@ Any failed phase exits non-zero before those lines.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -326,6 +348,23 @@ KERNELS = (
                  ((17, 8, 3072, 40), 6144, 4), ((17, 8, 768, 80), 1536, 17),
                  ((2, 8, 600, 40), 1200, 1)),
          count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
+    # single-clip sharding (phase 11): kernel 1 at the local queries of a
+    # height split against the gathered keys (4 ranks: level 0; 2 ranks:
+    # levels 0 and 1), kernel 1b at the CFCA's gathered centre + own keys;
+    # each row refuses log2 e left out of its scale.  Counted on the sharded
+    # edits: every exact kernel-1 launch (at world 1 no key is gathered)
+    dict(name="spatial_attention_gathered", kernel="spatial", path="clip_shard_tv2v",
+         fault="log2e", source="ccedit_tpu_torch/csrc/spatial_attention.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:113",
+         shapes=(((34, 8, 1536, 40), 6144, 1), ((34, 8, 3072, 40), 6144, 1),
+                 ((34, 8, 768, 80), 1536, 34)),
+         count=lambda st: _variant_sum(st, "d", "n_k")),
+    dict(name="spatial_attention_1b_gathered", kernel="spatial", path="clip_shard_tvi2v",
+         fault="log2e", source="ccedit_tpu_torch/csrc/spatial_attention.cu",
+         replaces="ccedit_tpu/ops/spatial_attention.py:93",
+         shapes=(((34, 8, 1536, 40), 12288, 1), ((34, 8, 3072, 40), 12288, 1),
+                 ((34, 8, 768, 80), 3072, 34)),
+         count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
     dict(name="spatial_attention_1c", kernel="spatial_int8", path="tvi2v_int8",
          source="ccedit_tpu_torch/csrc/spatial_attention_int8.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:202",
@@ -450,6 +489,9 @@ PATH_KERNELS = {
     "demo": ("spatial_attention_d64",),
     "auto_pipeline": ("spatial_attention", "spatial_attention_1b", "temporal_attention",
                       "flash_attention_encoder"),
+    "clip_shard_tv2v": ("spatial_attention_gathered", "temporal_attention", "flash_attention"),
+    "clip_shard_tvi2v": ("spatial_attention_gathered", "spatial_attention_1b_gathered",
+                         "temporal_attention", "flash_attention", "flash_attention_encoder"),
 }
 
 
@@ -643,6 +685,41 @@ def planted_forward_fault(fault: str, q, k, v, scale):
         return sa.kv_resident_attention(q, k, v, scale, quantized_qk=True)
     finally:
         sa.prepass = prepass
+
+
+CLIP_SHARD_FAULTS = ("halo", "local_norm", "kv_local")
+
+
+@contextlib.contextmanager
+def clip_shard_fault(fault: str):
+    """A planted fault of single-clip sharding, on ``ClipShard`` while the
+    block runs: "halo", every convolution's halo rows left as zeros (no
+    exchange); "local_norm", every image GroupNorm on this rank's own
+    statistics (the all-reduce skipped, the sums scaled as if every rank
+    held the same); "kv_local", k and v not gathered (each rank attends to
+    its own tokens only)."""
+    import torch
+
+    from ccedit_tpu_torch.parallel.shard import ClipShard
+
+    def zero_halo(self, x, dim, before, after):
+        rows = lambda n: x.narrow(dim, 0, n).mul(0.0)
+        return torch.cat([rows(before), x, rows(after)], dim=dim)
+
+    def local_stats(self, stats):
+        return stats.mul_(self.world)
+
+    def no_gather(self, x, segments=1):
+        return x
+
+    name, fn = {"halo": ("halo", zero_halo), "local_norm": ("all_reduce_stats", local_stats),
+                "kv_local": ("gather_tokens", no_gather)}[fault]
+    saved = getattr(ClipShard, name)
+    setattr(ClipShard, name, fn)
+    try:
+        yield
+    finally:
+        setattr(ClipShard, name, saved)
 
 
 def cosine(a, b) -> float:
@@ -3213,6 +3290,217 @@ def run_image(device, seed: int) -> dict:
     return by_path
 
 
+CLIP_DIR = "build/chip_smoke_clip"  # phase 11's result file
+CLIP_FRAME_T = 16  # frames of the frame-axis row: 16 divides 1, 2 and 4 ranks
+CLIP_COSINE = 0.999  # a sharded network row against the one-GPU row
+
+
+def clip_world() -> int:
+    """Phase 11's ranks: one a card, at most four."""
+    import torch
+
+    return min(4, torch.cuda.device_count())
+
+
+def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
+    """One CFG-doubled network row at t x 512 x 768 (bf16, through the
+    kernels), split over the ranks on ``pick_clip_axis``'s axis and gathered,
+    against the same row on one GPU (rank 0): max|err| / max|ref| within
+    ROUTE_TOLERANCE and cosine >= CLIP_COSINE; with ``faults`` (two or more
+    ranks) each planted fault of ``clip_shard_fault`` must fail that check.
+    Rank 0 returns the numbers, the other ranks None."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.parallel.sampling import gather_clip, pick_clip_axis, shard_clip_cond
+    from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, mesh_context
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dtype = engine.network_dtype
+    gen = torch.Generator(device=device).manual_seed(seed + t)
+    x = torch.randn((2, t, H // 8, W // 8, 4), generator=gen, device=device).to(dtype)
+    ts = torch.tensor([500.0, 500.0], device=device)
+    cond = {"crossattn": (torch.randn((2, 77, 768), generator=gen, device=device)).to(dtype),
+            "control_hint": (torch.rand((2, t, H, W, 3), generator=gen, device=device) * 2
+                             - 1).to(dtype)}
+    axis = pick_clip_axis(world, (1, t, H // 8, W // 8, 4))
+
+    def sharded():
+        shard = ClipShard(axis, t)
+        xb = shard.block(x, axis).contiguous()
+        cb = shard_clip_cond(cond, x.shape, axis, rank, world)
+        with mesh_context(shard), torch.no_grad():
+            y = engine.network(xb, ts, cb)
+        return gather_clip(y, axis)
+
+    def held(out, ref):
+        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        return rel, cosine(out, ref)
+
+    with torch.no_grad():
+        ref = engine.network(x, ts, cond) if rank == 0 else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sharded()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    res = None
+    if rank == 0:
+        rel, cos = held(out, ref)
+        res = dict(frames=t, axis=AXES[axis], rel=rel, cosine=cos, seconds=seconds)
+        print(f"[clip_shard] row {t}x{H}x{W} on the {AXES[axis]} axis over {world} rank(s): "
+              f"max|err|/max|ref| {rel:.3e} (tol {ROUTE_TOLERANCE:.0e}), cosine {cos:.6f} "
+              f"(>= {CLIP_COSINE}), {seconds:.3f} s", flush=True)
+        if not (rel <= ROUTE_TOLERANCE and cos >= CLIP_COSINE):
+            raise RuntimeError(f"the sharded row disagrees with the one-GPU row: {rel}, {cos}")
+    if faults:
+        for fault in CLIP_SHARD_FAULTS:
+            with clip_shard_fault(fault):
+                bad = sharded()
+            if rank == 0:
+                f_rel, f_cos = held(bad, ref)
+                res[f"fault_{fault}"] = dict(rel=f_rel, cosine=f_cos)
+                print(f"[clip_shard] planted fault {fault}: max|err|/max|ref| {f_rel:.3e}, "
+                      f"cosine {f_cos:.6f} (refused)", flush=True)
+                if f_rel <= ROUTE_TOLERANCE and f_cos >= CLIP_COSINE:
+                    raise RuntimeError(f"the sharded row check passes the planted fault {fault}")
+            del bad
+    del ref, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def clip_edit(path: str, edit, device, seed: int) -> dict:
+    """The 3-step edit sampled split over the ranks (rank 0 decodes), then
+    on one GPU (rank 0 alone) from the same generator seed: at world 1 the
+    final latents must be equal bit for bit, else within LATENT_COSINE.
+    Launch counts are reset just before the sharded edit and read, by
+    stage, just after.  Rank 0 returns the numbers and its counts."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.ops import attention as att
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    edit(1, torch.Generator(device=device).manual_seed(seed))  # warm-up
+    stages, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    out, latents = edit(STEPS, torch.Generator(device=device).manual_seed(seed),
+                        stage_seconds=stages, stage_launches=launches, return_latents=True)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, (launches, peak, total))
+    res = None
+    if rank == 0:
+        print(f"[clip_shard] {path} edit {STEPS} steps over {world} rank(s): {total:.2f} s; "
+              "stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+              + "; peak GB by rank " + ", ".join(f"{p[1]:.2f}" for p in per_rank), flush=True)
+        for r, (counts, _, _) in enumerate(per_rank):
+            print(f"[clip_shard] {path} rank {r} kernel launches by stage "
+                  f"{json.dumps(counts)}", flush=True)
+        if out is None or out.shape != (T, H, W, 3):
+            raise RuntimeError(f"the sharded {path} edit returned no clip on rank 0")
+        one, ref = edit(STEPS, torch.Generator(device=device).manual_seed(seed),
+                        clip_shard=False, return_latents=True)
+        same = torch.equal(latents, ref)
+        cos = cosine(latents, ref)
+        print(f"[clip_shard] {path} final latents vs the one-GPU edit's: cosine {cos:.6f} "
+              f"(>= {LATENT_COSINE}), bit for bit {same}", flush=True)
+        if not bool(torch.isfinite(latents).all()):
+            raise FloatingPointError(f"the sharded {path} edit's latents are not finite")
+        if world == 1 and not same:
+            raise RuntimeError(f"at world 1 the sharded {path} sample is not engine.sample's")
+        if not cos >= LATENT_COSINE:
+            raise RuntimeError(f"the sharded {path} edit left the one-GPU edit: cosine {cos}")
+        res = dict(seconds=total, stages=stages, cosine=cos, bit_for_bit=same,
+                   peak_gb_by_rank=[p[1] for p in per_rank],
+                   launches_by_rank=[p[0] for p in per_rank], launches=launches)
+    dist.barrier()
+    return res
+
+
+def clip_shard_rank() -> int:
+    """Phase 11 on one rank of ``torchrun``: the TV2V row on the height axis
+    (17 frames; with the planted faults at two or more ranks), the 3-step
+    TV2V and TVI2V edits, the TV2V row on the frame axis (16 frames); rank
+    0 writes the results to CLIP_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit
+    from ccedit_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = {"world": world}
+    engine, edit, _ = build_edit("tv2v", device, SEED, STEPS, clip_shard=True)
+    res["tv2v_row"] = clip_row(engine, device, T, SEED, faults=world > 1)
+    if rank == 0 and world == 1:
+        print("[clip_shard] world 1: the planted faults (halos, GroupNorm statistics, k/v "
+              "gathers) need two or more ranks; not run", flush=True)
+    res["frame_row"] = clip_row(engine, device, CLIP_FRAME_T, SEED, faults=False)
+    res["tv2v"] = clip_edit("tv2v", edit, device, SEED)
+    del engine, edit
+    torch.cuda.empty_cache()
+    engine, edit, _ = build_edit("tvi2v", device, SEED, STEPS, clip_shard=True)
+    res["tvi2v"] = clip_edit("tvi2v", edit, device, SEED)
+    if rank == 0:
+        from pathlib import Path
+
+        Path(CLIP_DIR).mkdir(parents=True, exist_ok=True)
+        Path(CLIP_DIR, "result.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_clip_shard(seed: int) -> dict:
+    """Phase 11: single-clip sharding under ``torchrun`` on ``clip_world()``
+    cards (NCCL; world 1 on a single card).  Returns rank 0's per-stage
+    counts of the sharded edits, as paths ``clip_shard_tv2v`` and
+    ``clip_shard_tvi2v``."""
+    import os
+    import signal
+    from pathlib import Path
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = clip_world()
+    result = Path(CLIP_DIR, "result.json")
+    result.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), os.path.abspath(__file__), "--clip-shard-rank"]
+    print(f"[clip_shard] {' '.join(cmd[1:])}", flush=True)
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        code = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise RuntimeError("phase 11's ranks did not finish in 600 s")
+    if code != 0 or not result.exists():
+        raise RuntimeError(f"phase 11's ranks failed (exit {code})")
+    res = json.loads(result.read_text())
+    tv2v = res["tv2v"]["launches"]
+    if res["world"] > 1:  # the k/v gathers: no exact kernel-1 launch at n_k = n_q
+        square = _variant_sum({"sample": tv2v["sample"]}, "d", "n_k=n_q")
+        gathered = _variant_sum({"sample": tv2v["sample"]}, "d", "n_k!=n_q")
+        if square or not gathered:
+            raise RuntimeError(f"the sharded TV2V sample ran kernel 1 {square} times at n_k = "
+                               f"n_q and {gathered} at the gathered n_k")
+    print(f"[clip_shard] phase 11 at world {res['world']} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"clip_shard_tv2v": tv2v, "clip_shard_tvi2v": res["tvi2v"]["launches"]}
+
+
 def reset_launches():
     """Every launch count to 0: the attention kernels' and the probes' (kernel
     7's tile sweep among them)."""
@@ -3275,6 +3563,8 @@ def main() -> int:
     by_path.update(run_conditioning(device, SEED))
     # phase 10: image sampling and the secondary entry points
     by_path.update(run_image(device, SEED))
+    # phase 11: one clip split over the cards (world 1 on one card)
+    by_path.update(run_clip_shard(SEED))
     for rec, spec in zip(records, KERNELS):
         rec["launches_by_path"] = {p: spec["count"](st) for p, st in by_path.items()}
         rec["launches"] = rec["launches_by_path"][spec["path"]]
@@ -3295,4 +3585,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # torchrun starts phase 11's ranks as ``chip_smoke.py --clip-shard-rank``
+    sys.exit(clip_shard_rank() if sys.argv[1:] == ["--clip-shard-rank"] else main())

@@ -1,6 +1,8 @@
 """The port stands alone: importing it, its engine, its CLIs (the train CLI
-included), its data parallelism and native decode binding, its samplers, ZoeDepth, the LoRA merge, its training modules
-(VAE training's too), ``unet_extras``, the kernel-7 sweep script, every
+included), its data parallelism, single-clip sharding and native decode
+binding, its samplers, ZoeDepth, the LoRA merge, its training modules
+(VAE training's too), ``unet_extras``, the kernel-7 sweep script, the
+collective and ZeRO measurement scripts, every
 structure annotator, embedder and text tower and the native tokenizer
 binding (which builds nothing at import), the image CLIs, InceptionV3,
 FID, the safety filter, the watermark, the toy and tar-shard datasets, and
@@ -10,7 +12,9 @@ the GPU machine may not have; the annotators also run without cv2
 (``test_torch_port_annotators.py``).  With those libraries blocked outright
 the image slice's modules import and their host IO runs: the PNG reader and
 writer, the frame-directory keyframe loader, a built-in config by name, the
-toy set, the flat YAML, the multipart parser and the watermark."""
+toy set, the flat YAML, the multipart parser and the watermark; and the
+single-clip sharding modules import, pick an axis and cut a conditioning
+dict."""
 
 import subprocess
 import sys
@@ -33,6 +37,8 @@ import ccedit_tpu_torch.data.dataset
 import ccedit_tpu_torch.data.native_decode
 import ccedit_tpu_torch.data.video
 import ccedit_tpu_torch.parallel.mesh
+import ccedit_tpu_torch.parallel.sampling
+import ccedit_tpu_torch.parallel.shard
 import ccedit_tpu_torch.parallel.zero
 import ccedit_tpu_torch.diffusion.loss
 import ccedit_tpu_torch.diffusion.sigma_sampling
@@ -72,6 +78,8 @@ import ccedit_tpu_torch.ops.attention
 import ccedit_tpu_torch.ops.build
 import ccedit_tpu_torch.ops.flash_attention
 import ccedit_tpu_torch.scripts.profile_blocks
+import ccedit_tpu_torch.scripts.clip_collectives
+import ccedit_tpu_torch.scripts.zero_state
 import ccedit_tpu_torch.assets
 import ccedit_tpu_torch.cli.auto_pipeline
 import ccedit_tpu_torch.cli.demo
@@ -130,6 +138,16 @@ import ccedit_tpu_torch.modules.inception
 import ccedit_tpu_torch.utils.fid
 import ccedit_tpu_torch.utils.safety
 import ccedit_tpu_torch.utils.watermark as wm
+import ccedit_tpu_torch.parallel.sampling as clip_sampling
+import ccedit_tpu_torch.parallel.shard as shard
+import torch
+assert clip_sampling.pick_clip_axis(4, (1, 17, 64, 96, 4)) == 2
+assert clip_sampling.pick_clip_axis(4, (1, 16, 64, 96, 4)) == 1
+cut = clip_sampling.shard_clip_cond({{"concat": torch.zeros(1, 17, 64, 96, 4),
+                                     "crossattn": torch.zeros(1, 77, 8)}},
+                                    (1, 17, 64, 96, 4), 2, 1, 4)
+assert cut["concat"].shape == (1, 17, 16, 96, 4) and cut["crossattn"].shape == (1, 77, 8)
+assert shard.ClipShard(2, 17).world == 1 and shard.active() is None
 # what the GPU machine runs of them needs none of the blocked modules
 frames = video.load_video_keyframes(str(assets.BEAR_FRAMES), 3, 3, 4, (64, 96))
 assert frames.shape == (4, 64, 96, 3)
