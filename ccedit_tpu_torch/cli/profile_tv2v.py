@@ -45,11 +45,17 @@ draws one warm-up image at 2 steps, then times one 768x768 image through
 ``sampling_image.sample_images`` at ``--steps`` (default 50) Euler steps,
 CFG 7.5, with its stage seconds, network rows (the UNet's calls, each on
 the CFG-doubled batch) and kernel launches, and profiles an image at
-``--profile_steps``.  The int8 QK^T attention (kernel 1c) is turned
-on by the environment, ``CCEDIT_QUANT_QK=1`` (or ``CCEDIT_INT8=1``), as in
-the JAX package; the JSON line records it as ``quantized_qk``.  Prints one
-JSON line; the trace goes to
-``--out``.
+``--profile_steps``.  The int8 paths are turned on by the environment, as
+in the JAX package: ``CCEDIT_QUANT_QK=1`` the int8 QK^T attention (kernel
+1c), ``CCEDIT_QUANT_MATMUL=1`` the W8A8 convolutions and dense layers
+(``ops/quant.py``, kernels 8-10), ``CCEDIT_INT8=1`` both; the JSON line
+records them as ``quantized_qk`` and ``quantized_matmul``.  With
+``--int8_modes`` (the ``tv2v``/``tvi2v`` edits) one engine times and
+profiles the edit three ways in turn, exact, ``CCEDIT_QUANT_MATMUL=1`` and
+``CCEDIT_INT8=1`` (each warmed up, its launches counted), and the line
+gives each mode's seconds, seconds a row, peak memory, launches, profile
+and final latents' cosine to the exact edit's.  Prints one JSON line; the
+trace goes to ``--out``.
 
 ``--clip_shard`` (the ``tv2v``/``tvi2v`` edits, under ``torchrun``, one
 process a GPU, NCCL): every rank builds the same seeded engine and
@@ -71,7 +77,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
+import os
 import subprocess
 import time
 from pathlib import Path
@@ -82,11 +90,15 @@ import torch
 
 from ..config import TV2V_CONFIG, TVI2V_CONFIG, TVI2V_ZOE_CONFIG
 from ..data.video import moving_gradient_clip
+from ..ops import attention as att
+from ..ops import quant
 from ..ops.attention import quantized_qk_enabled
 from .pipeline import base_parser, edit_clip, load_engine
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _GROUPS = (  # matched against "launching op + kernel name"; first match wins
+    ("W8A8 kernels (ours)", ("::conv_kernel<", "::dequant_gemm_kernel<", "::rows_kernel<",
+                             "::tensor_amax_kernel<", "::tensor_quantize_kernel<")),
     ("attention kernels (ours)", ("ccedit::",)),
     ("collectives (NCCL)", ("nccl",)),
     ("convolution", ("convolution", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -311,6 +323,30 @@ def profile_txt2img(a, device, smi: str) -> dict:
             "image_mean": float(image.mean()), "image_std": float(image.std()),
             "profile": dict(profile, steps=a.profile_steps)}
 TRAIN_WORKLOADS = ("train", "tvi2v_train", "interp_train", "vae_train")
+INT8_SWITCHES = ("CCEDIT_INT8", "CCEDIT_QUANT_MATMUL", "CCEDIT_QUANT_QK")
+# the --int8_modes edits: exact, W8A8 alone, the umbrella (W8A8 + int8 QK^T)
+INT8_MODES = {"exact": {}, "w8a8": {"CCEDIT_QUANT_MATMUL": "1"}, "int8": {"CCEDIT_INT8": "1"}}
+
+
+@contextlib.contextmanager
+def int8_environment(**env):
+    """The int8 switches as a user sets them: every ``INT8_SWITCHES``
+    variable unset but ``env``, the cached switches cleared so that they are
+    read again; all restored on exit."""
+    saved = ({k: os.environ.get(k) for k in INT8_SWITCHES}, quant._STATE["matmul"],
+             att._QUANT["qk"])
+    try:
+        for k in INT8_SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        quant._STATE["matmul"] = att._QUANT["qk"] = None
+        yield
+    finally:
+        for k, v in saved[0].items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        quant._STATE["matmul"], att._QUANT["qk"] = saved[1], saved[2]
 
 
 def build_edit(workload: str, device, seed: int, steps: int, config=None,
@@ -427,6 +463,42 @@ def profile_clip_shard(a, smi: str) -> Optional[dict]:
     }
 
 
+def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) -> dict:
+    """The edit exact, with W8A8 alone and with the umbrella, in turns on
+    one engine: each mode warmed up, timed at ``steps`` with its launches
+    counted, and profiled at ``a.profile_steps``."""
+    from ..ops.attention import launch_counts, reset_launch_counts
+
+    rows, modes, exact = 2 * steps - 1, {}, None
+    for mode, env in INT8_MODES.items():
+        with int8_environment(**env):
+            edit(1, torch.Generator(device=device).manual_seed(a.seed))  # warm-up
+            stages = {}
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, latents = edit(steps, torch.Generator(device=device).manual_seed(a.seed),
+                              stage_seconds=stages, return_latents=True)
+            total = time.perf_counter() - t0
+            counts = {k: n for k, n in launch_counts().items() if n}
+            peak = torch.cuda.max_memory_allocated(device) / 1e9
+            profile = _profile(lambda: edit(a.profile_steps, torch.Generator(device=device)
+                                            .manual_seed(a.seed)), Path(a.out) / mode)
+            latents = latents.double().flatten()
+            exact = latents if exact is None else exact
+            modes[mode] = {
+                "env": env, "quantized_qk": quantized_qk_enabled(),
+                "quantized_matmul": quant.quantized_matmul_enabled(), "edit_seconds": total,
+                "stage_seconds": stages, "sample_seconds_per_row": stages["sample"] / rows,
+                "peak_memory_gb": peak, "launches": counts,
+                "latent_cosine_to_exact":
+                    (latents @ exact / (latents.norm() * exact.norm())).item(),
+                "profile": dict(profile, steps=a.profile_steps, rows=2 * a.profile_steps - 1)}
+    t, h, w = EDIT_GEOMETRY
+    return {"gpu": smi, "workload": a.workload, "cfg_scale": cfg_scale, "frames": t, "height": h,
+            "width": w, "steps": steps, "rows": rows, "modes": modes}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=tuple(EDIT_CONFIGS) + TRAIN_WORKLOADS + ("txt2img",),
@@ -444,6 +516,9 @@ def main(argv=None) -> None:
                     help="tv2v/tvi2v under torchrun: one clip split over the ranks' GPUs")
     ap.add_argument("--frames", type=int, default=None,
                     help="keyframes of the edit (default 17); 16 splits on the frame axis")
+    ap.add_argument("--int8_modes", action="store_true",
+                    help="tv2v/tvi2v: time and profile the edit exact, with W8A8 alone "
+                         "(CCEDIT_QUANT_MATMUL=1) and with CCEDIT_INT8=1 on one engine")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_tv2v needs a CUDA device")
@@ -466,6 +541,11 @@ def main(argv=None) -> None:
         return
     steps = a.steps or (30 if a.workload == "tv2v" else 50)
     _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)
+    if a.int8_modes:
+        if a.workload not in ("tv2v", "tvi2v"):
+            raise SystemExit("--int8_modes profiles the tv2v and tvi2v edits")
+        print(json.dumps(profile_int8_modes(a, device, smi, edit, cfg_scale, steps)))
+        return
     gen = torch.Generator(device=device).manual_seed(a.seed)
     t, h, w = EDIT_GEOMETRY
 
@@ -482,7 +562,7 @@ def main(argv=None) -> None:
     rows = 2 * steps - 1
     print(json.dumps({
         "gpu": smi, "workload": a.workload, "quantized_qk": quantized_qk_enabled(),
-        "cfg_scale": cfg_scale,
+        "quantized_matmul": quant.quantized_matmul_enabled(), "cfg_scale": cfg_scale,
         "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
         "edit_seconds": total, "stage_seconds": stages,
         "sample_seconds_per_row": stages["sample"] / rows, "peak_memory_gb": peak,

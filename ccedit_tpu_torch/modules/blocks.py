@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.video import fold_time, temporal_to_tokens, tokens_to_temporal
-from .layers import conv2d, group_norm, temporal_conv
+from .layers import QLinear, conv2d, group_norm, temporal_conv
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +69,7 @@ class Upsample(nn.Module):
     def __init__(self, channels: int, out_channels: Optional[int] = None,
                  use_conv: bool = True):
         super().__init__()
-        self.conv = conv2d(channels, out_channels or channels) if use_conv else None
+        self.conv = conv2d(channels, out_channels or channels, quant=True) if use_conv else None
 
     def forward(self, x):
         x = nearest_upsample_2x(x)
@@ -83,7 +83,8 @@ class Downsample(nn.Module):
     def __init__(self, channels: int, out_channels: Optional[int] = None,
                  use_conv: bool = True):
         super().__init__()
-        self.op = conv2d(channels, out_channels or channels, stride=2) if use_conv else None
+        self.op = (conv2d(channels, out_channels or channels, stride=2, quant=True) if use_conv
+                   else None)
 
     def forward(self, x):
         return avg_pool_2x(x) if self.op is None else self.op(x)
@@ -98,8 +99,8 @@ class Upsample3D(nn.Module):
         out = out_channels or channels
         self.use_conv = use_conv
         if use_conv:
-            self.conv = conv2d(channels, out)
-            self.conv_temporal = temporal_conv(out, out)
+            self.conv = conv2d(channels, out, quant=True)
+            self.conv_temporal = temporal_conv(out, out, quant=True)
 
     def forward(self, x):
         x = resample_frames(x, up=True)
@@ -116,8 +117,8 @@ class Downsample3D(nn.Module):
         out = out_channels or channels
         self.use_conv = use_conv
         if use_conv:
-            self.op = conv2d(channels, out, stride=2)
-            self.conv_temporal = temporal_conv(out, out)
+            self.op = conv2d(channels, out, stride=2, quant=True)
+            self.conv_temporal = temporal_conv(out, out, quant=True)
 
     def forward(self, x):
         if not self.use_conv:
@@ -129,12 +130,12 @@ def _emb_layers(emb_channels: int, out: int, use_scale_shift_norm: bool,
                 skip_t_emb: bool) -> Optional[nn.Sequential]:
     if skip_t_emb:
         return None
-    return nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, 2 * out if use_scale_shift_norm
-                                              else out))
+    return nn.Sequential(nn.SiLU(), QLinear(emb_channels, 2 * out if use_scale_shift_norm
+                                            else out))
 
 
 def _skip_conv(channels: int, out: int, use_conv_skip: bool):
-    return conv2d(channels, out, k=3 if use_conv_skip else 1)
+    return conv2d(channels, out, k=3 if use_conv_skip else 1, quant=True)
 
 
 class ResBlock(nn.Module):
@@ -151,10 +152,11 @@ class ResBlock(nn.Module):
         self.use_scale_shift_norm = use_scale_shift_norm
         self.resample = up or down
         self.up = up
-        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(), conv2d(channels, out))
+        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(),
+                                       conv2d(channels, out, quant=True))
         self.emb_layers = _emb_layers(emb_channels, out, use_scale_shift_norm, skip_t_emb)
         self.out_layers = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
-                                        conv2d(out, out, zero=True))
+                                        conv2d(out, out, zero=True, quant=True))
         self.skip_connection = (nn.Identity() if out == channels
                                 else _skip_conv(channels, out, use_conv_skip))
 
@@ -207,20 +209,22 @@ class ResBlock3D(nn.Module):
             self.alpha_temporal2 = nn.Parameter(torch.ones(()))
         else:
             self.alpha_temporal1 = self.alpha_temporal2 = None
-        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(), conv2d(channels, out))
+        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(),
+                                       conv2d(channels, out, quant=True))
         self.in_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
-                                                temporal_conv(out, out, k))
+                                                temporal_conv(out, out, k, quant=True))
         self.emb_layers = _emb_layers(emb_channels, out, use_scale_shift_norm, skip_t_emb)
         self.out_layers = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
-                                        conv2d(out, out, zero=True))
+                                        conv2d(out, out, zero=True, quant=True))
         self.out_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
                                                  nn.Identity(),
-                                                 temporal_conv(out, out, k))
+                                                 temporal_conv(out, out, k, quant=True))
         if out == channels:
             self.skip_connection = None
         else:
             self.skip_connection = _skip_conv(channels, out, use_conv_skip)
-            self.skip_connection_temporal = temporal_conv(out, out, k if use_conv_skip else 1)
+            self.skip_connection_temporal = temporal_conv(out, out, k if use_conv_skip else 1,
+                                                          quant=True)
 
     def forward(self, x, emb, img_emb=None, return_inject: bool = False):
         identity = x

@@ -53,9 +53,9 @@ class HintPyramid(nn.Sequential):
         layers = []
         cin = hint_channels
         for ch, s in zip(_HINT_CHANNELS, _HINT_STRIDES):
-            layers += [conv2d(cin, ch, stride=1 if latent else s), nn.SiLU()]
+            layers += [conv2d(cin, ch, stride=1 if latent else s, quant=True), nn.SiLU()]
             cin = ch
-        layers.append(conv2d(cin, model_channels, zero=True))
+        layers.append(conv2d(cin, model_channels, zero=True, quant=True))
         super().__init__(*layers)
 
 
@@ -63,7 +63,7 @@ class ZeroConv2D(nn.Sequential):
     """Zero-initialised 1x1 convolution (sgm key ``.0``)."""
 
     def __init__(self, channels: int):
-        super().__init__(conv2d(channels, channels, k=1, zero=True))
+        super().__init__(conv2d(channels, channels, k=1, zero=True, quant=True))
 
 
 class ControlNet2D(UNetModel):
@@ -152,10 +152,10 @@ class ControlNet3D(UNetModel):
         self.input_hint_block = HintPyramid(hint_channels, self.model_channels, latent=True)
         self.zero_convs = nn.ModuleList(ZeroConv2D(c) for c in self.input_channels)
         self.zero_convs_temporal = nn.ModuleList(
-            nn.Sequential(temporal_conv(c, c, 1)) for c in self.input_channels)
+            nn.Sequential(temporal_conv(c, c, 1, quant=True)) for c in self.input_channels)
         self.middle_block_out = ZeroConv2D(self.input_channels[-1])
         self.middle_block_out_temporal = nn.Sequential(
-            temporal_conv(self.input_channels[-1], self.input_channels[-1], 1))
+            temporal_conv(self.input_channels[-1], self.input_channels[-1], 1, quant=True))
 
     def forward(self, x, hint, timesteps, context=None, y=None):
         if self.disable_temporal:

@@ -4,8 +4,11 @@ Activations keep the JAX package's channels-last layout: (N, H, W, C) images,
 (N, L, C) tokens.  The convolutions are ``nn.Conv2d``/``nn.Conv1d`` applied to
 a channels-first view of that memory, so cuDNN runs them in its
 channels-last format; parameters keep PyTorch's (O, I, kh, kw) layout and the
-reference sgm names (``weight``, ``bias``).  ``QDense``/``QConv`` (the JAX
-package's opt-in int8 path) become plain ``nn.Linear``/conv.
+reference sgm names (``weight``, ``bias``).  The JAX package's ``QConv``
+and ``QDense`` (its opt-in W8A8 path, ``ops/quant.py``) are these convs
+built with ``quant=True`` and ``QLinear``: exact unless W8A8 is on; a conv
+or Linear built without the flag (the JAX package's plain ``nn.Conv`` and
+``nn.Dense``) never quantizes.
 
 Under a spatial clip shard (``parallel/shard.py``: the clip's rows or
 columns split over the ranks) ``Conv2d`` takes halo rows from its
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..parallel.shard import active
 
 
@@ -40,14 +44,42 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+def _w8a8(module: nn.Module) -> bool:
+    """Whether a layer built with ``quant=True`` runs W8A8 now.  Refused
+    under a clip shard: the per-tensor activation scale would need a MAX
+    all-reduce over the ranks at every conv."""
+    if not (module.quant and quant.quantized_matmul_enabled()):
+        return False
+    if active() is not None:
+        raise NotImplementedError("W8A8 (CCEDIT_QUANT_MATMUL / CCEDIT_INT8) under a clip "
+                                  "shard: each rank would quantize with its own scale")
+    return True
+
+
 class Conv2d(nn.Conv2d):
     """(N, H, W, C) -> (N, H', W', C') convolution.  Under a spatial clip
     shard a k > 1 convolution reads ``padding`` rows of the previous rank's
     block and k - stride - padding of the next one's (zero rows at the
     clip's edges), then convolves its block without padding on that axis:
-    k // 2 rows each side at stride 1, the row above alone at stride 2."""
+    k // 2 rows each side at stride 1, the row above alone at stride 2.
+
+    ``quant``: a ``QConv`` site (W8A8 when it is on).  ``explicit_pad``
+    ((top, bottom), (left, right)) zero-pads the input first (the VAE
+    downsample's (0, 1)); the W8A8 kernel takes it as its window's
+    padding."""
+
+    def __init__(self, *args, quant: bool = False, explicit_pad=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.quant = quant
+        self.explicit_pad = explicit_pad
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _w8a8(self):
+            pads = self.explicit_pad or tuple((p, p) for p in self.padding)
+            return quant.qconv(x, self.weight, self.bias, self.stride, pads)
+        if self.explicit_pad is not None:
+            (t, b), (left, right) = self.explicit_pad
+            x = F.pad(x, (0, 0, left, right, t, b))
         shard = active()
         if shard is None or not shard.spatial or self.kernel_size == (1, 1):
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -66,24 +98,47 @@ class Conv2d(nn.Conv2d):
 
 
 class Conv1d(nn.Conv1d):
-    """(N, L, C) -> (N, L, C') convolution over L ('same' padding for odd k)."""
+    """(N, L, C) -> (N, L, C') convolution over L ('same' padding for odd
+    k); ``quant``: a ``QConv`` site."""
+
+    def __init__(self, *args, quant: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _w8a8(self):
+            return quant.qconv(x, self.weight, self.bias, self.stride,
+                               tuple((p, p) for p in self.padding))
         return super().forward(x.transpose(1, 2)).transpose(1, 2)
 
 
-def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1, zero: bool = False) -> Conv2d:
+class QLinear(nn.Linear):
+    """A ``QDense`` site: ``nn.Linear``, in W8A8 when it is on."""
+
+    quant = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _w8a8(self):
+            return quant.qlinear(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1, zero: bool = False,
+           quant: bool = False) -> Conv2d:
     """k x k convolution with torch's symmetric padding k // 2 (the JAX
-    package pads stride-2 convs explicitly ((1, 1), (1, 1)) to match it)."""
-    conv = Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+    package pads stride-2 convs explicitly ((1, 1), (1, 1)) to match it);
+    ``quant``: a ``QConv`` site."""
+    conv = Conv2d(cin, cout, k, stride=stride, padding=k // 2, quant=quant)
     if zero:
         zero_module(conv)
     return conv
 
 
-def temporal_conv(cin: int, cout: int, k: int = 3, zero: bool = True) -> Conv1d:
-    """The zero-initialised 1-D temporal twin (zero_module(conv_nd(1, ...)))."""
-    conv = Conv1d(cin, cout, k, padding=k // 2)
+def temporal_conv(cin: int, cout: int, k: int = 3, zero: bool = True,
+                  quant: bool = False) -> Conv1d:
+    """The zero-initialised 1-D temporal twin (zero_module(conv_nd(1, ...)));
+    ``quant``: the JAX ``TemporalConv``, a ``QConv``."""
+    conv = Conv1d(cin, cout, k, padding=k // 2, quant=quant)
     if zero:
         zero_module(conv)
     return conv

@@ -35,7 +35,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.video import fold_time, repeat_ctx_temporal, temporal_to_tokens, tokens_to_temporal
 from ..parallel.shard import active
-from .layers import Conv1d, conv2d, group_norm, zero_module
+from .layers import Conv1d, QLinear, conv2d, group_norm, zero_module
 
 LN_EPS = 1e-6
 
@@ -56,10 +56,10 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Identity())
+        self.to_q = QLinear(query_dim, inner, bias=False)
+        self.to_k = QLinear(context_dim, inner, bias=False)
+        self.to_v = QLinear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(QLinear(inner, query_dim), nn.Identity())
 
     def forward(self, x, context=None, kv_reuse_every: int = 0, kv_segments: int = 1):
         context = x if context is None else context
@@ -89,7 +89,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = QLinear(dim_in, dim_out * 2)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
@@ -102,7 +102,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.Sequential(GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim))
+        self.net = nn.Sequential(GEGLU(dim, inner), nn.Identity(), QLinear(inner, dim))
 
     def forward(self, x):
         return self.net(x)
@@ -159,13 +159,13 @@ def proj(cin: int, cout: int, use_linear: bool, zero: bool = False) -> nn.Module
     """proj_in / proj_out: a Linear (``use_linear``) or a 1x1 conv.  Both act
     on the channels of an (N, H, W, C) tensor, so the JAX package's order of
     the token reshape and the projection does not matter."""
-    m = nn.Linear(cin, cout) if use_linear else conv2d(cin, cout, k=1)
+    m = QLinear(cin, cout) if use_linear else conv2d(cin, cout, k=1, quant=True)
     return zero_module(m) if zero else m
 
 
 def temporal_proj(cin: int, cout: int, use_linear: bool) -> nn.Module:
     """The zero-initialised temporal projection: a Linear or a k=1 Conv1d."""
-    return zero_module(nn.Linear(cin, cout) if use_linear else Conv1d(cin, cout, 1))
+    return zero_module(QLinear(cin, cout) if use_linear else Conv1d(cin, cout, 1, quant=True))
 
 
 class SpatialTransformer(nn.Module):

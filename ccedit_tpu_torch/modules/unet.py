@@ -144,7 +144,7 @@ class UNetModel(nn.Module):
         self.time_embed = TimeEmbed(ch, 4 * ch)
         if adm_in_channels is not None:  # sgm's "sequential" label_emb: label_emb.0.{0,2}
             self.label_emb = nn.Sequential(TimeEmbed(adm_in_channels, 4 * ch))
-        blocks = [nn.ModuleList([conv2d(in_channels, ch)])]
+        blocks = [nn.ModuleList([conv2d(in_channels, ch, quant=True)])]
         enc_chans, cur, ds = [ch], ch, 1
         for level, mult in enumerate(channel_mult):
             for _ in range(per_level(num_res_blocks, level)):
@@ -161,7 +161,7 @@ class UNetModel(nn.Module):
                 ds *= 2
         self.input_blocks = nn.ModuleList(blocks)
         if self.is_video:
-            self.input_blocks_temporal = nn.Sequential(temporal_conv(ch, ch))
+            self.input_blocks_temporal = nn.Sequential(temporal_conv(ch, ch, quant=True))
         self.middle_block = nn.ModuleList(
             [res(cur, cur), transformer(cur, n_levels - 1), res(cur, cur)])
         self.input_channels = tuple(enc_chans)  # output channels of each input block
@@ -182,9 +182,11 @@ class UNetModel(nn.Module):
                     ds //= 2
                 blocks.append(nn.ModuleList(blk))
         self.output_blocks = nn.ModuleList(blocks)
-        self.out = nn.Sequential(group_norm(ch), nn.SiLU(), conv2d(ch, out_channels, zero=True))
+        self.out = nn.Sequential(group_norm(ch), nn.SiLU(),
+                                 conv2d(ch, out_channels, zero=True, quant=True))
         if self.is_video:
-            self.out_temporal = nn.Sequential(nn.SiLU(), temporal_conv(out_channels, out_channels))
+            self.out_temporal = nn.Sequential(
+                nn.SiLU(), temporal_conv(out_channels, out_channels, quant=True))
 
     def embed(self, timesteps: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.time_embed[0].weight.dtype

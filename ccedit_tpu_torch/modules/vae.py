@@ -29,12 +29,12 @@ class VAEResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm1 = group_norm(in_channels, eps=1e-6)
-        self.conv1 = conv2d(in_channels, out_channels)
+        self.conv1 = conv2d(in_channels, out_channels, quant=True)
         self.norm2 = group_norm(out_channels, eps=1e-6)
-        self.conv2 = conv2d(out_channels, out_channels)
+        self.conv2 = conv2d(out_channels, out_channels, quant=True)
         self.act = nn.SiLU()
         if out_channels != in_channels:
-            self.nin_shortcut = conv2d(in_channels, out_channels, k=1)
+            self.nin_shortcut = conv2d(in_channels, out_channels, k=1, quant=True)
 
     def forward(self, x):
         h = self.conv1(self.act(self.norm1(x)))
@@ -50,10 +50,10 @@ class VAEAttnBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.norm = group_norm(channels, eps=1e-6)
-        self.q = conv2d(channels, channels, k=1)
-        self.k = conv2d(channels, channels, k=1)
-        self.v = conv2d(channels, channels, k=1)
-        self.proj_out = conv2d(channels, channels, k=1)
+        self.q = conv2d(channels, channels, k=1, quant=True)
+        self.k = conv2d(channels, channels, k=1, quant=True)
+        self.v = conv2d(channels, channels, k=1, quant=True)
+        self.proj_out = conv2d(channels, channels, k=1, quant=True)
 
     def forward(self, x):
         n, h, w, c = x.shape
@@ -69,16 +69,17 @@ class VAEDownsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2)
+        self.conv = Conv2d(channels, channels, 3, stride=2, quant=True,
+                           explicit_pad=((0, 1), (0, 1)))
 
     def forward(self, x):
-        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+        return self.conv(x)
 
 
 class VAEUpsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = conv2d(channels, channels)
+        self.conv = conv2d(channels, channels, quant=True)
 
     def forward(self, x):
         return self.conv(nearest_upsample_2x(x))
@@ -126,7 +127,7 @@ class Encoder(nn.Module):
                  num_res_blocks: int = 2, in_channels: int = 3, z_channels: int = 4,
                  attn_resolutions: Sequence[int] = (), resolution: int = 256):
         super().__init__()
-        self.conv_in = conv2d(in_channels, ch)
+        self.conv_in = conv2d(in_channels, ch, quant=True)
         levels, cur, cur_res = [], ch, resolution
         for level, mult in enumerate(ch_mult):
             blocks = []
@@ -140,7 +141,7 @@ class Encoder(nn.Module):
         self.down = nn.ModuleList(levels)
         self.mid = _Mid(cur)
         self.norm_out = group_norm(cur, eps=1e-6)
-        self.conv_out = conv2d(cur, 2 * z_channels)
+        self.conv_out = conv2d(cur, 2 * z_channels, quant=True)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -159,7 +160,7 @@ class Decoder(nn.Module):
         super().__init__()
         cur = ch * ch_mult[-1]
         cur_res = resolution // 2 ** (len(ch_mult) - 1)
-        self.conv_in = conv2d(z_channels, cur)
+        self.conv_in = conv2d(z_channels, cur, quant=True)
         self.mid = _Mid(cur)
         levels = [None] * len(ch_mult)
         for level in reversed(range(len(ch_mult))):
@@ -172,7 +173,7 @@ class Decoder(nn.Module):
             cur_res *= 2
         self.up = nn.ModuleList(levels)
         self.norm_out = group_norm(cur, eps=1e-6)
-        self.conv_out = conv2d(cur, out_ch)
+        self.conv_out = conv2d(cur, out_ch, quant=True)
 
     def forward(self, z):
         h = self.mid(self.conv_in(z))
@@ -235,8 +236,8 @@ class AutoencoderKL(nn.Module):
                                attn_resolutions, resolution)
         self.decoder = Decoder(ch, ch_mult, num_res_blocks, out_ch, z_channels,
                                attn_resolutions, resolution)
-        self.quant_conv = conv2d(2 * z_channels, 2 * embed_dim, k=1)
-        self.post_quant_conv = conv2d(embed_dim, z_channels, k=1)
+        self.quant_conv = conv2d(2 * z_channels, 2 * embed_dim, k=1, quant=True)
+        self.post_quant_conv = conv2d(embed_dim, z_channels, k=1, quant=True)
 
     @staticmethod
     def _per_frame(fn, x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,8 @@ sends a spatial-route shape to kernel 1c exactly where the JAX dispatch
 would quantize: where the JAX kernel's gate ``supported`` holds for k's
 element size (``quantizes``).  Every other shape stays exact, among them
 the port's own additions to kernel 1's route, head_dim 160 and n_q that is
-not a multiple of 128.  The port has no W8A8 path (``ops/quant.py`` is not
-ported), so ``CCEDIT_INT8`` turns on only the QK^T half, with a warning.
+not a multiple of 128.  ``CCEDIT_INT8`` also turns on the W8A8 half
+(``ops/quant.py``), as in the JAX package.
 
 Under single-clip sharding (``mesh_context``, ``parallel/shard.py``: the
 JAX package's ``mesh_context`` and ``_sharded_attention``) the call site,
@@ -47,13 +47,13 @@ and k's over the gathered k.
 from __future__ import annotations
 
 import os
-import warnings
 from typing import Dict, Optional
 
 import torch
 
 from ..parallel.shard import mesh_context  # noqa: F401  (the JAX name)
 from . import flash_attention as fa
+from . import quant
 from . import spatial_attention as sa
 from . import temporal_attention as ta
 
@@ -89,13 +89,8 @@ def set_quantized_qk(enabled: bool) -> None:
 
 def quantized_qk_enabled() -> bool:
     if _QUANT["qk"] is None:
-        qk = os.environ.get("CCEDIT_QUANT_QK", "") not in ("", "0")
-        umbrella = os.environ.get("CCEDIT_INT8", "") not in ("", "0")
-        if umbrella:
-            warnings.warn("CCEDIT_INT8: the port has no W8A8 convolution/matmul path "
-                          "(ops/quant.py is not ported); only the int8 QK^T attention "
-                          "is turned on", stacklevel=2)
-        _QUANT["qk"] = qk or umbrella
+        _QUANT["qk"] = (os.environ.get("CCEDIT_QUANT_QK", "") not in ("", "0")
+                        or os.environ.get("CCEDIT_INT8", "") not in ("", "0"))
     return _QUANT["qk"]
 
 
@@ -131,7 +126,8 @@ _COUNTED = {"spatial_attention": sa.kv_resident_attention,
             "spatial_attention_bwd": sa.spatial_attention_bwd,
             "temporal_attention": ta.small_seq_attention,
             "flash_attention": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            **quant.COUNTED}
 
 
 def reset_launch_counts() -> None:

@@ -67,6 +67,13 @@ _SIGNATURES = {
     # q, k, v, o, batch, heads, T, head_dim, strides, scale, stream
     "ccedit_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
                                   ctypes.c_float, _P),
+    # fp32, per_row, x, q, scales, amax, rows, groups, len, len_p, stream
+    "ccedit_quantize_int8": (_I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+    # out_kind, a8, w8, out, sx, sw, bias, m, n, k, stream
+    "ccedit_int8_gemm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # out_kind, x8, w8, out, sx, sw, bias, batch, h, w, cp, o, kh, kw, sh, sw,
+    # pad_top, pad_left, ho, wo, stream
+    "ccedit_int8_conv": (_I, _P, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
 }
 
 

@@ -1,0 +1,376 @@
+"""The opt-in W8A8 path (port of ``ccedit_tpu/ops/quant.py``): dynamic
+symmetric int8 x int8 -> int32 products behind every ``QConv``/``QDense``
+site of the UNet, ControlNet and VAE.  Inference only.
+
+Turned on by ``set_quantized_matmul(True)``, ``CCEDIT_QUANT_MATMUL=1`` or the
+umbrella ``CCEDIT_INT8=1`` (which also turns on the int8 QK^T attention,
+``ops/attention.py``), read once, lazily, as in the JAX package.  A layer
+takes this path only where its construction site says ``quant=True``
+(``modules/layers.py``): the JAX package's ``QConv``/``QDense`` sites; the
+plain ``nn.Conv``/``nn.Dense`` of the annotators, the text towers, LPIPS,
+the discriminator, InceptionV3, ``unet_extras`` and ``TimeEmbed`` stay exact.
+
+Numerics, the JAX package's step for step:
+
+* the weight is cast to the activation's dtype first, then quantized;
+* ``symmetric_q``: fp32, amax = max|x| over the axes, scale = amax / 127
+  where amax > 0 (else 1), q = clip(round(x / scale), -127, 127), round half
+  to even, true divisions;
+* dense (``qlinear``): one scale per token (row), one per output column of
+  the weight; conv (``qconv``, 1x1 included, 1-D as (k, 1) 2-D): one scale
+  for the whole activation tensor, one per output channel of the weight;
+* out = dtype(f32(acc) * sx * sw), then + bias in the activation's dtype.
+
+Three kernels, each beside its plain version; a CPU tensor takes the plain
+version (the only reason it does), a CUDA tensor launches the kernel or
+raises:
+
+* (8) ``quantize_int8`` (``csrc/quantize_int8.cu``): per-row or per-tensor
+  amax and quantization into rows zero-padded to 16-byte multiples (the
+  per-tensor amax stays on the device: no host sync);
+* (9) ``gemm_dequant`` (``csrc/int8_gemm.cu``): the int8 product with its
+  dequant + bias epilogue, on kernel 6's TMA + wgmma template;
+* (10) ``conv_dequant`` (``csrc/int8_conv.cu``): an implicit-GEMM int8
+  convolution on channels-last data, the same epilogue.
+
+The plain versions compute the int8 products exactly (float64 sums of
+int8 products are integers below 2^53).  ``qlinear`` and ``qconv`` look the
+three names up at each call, so a caller can swap in the plain versions or a
+planted fault.  None of the three replaces a Pallas kernel: the JAX package
+leaves these products to XLA.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import os
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+_STATE = {"matmul": None}
+
+
+def set_quantized_matmul(enabled: bool) -> None:
+    _STATE["matmul"] = bool(enabled)
+
+
+def quantized_matmul_enabled() -> bool:
+    if _STATE["matmul"] is None:
+        _STATE["matmul"] = (os.environ.get("CCEDIT_QUANT_MATMUL", "") not in ("", "0")
+                            or os.environ.get("CCEDIT_INT8", "") not in ("", "0"))
+    return _STATE["matmul"]
+
+
+def padded(n: int) -> int:
+    """n rounded up to a whole number of 16-byte int8 vectors."""
+    return -(-n // 16) * 16
+
+
+def symmetric_q(x: torch.Tensor, dims: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, scale) with x ~= q * scale, scale keeping the reduced dims as
+    size 1 (``_symmetric_q``).  Every quotient is tensor by tensor: torch
+    divides a CUDA tensor by a Python number as a product with its
+    reciprocal, a last bit away from the true quotient."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=tuple(dims), keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = (xf / scale).round_().clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _exact_mm(a8: torch.Tensor, b8_t: torch.Tensor) -> torch.Tensor:
+    """int8 (..., K) @ int8 (K, N) -> int32, exactly (float64 sums)."""
+    return torch.matmul(a8.double(), b8_t.double()).to(torch.int32)
+
+
+def int8_matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The JAX ``int8_matmul`` with a torch (F, C) weight: x (..., C) @
+    weight^T, per-token and per-column scales, fp32 out."""
+    xq, sx = symmetric_q(x, (-1,))
+    wq, sw = symmetric_q(weight, (1,))
+    return _exact_mm(xq, wq.t()).float() * sx * sw[:, 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvGeometry:
+    """A 2-D window: kernel (kh, kw), stride (sh, sw) and zero padding
+    (top, bottom, left, right).  A 1-D conv over (N, L, C) is (k, 1)."""
+
+    kh: int
+    kw: int
+    sh: int = 1
+    sw: int = 1
+    pt: int = 0
+    pb: int = 0
+    pl: int = 0
+    pr: int = 0
+
+    def out_hw(self, h: int, w: int) -> Tuple[int, int]:
+        return ((h + self.pt + self.pb - self.kh) // self.sh + 1,
+                (w + self.pl + self.pr - self.kw) // self.sw + 1)
+
+
+def geometry(kernel: Sequence[int], stride: Sequence[int],
+             padding: Sequence[Tuple[int, int]]) -> ConvGeometry:
+    """The window of a 2-D ((kh, kw), (sh, sw), ((top, bottom), (left,
+    right))) or 1-D ((k,), (s,), ((lo, hi),)) convolution."""
+    if len(kernel) == 1:
+        kernel, stride, padding = (kernel[0], 1), (stride[0], 1), (padding[0], (0, 0))
+    (pt, pb), (pl, pr) = padding
+    return ConvGeometry(kernel[0], kernel[1], stride[0], stride[1], pt, pb, pl, pr)
+
+
+def plain_conv_acc(x8: torch.Tensor, w8: torch.Tensor, geom: ConvGeometry,
+                   budget: int = 2 ** 31) -> torch.Tensor:
+    """int8 (N, H, W, Cp) x int8 (O, kh * kw * Cp) (taps outer, channels
+    inner) -> the int32 (N, Ho, Wo, O) accumulators: a float64 product a
+    tap, summed exactly, over as many images at a time as ``budget`` bytes
+    of float64 operands allow."""
+    n, h, w, cp = x8.shape
+    ho, wo = geom.out_hw(h, w)
+    o = w8.shape[0]
+    wt = w8.reshape(o, geom.kh, geom.kw, cp).double()
+    xp = F.pad(x8, (0, 0, geom.pl, geom.pr, geom.pt, geom.pb))
+    out = torch.empty((n, ho, wo, o), dtype=torch.int32, device=x8.device)
+    step = max(1, budget // (8 * ho * wo * max(cp, o)))
+    for b0 in range(0, n, step):
+        xs = xp[b0:b0 + step]
+        acc = torch.zeros((xs.shape[0], ho, wo, o), dtype=torch.float64, device=x8.device)
+        for i in range(geom.kh):
+            for j in range(geom.kw):
+                patch = xs[:, i:i + geom.sh * (ho - 1) + 1:geom.sh,
+                           j:j + geom.sw * (wo - 1) + 1:geom.sw]
+                acc += torch.matmul(patch.double(), wt[:, i, j].t())
+        out[b0:b0 + step] = acc.to(torch.int32)
+    return out
+
+
+def _to_2d(x: torch.Tensor, weight: torch.Tensor, stride, padding):
+    """A channels-last (N, L, C) input and (O, I, k) weight as (N, L, 1, C)
+    and (O, I, k, 1); 2-D ones as they are."""
+    geom = geometry(weight.shape[2:], stride, padding)
+    if x.dim() == 3:
+        return x[:, :, None], weight[..., None], geom
+    return x, weight, geom
+
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: Sequence[int],
+              padding: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The JAX ``int8_conv`` with a torch (O, I, *k) weight on a
+    channels-last x (N, *spatial, C): one scale for the whole activation,
+    one per output channel, fp32 out (N, *spatial', O)."""
+    xq, sx = symmetric_q(x, tuple(range(x.dim())))
+    wq, sw = symmetric_q(weight, tuple(range(1, weight.dim())))
+    x4, w4, geom = _to_2d(xq, wq, stride, padding)
+    w_rows = w4.permute(0, 2, 3, 1).reshape(w4.shape[0], -1)
+    acc = plain_conv_acc(x4, w_rows, geom)
+    out = acc.float() * sx.reshape(()) * sw.reshape(-1)
+    return out[:, :, 0] if x.dim() == 3 else out
+
+
+# ---- kernel (8): the quantizer ----
+
+def plain_quantize_int8(x: torch.Tensor, per_row: bool, groups: int = 1):
+    """(q, scales) of a 2-D (R, G * L) tensor: ``symmetric_q`` over each row
+    (``per_row``) or the whole tensor, q laid out (R, G * Lp), each group of
+    L values zero-padded to Lp = ``padded(L)``; scales (R,) or (1,)."""
+    rows, n = x.shape
+    length = n // groups
+    q, scale = symmetric_q(x, (1,) if per_row else (0, 1))
+    q = F.pad(q.reshape(rows, groups, length), (0, padded(length) - length))
+    return q.reshape(rows, -1), scale.reshape(-1)
+
+
+def quantize_int8(x: torch.Tensor, per_row: bool, groups: int = 1):
+    """Kernel 8: ``plain_quantize_int8``'s function for a bf16 or fp32 2-D
+    tensor.  A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/quantize_int8.cu`` (per row: one warp a row, amax then quantize;
+    per tensor: a grid-wide amax into a device word, then the quantize pass
+    reading it) or raises."""
+    if not x.is_cuda:
+        return plain_quantize_int8(x, per_row, groups)
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2:
+        raise ValueError(f"quantize_int8 takes a 2-D bf16 or fp32 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    rows, n = x.shape
+    if rows <= 0 or n <= 0 or n % groups or (groups != 1 and not per_row):
+        raise ValueError(f"quantize_int8: {rows}x{n} in {groups} groups (per_row={per_row})")
+    x = x.contiguous()
+    length = n // groups
+    q = torch.empty((rows, groups * padded(length)), device=x.device, dtype=torch.int8)
+    scales = torch.empty((rows if per_row else 1,), device=x.device, dtype=torch.float32)
+    amax = torch.empty((1,), device=x.device, dtype=torch.int32)
+    build.launch("ccedit_quantize_int8", int(x.dtype == torch.float32), int(per_row),
+                 x.data_ptr(), q.data_ptr(), scales.data_ptr(), amax.data_ptr(), rows, groups,
+                 length, padded(length), build.stream_of(x))
+    quantize_int8.launches += 1
+    quantize_int8.variant_launches["rows" if per_row else "tensor"] += 1
+    return q, scales
+
+
+quantize_int8.launches = 0
+quantize_int8.variant_launches = collections.Counter()
+
+
+def quantize_weight(weight: torch.Tensor):
+    """A (O, I) Linear or (O, I, *k) conv weight quantized per output
+    channel, in the products' K order: (O, taps * Ip), taps outer, input
+    channels inner, each tap's channels zero-padded to Ip."""
+    o, i = weight.shape[:2]
+    taps = math.prod(weight.shape[2:])
+    rows = weight.permute(0, *range(2, weight.dim()), 1).reshape(o, taps * i)
+    return quantize_int8(rows, per_row=True, groups=taps)
+
+
+def plain_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                   bias: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """dtype(f32(acc) * sx * sw) + bias, sx broadcast against acc (a column
+    of row scales or a scalar); ``dtype`` None returns the int32 acc."""
+    if dtype is None:
+        return acc
+    y = (acc.float() * sx * sw).to(dtype)
+    return y if bias is None else y + bias.to(dtype)
+
+
+# ---- kernel (9): the dense product with its epilogue ----
+
+_OUT_KINDS = {None: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _out(shape, dtype, device):
+    return torch.empty(shape, device=device, dtype=torch.int32 if dtype is None else dtype)
+
+
+def plain_gemm_dequant(x8, sx, w8, sw, bias=None, dtype=torch.bfloat16):
+    """x8 (M, Kp) @ w8 (N, Kp)^T exactly, then ``plain_epilogue`` with sx
+    one scale a row of x8."""
+    return plain_epilogue(_exact_mm(x8, w8.t()), sx[:, None], sw, bias, dtype)
+
+
+def _check_int8(name: str, x: torch.Tensor, dim: int, device) -> None:
+    if x.dtype != torch.int8 or x.dim() != dim or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"{name} must be a contiguous {dim}-D int8 tensor on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.shape[-1] % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{name}'s rows must be whole 16-byte vectors, 16-byte aligned; got "
+                         f"{tuple(x.shape)}")
+
+
+def _check_epilogue(sx, sw, bias, dtype, rows_sx: int, n: int, device) -> None:
+    if dtype not in _OUT_KINDS:
+        raise ValueError(f"the epilogue writes bf16, fp32 or the int32 accumulators, not {dtype}")
+    for name, t, want in (("sx", sx, rows_sx), ("sw", sw, n)):
+        if t.dtype != torch.float32 or t.numel() != want or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"{name} must be {want} contiguous fp32 values on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dtype is not None and bias is not None and (
+            bias.dtype != dtype or bias.numel() != n or not bias.is_contiguous()
+            or bias.device != device):
+        raise ValueError(f"bias must be {n} contiguous {dtype} values on {device}, got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+
+
+def gemm_dequant(x8, sx, w8, sw, bias=None, dtype=torch.bfloat16):
+    """Kernel 9: ``plain_gemm_dequant``'s function.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/int8_gemm.cu``'s
+    dequantizing GEMM (s8 wgmma on kernel 6's template, torch's (N, K)
+    weight being the K-major B^T it reads) or raises.  ``dtype`` None
+    writes the raw int32 accumulators (a debug entry)."""
+    if not x8.is_cuda:
+        return plain_gemm_dequant(x8, sx, w8, sw, bias, dtype)
+    _check_int8("x8", x8, 2, x8.device)
+    _check_int8("w8", w8, 2, x8.device)
+    (m, k), n = x8.shape, w8.shape[0]
+    if w8.shape[1] != k or m <= 0 or n <= 0:
+        raise ValueError(f"mismatched x8 {tuple(x8.shape)} and w8 {tuple(w8.shape)}")
+    _check_epilogue(sx, sw, bias, dtype, m, n, x8.device)
+    out = _out((m, n), dtype, x8.device)
+    build.launch("ccedit_int8_gemm", _OUT_KINDS[dtype], x8.data_ptr(), w8.data_ptr(),
+                 out.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 0 if bias is None or dtype is None else bias.data_ptr(), m, n, k,
+                 build.stream_of(x8))
+    gemm_dequant.launches += 1
+    gemm_dequant.variant_launches[{None: "int32", torch.bfloat16: "bf16",
+                                   torch.float32: "fp32"}[dtype]] += 1
+    return out
+
+
+gemm_dequant.launches = 0
+gemm_dequant.variant_launches = collections.Counter()
+
+
+# ---- kernel (10): the implicit-GEMM convolution ----
+
+def plain_conv_dequant(x8, sx, w8, sw, bias, geom: ConvGeometry, dtype=torch.bfloat16):
+    """int8 x8 (N, H, W, Cp) convolved with w8 (O, kh * kw * Cp) exactly
+    (``plain_conv_acc``), then the epilogue with the one activation scale."""
+    return plain_epilogue(plain_conv_acc(x8, w8, geom), sx.reshape(()), sw, bias, dtype)
+
+
+def conv_dequant(x8, sx, w8, sw, bias, geom: ConvGeometry, dtype=torch.bfloat16):
+    """Kernel 10: ``plain_conv_dequant``'s function.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/int8_conv.cu`` (the im2col
+    in its cp.async load stage, zero-filled at the padding; mma.sync
+    m16n8k32 s8) or raises.  ``dtype`` None writes the raw int32
+    accumulators."""
+    if not x8.is_cuda:
+        return plain_conv_dequant(x8, sx, w8, sw, bias, geom, dtype)
+    _check_int8("x8", x8, 4, x8.device)
+    _check_int8("w8", w8, 2, x8.device)
+    n, h, w, cp = x8.shape
+    o = w8.shape[0]
+    ho, wo = geom.out_hw(h, w)
+    if w8.shape[1] != geom.kh * geom.kw * cp or ho <= 0 or wo <= 0 or n <= 0:
+        raise ValueError(f"conv_dequant: x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}, {geom}")
+    _check_epilogue(sx, sw, bias, dtype, 1, o, x8.device)
+    out = _out((n, ho, wo, o), dtype, x8.device)
+    build.launch("ccedit_int8_conv", _OUT_KINDS[dtype], x8.data_ptr(), w8.data_ptr(),
+                 out.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 0 if bias is None or dtype is None else bias.data_ptr(), n, h, w, cp, o,
+                 geom.kh, geom.kw, geom.sh, geom.sw, geom.pt, geom.pl, ho, wo,
+                 build.stream_of(x8))
+    conv_dequant.launches += 1
+    conv_dequant.variant_launches[f"{geom.kh}x{geom.kw} s{geom.sh}"] += 1
+    return out
+
+
+conv_dequant.launches = 0
+conv_dequant.variant_launches = collections.Counter()
+
+
+# ---- the layers' entry points ----
+
+def qlinear(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A ``QDense``: x (..., C) @ weight (F, C)^T + bias in W8A8, x's dtype
+    out."""
+    lead, c = x.shape[:-1], x.shape[-1]
+    x8, sx = quantize_int8(x.reshape(-1, c), per_row=True)
+    w8, sw = quantize_weight(weight.to(x.dtype))
+    y = gemm_dequant(x8, sx, w8, sw, None if bias is None else bias.to(x.dtype), x.dtype)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def qconv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          stride: Sequence[int], padding: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """A ``QConv`` on channels-last x, (N, H, W, C) with a (O, I, kh, kw)
+    weight or (N, L, C) with (O, I, k): W8A8 with one activation scale for
+    the whole tensor, x's dtype out.  ``padding``: (lo, hi) a spatial dim."""
+    x4, w4, geom = _to_2d(x, weight, stride, padding)
+    n, h, w, c = x4.shape
+    x8, sx = quantize_int8(x4.reshape(-1, c), per_row=False)
+    w8, sw = quantize_weight(w4.to(x.dtype))
+    y = conv_dequant(x8.view(n, h, w, -1), sx, w8, sw,
+                     None if bias is None else bias.to(x.dtype), geom, x.dtype)
+    return y[:, :, 0] if x.dim() == 3 else y
+
+
+COUNTED = {"quantize_int8": quantize_int8, "int8_gemm_dequant": gemm_dequant,
+           "int8_conv": conv_dequant}

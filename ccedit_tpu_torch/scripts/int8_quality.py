@@ -1,14 +1,16 @@
-"""Workload-level divergence of the int8 QK^T attention (kernel 1c) on one GPU.
+"""Workload-level divergence of the int8 paths on one GPU.
 
     python -m ccedit_tpu_torch.scripts.int8_quality [--workload tv2v|tvi2v] [--steps N]
 
-Port of ``scripts/int8_quality.py``, QK^T half only (the port has no W8A8
-path).  Runs the full-width edit of ``cli/profile_tv2v.py`` (17x512x768;
-TV2V at 30 steps, CFG 7.5 by default; TVI2V at 50 steps, CFG 7) twice with
-the same seed, weights and noise, exact and then with ``set_quantized_qk
-(True)``, and reports the divergence: latent cosine and PSNR, per-frame
-pixel PSNR and SSIM, each edit's seconds and the quantized edit's kernel-1
-and pre-pass launches.  The weights are seeded random, so the numbers
+Port of ``scripts/int8_quality.py``.  Runs the full-width edit of
+``cli/profile_tv2v.py`` (17x512x768; TV2V at 30 steps, CFG 7.5 by default;
+TVI2V at 50 steps, CFG 7) three times with the same seed, weights and
+noise: exact, (a) the int8 QK^T attention alone (``CCEDIT_QUANT_QK=1``,
+kernel 1c) and (b) the ``CCEDIT_INT8=1`` umbrella (W8A8 convolutions and
+dense layers, kernels 8-10, and the int8 QK^T), and reports each one's
+divergence from the exact edit: latent cosine and PSNR, per-frame pixel
+PSNR and SSIM, each edit's seconds and the quantized edits' launches of
+kernels 1c and 8-10.  The weights are seeded random, so the numbers
 measure the int8 arithmetic's divergence, not the perceptual quality of a
 trained model.  Prints one JSON line.
 """
@@ -63,7 +65,7 @@ def divergence(lat_e, lat_q, frames_e, frames_q) -> dict:
 
 
 def main(argv=None) -> None:
-    from ..cli.profile_tv2v import EDIT_GEOMETRY, build_edit
+    from ..cli.profile_tv2v import EDIT_GEOMETRY, build_edit, int8_environment
     from ..ops import attention as att
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -79,31 +81,34 @@ def main(argv=None) -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     steps = a.steps or (50 if a.workload == "tvi2v" else 30)
     _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)
-    edit(1, torch.Generator(device=device).manual_seed(a.seed))  # warm-up
 
     runs = {}
-    try:
-        for quant in (False, True):
-            att.set_quantized_qk(quant)
+    for mode, env in (("exact", {}), ("qk8", {"CCEDIT_QUANT_QK": "1"}),
+                      ("int8_full", {"CCEDIT_INT8": "1"})):
+        with int8_environment(**env):
+            edit(1, torch.Generator(device=device).manual_seed(a.seed))  # warm-up
             att.reset_launch_counts()
             t0 = time.perf_counter()
             frames, latents = edit(steps, torch.Generator(device=device).manual_seed(a.seed),
                                    return_latents=True)
             seconds = time.perf_counter() - t0
-            runs[quant] = dict(frames=frames, latents=latents.float().cpu().numpy(),
-                               seconds=seconds, launches=att.launch_counts())
-    finally:
-        att.set_quantized_qk(False)
+            runs[mode] = dict(frames=frames, latents=latents.float().cpu().numpy(),
+                              seconds=seconds, launches=att.launch_counts())
     t, h, w = EDIT_GEOMETRY
-    print(json.dumps({
-        "gpu": smi, "workload": f"{a.workload} {t}f {h}x{w} {steps} steps CFG {cfg_scale}",
-        "weights": "seeded random: measures the int8 arithmetic's divergence",
-        "exact_seconds": runs[False]["seconds"], "qk8_seconds": runs[True]["seconds"],
-        "qk8_launches": {k: n for k, n in runs[True]["launches"].items()
-                         if k.startswith(("spatial_attention[", "quantize_qk"))},
-        "qk8": divergence(runs[False]["latents"], runs[True]["latents"],
-                          runs[False]["frames"], runs[True]["frames"]),
-    }))
+    exact = runs["exact"]
+    report = {"gpu": smi, "workload": f"{a.workload} {t}f {h}x{w} {steps} steps CFG {cfg_scale}",
+              "weights": "seeded random: measures the int8 arithmetic's divergence",
+              "exact_seconds": exact["seconds"]}
+    for mode in ("qk8", "int8_full"):
+        run = runs[mode]
+        report[f"{mode}_seconds"] = run["seconds"]
+        report[f"{mode}_launches"] = {
+            k: n for k, n in run["launches"].items()
+            if n and k.startswith(("spatial_attention[", "quantize_qk", "quantize_int8",
+                                   "int8_gemm_dequant", "int8_conv"))}
+        report[mode] = divergence(exact["latents"], run["latents"], exact["frames"],
+                                  run["frames"])
+    print(json.dumps(report))
 
 
 if __name__ == "__main__":

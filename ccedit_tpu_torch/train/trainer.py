@@ -50,20 +50,22 @@ import torch
 
 from ..models.engine import CCEditEngine
 from ..ops.attention import quantized_qk_enabled
+from ..ops.quant import quantized_matmul_enabled
 from ..parallel import mesh
 from ..parallel.zero import full_state_dict, is_zero
 
 
 def assert_exact_arithmetic() -> None:
-    """Refuse to train with the int8 QK^T attention on (the JAX trainer's
-    guard, QK half only: the port has no W8A8 path).  round() has zero
-    gradient almost everywhere, so the quantized attention's gradient is
-    the exact recompute's (``QuantizedSpatialAttention``, as in the JAX
-    package): an int8 forward under an exact backward is an inconsistent
-    pair to train on."""
-    if quantized_qk_enabled():
-        raise RuntimeError("training requires exact arithmetic: unset CCEDIT_QUANT_QK/"
-                           "CCEDIT_INT8 or call set_quantized_qk(False) before fit()")
+    """Refuse to train with either int8 path on (the JAX trainer's guard).
+    round() has zero gradient almost everywhere: through W8A8 convs and
+    matmuls the gradients are silently wrong, and the quantized attention's
+    gradient is the exact recompute's (``QuantizedSpatialAttention``, as in
+    the JAX package), an int8 forward under an exact backward."""
+    if quantized_matmul_enabled() or quantized_qk_enabled():
+        raise RuntimeError(
+            "training requires exact arithmetic: unset CCEDIT_QUANT_MATMUL/CCEDIT_QUANT_QK/"
+            "CCEDIT_INT8 or call set_quantized_matmul(False) / set_quantized_qk(False) "
+            "before fit()")
 
 
 def scale_learning_rate(base_lr: float, accumulate: int, n_devices: int,

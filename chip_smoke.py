@@ -189,6 +189,24 @@ Phases:
      the one-card ones bit for bit and the faults cannot act (the phase
      says so).  Phase 3 holds kernels 1 and 1b at the gathered shapes
      (n_k = 4 n_q and 2 n_q; 8 n_q and 4 n_q for 1b) with the log2 e fault.
+ 12. the W8A8 path (``ops/quant.py``; kernels 8-10: ``csrc/quantize_int8.cu``,
+     ``int8_gemm.cu``'s dequant GEMM, ``int8_conv.cu``).  (a) Each kernel at
+     the shapes the main path gives it (``W8A8_SHAPES``: the level-0 and
+     level-1 3x3 convs of the CFG-doubled clip, the level-0 TemporalConv,
+     conv_in with K = 36, the VAE decoder's 3x3 and conv_out, dense layers
+     320 -> 320, 320 -> 2560 and 1280 -> 320 over 208,896 tokens): the
+     quantizer's int8 values and scales bit for bit its plain version's, the
+     raw int32 accumulators bit for bit, the epilogue's output within phase
+     3's gate, and the check refusing its planted fault (dense: the per-row
+     scale dropped; conv: the window shifted one row); each with its bound,
+     plain time and yardstick (``torch._int_mm`` + rescale; cuDNN's bf16
+     conv).  (b) Run inside phases 4 and 5 on their engines before they are
+     freed: the edit with ``CCEDIT_QUANT_MATMUL=1`` and with
+     ``CCEDIT_INT8=1``, kernels 8-10 launched on both and on no other path,
+     kernel 1c on the umbrella alone; the umbrella edit's final latents held
+     to the same edit through the kernels' plain versions on the card
+     (exact fp64 int8 products, TF32 off) by cosine (W8A8_LATENT_COSINE),
+     which the edit with the weight scales read per input channel must fail.
   Launch counts are reset just before each path and read just after (per
   stage for the edits, per step in VAE training); every kernel of that path
   must have run (on the
@@ -1159,6 +1177,7 @@ def run_path(path: str, device, steps: int, seed: int) -> dict:
         raise RuntimeError(f"the latent check passes a kernel 1c without its dequant factor: "
                            f"cosine {cos_fault}")
     out = {path: launches, f"{path}_int8": launches_int8}
+    out.update(run_w8a8_edits(path, edit, exact, launches, device, steps, seed))
     if path == "tv2v":
         out.update(run_modes(engine, exact, device, seed))
     del engine, edit, modules  # ``modules`` holds the weights too
@@ -3501,6 +3520,313 @@ def run_clip_shard(seed: int) -> dict:
     return {"clip_shard_tv2v": tv2v, "clip_shard_tvi2v": res["tvi2v"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the W8A8 path (ops/quant.py)
+
+# (a): each kernel against its plain version at the shapes the main path
+# gives it: (label, "conv" | "dense", input shape (N, H, W, C) / (N, L, C) /
+# (M, C), output channels, kernel, stride, padding)
+W8A8_SHAPES = (
+    ("level-0 3x3", "conv", (34, 64, 96, 320), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("level-1 3x3", "conv", (34, 32, 48, 640), 640, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("level-0 TemporalConv k=3", "conv", (12288, 17, 320), 320, (3,), (1,), ((1, 1),)),
+    ("conv_in K=36", "conv", (34, 64, 96, 4), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("VAE decoder 3x3", "conv", (17, 512, 768, 128), 128, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("VAE decoder conv_out", "conv", (17, 512, 768, 128), 3, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("dense 320->320", "dense", (208896, 320), 320),
+    ("dense 320->2560", "dense", (208896, 320), 2560),
+    ("dense 1280->320", "dense", (208896, 1280), 320),
+)
+# (b): the umbrella edit's final latents against the same edit with the
+# three kernels swapped for their plain versions on the card (exact fp64
+# int8 products, TF32 off), by cosine; the edit with the weight scales read
+# per input channel must fall below it
+W8A8_LATENT_COSINE = 0.999
+W8A8_KERNELS = (
+    dict(name="quantize_int8", source="ccedit_tpu_torch/csrc/quantize_int8.cu",
+         replaces="ccedit_tpu/ops/quant.py:61 (XLA in the JAX package, no Pallas kernel)"),
+    dict(name="int8_gemm_dequant", source="ccedit_tpu_torch/csrc/int8_gemm.cu",
+         replaces="ccedit_tpu/ops/quant.py:75 (XLA in the JAX package, no Pallas kernel)"),
+    dict(name="int8_conv", source="ccedit_tpu_torch/csrc/int8_conv.cu",
+         replaces="ccedit_tpu/ops/quant.py:91 (XLA in the JAX package, no Pallas kernel)"),
+)
+W8A8_PATH = "tv2v_int8_umbrella"  # the path whose launches the JSON reports
+
+
+def w8a8_operands(kind, x_shape, o, kernel, gen, device):
+    """bf16 x, weight (torch layout) and bias, as a layer of the model sees
+    them: x standard normal, weights N(0, 1/fan_in), biases N(0, 0.1^2)."""
+    import torch
+
+    c = x_shape[-1]
+    w_shape = (o, c) + (tuple(kernel) if kind == "conv" else ())
+    fan_in = c * math.prod(w_shape[2:])
+    x = torch.randn(x_shape, generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn(w_shape, generator=gen, device=device) / math.sqrt(fan_in)).to(torch.bfloat16)
+    b = (0.1 * torch.randn((o,), generator=gen, device=device)).to(torch.bfloat16)
+    return x, w, b
+
+
+def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), *, gen, device):
+    """One shape of phase 12 (a): the quantizer bit for bit (activation and
+    weight: int8 values and scales), the raw int32 accumulators bit for bit,
+    the epilogue's output against its plain version (TOLERANCE, COSINE) and
+    its planted fault refused (dense: the per-row scale dropped, the first
+    row's read for every row; conv: the window shifted one row); times,
+    bound and yardstick."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.scripts import roofline
+
+    x, w, bias = w8a8_operands(kind, x_shape, o, kernel, gen, device)
+    c = x_shape[-1]
+    per_row = kind == "dense"
+    x2 = x.reshape(-1, c)
+    x8, sx = quant.quantize_int8(x2, per_row=per_row)
+    w8, sw = quant.quantize_weight(w if kind == "dense" or len(kernel) == 2 else w[..., None])
+    px8, psx = quant.plain_quantize_int8(x2, per_row)
+    taps = math.prod(kernel) if kind == "conv" else 1
+    w_rows = (w if kind == "dense" else
+              (w if len(kernel) == 2 else w[..., None]).permute(0, 2, 3, 1)).reshape(o, -1)
+    pw8, psw = quant.plain_quantize_int8(w_rows, True, taps)
+    mismatches = int((x8 != px8).sum() + (sx != psx).sum() + (w8 != pw8).sum()
+                     + (sw != psw).sum())
+    del px8, psx, pw8, psw
+    if kind == "dense":
+        m = x2.shape[0]
+        args = (x8, sx, w8, sw, bias)
+        run, plain = quant.gemm_dequant, quant.plain_gemm_dequant
+        # the per-row scale dropped: every row takes the first row's
+        fault = functools.partial(quant.gemm_dequant, x8, sx[:1].expand(m).contiguous(), w8, sw,
+                                  bias)
+        ops = 2.0 * m * o * c
+        nbytes = x8.numel() + w8.numel() + 4 * (sx.numel() + sw.numel()) + 2 * (o + m * o)
+
+        def library():  # torch._int_mm and a torch rescale of its int32 product
+            acc = torch._int_mm(x8, w8.t())
+            return (acc.float() * sx[:, None] * sw).to(torch.bfloat16) + bias
+    else:
+        geom = quant.geometry(kernel, stride, padding)
+        x4 = x8.view(x_shape[:3] + (-1,) if len(kernel) == 2 else x_shape[:2] + (1, -1))
+        ho, wo = geom.out_hw(x4.shape[1], x4.shape[2])
+        m = x4.shape[0] * ho * wo
+        args = (x4, sx, w8, sw, bias)
+        run = functools.partial(quant.conv_dequant, geom=geom)
+        plain = functools.partial(quant.plain_conv_dequant, geom=geom)
+        shifted = dataclasses.replace(geom, pt=geom.pt - 1, pb=geom.pb + 1)
+        fault = functools.partial(quant.conv_dequant, x4, sx, w8, sw, bias, shifted)
+        ops = 2.0 * m * o * c * taps
+        nbytes = x4.numel() + w8.numel() + 4 * (1 + sw.numel()) + 2 * (o + m * o)
+        xc = x.movedim(-1, 1)  # the exact path's own op: cuDNN bf16, channels-last memory
+
+        def library():
+            if len(kernel) == 2:
+                return F.conv2d(xc, w, bias, stride, tuple(p for p, _ in padding))
+            return F.conv1d(xc, w, bias, stride, padding[0][0])
+
+    acc = run(*args, dtype=None)
+    acc_plain = plain(*args, dtype=None)
+    acc_equal = bool(torch.equal(acc, acc_plain))
+    del acc, acc_plain
+    out = run(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    cos = cosine(out, ref)
+    exact = int((out != ref).sum())
+    bad = fault(dtype=torch.bfloat16)
+    f_rel = ((bad.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    f_cos = cosine(bad, ref)
+    del bad, out, ref
+    ms = cuda_time_ms(lambda: run(*args), 5)
+    q_ms = cuda_time_ms(lambda: quant.quantize_int8(x2, per_row=per_row), 5)
+    q_plain_ms = cuda_time_ms(lambda: quant.plain_quantize_int8(x2, per_row), 1)
+    plain_ms = cuda_time_ms(lambda: plain(*args), 1)
+    try:
+        library_ms = cuda_time_ms(library, 5)
+    except RuntimeError as e:  # a yardstick only: say why it is missing
+        library_ms = None
+        print(f"[w8a8] {label}: no library time ({e})", flush=True)
+    bound = roofline.bound(int8_ops=ops, nbytes=nbytes)
+    q_bound = roofline.bound(nbytes=x2.numel() * x2.element_size() + x8.numel()
+                             + 4 * sx.numel())
+    fault_name = "per-row scale dropped" if kind == "dense" else "window shifted one row"
+    print(f"[w8a8] {label} x {tuple(x_shape)} -> {o}: quantizer mismatches {mismatches}, int32 "
+          f"accumulators equal {acc_equal}; epilogue max_abs_err {err:.3e}, relative {rel:.3e}, "
+          f"cosine {cos:.7f}, {exact} values differ (<= {TOLERANCE:.0e}, >= {COSINE}); planted "
+          f"fault ({fault_name}): relative {f_rel:.3e}, cosine {f_cos:.6f} (refused); "
+          f"kernel {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}), "
+          f"quantizer {q_ms:.4f} ms (bound {q_bound['bound_ms']:.4f} ms, plain {q_plain_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, library {library_ms} ms", flush=True)
+    if mismatches:
+        raise RuntimeError(f"w8a8 {label}: the quantizer differs from its plain version in "
+                           f"{mismatches} values")
+    if not acc_equal:
+        raise RuntimeError(f"w8a8 {label}: the int32 accumulators differ from the plain ones")
+    if not (rel <= TOLERANCE and cos >= COSINE):
+        raise RuntimeError(f"w8a8 {label} disagrees with its plain version: relative {rel}, "
+                           f"cosine {cos}")
+    if f_rel <= TOLERANCE and f_cos >= COSINE:
+        raise RuntimeError(f"w8a8 {label}: the check passes the planted fault ({fault_name}): "
+                           f"relative {f_rel}, cosine {f_cos}")
+    del args, x8, w8, x, w
+    torch.cuda.empty_cache()
+    return dict(label=label, kind=kind, shape=list(x_shape), out_channels=o,
+                quantizer_mismatches=mismatches, accumulators_equal=acc_equal, max_abs_err=err,
+                max_rel_err=rel, cosine=cos, values_differing=exact, fault_rel=f_rel,
+                fault_cosine=f_cos, ms=ms, quantize_ms=q_ms, plain_ms=plain_ms,
+                library_ms=library_ms, quantize_plain_ms=q_plain_ms,
+                quantize_bound_ms=q_bound["bound_ms"], **bound)
+
+
+def check_w8a8_kernels(device) -> list:
+    """Phase 12 (a): kernels 8-10 at every shape of W8A8_SHAPES; one JSON
+    record a kernel (the quantizer's times at the first shape's
+    activation, the GEMM's at the first dense shape, the conv's at the
+    first conv shape)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows = [check_w8a8_shape(*spec, gen=gen, device=device) for spec in W8A8_SHAPES]
+    conv = next(r for r in rows if r["kind"] == "conv")
+    dense = next(r for r in rows if r["kind"] == "dense")
+    records = []
+    for spec in W8A8_KERNELS:
+        if spec["name"] == "quantize_int8":
+            first = dict(ms=conv["quantize_ms"], plain_ms=conv["quantize_plain_ms"],
+                         library_ms=None, bound_ms=conv["quantize_bound_ms"], bound_by="bytes",
+                         max_abs_err=0.0)
+        else:
+            r = conv if spec["name"] == "int8_conv" else dense
+            first = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                       "max_abs_err")}
+        records.append(dict(name=spec["name"], route="cuda", source=spec["source"],
+                            replaces=spec["replaces"], launches=0, **first,
+                            library=None if spec["name"] == "quantize_int8" else (
+                                "cuDNN bf16 conv (F.conv2d / F.conv1d)"
+                                if spec["name"] == "int8_conv" else "torch._int_mm + rescale"),
+                            shapes=[r for r in rows if spec["name"] == "quantize_int8"
+                                    or (r["kind"] == "conv") == (spec["name"] == "int8_conv")]))
+    print(f"[w8a8] phase 12 (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
+@contextlib.contextmanager
+def plain_w8a8():
+    """The W8A8 layers through the kernels' plain versions on the card
+    (``qlinear``/``qconv`` look the three names up at each call)."""
+    from ccedit_tpu_torch.ops import quant
+
+    saved = quant.quantize_int8, quant.gemm_dequant, quant.conv_dequant
+    quant.quantize_int8 = quant.plain_quantize_int8
+    quant.gemm_dequant = quant.plain_gemm_dequant
+    quant.conv_dequant = quant.plain_conv_dequant
+    try:
+        yield
+    finally:
+        quant.quantize_int8, quant.gemm_dequant, quant.conv_dequant = saved
+
+
+@contextlib.contextmanager
+def weight_scales_per_input_channel():
+    """The planted fault of phase 12 (b): each layer's weight quantized as it
+    should be, but its output channels' scales read from a per-input-channel
+    scale vector (channel o takes input channel o's, wrapping)."""
+    import torch
+
+    from ccedit_tpu_torch.ops import quant
+
+    sound = quant.quantize_weight
+
+    def faulty(weight):
+        w8, sw = sound(weight)
+        dims = (0,) + tuple(range(2, weight.dim()))
+        amax = weight.float().abs().amax(dim=dims)
+        s_in = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+        idx = torch.arange(sw.numel(), device=sw.device) % s_in.numel()
+        return w8, s_in[idx].contiguous()
+
+    quant.quantize_weight = faulty
+    try:
+        yield
+    finally:
+        quant.quantize_weight = sound
+
+
+def w8a8_launches(stages) -> dict:
+    return {name: sum(c.get(name, 0) for c in stages.values())
+            for name in ("quantize_int8", "int8_gemm_dequant", "int8_conv", "quantize_qk")}
+
+
+def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: int) -> dict:
+    """Phase 12 (b), on the engine of phase 4 or 5 before it is freed: the
+    same edit as ``CCEDIT_QUANT_MATMUL=1`` (W8A8 alone) and ``CCEDIT_INT8=1``
+    (W8A8 and the int8 QK^T), then the umbrella edit through the plain
+    versions of kernels 8-10 and with the weight scales read per input
+    channel.  Kernels 8-10 must run on both W8A8 edits and not on the exact
+    one; kernel 1c on the umbrella edit only; the umbrella edit's latents
+    must stay within W8A8_LATENT_COSINE of the plain-version edit's, the
+    fault's must not.  Returns the per-stage counts as paths ``path +
+    "_w8a8"`` and ``path + "_int8_umbrella"``."""
+    import torch
+
+    from ccedit_tpu_torch.cli.profile_tv2v import int8_environment
+
+    t0 = time.perf_counter()
+    rows = 2 * steps - 1
+    runs = {}
+    for mode, env in (("w8a8", {"CCEDIT_QUANT_MATMUL": "1"}),
+                      ("int8_umbrella", {"CCEDIT_INT8": "1"})):
+        with int8_environment(**env):
+            t1 = time.perf_counter()
+            _, lat, st = edit_counted(edit, device, steps, seed, f"{path}_{mode}")
+            runs[mode] = (lat, st, time.perf_counter() - t1)
+            if mode == "int8_umbrella":
+                with plain_w8a8():
+                    _, plain_lat, plain_st = edit_counted(edit, device, steps, seed,
+                                                          f"{path}_{mode} plain W8A8")
+                with weight_scales_per_input_channel():
+                    _, fault_lat, _ = edit_counted(edit, device, steps, seed,
+                                                   f"{path}_{mode} fault")
+    for mode, (lat, st, secs) in runs.items():
+        counts = w8a8_launches(st)
+        print(f"[{path}_{mode}] {secs:.2f} s ({secs / rows:.3f} s a network row of {rows}, "
+              f"the edit's stages included), launches {counts}, final latents' cosine to the "
+              f"exact edit's {cosine(lat, exact):.6f}", flush=True)
+        if min(counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_conv")) <= 0:
+            raise RuntimeError(f"the {path} {mode} edit did not launch every W8A8 kernel: {counts}")
+        if (counts["quantize_qk"] > 0) != (mode == "int8_umbrella"):
+            raise RuntimeError(f"the {path} {mode} edit launched kernel 1c's pre-pass "
+                               f"{counts['quantize_qk']} times")
+    exact_counts = w8a8_launches(exact_launches)
+    if any(exact_counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_conv")):
+        raise RuntimeError(f"the exact {path} edit launched W8A8 kernels: {exact_counts}")
+    if any(w8a8_launches(plain_st)[k] for k in ("quantize_int8", "int8_gemm_dequant",
+                                                "int8_conv")):
+        raise RuntimeError("the plain-version edit launched W8A8 kernels")
+    umbrella = runs["int8_umbrella"][0]
+    cos_plain, cos_fault = cosine(umbrella, plain_lat), cosine(fault_lat, plain_lat)
+    diff = (umbrella.float() - plain_lat.float()).abs().max().item()
+    print(f"[{path}_int8_umbrella] final latents vs the same edit through the plain W8A8 "
+          f"versions: cosine {cos_plain:.7f} (max|diff| {diff:.3e}), with the weight scales "
+          f"read per input channel {cos_fault:.6f} (limit {W8A8_LATENT_COSINE}); phase 12 (b) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not cos_plain >= W8A8_LATENT_COSINE:
+        raise RuntimeError(f"the {path} umbrella edit left its plain-version edit: {cos_plain}")
+    if not cos_fault < W8A8_LATENT_COSINE:
+        raise RuntimeError(f"the W8A8 latent check passes the per-input-channel weight scales: "
+                           f"{cos_fault}")
+    del exact
+    torch.cuda.empty_cache()
+    return {f"{path}_w8a8": runs["w8a8"][1], f"{path}_int8_umbrella": runs["int8_umbrella"][1]}
+
+
 def reset_launches():
     """Every launch count to 0: the attention kernels' and the probes' (kernel
     7's tile sweep among them)."""
@@ -3548,6 +3874,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     records = check_kernels(device)
     probe_records, probe_counts = run_probes(device)
+    # phase 12 (a): the W8A8 kernels against their plain versions
+    w8a8_records = check_w8a8_kernels(device)
 
     # phases 4 and 5: the TV2V and TVI2V edits, exact and quantized; phase
     # 6: training; phase 7: VAE training; with the launch counts of each
@@ -3571,6 +3899,14 @@ def main() -> int:
         for p, names in PATH_KERNELS.items():
             if rec["name"] in names and rec["launches_by_path"][p] <= 0:
                 return fail(f"the {p} path never launched {rec['name']}")
+    for rec, spec in zip(w8a8_records, W8A8_KERNELS):
+        rec["launches_by_path"] = {p: w8a8_launches(st)[spec["name"]]
+                                   for p, st in by_path.items() if p != "probes"}
+        rec["launches"] = rec["launches_by_path"][W8A8_PATH]
+        for p, n in rec["launches_by_path"].items():
+            if (n > 0) != p.endswith(("_w8a8", "_int8_umbrella")):
+                return fail(f"the {p} path launched {rec['name']} {n} times")
+    records += w8a8_records
     for rec in probe_records:
         rec["launches"] = by_path["probes"]["probes"].get(rec["name"], 0)
         if rec["launches"] <= 0:

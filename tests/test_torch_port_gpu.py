@@ -12,7 +12,9 @@ d = 512) to 2e-2 of max|plain| on dq, dk and dv.  ZoeDepth (the TVI2V
 hint) in bf16 is held to itself in fp32 as ``chip_smoke.py`` phase 5b holds
 it; a narrow TVI2V training step's gradients through the CFCA backward to
 plain attention, and the world-1 NCCL step to the plain one, as phase 6b
-holds them.
+holds them.  The W8A8 kernels (8-10) are held to their plain versions bit
+for bit, as ``chip_smoke.py`` phase 12 (a) holds them: the quantizer's int8
+values and scales, the raw int32 accumulators and the dequantized outputs.
 """
 
 import copy
@@ -23,6 +25,7 @@ import torch
 
 from ccedit_tpu_torch.ops import attention as att
 from ccedit_tpu_torch.ops import flash_attention as fa
+from ccedit_tpu_torch.ops import quant
 from ccedit_tpu_torch.ops import spatial_attention as sa
 from ccedit_tpu_torch.ops import temporal_attention as ta
 from ccedit_tpu_torch.scripts import profile_blocks as pb
@@ -825,3 +828,81 @@ def test_d64_autograd_launches_kernel_4(cuda):
     torch.cuda.synchronize()
     assert att.launch_counts()["spatial_attention_bwd[d64 n_k=n_q]"] == before + 1
     assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+# ---- the W8A8 kernels (8-10) ----
+
+@pytest.mark.parametrize("rows,groups,length,per_row,dtype", [
+    (300, 1, 320, True, torch.bfloat16), (7, 1, 1280, True, torch.float32),
+    (64, 9, 4, True, torch.bfloat16), (40, 9, 320, True, torch.bfloat16),
+    (5000, 1, 320, False, torch.bfloat16), (3000, 1, 3, False, torch.float32),
+    (6000, 1, 4, False, torch.bfloat16)])
+def test_w8a8_quantizer_bit_for_bit(cuda, rows, groups, length, per_row, dtype):
+    g = torch.Generator(device=cuda).manual_seed(rows + length)
+    x = (3 * torch.randn((rows, groups * length), generator=g, device=cuda)).to(dtype)
+    x[rows // 2] = 0  # a zero row: scale 1
+    q, s = quant.quantize_int8(x, per_row, groups)
+    pq, ps = quant.plain_quantize_int8(x, per_row, groups)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (300, 320, 320, torch.bfloat16), (7, 1280, 5, torch.bfloat16), (129, 36, 640, torch.float32),
+    (1000, 2560, 320, torch.bfloat16)])
+def test_w8a8_gemm_matches_plain(cuda, m, k, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    w = torch.randn((n, k), generator=g, device=cuda).to(dtype)
+    bias = torch.randn((n,), generator=g, device=cuda).to(dtype)
+    x8, sx = quant.quantize_int8(x, per_row=True)
+    w8, sw = quant.quantize_weight(w)
+    for out_dtype, b in ((None, None), (dtype, bias)):
+        out = quant.gemm_dequant(x8, sx, w8, sw, b, out_dtype)
+        ref = quant.plain_gemm_dequant(x8, sx, w8, sw, b, out_dtype)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("x_shape,o,kernel,stride,padding", [
+    ((2, 9, 13, 32), 48, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((2, 10, 14, 32), 40, (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((2, 10, 14, 32), 40, (3, 3), (2, 2), ((1, 1), (1, 1))),
+    ((2, 8, 8, 4), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((3, 7, 9, 64), 130, (1, 1), (1, 1), ((0, 0), (0, 0))),
+    ((100, 7, 48), 32, (3,), (1,), ((1, 1),)),
+    ((2, 16, 16, 32), 3, (3, 3), (1, 1), ((1, 1), (1, 1)))])
+def test_w8a8_conv_matches_plain(cuda, x_shape, o, kernel, stride, padding):
+    g = torch.Generator(device=cuda).manual_seed(o)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((o, x_shape[-1]) + kernel, generator=g, device=cuda).to(torch.bfloat16)
+    bias = torch.randn((o,), generator=g, device=cuda).to(torch.bfloat16)
+    x4, w4, geom = quant._to_2d(x, w, stride, padding)
+    x8, sx = quant.quantize_int8(x4.reshape(-1, x_shape[-1]), per_row=False)
+    x8 = x8.view(x4.shape[:3] + (-1,))
+    w8, sw = quant.quantize_weight(w4)
+    for out_dtype, b in ((None, None), (torch.bfloat16, bias)):
+        out = quant.conv_dequant(x8, sx, w8, sw, b, geom, out_dtype)
+        ref = quant.plain_conv_dequant(x8, sx, w8, sw, b, geom, out_dtype)
+        assert torch.equal(out, ref)
+
+
+def test_w8a8_block_launches_the_kernels(cuda, monkeypatch):
+    """A bf16 ResBlock3D with W8A8 on launches kernels 8-10 and equals
+    itself through their plain versions bit for bit."""
+    from ccedit_tpu_torch.modules.blocks import ResBlock3D
+
+    torch.manual_seed(0)
+    block = ResBlock3D(64, 128, 96).to(cuda, torch.bfloat16).eval()
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 5, 16, 24, 64), generator=g, device=cuda).to(torch.bfloat16)
+    emb = torch.randn((2, 128), generator=g, device=cuda).to(torch.bfloat16)
+    monkeypatch.setitem(quant._STATE, "matmul", True)
+    before = {k: w.launches for k, w in quant.COUNTED.items()}
+    with torch.no_grad():
+        out = block(x, emb)
+        assert all(w.launches > before[k] for k, w in quant.COUNTED.items())
+        for name in ("quantize_int8", "gemm_dequant", "conv_dequant"):
+            monkeypatch.setattr(quant, name, getattr(quant, f"plain_{name}"))
+        ref = block(x, emb)
+    assert torch.equal(out, ref)

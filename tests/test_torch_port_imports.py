@@ -32,6 +32,8 @@ import ccedit_tpu_torch.cli.pipeline
 import ccedit_tpu_torch.cli.sampling_tv2v
 import ccedit_tpu_torch.cli.sampling_tv2v_ref
 import ccedit_tpu_torch.cli.profile_tv2v
+import ccedit_tpu_torch.ops.quant
+import ccedit_tpu_torch.scripts.int8_quality
 import ccedit_tpu_torch.cli.train
 import ccedit_tpu_torch.data.dataset
 import ccedit_tpu_torch.data.native_decode

@@ -22,6 +22,7 @@
 """
 
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from ccedit_tpu.modules import unet as jun
 from ccedit_tpu.ops import attention as jatt
 from ccedit_tpu.ops import spatial_attention as jsa
 from ccedit_tpu_torch.ops import attention as att
+from ccedit_tpu_torch.ops import quant
 from ccedit_tpu_torch.ops import spatial_attention as sa
 from test_torch_port_tvi2v_kernels import GEOMETRIES, recorded_shapes  # noqa: F401 (fixture)
 from test_torch_port_tvi2v_modules import APPEARANCE, port_copy, random_params
@@ -251,24 +253,24 @@ def test_quantizes_nothing_with_the_switch_off():
 
 def test_environment_switch(monkeypatch):
     """Read once, lazily: CCEDIT_QUANT_QK, or the umbrella CCEDIT_INT8,
-    which warns that the port has no W8A8 path."""
-    saved = att._QUANT["qk"]
+    which turns on both halves, the int8 QK^T and W8A8, without a
+    warning."""
+    saved = att._QUANT["qk"], quant._STATE["matmul"]
     try:
         for env, value, want in (("CCEDIT_QUANT_QK", "1", True), ("CCEDIT_QUANT_QK", "0", False),
                                  ("CCEDIT_INT8", "1", True)):
-            monkeypatch.delenv("CCEDIT_QUANT_QK", raising=False)
-            monkeypatch.delenv("CCEDIT_INT8", raising=False)
+            for name in ("CCEDIT_QUANT_QK", "CCEDIT_INT8", "CCEDIT_QUANT_MATMUL"):
+                monkeypatch.delenv(name, raising=False)
             monkeypatch.setenv(env, value)
-            att._QUANT["qk"] = None
-            if env == "CCEDIT_INT8":
-                with pytest.warns(UserWarning, match="W8A8"):
-                    assert att.quantized_qk_enabled() is want
-            else:
+            att._QUANT["qk"] = quant._STATE["matmul"] = None
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
                 assert att.quantized_qk_enabled() is want
+                assert quant.quantized_matmul_enabled() is (env == "CCEDIT_INT8")
             monkeypatch.setenv(env, "1" if value == "0" else "0")
             assert att.quantized_qk_enabled() is want  # not read again
     finally:
-        att._QUANT["qk"] = saved
+        att._QUANT["qk"], quant._STATE["matmul"] = saved
 
 
 NARROW = dict(_TINY, model_channels=160, num_heads=4)  # head_dim 40 at level 0, 80 at level 1
