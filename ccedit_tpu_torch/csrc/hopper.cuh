@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels
 // (spatial_attention.cuh and its instantiations, flash_attention{,_bwd}.cu,
-// spatial_attention_bwd.cu, int8_gemm.cu), as raw PTX: they compile in
+// spatial_attention_bwd.cu, int8_gemm.cu, int8_conv.cu), as raw PTX: they compile in
 // seconds, where CuTe's templates take minutes (cuda_guide.md:
 // cp.async.bulk :391, wgmma :519, mbarrier :617, setmaxnreg :701).
 //
@@ -25,7 +25,10 @@
 // An int8 operand (kernel 1c's q8 and k8) is tiled the same way in bytes:
 // a chunk is 128 int8 columns, and an s8 wgmma reads it K-major with the
 // same descriptor, SBO = 1024, a 32-deep step 32 bytes on; 8-bit wgmma
-// takes only K-major operands.
+// takes only K-major operands.  Kernel 10 also tiles int8 operands in
+// 64- and 32-byte chunks, 64- and 32-byte-swizzled (the 16-byte unit u of
+// row r at u ^ ((r / 2) % 4), resp. u ^ ((r / 4) % 2)), read K-major with
+// layouts 2 and 3 and SBO = 8 rows (512, resp. 256 bytes).
 // A tile written by threads (kernel 3's P) has no swizzle: 8 x 16-byte core
 // matrices, [row / 8][k / 8][row % 8][k % 8], LBO = 128 (next core matrix
 // along K), SBO = (K / 8) * 128 (next 8 rows).
@@ -114,6 +117,54 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One column of an im2col tensor map (im2col_map) over a (N, H, W, C)
+// tensor into shared memory: the map's pixels-per-column pixels, each its
+// channels-per-pixel channels from channel c, walked in (N, H, W) order
+// through the map's pixel box from the pixel (n, h, w), each read at (h +
+// dh, w + dw); reads outside the tensor are zeros.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c, int w, int h, int n,
+                                                   uint16_t dw, uint16_t dh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(dw), "h"(dh)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (column, row) from shared memory to global
+// memory, clipped at the tensor's bounds; completes as a bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N bulk groups still read their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
@@ -621,6 +672,76 @@ template <> struct WgmmaS8<256> {
 };
 
 
+template <> struct WgmmaS8<8> {
+  static __device__ __forceinline__ void run(int (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaS8<16> {
+  static __device__ __forceinline__ void run(int (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaS8<32> {
+  static __device__ __forceinline__ void run(int (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaS8<160> {
+  static __device__ __forceinline__ void run(int (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+};
+
 // ---- host: tensor maps ----
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -649,17 +770,69 @@ inline EncodeTiled encode_tiled() {
 
 // A `rank`-D tensor map of `dims` (innermost first) with byte `strides`
 // (of dimensions 1 .., each a multiple of 16), whose box `box` lands
-// 128-byte-swizzled; its inner box is 128 bytes.  Elements past `dims` read
+// 128-byte-swizzled (or with `swizzle`); its inner box is 128 bytes (or the
+// swizzle's span).  Elements past `dims` read
 // as zeros.  Returns a cudaError_t (0 = success).
 inline int tiled_map(CUtensorMap* map, bool int8, int rank, const void* base,
-                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                           rank, const_cast<void*>(base), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeIm2col", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeIm2col>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// An im2col tensor map over a contiguous int8 (n, h, w, c) tensor (c a
+// multiple of 16): a column is `pixels` pixels of `channels` channels,
+// landing with `swizzle` (`channels` bytes = its span).  The pixel box
+// runs over rows lower[1] .. h - 1 + upper[1] and columns lower[0] .. w -
+// 1 + upper[0] ({W, H} order, innermost first), every stride[1]-th row and
+// stride[0]-th column.  Returns a cudaError_t (0 = success).
+inline int im2col_map(CUtensorMap* map, const void* base, int n, int h, int w, int c,
+                      const int* lower, const int* upper, const int* stride, int channels,
+                      int pixels, CUtensorMapSwizzle swizzle) {
+  const EncodeIm2col fn = encode_im2col();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c),
+                                 static_cast<cuuint64_t>(c) * w,
+                                 static_cast<cuuint64_t>(c) * w * h};
+  const cuuint32_t steps[4] = {1, static_cast<cuuint32_t>(stride[0]),
+                               static_cast<cuuint32_t>(stride[1]), 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims,
+                          strides, lower, upper, static_cast<cuuint32_t>(channels),
+                          static_cast<cuuint32_t>(pixels), steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -74,6 +74,10 @@ _SIGNATURES = {
     # out_kind, x8, w8, out, sx, sw, bias, batch, h, w, cp, o, kh, kw, sh, sw,
     # pad_top, pad_left, ho, wo, stream
     "ccedit_int8_conv": (_I, _P, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
+    # the same, then bm, bn, chunk (an instantiated tile), stream
+    "ccedit_int8_conv_tiled": (_I, _P, _P, _P, _P, _P, _P) + (_I,) * 16 + (_P,),
+    # cp, o, int[3] out: the (bm, bn, chunk) ccedit_int8_conv takes
+    "ccedit_int8_conv_tiles": (_I, _I, _P),
 }
 
 

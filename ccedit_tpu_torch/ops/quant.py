@@ -31,7 +31,8 @@ raises:
 * (9) ``gemm_dequant`` (``csrc/int8_gemm.cu``): the int8 product with its
   dequant + bias epilogue, on kernel 6's TMA + wgmma template;
 * (10) ``conv_dequant`` (``csrc/int8_conv.cu``): an implicit-GEMM int8
-  convolution on channels-last data, the same epilogue.
+  convolution on channels-last data (TMA im2col loads, s8 wgmma, tiles
+  from ``conv_tiles``), the same epilogue.
 
 The plain versions compute the int8 products exactly (float64 sums of
 int8 products are integers below 2^53).  ``qlinear`` and ``qconv`` look the
@@ -43,6 +44,7 @@ leaves these products to XLA.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import math
 import os
@@ -314,11 +316,37 @@ def plain_conv_dequant(x8, sx, w8, sw, bias, geom: ConvGeometry, dtype=torch.bfl
     return plain_epilogue(plain_conv_acc(x8, w8, geom), sx.reshape(()), sw, bias, dtype)
 
 
+def conv_tiles(cp: int, o: int) -> Tuple[int, int, int]:
+    """Kernel 10's tile for Cp input bytes a pixel and O output channels:
+    (BM output pixels, BN output channels, k-chunk bytes), the choice of
+    ``csrc/int8_conv.cu``'s ``conv_tiles`` (which ``ccedit_int8_conv_tiles``
+    reports).  The chunk is 128 bytes for Cp > 64 (a tail past Cp arrives as
+    zeros), else 64 or 32; BN is the narrow 8, 16 or 32 for O <= 32 (256
+    pixels), 160 where O is a multiple of 160 but not of 128 (320, 960:
+    where 128-wide tiles would leave a part-empty last N tile; 192
+    pixels), else 128 (256 pixels)."""
+    chunk = 128 if cp > 64 else 64 if cp > 32 else 32
+    if o <= 32:
+        return 256, 8 if o <= 8 else 16 if o <= 16 else 32, chunk
+    if o % 160 == 0 and o % 128:
+        return 192, 160, chunk
+    return 256, 128, chunk
+
+
+def kernel_conv_tiles(cp: int, o: int) -> Tuple[int, int, int]:
+    """The tile the built kernel takes for (Cp, O), as ``csrc/int8_conv.cu``
+    reports it (needs the CUDA build); equal to ``conv_tiles(cp, o)``."""
+    tiles = (ctypes.c_int * 3)()
+    build.launch("ccedit_int8_conv_tiles", cp, o, ctypes.addressof(tiles))
+    return tuple(tiles)
+
+
 def conv_dequant(x8, sx, w8, sw, bias, geom: ConvGeometry, dtype=torch.bfloat16):
     """Kernel 10: ``plain_conv_dequant``'s function.  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``csrc/int8_conv.cu`` (the im2col
-    in its cp.async load stage, zero-filled at the padding; mma.sync
-    m16n8k32 s8) or raises.  ``dtype`` None writes the raw int32
+    plain version; a CUDA tensor launches ``csrc/int8_conv.cu`` (a
+    warp-specialised TMA + s8 wgmma implicit GEMM: the im2col rows by TMA
+    in im2col mode, zero-filled at the padding, on the tile
+    ``conv_tiles(Cp, O)``) or raises.  ``dtype`` None writes the raw int32
     accumulators."""
     if not x8.is_cuda:
         return plain_conv_dequant(x8, sx, w8, sw, bias, geom, dtype)

@@ -3,7 +3,8 @@
     python -m ccedit_tpu_torch.scripts.sass_diff OTHER_CSRC [SOURCE ...]
 
 Compiles each ``SOURCE`` (default: the sources of kernels 1, 1c and 5,
-which instantiate ``csrc/spatial_attention.cuh``'s defaults) from this
+which instantiate ``csrc/spatial_attention.cuh``'s defaults, and
+``int8_gemm.cu``, kernels 6 and 9, built on ``csrc/hopper.cuh``) from this
 checkout's ``csrc/`` and from ``OTHER_CSRC`` (for instance the parent
 commit's, unpacked with ``git archive``) to cubins with the build's nvcc
 flags, disassembles both with ``cuobjdump -sass`` and compares every
@@ -26,7 +27,8 @@ from pathlib import Path
 
 from ..ops import build
 
-SOURCES = ("spatial_attention.cu", "spatial_attention_int8.cu", "attention_probe.cu")
+SOURCES = ("spatial_attention.cu", "spatial_attention_int8.cu", "attention_probe.cu",
+           "int8_gemm.cu")
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 

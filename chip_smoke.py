@@ -197,11 +197,17 @@ Phases:
      320 -> 320, 320 -> 2560 and 1280 -> 320 over 208,896 tokens): the
      quantizer's int8 values and scales bit for bit its plain version's, the
      raw int32 accumulators bit for bit, the epilogue's output within phase
-     3's gate, and the check refusing its planted fault (dense: the per-row
-     scale dropped; conv: the window shifted one row); each with its bound,
-     plain time and yardstick (``torch._int_mm`` + rescale; cuDNN's bf16
-     conv).  (b) Run inside phases 4 and 5 on their engines before they are
-     freed: the edit with ``CCEDIT_QUANT_MATMUL=1`` and with
+     3's gate, and the check refusing its planted faults (dense: the per-row
+     scale dropped; conv: the window shifted one row, and one column); each
+     with its bound, plain time and yardstick (``torch._int_mm`` + rescale;
+     cuDNN's bf16 conv).  The conv rows add the level-0 stride-2
+     Downsample, a decoder ResBlock's 1x1 skip, the level-2 3x3, the
+     temporal k = 1 conv, the VAE decoder's 512-channel 3x3 at 256x384, the
+     VAE encoder's (0, 1) stride-2 downsample and the hint pyramid's first
+     conv (Cp = 16, O = 16), so every tile of kernel 10 runs; at each, the
+     tile ``quant.conv_tiles`` picks must be the one the kernel reports.
+     (b) Run inside phases 4 and 5 on their engines before they are freed:
+     the edit with ``CCEDIT_QUANT_MATMUL=1`` and with
      ``CCEDIT_INT8=1``, kernels 8-10 launched on both and on no other path,
      kernel 1c on the umbrella alone; the umbrella edit's final latents held
      to the same edit through the kernels' plain versions on the card
@@ -3533,6 +3539,17 @@ W8A8_SHAPES = (
     ("conv_in K=36", "conv", (34, 64, 96, 4), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
     ("VAE decoder 3x3", "conv", (17, 512, 768, 128), 128, (3, 3), (1, 1), ((1, 1), (1, 1))),
     ("VAE decoder conv_out", "conv", (17, 512, 768, 128), 3, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("level-0 Downsample s2", "conv", (34, 64, 96, 320), 320, (3, 3), (2, 2), ((1, 1), (1, 1))),
+    ("level-0 decoder skip 1x1", "conv", (34, 64, 96, 960), 320, (1, 1), (1, 1),
+     ((0, 0), (0, 0))),
+    ("level-2 3x3", "conv", (34, 16, 24, 1280), 1280, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ("level-0 temporal k=1", "conv", (12288, 17, 320), 320, (1,), (1,), ((0, 0),)),
+    ("VAE decoder up conv 512", "conv", (17, 256, 384, 512), 512, (3, 3), (1, 1),
+     ((1, 1), (1, 1))),
+    ("VAE encoder downsample (0, 1)", "conv", (17, 512, 768, 128), 128, (3, 3), (2, 2),
+     ((0, 1), (0, 1))),
+    ("hint pyramid first conv", "conv", (34, 512, 768, 3), 16, (3, 3), (1, 1),
+     ((1, 1), (1, 1))),
     ("dense 320->320", "dense", (208896, 320), 320),
     ("dense 320->2560", "dense", (208896, 320), 2560),
     ("dense 1280->320", "dense", (208896, 1280), 320),
@@ -3601,8 +3618,9 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
         args = (x8, sx, w8, sw, bias)
         run, plain = quant.gemm_dequant, quant.plain_gemm_dequant
         # the per-row scale dropped: every row takes the first row's
-        fault = functools.partial(quant.gemm_dequant, x8, sx[:1].expand(m).contiguous(), w8, sw,
-                                  bias)
+        faults = {"per-row scale dropped": functools.partial(
+            quant.gemm_dequant, x8, sx[:1].expand(m).contiguous(), w8, sw, bias)}
+        tiles = None
         ops = 2.0 * m * o * c
         nbytes = x8.numel() + w8.numel() + 4 * (sx.numel() + sw.numel()) + 2 * (o + m * o)
 
@@ -3617,8 +3635,17 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
         args = (x4, sx, w8, sw, bias)
         run = functools.partial(quant.conv_dequant, geom=geom)
         plain = functools.partial(quant.plain_conv_dequant, geom=geom)
-        shifted = dataclasses.replace(geom, pt=geom.pt - 1, pb=geom.pb + 1)
-        fault = functools.partial(quant.conv_dequant, x4, sx, w8, sw, bias, shifted)
+        faults = {
+            "window shifted one row": dataclasses.replace(geom, pt=geom.pt - 1, pb=geom.pb + 1),
+            "window shifted one column": dataclasses.replace(geom, pl=geom.pl - 1,
+                                                             pr=geom.pr + 1)}
+        faults = {name: functools.partial(quant.conv_dequant, x4, sx, w8, sw, bias, shifted)
+                  for name, shifted in faults.items()}
+        tiles = quant.conv_tiles(x4.shape[-1], o)
+        kernel_tiles = quant.kernel_conv_tiles(x4.shape[-1], o)
+        if tiles != kernel_tiles:
+            raise RuntimeError(f"w8a8 {label}: conv_tiles {tiles} but the kernel takes "
+                               f"{kernel_tiles}")
         ops = 2.0 * m * o * c * taps
         nbytes = x4.numel() + w8.numel() + 4 * (1 + sw.numel()) + 2 * (o + m * o)
         xc = x.movedim(-1, 1)  # the exact path's own op: cuDNN bf16, channels-last memory
@@ -3639,10 +3666,13 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
     rel = err / ref.float().abs().max().item()
     cos = cosine(out, ref)
     exact = int((out != ref).sum())
-    bad = fault(dtype=torch.bfloat16)
-    f_rel = ((bad.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-    f_cos = cosine(bad, ref)
-    del bad, out, ref
+    refused = {}
+    for name, fault in faults.items():
+        bad = fault(dtype=torch.bfloat16)
+        refused[name] = (((bad.float() - ref.float()).abs().max()
+                          / ref.float().abs().max()).item(), cosine(bad, ref))
+        del bad
+    del out, ref
     ms = cuda_time_ms(lambda: run(*args), 5)
     q_ms = cuda_time_ms(lambda: quant.quantize_int8(x2, per_row=per_row), 5)
     q_plain_ms = cuda_time_ms(lambda: quant.plain_quantize_int8(x2, per_row), 1)
@@ -3655,14 +3685,16 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
     bound = roofline.bound(int8_ops=ops, nbytes=nbytes)
     q_bound = roofline.bound(nbytes=x2.numel() * x2.element_size() + x8.numel()
                              + 4 * sx.numel())
-    fault_name = "per-row scale dropped" if kind == "dense" else "window shifted one row"
-    print(f"[w8a8] {label} x {tuple(x_shape)} -> {o}: quantizer mismatches {mismatches}, int32 "
-          f"accumulators equal {acc_equal}; epilogue max_abs_err {err:.3e}, relative {rel:.3e}, "
-          f"cosine {cos:.7f}, {exact} values differ (<= {TOLERANCE:.0e}, >= {COSINE}); planted "
-          f"fault ({fault_name}): relative {f_rel:.3e}, cosine {f_cos:.6f} (refused); "
-          f"kernel {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}), "
-          f"quantizer {q_ms:.4f} ms (bound {q_bound['bound_ms']:.4f} ms, plain {q_plain_ms:.4f} "
-          f"ms), plain {plain_ms:.4f} ms, library {library_ms} ms", flush=True)
+    planted = "; ".join(f"planted fault ({name}): relative {f_rel:.3e}, cosine {f_cos:.6f}"
+                        for name, (f_rel, f_cos) in refused.items())
+    print(f"[w8a8] {label} x {tuple(x_shape)} -> {o}{f' tiles {tiles}' if tiles else ''}: "
+          f"quantizer mismatches {mismatches}, int32 accumulators equal {acc_equal}; epilogue "
+          f"max_abs_err {err:.3e}, relative {rel:.3e}, cosine {cos:.7f}, {exact} values differ "
+          f"(<= {TOLERANCE:.0e}, >= {COSINE}); {planted}; kernel {ms:.4f} ms (bound "
+          f"{bound['bound_ms']:.4f} ms, {bound['bound_what']}, "
+          f"{100 * bound['bound_ms'] / ms:.1f} %), quantizer {q_ms:.4f} ms (bound "
+          f"{q_bound['bound_ms']:.4f} ms, plain {q_plain_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"library {library_ms} ms", flush=True)
     if mismatches:
         raise RuntimeError(f"w8a8 {label}: the quantizer differs from its plain version in "
                            f"{mismatches} values")
@@ -3671,15 +3703,18 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
     if not (rel <= TOLERANCE and cos >= COSINE):
         raise RuntimeError(f"w8a8 {label} disagrees with its plain version: relative {rel}, "
                            f"cosine {cos}")
-    if f_rel <= TOLERANCE and f_cos >= COSINE:
-        raise RuntimeError(f"w8a8 {label}: the check passes the planted fault ({fault_name}): "
-                           f"relative {f_rel}, cosine {f_cos}")
+    for name, (f_rel, f_cos) in refused.items():
+        if f_rel <= TOLERANCE and f_cos >= COSINE:
+            raise RuntimeError(f"w8a8 {label}: the check passes the planted fault ({name}): "
+                               f"relative {f_rel}, cosine {f_cos}")
     del args, x8, w8, x, w
     torch.cuda.empty_cache()
     return dict(label=label, kind=kind, shape=list(x_shape), out_channels=o,
                 quantizer_mismatches=mismatches, accumulators_equal=acc_equal, max_abs_err=err,
-                max_rel_err=rel, cosine=cos, values_differing=exact, fault_rel=f_rel,
-                fault_cosine=f_cos, ms=ms, quantize_ms=q_ms, plain_ms=plain_ms,
+                max_rel_err=rel, cosine=cos, values_differing=exact, tiles=tiles,
+                faults={name: dict(rel=f_rel, cosine=f_cos)
+                        for name, (f_rel, f_cos) in refused.items()},
+                ms=ms, quantize_ms=q_ms, plain_ms=plain_ms,
                 library_ms=library_ms, quantize_plain_ms=q_plain_ms,
                 quantize_bound_ms=q_bound["bound_ms"], **bound)
 

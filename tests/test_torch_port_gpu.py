@@ -869,7 +869,23 @@ def test_w8a8_gemm_matches_plain(cuda, m, k, n, dtype):
     ((2, 8, 8, 4), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
     ((3, 7, 9, 64), 130, (1, 1), (1, 1), ((0, 0), (0, 0))),
     ((100, 7, 48), 32, (3,), (1,), ((1, 1),)),
-    ((2, 16, 16, 32), 3, (3, 3), (1, 1), ((1, 1), (1, 1)))])
+    ((2, 16, 16, 32), 3, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    # one case a tile of kernel 10 (quant.conv_tiles): BN 160 on 128-byte
+    # chunks with a zero tail (Cp 320) and an M tail (234 pixels), BN 160
+    # at stride 2 over O = 960, BN 128 over O = 512, the narrow BN 8 on
+    # 128-byte chunks, BN 16 on a 64-byte chunk with a zero tail (Cp 48), BN
+    # 128 over O = 168 (a ragged last N tile) on Cp 80, BN 32 on 32-byte
+    # chunks, a 1-D k = 1; BN 160's bf16 output takes the persistent grid
+    # and TMA stores, several tiles a block at (8, 64, 96) (512 tiles)
+    ((2, 9, 13, 320), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((8, 64, 96, 320), 320, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((1, 20, 30, 640), 960, (3, 3), (2, 2), ((1, 1), (1, 1))),
+    ((2, 12, 20, 256), 512, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((2, 16, 24, 128), 3, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((3, 7, 9, 48), 16, (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((2, 11, 13, 80), 168, (1, 1), (1, 1), ((0, 0), (0, 0))),
+    ((2, 10, 14, 16), 32, (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((50, 17, 320), 320, (1,), (1,), ((0, 0),))])
 def test_w8a8_conv_matches_plain(cuda, x_shape, o, kernel, stride, padding):
     g = torch.Generator(device=cuda).manual_seed(o)
     x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
@@ -883,6 +899,17 @@ def test_w8a8_conv_matches_plain(cuda, x_shape, o, kernel, stride, padding):
         out = quant.conv_dequant(x8, sx, w8, sw, b, geom, out_dtype)
         ref = quant.plain_conv_dequant(x8, sx, w8, sw, b, geom, out_dtype)
         assert torch.equal(out, ref)
+
+
+def test_w8a8_conv_tiles_mirror_the_kernel(cuda):
+    """``quant.conv_tiles`` (the CPU tests' chooser) is the tile the built
+    kernel takes, at every Cp the quantizer writes up to 2560 against O
+    from 1 to 2560 (every multiple of 8 and of 160, and the odd ones up to
+    40)."""
+    outs = sorted(set(range(1, 41)) | set(range(8, 2561, 8)) | set(range(160, 2561, 160)))
+    for cp in range(16, 2561, 16):
+        for o in outs:
+            assert quant.kernel_conv_tiles(cp, o) == quant.conv_tiles(cp, o), (cp, o)
 
 
 def test_w8a8_block_launches_the_kernels(cuda, monkeypatch):
