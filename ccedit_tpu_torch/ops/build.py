@@ -71,6 +71,10 @@ _SIGNATURES = {
     "ccedit_quantize_int8": (_I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
     # out_kind, a8, w8, out, sx, sw, bias, m, n, k, stream
     "ccedit_int8_gemm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # out_kind, x, w8, out, sw, bias, q_out, sx_out, faults, m, n, k, stream
+    "ccedit_int8_gemm_bf16a": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # k, n, int[5] out: the (bm, bn, resident, stages, fused) ccedit_int8_gemm takes
+    "ccedit_int8_gemm_tiles": (_I, _I, _P),
     # out_kind, x8, w8, out, sx, sw, bias, batch, h, w, cp, o, kh, kw, sh, sw,
     # pad_top, pad_left, ho, wo, stream
     "ccedit_int8_conv": (_I, _P, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),

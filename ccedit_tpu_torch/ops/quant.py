@@ -29,16 +29,20 @@ raises:
   amax and quantization into rows zero-padded to 16-byte multiples (the
   per-tensor amax stays on the device: no host sync);
 * (9) ``gemm_dequant`` (``csrc/int8_gemm.cu``): the int8 product with its
-  dequant + bias epilogue, on kernel 6's TMA + wgmma template;
+  dequant + bias epilogue (a persistent TMA + wgmma GEMM, tiles from
+  ``gemm_tiles``); ``gemm_dequant_bf16a``, its form on the bf16 activation,
+  quantizes each token in shared memory with kernel 8's arithmetic, so
+  ``qlinear`` launches kernel 8 only for the weight where ``gemm_route``
+  says ``"fused"``;
 * (10) ``conv_dequant`` (``csrc/int8_conv.cu``): an implicit-GEMM int8
   convolution on channels-last data (TMA im2col loads, s8 wgmma, tiles
   from ``conv_tiles``), the same epilogue.
 
 The plain versions compute the int8 products exactly (float64 sums of
 int8 products are integers below 2^53).  ``qlinear`` and ``qconv`` look the
-three names up at each call, so a caller can swap in the plain versions or a
-planted fault.  None of the three replaces a Pallas kernel: the JAX package
-leaves these products to XLA.
+wrappers (and ``gemm_route``) up at each call, so a caller can swap in the
+plain versions, a planted fault or the other route.  None of the kernels
+replaces a Pallas kernel: the JAX package leaves these products to XLA.
 """
 
 from __future__ import annotations
@@ -242,6 +246,54 @@ def plain_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
 
 # ---- kernel (9): the dense product with its epilogue ----
 
+_DENSE_BUDGET = 223 * 1024 - 1024  # the kernel's dynamic shared memory less its alignment slack
+_BOX = 128 * 128  # a 128-row box of 128 bytes
+
+
+def gemm_tiles(k: int, n: int) -> Tuple[int, int, int, int, int]:
+    """Kernel 9's tile for activation rows of K values and N outputs: (BM,
+    BN, resident, stages, fused), the choice of ``csrc/int8_gemm.cu``'s
+    ``dense_tiles`` (which ``ccedit_int8_gemm_tiles`` reports).  BN is 256
+    where N is a multiple of 256, 160 where it is a multiple of 160 (320,
+    640), else 128; BM 128.  ``resident``: the block's BN x Kp weight slice
+    stays in shared memory beside the bf16 staging and two A boxes (the
+    grid then keeps each block on one n tile); ``stages``: the int8 form's
+    ring of 128-row x 128-byte A boxes (with B's beside them unless
+    resident), at most 8; ``fused``: ``gemm_dequant_bf16a`` takes (K, N),
+    its whole bf16 tile (ceil(K / 64) boxes) fitting beside the resident
+    slice and the staging."""
+    bn = 256 if n % 256 == 0 else 160 if n % 160 == 0 else 128
+    kc, xc = -(-k // 128), -(-k // 64)
+    w_bytes, out_bytes = kc * bn * 128, 128 * bn * 2
+    resident = w_bytes + out_bytes + 2 * _BOX <= _DENSE_BUDGET
+    stage = _BOX + (0 if resident else bn * 128)
+    stages = min(8, (_DENSE_BUDGET - out_bytes - (w_bytes if resident else 0)) // stage)
+    fused = xc * _BOX + w_bytes + out_bytes <= _DENSE_BUDGET
+    return 128, bn, int(resident), stages, int(fused)
+
+
+def kernel_gemm_tiles(k: int, n: int) -> Tuple[int, int, int, int, int]:
+    """The tile the built kernel takes for (K, N), as ``csrc/int8_gemm.cu``
+    reports it (needs the CUDA build); equal to ``gemm_tiles(k, n)``."""
+    tiles = (ctypes.c_int * 5)()
+    build.launch("ccedit_int8_gemm_tiles", k, n, ctypes.addressof(tiles))
+    return tuple(tiles)
+
+
+def gemm_route(k: int, n: int, dtype: torch.dtype) -> str:
+    """How ``qlinear`` computes a dense product of K inputs and N outputs:
+    ``"fused"``, one launch of ``gemm_dequant_bf16a`` on the bf16 activation
+    where its tile fits (``gemm_tiles(k, n)[4]``: K <= 384 on the 160-wide
+    tiles, so at the level-0 widths, 320 -> 320, where it beats the two
+    launches: ``PERF.md`` §6), else ``"two_launches"``, kernel 8 per token
+    then ``gemm_dequant``.  Decided by the shape and dtype alone, the same
+    on the CPU (where both routes compute the same plain function) and on
+    the card."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and gemm_tiles(k, n)[4]:
+        return "fused"
+    return "two_launches"
+
+
 _OUT_KINDS = {None: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -268,6 +320,8 @@ def _check_epilogue(sx, sw, bias, dtype, rows_sx: int, n: int, device) -> None:
     if dtype not in _OUT_KINDS:
         raise ValueError(f"the epilogue writes bf16, fp32 or the int32 accumulators, not {dtype}")
     for name, t, want in (("sx", sx, rows_sx), ("sw", sw, n)):
+        if t is None and name == "sx":  # the fused form computes its own
+            continue
         if t.dtype != torch.float32 or t.numel() != want or not t.is_contiguous() \
                 or t.device != device:
             raise ValueError(f"{name} must be {want} contiguous fp32 values on {device}, got "
@@ -282,9 +336,10 @@ def _check_epilogue(sx, sw, bias, dtype, rows_sx: int, n: int, device) -> None:
 def gemm_dequant(x8, sx, w8, sw, bias=None, dtype=torch.bfloat16):
     """Kernel 9: ``plain_gemm_dequant``'s function.  A CPU tensor takes the
     plain version; a CUDA tensor launches ``csrc/int8_gemm.cu``'s
-    dequantizing GEMM (s8 wgmma on kernel 6's template, torch's (N, K)
-    weight being the K-major B^T it reads) or raises.  ``dtype`` None
-    writes the raw int32 accumulators (a debug entry)."""
+    dequantizing GEMM (a persistent TMA + s8 wgmma kernel on the tile
+    ``gemm_tiles(Kp, N)``, torch's (N, K) weight being the K-major B^T it
+    reads) or raises.  ``dtype`` None writes the raw int32 accumulators (a
+    debug entry)."""
     if not x8.is_cuda:
         return plain_gemm_dequant(x8, sx, w8, sw, bias, dtype)
     _check_int8("x8", x8, 2, x8.device)
@@ -306,6 +361,57 @@ def gemm_dequant(x8, sx, w8, sw, bias=None, dtype=torch.bfloat16):
 
 gemm_dequant.launches = 0
 gemm_dequant.variant_launches = collections.Counter()
+
+
+def plain_gemm_dequant_bf16a(x, w8, sw, bias=None, dtype=torch.bfloat16, quantized=False):
+    """``plain_quantize_int8`` per row, then ``plain_gemm_dequant``: x (M,
+    K) @ w8 (N, Kp)^T in W8A8.  ``quantized`` also returns the int8 rows
+    (M, Kp) and their scales (M,)."""
+    x8, sx = plain_quantize_int8(x, True)
+    out = plain_gemm_dequant(x8, sx, w8, sw, bias, dtype)
+    return (out, x8, sx) if quantized else out
+
+
+def gemm_dequant_bf16a(x, w8, sw, bias=None, dtype=torch.bfloat16, quantized=False,
+                       faults=0):
+    """Kernel 9 on the bf16 activation, kernel 8's per-token quantization
+    folded into its load path: ``plain_gemm_dequant_bf16a``'s function.  A
+    CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/int8_gemm.cu``'s fused form (the tile's bf16 rows by TMA,
+    quantized in shared memory bit for bit as kernel 8 does, no int8 copy
+    in device memory) where ``gemm_tiles(K, N)`` says it fits, or raises.
+    ``quantized`` also returns the kernel's int8 rows and scales (written by
+    it, for the checks); ``faults`` plants the checks' faults (1: one amax
+    for 64 rows, 2: every row dequantized with its tile's first scale)."""
+    if not x.is_cuda:
+        return plain_gemm_dequant_bf16a(x, w8, sw, bias, dtype, quantized)
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise ValueError(f"gemm_dequant_bf16a takes a 2-D bf16 x, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    _check_int8("w8", w8, 2, x.device)
+    (m, k), n = x.shape, w8.shape[0]
+    if k % 8 or w8.shape[1] != padded(k) or m <= 0 or n <= 0 or not gemm_tiles(k, n)[4]:
+        raise ValueError(f"gemm_dequant_bf16a does not take x {tuple(x.shape)} with w8 "
+                         f"{tuple(w8.shape)} (gemm_tiles: {gemm_tiles(k, n)})")
+    _check_epilogue(None, sw, bias, dtype, m, n, x.device)
+    if not x.is_contiguous() or x.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+        x = x.clone(memory_format=torch.contiguous_format)
+    out = _out((m, n), dtype, x.device)
+    q8 = torch.empty((m, padded(k)), device=x.device, dtype=torch.int8) if quantized else None
+    sx = torch.empty((m,), device=x.device, dtype=torch.float32) if quantized else None
+    build.launch("ccedit_int8_gemm_bf16a", _OUT_KINDS[dtype], x.data_ptr(), w8.data_ptr(),
+                 out.data_ptr(), sw.data_ptr(),
+                 0 if bias is None or dtype is None else bias.data_ptr(),
+                 0 if q8 is None else q8.data_ptr(), 0 if sx is None else sx.data_ptr(),
+                 faults, m, n, k, build.stream_of(x))
+    gemm_dequant_bf16a.launches += 1
+    gemm_dequant_bf16a.variant_launches[{None: "int32", torch.bfloat16: "bf16",
+                                         torch.float32: "fp32"}[dtype]] += 1
+    return (out, q8, sx) if quantized else out
+
+
+gemm_dequant_bf16a.launches = 0
+gemm_dequant_bf16a.variant_launches = collections.Counter()
 
 
 # ---- kernel (10): the implicit-GEMM convolution ----
@@ -380,9 +486,13 @@ def qlinear(x: torch.Tensor, weight: torch.Tensor,
     """A ``QDense``: x (..., C) @ weight (F, C)^T + bias in W8A8, x's dtype
     out."""
     lead, c = x.shape[:-1], x.shape[-1]
-    x8, sx = quantize_int8(x.reshape(-1, c), per_row=True)
     w8, sw = quantize_weight(weight.to(x.dtype))
-    y = gemm_dequant(x8, sx, w8, sw, None if bias is None else bias.to(x.dtype), x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if gemm_route(c, w8.shape[0], x.dtype) == "fused":
+        y = gemm_dequant_bf16a(x.reshape(-1, c), w8, sw, b, x.dtype)
+    else:
+        x8, sx = quantize_int8(x.reshape(-1, c), per_row=True)
+        y = gemm_dequant(x8, sx, w8, sw, b, x.dtype)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -401,4 +511,4 @@ def qconv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 COUNTED = {"quantize_int8": quantize_int8, "int8_gemm_dequant": gemm_dequant,
-           "int8_conv": conv_dequant}
+           "int8_gemm_bf16a": gemm_dequant_bf16a, "int8_conv": conv_dequant}

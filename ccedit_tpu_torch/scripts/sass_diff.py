@@ -2,9 +2,7 @@
 
     python -m ccedit_tpu_torch.scripts.sass_diff OTHER_CSRC [SOURCE ...]
 
-Compiles each ``SOURCE`` (default: the sources of kernels 1, 1c and 5,
-which instantiate ``csrc/spatial_attention.cuh``'s defaults, and
-``int8_gemm.cu``, kernels 6 and 9, built on ``csrc/hopper.cuh``) from this
+Compiles each ``SOURCE`` (default: every ``*.cu`` of ``csrc/``) from this
 checkout's ``csrc/`` and from ``OTHER_CSRC`` (for instance the parent
 commit's, unpacked with ``git archive``) to cubins with the build's nvcc
 flags, disassembles both with ``cuobjdump -sass`` and compares every
@@ -12,23 +10,27 @@ kernel of the other tree with this tree's, instruction for instruction
 (addresses and encodings dropped; kernel names may differ, since a
 template can gain parameters with defaults).  One JSON line a source:
 each other-tree kernel's instruction count and whether an identical
-kernel exists here.  Needs the CUDA toolkit (nvcc, cuobjdump); no GPU.
+kernel exists here, and this tree's kernels that have no identical
+counterpart there (``new``: a redesigned kernel's instantiations, such as
+``int8_gemm.cu``'s ``dequant_gemm_kernel<BN, FUSED>`` beside kernel 6's
+unchanged ``gemm_kernel``).  Needs the CUDA toolkit (nvcc, cuobjdump); no
+GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from ..ops import build
 
-SOURCES = ("spatial_attention.cu", "spatial_attention_int8.cu", "attention_probe.cu",
-           "int8_gemm.cu")
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
@@ -62,21 +64,24 @@ def kernels(csrc: Path, source: str, cubin: Path) -> dict:
 def compare(other: Path, source: str, out: Path) -> dict:
     mine = kernels(build.CSRC, source, out / f"mine_{source}.cubin")
     theirs = kernels(other, source, out / f"other_{source}.cubin")
-    bodies = {tuple(v) for v in mine.values()}
+    bodies, their_bodies = {tuple(v) for v in mine.values()}, {tuple(v) for v in theirs.values()}
     per_kernel = {k: dict(instructions=len(v), identical=tuple(v) in bodies)
                   for k, v in theirs.items()}
     return dict(source=source, kernels=per_kernel,
-                identical=bool(per_kernel) and all(r["identical"] for r in per_kernel.values()))
+                identical=bool(per_kernel) and all(r["identical"] for r in per_kernel.values()),
+                new={k: len(v) for k, v in mine.items() if tuple(v) not in their_bodies})
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, help="the other tree's csrc directory")
-    ap.add_argument("sources", nargs="*", default=SOURCES)
+    ap.add_argument("sources", nargs="*",
+                    default=[p.name for p in sorted(build.CSRC.glob("*.cu"))])
     a = ap.parse_args(argv)
-    with tempfile.TemporaryDirectory() as tmp:
-        for source in a.sources:
-            print(json.dumps(compare(a.other.resolve(), source, Path(tmp))), flush=True)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(os.cpu_count()) as pool:
+        # the compilers run in parallel, one source a thread
+        for line in pool.map(lambda src: compare(a.other.resolve(), src, Path(tmp)), a.sources):
+            print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

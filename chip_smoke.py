@@ -190,29 +190,41 @@ Phases:
      says so).  Phase 3 holds kernels 1 and 1b at the gathered shapes
      (n_k = 4 n_q and 2 n_q; 8 n_q and 4 n_q for 1b) with the log2 e fault.
  12. the W8A8 path (``ops/quant.py``; kernels 8-10: ``csrc/quantize_int8.cu``,
-     ``int8_gemm.cu``'s dequant GEMM, ``int8_conv.cu``).  (a) Each kernel at
-     the shapes the main path gives it (``W8A8_SHAPES``: the level-0 and
-     level-1 3x3 convs of the CFG-doubled clip, the level-0 TemporalConv,
-     conv_in with K = 36, the VAE decoder's 3x3 and conv_out, dense layers
-     320 -> 320, 320 -> 2560 and 1280 -> 320 over 208,896 tokens): the
-     quantizer's int8 values and scales bit for bit its plain version's, the
-     raw int32 accumulators bit for bit, the epilogue's output within phase
-     3's gate, and the check refusing its planted faults (dense: the per-row
-     scale dropped; conv: the window shifted one row, and one column); each
-     with its bound, plain time and yardstick (``torch._int_mm`` + rescale;
-     cuDNN's bf16 conv).  The conv rows add the level-0 stride-2
-     Downsample, a decoder ResBlock's 1x1 skip, the level-2 3x3, the
-     temporal k = 1 conv, the VAE decoder's 512-channel 3x3 at 256x384, the
-     VAE encoder's (0, 1) stride-2 downsample and the hint pyramid's first
-     conv (Cp = 16, O = 16), so every tile of kernel 10 runs; at each, the
-     tile ``quant.conv_tiles`` picks must be the one the kernel reports.
+     ``int8_gemm.cu``'s dequant GEMM in its two forms, ``int8_conv.cu``).
+     (a) Each kernel at the shapes the main path gives it (``W8A8_SHAPES``:
+     the level-0 and level-1 3x3 convs of the CFG-doubled clip, the level-0
+     TemporalConv, conv_in with K = 36, the VAE decoder's 3x3 and conv_out,
+     the dense products of every level (320 -> 320, 320 -> 2560 and 1280 ->
+     320 over 208,896 tokens, the level-1 and level-2 ones over 52,224 and
+     13,056), the cross-attention k/v over 2,618 context tokens and the
+     ResBlock embedding over 34): the quantizer's int8 values and scales bit
+     for bit its plain version's, the raw int32 accumulators bit for bit,
+     the epilogue's output within phase 3's gate, and the check refusing
+     its planted faults (dense: the per-row scale dropped; conv: the window
+     shifted one row, and one column); each with its bound, plain time and
+     yardstick (``torch._int_mm`` + rescale; cuDNN's bf16 conv).  A dense
+     shape that ``quant.gemm_route`` sends to the fused form (kernel 9 on
+     the bf16 tokens, quantizing them in shared memory) is checked on that
+     route too: its int8 values and scales bit for bit kernel 8's plain
+     version's, its accumulators bit for bit, its output within the gate,
+     the per-row scale dropped and one amax for 64 rows refused, its time
+     beside the two launches it replaces.  The tile ``quant.gemm_tiles``
+     picks must be the one kernel 9 reports.  The conv rows add the level-0
+     stride-2 Downsample, a decoder ResBlock's 1x1 skip, the level-2 3x3,
+     the temporal k = 1 conv, the VAE decoder's 512-channel 3x3 at 256x384,
+     the VAE encoder's (0, 1) stride-2 downsample and the hint pyramid's
+     first conv (Cp = 16, O = 16), so every tile of kernel 10 runs; at each,
+     the tile ``quant.conv_tiles`` picks must be the one the kernel reports.
      (b) Run inside phases 4 and 5 on their engines before they are freed:
-     the edit with ``CCEDIT_QUANT_MATMUL=1`` and with
-     ``CCEDIT_INT8=1``, kernels 8-10 launched on both and on no other path,
-     kernel 1c on the umbrella alone; the umbrella edit's final latents held
-     to the same edit through the kernels' plain versions on the card
-     (exact fp64 int8 products, TF32 off) by cosine (W8A8_LATENT_COSINE),
-     which the edit with the weight scales read per input channel must fail.
+     the edit with ``CCEDIT_QUANT_MATMUL=1`` and with ``CCEDIT_INT8=1``,
+     kernels 8-10 (kernel 9 in both forms) launched on both and on no other
+     path, kernel 1c on the umbrella alone; the umbrella edit's final
+     latents held to the same edit through the kernels' plain versions on
+     the card (exact fp64 int8 products, TF32 off) by cosine
+     (W8A8_LATENT_COSINE), which the edit with the weight scales read per
+     input channel must fail, and bit for bit to the same edit with every
+     dense product on the two-launch route (both with cuDNN's deterministic
+     algorithms).
   Launch counts are reset just before each path and read just after (per
   stage for the edits, per step in VAE training); every kernel of that path
   must have run (on the
@@ -3553,6 +3565,18 @@ W8A8_SHAPES = (
     ("dense 320->320", "dense", (208896, 320), 320),
     ("dense 320->2560", "dense", (208896, 320), 2560),
     ("dense 1280->320", "dense", (208896, 1280), 320),
+    ("dense 640->640", "dense", (52224, 640), 640),
+    ("dense 640->5120", "dense", (52224, 640), 5120),
+    ("dense 2560->640", "dense", (52224, 2560), 640),
+    ("dense 1280->1280", "dense", (13056, 1280), 1280),
+    ("dense 1280->10240", "dense", (13056, 1280), 10240),
+    ("dense 5120->1280", "dense", (13056, 5120), 1280),
+    ("cross k/v 768->320", "dense", (2618, 768), 320),
+    ("cross k/v 768->640", "dense", (2618, 768), 640),
+    ("cross k/v 768->1280", "dense", (2618, 768), 1280),
+    ("embedding 1280->320", "dense", (34, 1280), 320),
+    ("embedding 1280->640", "dense", (34, 1280), 640),
+    ("embedding 1280->1280", "dense", (34, 1280), 1280),
 )
 # (b): the umbrella edit's final latents against the same edit with the
 # three kernels swapped for their plain versions on the card (exact fp64
@@ -3564,6 +3588,9 @@ W8A8_KERNELS = (
          replaces="ccedit_tpu/ops/quant.py:61 (XLA in the JAX package, no Pallas kernel)"),
     dict(name="int8_gemm_dequant", source="ccedit_tpu_torch/csrc/int8_gemm.cu",
          replaces="ccedit_tpu/ops/quant.py:75 (XLA in the JAX package, no Pallas kernel)"),
+    dict(name="int8_gemm_bf16a", source="ccedit_tpu_torch/csrc/int8_gemm.cu",
+         replaces="ccedit_tpu/ops/quant.py:75 with :61 per token (XLA in the JAX package, no "
+                  "Pallas kernel)"),
     dict(name="int8_conv", source="ccedit_tpu_torch/csrc/int8_conv.cu",
          replaces="ccedit_tpu/ops/quant.py:91 (XLA in the JAX package, no Pallas kernel)"),
 )
@@ -3620,7 +3647,11 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
         # the per-row scale dropped: every row takes the first row's
         faults = {"per-row scale dropped": functools.partial(
             quant.gemm_dequant, x8, sx[:1].expand(m).contiguous(), w8, sw, bias)}
-        tiles = None
+        tiles = quant.gemm_tiles(c, o)
+        kernel_tiles = quant.kernel_gemm_tiles(c, o)
+        if tiles != kernel_tiles:
+            raise RuntimeError(f"w8a8 {label}: gemm_tiles {tiles} but the kernel takes "
+                               f"{kernel_tiles}")
         ops = 2.0 * m * o * c
         nbytes = x8.numel() + w8.numel() + 4 * (sx.numel() + sw.numel()) + 2 * (o + m * o)
 
@@ -3672,7 +3703,11 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
         refused[name] = (((bad.float() - ref.float()).abs().max()
                           / ref.float().abs().max()).item(), cosine(bad, ref))
         del bad
-    del out, ref
+    del out
+    fused = None
+    if kind == "dense" and quant.gemm_route(c, o, x.dtype) == "fused":
+        fused = check_fused_dense(label, x2, w8, sw, bias, ref, ops)
+    del ref
     ms = cuda_time_ms(lambda: run(*args), 5)
     q_ms = cuda_time_ms(lambda: quant.quantize_int8(x2, per_row=per_row), 5)
     q_plain_ms = cuda_time_ms(lambda: quant.plain_quantize_int8(x2, per_row), 1)
@@ -3709,7 +3744,7 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
                                f"relative {f_rel}, cosine {f_cos}")
     del args, x8, w8, x, w
     torch.cuda.empty_cache()
-    return dict(label=label, kind=kind, shape=list(x_shape), out_channels=o,
+    return dict(label=label, kind=kind, shape=list(x_shape), out_channels=o, fused=fused,
                 quantizer_mismatches=mismatches, accumulators_equal=acc_equal, max_abs_err=err,
                 max_rel_err=rel, cosine=cos, values_differing=exact, tiles=tiles,
                 faults={name: dict(rel=f_rel, cosine=f_cos)
@@ -3717,6 +3752,75 @@ def check_w8a8_shape(label, kind, x_shape, o, kernel=(), stride=(), padding=(), 
                 ms=ms, quantize_ms=q_ms, plain_ms=plain_ms,
                 library_ms=library_ms, quantize_plain_ms=q_plain_ms,
                 quantize_bound_ms=q_bound["bound_ms"], **bound)
+
+
+def check_fused_dense(label, x2, w8, sw, bias, ref, ops) -> dict:
+    """Phase 12 (a) on the fused route of a dense shape (``gemm_route``):
+    kernel 9 on the bf16 tokens, its in-kernel quantization's int8 values
+    and scales bit for bit kernel 8's plain version, its int32
+    accumulators bit for bit, its output against the plain output
+    (TOLERANCE, COSINE), and its planted faults refused (the per-row scale
+    dropped: every row with its tile's first scale; one amax for 64 rows);
+    its time beside the two launches it replaces."""
+    import torch
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.scripts import roofline
+
+    m, o = x2.shape[0], w8.shape[0]
+    acc, q8, sx = quant.gemm_dequant_bf16a(x2, w8, sw, None, None, quantized=True)
+    px8, psx = quant.plain_quantize_int8(x2, True)
+    mismatches = int((q8 != px8).sum() + (sx != psx).sum())
+    acc_equal = bool(torch.equal(acc, quant.plain_gemm_dequant(px8, psx, w8, sw, None, None)))
+    del acc, q8, sx
+    out = quant.gemm_dequant_bf16a(x2, w8, sw, bias)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    cos = cosine(out, ref)
+    del out
+    # a fault is refused when any check the kernel passes fails on it: the
+    # quantization bit for bit (which one amax for 64 rows of similar
+    # magnitude fails first), or the output's gate
+    refused = {}
+    for name, flag in (("per-row scale dropped", 2), ("one amax for 64 rows", 1)):
+        bad, q8, sx = quant.gemm_dequant_bf16a(x2, w8, sw, bias, faults=flag, quantized=True)
+        refused[name] = (((bad.float() - ref.float()).abs().max()
+                          / ref.float().abs().max()).item(), cosine(bad, ref),
+                         int((q8 != px8).sum() + (sx != psx).sum()))
+        del bad, q8, sx
+    del px8, psx
+    ms = cuda_time_ms(lambda: quant.gemm_dequant_bf16a(x2, w8, sw, bias), 5)
+    two_ms = cuda_time_ms(lambda: quant.gemm_dequant(
+        *quant.quantize_int8(x2, per_row=True), w8, sw, bias), 5)
+    plain_ms = cuda_time_ms(lambda: quant.plain_gemm_dequant_bf16a(x2, w8, sw, bias), 1)
+    bound = roofline.bound(int8_ops=ops, nbytes=x2.numel() * x2.element_size() + w8.numel()
+                           + 4 * sw.numel() + 2 * (o + m * o))
+    planted = "; ".join(f"planted fault ({name}): relative {f_rel:.3e}, cosine {f_cos:.6f}, "
+                        f"quantizer mismatches {f_mis}"
+                        for name, (f_rel, f_cos, f_mis) in refused.items())
+    print(f"[w8a8] {label} fused: quantizer mismatches {mismatches}, int32 accumulators equal "
+          f"{acc_equal}; max_abs_err {err:.3e}, relative {rel:.3e}, cosine {cos:.7f}; {planted}; "
+          f"kernel {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, {bound['bound_what']}, "
+          f"{100 * bound['bound_ms'] / ms:.1f} %) against the two launches {two_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms", flush=True)
+    if mismatches:
+        raise RuntimeError(f"w8a8 {label}: the fused quantization differs from kernel 8's plain "
+                           f"version in {mismatches} values")
+    if not acc_equal:
+        raise RuntimeError(f"w8a8 {label}: the fused int32 accumulators differ from the plain ones")
+    if not (rel <= TOLERANCE and cos >= COSINE):
+        raise RuntimeError(f"w8a8 {label} fused disagrees with its plain version: relative "
+                           f"{rel}, cosine {cos}")
+    for name, (f_rel, f_cos, f_mis) in refused.items():
+        if f_rel <= TOLERANCE and f_cos >= COSINE and not f_mis:
+            raise RuntimeError(f"w8a8 {label}: the fused check passes the planted fault "
+                               f"({name}): relative {f_rel}, cosine {f_cos}")
+    return dict(quantizer_mismatches=mismatches, accumulators_equal=acc_equal,
+                max_abs_err=err, max_rel_err=rel, cosine=cos,
+                faults={name: dict(rel=f_rel, cosine=f_cos, quantizer_mismatches=f_mis)
+                        for name, (f_rel, f_cos, f_mis) in refused.items()},
+                ms=ms, two_launches_ms=two_ms, plain_ms=plain_ms, library_ms=None, **bound)
 
 
 def check_w8a8_kernels(device) -> list:
@@ -3732,22 +3836,29 @@ def check_w8a8_kernels(device) -> list:
     conv = next(r for r in rows if r["kind"] == "conv")
     dense = next(r for r in rows if r["kind"] == "dense")
     records = []
+    fused = next(r for r in rows if r["fused"])
     for spec in W8A8_KERNELS:
         if spec["name"] == "quantize_int8":
             first = dict(ms=conv["quantize_ms"], plain_ms=conv["quantize_plain_ms"],
                          library_ms=None, bound_ms=conv["quantize_bound_ms"], bound_by="bytes",
                          max_abs_err=0.0)
+        elif spec["name"] == "int8_gemm_bf16a":
+            first = {k: fused["fused"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "bound_by", "max_abs_err")}
         else:
             r = conv if spec["name"] == "int8_conv" else dense
             first = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                        "max_abs_err")}
         records.append(dict(name=spec["name"], route="cuda", source=spec["source"],
                             replaces=spec["replaces"], launches=0, **first,
-                            library=None if spec["name"] == "quantize_int8" else (
-                                "cuDNN bf16 conv (F.conv2d / F.conv1d)"
-                                if spec["name"] == "int8_conv" else "torch._int_mm + rescale"),
+                            library={"int8_conv": "cuDNN bf16 conv (F.conv2d / F.conv1d)",
+                                     "int8_gemm_dequant": "torch._int_mm + rescale"}.get(
+                                         spec["name"]),
                             shapes=[r for r in rows if spec["name"] == "quantize_int8"
-                                    or (r["kind"] == "conv") == (spec["name"] == "int8_conv")]))
+                                    or (spec["name"] == "int8_gemm_bf16a" and r["fused"])
+                                    or (spec["name"] == "int8_gemm_dequant"
+                                        and r["kind"] == "dense")
+                                    or (spec["name"] == "int8_conv" and r["kind"] == "conv")]))
     print(f"[w8a8] phase 12 (a) in {time.perf_counter() - t0:.1f} s", flush=True)
     return records
 
@@ -3758,14 +3869,43 @@ def plain_w8a8():
     (``qlinear``/``qconv`` look the three names up at each call)."""
     from ccedit_tpu_torch.ops import quant
 
-    saved = quant.quantize_int8, quant.gemm_dequant, quant.conv_dequant
-    quant.quantize_int8 = quant.plain_quantize_int8
-    quant.gemm_dequant = quant.plain_gemm_dequant
-    quant.conv_dequant = quant.plain_conv_dequant
+    names = ("quantize_int8", "gemm_dequant", "gemm_dequant_bf16a", "conv_dequant")
+    saved = [getattr(quant, name) for name in names]
+    for name in names:
+        setattr(quant, name, getattr(quant, f"plain_{name}"))
     try:
         yield
     finally:
-        quant.quantize_int8, quant.gemm_dequant, quant.conv_dequant = saved
+        for name, wrapper in zip(names, saved):
+            setattr(quant, name, wrapper)
+
+
+@contextlib.contextmanager
+def two_launch_route():
+    """Every dense product of the W8A8 layers through kernel 8 and kernel 9's
+    int8 form (``qlinear`` looks ``gemm_route`` up at each call)."""
+    from ccedit_tpu_torch.ops import quant
+
+    sound = quant.gemm_route
+    quant.gemm_route = lambda k, n, dtype: "two_launches"
+    try:
+        yield
+    finally:
+        quant.gemm_route = sound
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the exact convolutions left in a
+    W8A8 edit, so two edits can be compared bit for bit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 @contextlib.contextmanager
@@ -3796,7 +3936,8 @@ def weight_scales_per_input_channel():
 
 def w8a8_launches(stages) -> dict:
     return {name: sum(c.get(name, 0) for c in stages.values())
-            for name in ("quantize_int8", "int8_gemm_dequant", "int8_conv", "quantize_qk")}
+            for name in ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a", "int8_conv",
+                         "quantize_qk")}
 
 
 def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: int) -> dict:
@@ -3804,11 +3945,14 @@ def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: 
     same edit as ``CCEDIT_QUANT_MATMUL=1`` (W8A8 alone) and ``CCEDIT_INT8=1``
     (W8A8 and the int8 QK^T), then the umbrella edit through the plain
     versions of kernels 8-10 and with the weight scales read per input
-    channel.  Kernels 8-10 must run on both W8A8 edits and not on the exact
-    one; kernel 1c on the umbrella edit only; the umbrella edit's latents
-    must stay within W8A8_LATENT_COSINE of the plain-version edit's, the
-    fault's must not.  Returns the per-stage counts as paths ``path +
-    "_w8a8"`` and ``path + "_int8_umbrella"``."""
+    channel, and once more with every dense product on the two-launch
+    route (``two_launch_route``), which must give the umbrella edit's final
+    latents bit for bit (both with cuDNN's deterministic algorithms).
+    Kernels 8-10 (kernel 9 in both forms) must run on both W8A8 edits and
+    not on the exact one; kernel 1c on the umbrella edit only; the umbrella
+    edit's latents must stay within W8A8_LATENT_COSINE of the plain-version
+    edit's, the fault's must not.  Returns the per-stage counts as paths
+    ``path + "_w8a8"`` and ``path + "_int8_umbrella"``."""
     import torch
 
     from ccedit_tpu_torch.cli.profile_tv2v import int8_environment
@@ -3818,11 +3962,16 @@ def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: 
     runs = {}
     for mode, env in (("w8a8", {"CCEDIT_QUANT_MATMUL": "1"}),
                       ("int8_umbrella", {"CCEDIT_INT8": "1"})):
-        with int8_environment(**env):
+        is_umbrella = mode == "int8_umbrella"
+        with int8_environment(**env), (deterministic_cudnn() if is_umbrella
+                                       else contextlib.nullcontext()):
             t1 = time.perf_counter()
             _, lat, st = edit_counted(edit, device, steps, seed, f"{path}_{mode}")
             runs[mode] = (lat, st, time.perf_counter() - t1)
-            if mode == "int8_umbrella":
+            if is_umbrella:
+                with two_launch_route():
+                    _, two_lat, two_st = edit_counted(edit, device, steps, seed,
+                                                      f"{path}_{mode} two launches")
                 with plain_w8a8():
                     _, plain_lat, plain_st = edit_counted(edit, device, steps, seed,
                                                           f"{path}_{mode} plain W8A8")
@@ -3834,18 +3983,29 @@ def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: 
         print(f"[{path}_{mode}] {secs:.2f} s ({secs / rows:.3f} s a network row of {rows}, "
               f"the edit's stages included), launches {counts}, final latents' cosine to the "
               f"exact edit's {cosine(lat, exact):.6f}", flush=True)
-        if min(counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_conv")) <= 0:
+        if min(counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a",
+                                   "int8_conv")) <= 0:
             raise RuntimeError(f"the {path} {mode} edit did not launch every W8A8 kernel: {counts}")
         if (counts["quantize_qk"] > 0) != (mode == "int8_umbrella"):
             raise RuntimeError(f"the {path} {mode} edit launched kernel 1c's pre-pass "
                                f"{counts['quantize_qk']} times")
+    w8a8_kernels = ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a", "int8_conv")
     exact_counts = w8a8_launches(exact_launches)
-    if any(exact_counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_conv")):
+    if any(exact_counts[k] for k in w8a8_kernels):
         raise RuntimeError(f"the exact {path} edit launched W8A8 kernels: {exact_counts}")
-    if any(w8a8_launches(plain_st)[k] for k in ("quantize_int8", "int8_gemm_dequant",
-                                                "int8_conv")):
+    if any(w8a8_launches(plain_st)[k] for k in w8a8_kernels):
         raise RuntimeError("the plain-version edit launched W8A8 kernels")
     umbrella = runs["int8_umbrella"][0]
+    two_counts = w8a8_launches(two_st)
+    same = bool(torch.equal(two_lat, umbrella))
+    print(f"[{path}_int8_umbrella] the two-launch route: launches {two_counts}, final latents "
+          f"bit for bit the fused route's: {same} (max|diff| "
+          f"{(two_lat.float() - umbrella.float()).abs().max().item():.3e})", flush=True)
+    if two_counts["int8_gemm_bf16a"] or not two_counts["int8_gemm_dequant"]:
+        raise RuntimeError(f"the two-launch route launched the fused kernel: {two_counts}")
+    if not same:
+        raise RuntimeError(f"the {path} umbrella edit differs between the fused and the "
+                           f"two-launch routes")
     cos_plain, cos_fault = cosine(umbrella, plain_lat), cosine(fault_lat, plain_lat)
     diff = (umbrella.float() - plain_lat.float()).abs().max().item()
     print(f"[{path}_int8_umbrella] final latents vs the same edit through the plain W8A8 "

@@ -862,6 +862,95 @@ def test_w8a8_gemm_matches_plain(cuda, m, k, n, dtype):
         assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("m,k,n", [
+    # kernel 9's tiles (quant.gemm_tiles) with several tiles a block: BN 160
+    # resident (N 320) and streamed (K 2560), BN 256 resident (K 320) and
+    # streamed (K 1280), BN 128 (N 384) and the ragged M of the
+    # cross-attention k/v and the ResBlock embedding
+    (40000, 320, 320), (20000, 2560, 640), (40000, 320, 2560), (20000, 1280, 1280),
+    (3000, 640, 384), (2618, 768, 640), (34, 1280, 1280)])
+def test_w8a8_gemm_tiles_match_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=g, device=cuda) / math.sqrt(k)).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=g, device=cuda).to(torch.bfloat16)
+    x8, sx = quant.quantize_int8(x, per_row=True)
+    w8, sw = quant.quantize_weight(w)
+    for out_dtype, b in ((None, None), (torch.bfloat16, bias)):
+        out = quant.gemm_dequant(x8, sx, w8, sw, b, out_dtype)
+        assert torch.equal(out, quant.plain_gemm_dequant(x8, sx, w8, sw, b, out_dtype))
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (40000, 320, 320, torch.bfloat16), (300, 320, 320, None), (2618, 320, 640, torch.bfloat16),
+    (77, 40, 320, torch.bfloat16), (5, 96, 128, torch.float32), (1000, 384, 320, torch.bfloat16),
+    (129, 448, 100, torch.bfloat16)])
+def test_w8a8_fused_gemm_matches_plain(cuda, m, k, n, dtype):
+    """Kernel 9's fused form (the bf16 activation quantized per row in
+    shared memory): its int8 rows and scales bit for bit kernel 8's, its
+    accumulators and outputs bit for bit the two-launch plain path's, at
+    rows planted with exact .5 quotients and a zero row, K tails (40, 448)
+    and a ragged M."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = (3 * torch.randn((m, k), generator=g, device=cuda)).to(torch.bfloat16)
+    x[m // 2] = 0  # a zero row: scale 1
+    # amax 31.75 (scale 0.25) and 127 (scale 1): every other quotient an exact .5
+    x[0, :] = (torch.arange(k, device=cuda).remainder(9) - 3.5).to(torch.bfloat16) * 0.25
+    x[0, 0] = 31.75
+    x[-1, :] = torch.arange(k, device=cuda).remainder(7).to(torch.bfloat16) + 0.5
+    x[-1, 0] = 127.0
+    w = (torch.randn((n, k), generator=g, device=cuda) / math.sqrt(k)).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=g, device=cuda).to(torch.bfloat16)
+    assert quant.gemm_route(k, n, torch.bfloat16) == "fused"
+    w8, sw = quant.quantize_weight(w)
+    b = None if dtype is None else bias.to(dtype)
+    out, q8, sx = quant.gemm_dequant_bf16a(x, w8, sw, b, dtype, quantized=True)
+    pq8, psx = quant.quantize_int8(x, per_row=True)
+    assert torch.equal(q8, pq8) and torch.equal(sx, psx)
+    assert torch.equal(out, quant.plain_gemm_dequant(pq8, psx, w8, sw, b, dtype))
+    if dtype is not None:
+        assert not torch.equal(quant.gemm_dequant_bf16a(x, w8, sw, b, dtype, faults=2), out)
+        if m > 64:
+            assert not torch.equal(quant.gemm_dequant_bf16a(x, w8, sw, b, dtype, faults=1), out)
+
+
+def test_w8a8_fused_quantization_at_every_scale(cuda):
+    """The fused form's quantization (a reciprocal and two corrections where
+    2^-100 <= scale <= 2^100, kernel 8's division elsewhere) bit for bit
+    kernel 8's and the plain version's: 20,000 rows of bf16 values drawn up
+    to their row's amax, the amaxes log-uniform over 1e-38 .. 1e38 (so both
+    sides of both limits), a row of exact .5 quotients, every bf16 value
+    below 127 in the rows of scale 1."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    m, k = 20000, 320
+    amax = torch.exp(torch.empty((m, 1), device=cuda).uniform_(-87.5, 87.5, generator=g))
+    x = (amax * torch.empty((m, k), device=cuda).uniform_(-1, 1, generator=g)).to(torch.bfloat16)
+    x[:, 0] = amax[:, 0].to(torch.bfloat16)
+    every = torch.arange(32768, device=cuda, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    every = every[every.float() < 127].float()  # the non-negative finite values below 127
+    rows = -(-every.numel() // (k - 1))
+    block = torch.zeros(rows * (k - 1), device=cuda)
+    block[:every.numel()] = every
+    x[:rows, 1:] = block.view(rows, k - 1).to(torch.bfloat16)
+    x[:rows, 0] = 127.0  # scale 1: the quotients are the values
+    w8, sw = quant.quantize_weight(torch.ones((320, k), device=cuda, dtype=torch.bfloat16))
+    _, q8, sx = quant.gemm_dequant_bf16a(x, w8, sw, None, None, quantized=True)
+    kq8, ksx = quant.quantize_int8(x, per_row=True)
+    pq8, psx = quant.plain_quantize_int8(x, True)
+    assert torch.equal(kq8, pq8) and torch.equal(ksx, psx)
+    assert torch.equal(q8, pq8) and torch.equal(sx, psx)
+
+
+def test_w8a8_gemm_tiles_mirror_the_kernel(cuda):
+    """``quant.gemm_tiles`` is the tile the built kernel 9 takes, at every K
+    the quantizer writes up to 5120 against N 1 to 10240 (the multiples of
+    8, 160 and 256 and the odd ones up to 40)."""
+    outs = sorted(set(range(1, 41)) | set(range(8, 10241, 8)) | set(range(160, 10241, 160)))
+    for k in range(8, 5121, 8):
+        for n in outs[::7] + [320, 640, 1280, 2560, 5120, 10240]:
+            assert quant.kernel_gemm_tiles(k, n) == quant.gemm_tiles(k, n), (k, n)
+
+
 @pytest.mark.parametrize("x_shape,o,kernel,stride,padding", [
     ((2, 9, 13, 32), 48, (3, 3), (1, 1), ((1, 1), (1, 1))),
     ((2, 10, 14, 32), 40, (3, 3), (2, 2), ((0, 1), (0, 1))),
@@ -928,8 +1017,15 @@ def test_w8a8_block_launches_the_kernels(cuda, monkeypatch):
     before = {k: w.launches for k, w in quant.COUNTED.items()}
     with torch.no_grad():
         out = block(x, emb)
-        assert all(w.launches > before[k] for k, w in quant.COUNTED.items())
-        for name in ("quantize_int8", "gemm_dequant", "conv_dequant"):
+        # the embedding's dense takes the fused route
+        launched = {k for k, w in quant.COUNTED.items() if w.launches > before[k]}
+        assert launched == set(quant.COUNTED) - {"int8_gemm_dequant"}
+        for name in ("quantize_int8", "gemm_dequant", "gemm_dequant_bf16a", "conv_dequant"):
             monkeypatch.setattr(quant, name, getattr(quant, f"plain_{name}"))
         ref = block(x, emb)
-    assert torch.equal(out, ref)
+        assert torch.equal(out, ref)
+        monkeypatch.undo()
+        monkeypatch.setitem(quant._STATE, "matmul", True)
+        monkeypatch.setattr(quant, "gemm_route", lambda k, n, dtype: "two_launches")
+        before = quant.gemm_dequant.launches
+        assert torch.equal(block(x, emb), ref) and quant.gemm_dequant.launches > before
