@@ -53,8 +53,10 @@ records them as ``quantized_qk`` and ``quantized_matmul``.  With
 ``--int8_modes`` (the ``tv2v``/``tvi2v`` edits) one engine times and
 profiles the edit three ways in turn, exact, ``CCEDIT_QUANT_MATMUL=1`` and
 ``CCEDIT_INT8=1`` (each warmed up, its launches counted), and the line
-gives each mode's seconds, seconds a row, peak memory, launches, profile
-and final latents' cosine to the exact edit's.  Prints one JSON line; the
+gives each mode's seconds, seconds a row, peak memory, launches, weight
+quantizations (0 after the warm-up: the weight cache), the fused norm
+form's third passes, profile and final latents' cosine to the exact
+edit's.  Prints one JSON line; the
 trace goes to ``--out``.
 
 ``--clip_shard`` (the ``tv2v``/``tvi2v`` edits, under ``torchrun``, one
@@ -97,8 +99,10 @@ from .pipeline import base_parser, edit_clip, load_engine
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _GROUPS = (  # matched against "launching op + kernel name"; first match wins
-    ("W8A8 kernels (ours)", ("::conv_kernel<", "::dequant_gemm_kernel<", "::rows_kernel<",
-                             "::tensor_amax_kernel<", "::tensor_quantize_kernel<")),
+    ("W8A8 quantizer per row (ours)", ("::rows_kernel<",)),
+    ("W8A8 quantizer per tensor (ours)", ("::tensor_amax_kernel<", "::tensor_quantize_kernel<")),
+    ("W8A8 fused norm quantizer (ours)", ("::norm_moments_kernel<", "::norm_apply_kernel<")),
+    ("W8A8 products (ours)", ("::conv_kernel<", "::dequant_gemm_kernel<")),
     ("attention kernels (ours)", ("ccedit::",)),
     ("collectives (NCCL)", ("nccl",)),
     ("convolution", ("convolution", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -476,11 +480,14 @@ def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) 
             stages = {}
             torch.cuda.reset_peak_memory_stats(device)
             reset_launch_counts()
+            misses, third = quant.WEIGHT_CACHE["misses"], quant.third_passes(device)
             t0 = time.perf_counter()
             _, latents = edit(steps, torch.Generator(device=device).manual_seed(a.seed),
                               stage_seconds=stages, return_latents=True)
             total = time.perf_counter() - t0
             counts = {k: n for k, n in launch_counts().items() if n}
+            misses = quant.WEIGHT_CACHE["misses"] - misses
+            third = quant.third_passes(device) - third
             peak = torch.cuda.max_memory_allocated(device) / 1e9
             profile = _profile(lambda: edit(a.profile_steps, torch.Generator(device=device)
                                             .manual_seed(a.seed)), Path(a.out) / mode)
@@ -490,7 +497,8 @@ def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) 
                 "env": env, "quantized_qk": quantized_qk_enabled(),
                 "quantized_matmul": quant.quantized_matmul_enabled(), "edit_seconds": total,
                 "stage_seconds": stages, "sample_seconds_per_row": stages["sample"] / rows,
-                "peak_memory_gb": peak, "launches": counts,
+                "peak_memory_gb": peak, "launches": counts, "weight_quantizations": misses,
+                "fused_norm_third_passes": third,
                 "latent_cosine_to_exact":
                     (latents @ exact / (latents.norm() * exact.norm())).item(),
                 "profile": dict(profile, steps=a.profile_steps, rows=2 * a.profile_steps - 1)}

@@ -35,6 +35,54 @@
 // vector, that reads the word: the scale never visits the host.  Where L is
 // a multiple of 16 a thread reads its 16 values as 16-byte vectors; else
 // value by value (conv_in's 4 channels, the RGB hint's 3).
+//
+// The fused norm form (ccedit_norm_silu_quantize): the per-tensor int8 rows
+// of silu(group_norm(x + add)), the input of every ResBlock conv under W8A8,
+// from the bf16 activation where it lies, with no bf16 GroupNorm or SiLU
+// output in device memory.  x is (S, P, C): S samples (an image's frame, or
+// a folded (h, b, w) row of the temporal GroupNorm), P positions, C
+// channels in G groups; `add` an optional (S, C) addend (the ResBlock's
+// embedding), rounded into x in bf16 first, as the plain chain's add does.
+// Each value goes as the plain chain (torch's GroupNorm -> SiLU ->
+// _symmetric_q on the card) computes it, bit for bit:
+//   v = bf16(x + add)
+//   mean, rstd of each (sample, group): torch's CUDA GroupNorm statistics
+//     (RowwiseMomentsCUDAKernel: Welford in its thread order, its reduction
+//     tree, rsqrtf(var + eps), both stored in bf16, the input's dtype)
+//   k = rstd * gamma;  b = beta - k * mean        (torch's fused parameters)
+//   u = bf16(k * v + b);  y = bf16(u / (1 + exp(-u)))
+//   q = clip(round(y / scale), -127, 127),  scale = max|y| / 127
+// Any other order of the statistics' sums rounds a mean or an rstd to a
+// neighbouring bf16 now and then, which moves a whole group's u by a bf16
+// step; int8 codes flip behind it and the flips cascade through a W8A8
+// network (its edits then decorrelate from the plain chain's as much as
+// W8A8 from exact), so the order is torch's own.
+//
+// What bounds it: the statistics follow torch's order, in which a thread
+// walks a group channel by channel, each channel's positions T apart, a
+// sequence of dependent divisions; in channels-last memory that is one
+// 2-byte value a row, so a block stages its group's rows through shared
+// memory where a chunk of its channels fits (64 KB), and reads in place
+// where not (the VAE's full-resolution rows; the temporal GroupNorm's
+// 17-row samples, which stay in L1).  The amax comes without another
+// read: u is monotone in v for each (sample, channel) (an affine map, then
+// rounding), and |y| is monotone in u on each side of SiLU's minimum (u* =
+// -1.2785, |y| <= 0.2793 in bf16), so the amax is the largest |y| at each
+// (sample, channel)'s min and max of v -- unless that is below kSiluPeak
+// while some channel's u-interval reaches SiLU's minimum (kSiluWindow).
+// Then a third pass computes max|y| over the tensor (the device's decision:
+// the host never waits), counted in `third`.  The quantize pass reads x
+// once more and writes q once: at level 0 (34, 64, 96, 320) the bound is
+// 134 MB x 2 + 67 MB at 3.35 TB/s, 0.10 ms; the unfused chain moves about
+// five times that.
+//
+// The quantize pass: a wave of blocks each walking a range of rows, one
+// thread 4 channels of a row with the next row's load in flight, SiLU from a
+// shared-memory table of every bf16 input between 2^-10 and 2^5 (built by
+// the block from the formula), int8 by kernel 9's quotient (a reciprocal,
+// two Markstein corrections, a magic-number rounding).  The stages stay apart
+// (statistics, amax word, quantize), so a sharded run can all-reduce the
+// amax between them.
 #include "attention_common.cuh"
 
 namespace ccedit {
@@ -201,6 +249,546 @@ int launch(int per_row, const void* x_, void* q_, void* scales_, void* amax_, lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the fused norm form ----
+
+constexpr float kSiluWindowLo = -1.5f, kSiluWindowHi = -1.0f;  // around SiLU's minimum
+constexpr float kSiluPeak = 0.28f;  // above every |bf16(silu(u))| (the minimum rounds to 0.2793)
+constexpr int kStageBytes = 64 * 1024;  // the statistics' shared-memory stage: 3 blocks an SM
+constexpr int kApplyRows = 16;  // rows a thread of the quantize pass walks, at least
+
+struct NormArgs {
+  const bf16* x;     // (S, P, C), contiguous
+  const bf16* add;   // (S, C) or null
+  const void* gamma;  // (C) or null (1)
+  const void* beta;   // (C) or null (0)
+  int affine_fp32;
+  long long s, p;
+  int c, g, cg;
+  float eps;
+  int fault;         // 1: each sample quantized with its own amax; 2: statistics over P / 2
+  unsigned char* q;  // (S * P, C)
+  float* scale;      // (1)
+  // workspace
+  unsigned* words;   // [0] endpoint amax bits, [1] a channel reaches SiLU's minimum,
+                     // [2] the third pass's amax bits
+  float* amax_s;     // (S) each sample's endpoint amax
+  float* mean;       // (S, G), bf16 values
+  float* rstd;       // (S, G), bf16 values
+  int* third;        // third passes taken (cumulative)
+};
+
+// whether the third pass must run: the endpoint amax is below every
+// |silu| SiLU's minimum can give while a channel's u-interval reaches it
+__device__ __forceinline__ bool third_pass_needed(const NormArgs& a) {
+  return a.words[1] != 0u && __uint_as_float(a.words[0]) < kSiluPeak;
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ float affine(const void* t, int fp32, int c, float none) {
+  if (t == nullptr) return none;
+  return fp32 ? static_cast<const float*>(t)[c] : __bfloat162float(static_cast<const bf16*>(t)[c]);
+}
+
+// the GroupNorm of channel c as one fma: u = k * v + b
+__device__ __forceinline__ void coeffs(const NormArgs& a, float mean, float rstd, int c, float& k,
+                                       float& b) {
+  k = __fmul_rn(rstd, affine(a.gamma, a.affine_fp32, c, 1.f));
+  b = __fmaf_rn(-k, mean, affine(a.beta, a.affine_fp32, c, 0.f));
+}
+
+// torch's SiLU in fp32 (an accurate exp, a true quotient)
+__device__ __forceinline__ float silu(float u) { return u / (1.f + expf(-u)); }
+
+// bf16(silu(u)) of every bf16 u with 2^-10 <= |u| < 2^5 (15 binades of 128
+// values a sign), built in shared memory by the kernel that reads it, from
+// `silu` itself: the same bits as the formula, a shared-memory read in place
+// of an exp and a quotient.  Outside it: |u| < 2^-10 gives bf16(u / 2)
+// (u / (1 + exp(-u)) lies within a quarter of a bf16 step of u / 2), u >=
+// 2^5 gives u (exp(-u) is below half an fp32 step of 1), u <= -2^5 (and
+// NaN) the formula.
+constexpr uint32_t kSiluLoExp = 117;  // bf16's biased exponent of 2^-10
+constexpr uint32_t kSiluBinades = 15;
+constexpr int kSiluTable = 2 * kSiluBinades * 128;
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+__device__ void fill_silu_table(unsigned short* table) {
+  for (int i = threadIdx.x; i < kSiluTable; i += blockDim.x) {
+    const uint32_t sign = i / (kSiluBinades * 128), rest = i % (kSiluBinades * 128);
+    const uint32_t bits = sign << 15 | (kSiluLoExp + rest / 128) << 7 | rest % 128;
+    table[i] = static_cast<unsigned short>(bf16_bits(silu(__uint_as_float(bits << 16))));
+  }
+}
+
+// bf16(silu(u)) of the bf16 u in the low 16 bits of `bits`, as bits
+__device__ __forceinline__ uint32_t silu_bits(uint32_t bits, const unsigned short* table) {
+  const uint32_t e = (bits >> 7) & 0xffu, i = e - kSiluLoExp;  // i wraps past 2^31 below 2^-10
+  if (i < kSiluBinades) return table[((bits >> 15) * kSiluBinades + i) * 128 + (bits & 127u)];
+  const float u = __uint_as_float(bits << 16);
+  if (e < kSiluLoExp) return bf16_bits(u * 0.5f);
+  if (!(bits >> 15)) return bits;
+  return bf16_bits(silu(u));
+}
+
+// kernel 9's quotient (int8_gemm.cu q8_fast) where 2^-100 <= scale <= 2^100:
+// v * inv corrected twice by its exact residual, clamped, rounded by the
+// magic-number addition whose low byte is the int8
+__device__ __forceinline__ uint32_t q8_magic(float v, float scale, float inv) {
+  float q = __fmul_rn(v, inv);
+  q = __fmaf_rn(__fmaf_rn(-q, scale, v), inv, q);
+  q = __fmaf_rn(__fmaf_rn(-q, scale, v), inv, q);
+  return __float_as_uint(fminf(fmaxf(q, -127.f), 127.f) + 12582912.f);
+}
+
+// the max of m over the block (every thread gets it); `w` 32 floats of shared memory
+__device__ float block_max(float m, float* w) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) w[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < static_cast<int>((blockDim.x + 31) / 32) ? w[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) w[0] = m;
+  }
+  __syncthreads();
+  m = w[0];
+  __syncthreads();
+  return m;
+}
+
+// The endpoint amax of channel c (u = bf16(k v + b) over v in [lo, hi]):
+// the larger |y| at the two ends; `cross` whether the u-interval reaches
+// SiLU's minimum (kSiluWindow), where |y| may peak inside it.
+__device__ __forceinline__ float endpoint_amax(float k, float b, float lo, float hi, int& cross) {
+  const float u_lo = bf16r(__fmaf_rn(k, lo, b)), u_hi = bf16r(__fmaf_rn(k, hi, b));
+  cross = fminf(u_lo, u_hi) <= kSiluWindowHi && fmaxf(u_lo, u_hi) >= kSiluWindowLo;
+  return fmaxf(fabsf(bf16r(silu(u_lo))), fabsf(bf16r(silu(u_hi))));
+}
+
+// torch's WelfordData / WelfordOps (ATen/native/SharedReduceOps.h) over
+// fp32, written as the same expressions so that nvcc contracts them alike
+struct Welford {
+  float mean, m2, nf;
+};
+
+__device__ __forceinline__ Welford welford_reduce(Welford acc, float data) {
+  const float new_nf = acc.nf + 1.f;  // torch counts in int64; exact here below 2^24
+  const float delta = data - acc.mean;
+  const float new_mean = acc.mean + delta / new_nf;
+  const float new_delta = data - new_mean;
+  return {new_mean, acc.m2 + delta * new_delta, new_nf};
+}
+
+__device__ __forceinline__ Welford welford_combine(Welford a, Welford b) {
+  if (a.nf == 0) return b;
+  if (b.nf == 0) return a;
+  const float delta = b.mean - a.mean;
+  const float new_count = a.nf + b.nf;
+  const float nb_over_n = b.nf / new_count;
+  return {a.mean + delta * nb_over_n, a.m2 + b.m2 + delta * delta * a.nf * nb_over_n, new_count};
+}
+
+// torch's WarpReduce (ATen/native/cuda/block_reduce.cuh): shuffle down 16 .. 1
+__device__ __forceinline__ Welford welford_warp(Welford w) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const Welford other = {__shfl_down_sync(0xffffffffu, w.mean, o),
+                           __shfl_down_sync(0xffffffffu, w.m2, o),
+                           __shfl_down_sync(0xffffffffu, w.nf, o)};
+    w = welford_combine(w, other);
+  }
+  return w;
+}
+
+__host__ __device__ constexpr int align16_dev(int n) { return (n + 15) / 16 * 16; }
+
+// atomicMax where it can raise the word: most callers find it already as
+// high once the largest values are in, and same-address atomics serialise
+__device__ __forceinline__ void raise_to(unsigned* word, unsigned v) {
+  if (v > *reinterpret_cast<volatile unsigned*>(word)) atomicMax(word, v);
+}
+
+// a float as an unsigned whose order is the float's (for atomicMin / Max)
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return b & 0x80000000u ? ~b : b | 0x80000000u;
+}
+
+__device__ __forceinline__ float from_key(unsigned k) {
+  return __uint_as_float(k & 0x80000000u ? k & 0x7fffffffu : ~k);
+}
+
+// Each channel's min and max into the keys, a warp's lanes on one channel
+// combined first (shared atomics on one address serialise)
+__device__ __forceinline__ void flush_minmax(unsigned* kmin, unsigned* kmax, int c, float lo,
+                                             float hi) {
+  const unsigned grp = __match_any_sync(__activemask(), c);
+  const unsigned kl = __reduce_min_sync(grp, order_key(lo));
+  const unsigned kh = __reduce_max_sync(grp, order_key(hi));
+  if (static_cast<int>(threadIdx.x % 32) == __ffs(grp) - 1) {
+    atomicMin(&kmin[c], kl);
+    atomicMax(&kmax[c], kh);
+  }
+}
+
+// One thread's values of a (sample, group) row in torch's order, from
+// `src`: channel-major bf16 (channel stride `cstride`, position stride
+// `pstride`), j = t, t + T, ... < `d`, starting at channel 0 of `src`:
+// Welford over them (all positions, or the first half under the planted
+// fault 2); TRACK: each channel's min and max into the keys too (from
+// device memory; the staged values have theirs from the staging).
+template <int T, bool TRACK>
+__device__ __forceinline__ Welford moments_walk(const NormArgs& a, const bf16* src,
+                                                long long cstride, long long pstride,
+                                                const bf16* addp, int t, long long d,
+                                                Welford w, unsigned* kmin, unsigned* kmax) {
+  const long long half = a.p / 2;
+  int c = static_cast<int>(t / a.p), c_cur = -1;
+  long long p = t - static_cast<long long>(c) * a.p;
+  float lo = 0.f, hi = 0.f, addv = 0.f;
+  for (long long j = t; j < d; j += T) {
+    if (TRACK && c != c_cur) {
+      if (c_cur >= 0) flush_minmax(kmin, kmax, c_cur, lo, hi);
+      if (addp != nullptr) addv = __bfloat162float(addp[c]);
+    }
+    float v = __bfloat162float(src[c * cstride + p * pstride]);
+    if (TRACK) {
+      if (addp != nullptr) v = bf16r(v + addv);
+      if (c != c_cur) {
+        c_cur = c;
+        lo = hi = v;
+      } else {
+        lo = fminf(lo, v);
+        hi = fmaxf(hi, v);
+      }
+    }
+    if (a.fault != 2 || p < half) w = welford_reduce(w, v);  // planted: half the positions
+    for (p += T; p >= a.p; p -= a.p) ++c;
+  }
+  if (TRACK && c_cur >= 0) flush_minmax(kmin, kmax, c_cur, lo, hi);
+  return w;
+}
+
+// Channels [c0, c0 + n) of sample s, all P positions, into `stage`
+// channel-major (stage[c * P + p]), x + add rounded to bf16 on the way, and
+// each channel's min and max into the keys (from key index k0): 4-byte
+// loads along the rows (n is even), a thread on one 2-channel word of
+// every rows-at-once-th row.
+__device__ __forceinline__ void stage_channels(const NormArgs& a, long long s, int c0, int n,
+                                               bf16* stage, unsigned* kmin, unsigned* kmax,
+                                               int k0) {
+  const int words = n / 2, rpi = blockDim.x / words, pp = static_cast<int>(a.p);
+  if (static_cast<int>(threadIdx.x) >= rpi * words) return;
+  const int w = threadIdx.x % words;
+  const bf16* base = a.x + s * a.p * a.c + c0 + 2 * w;
+  float d0 = 0.f, d1 = 0.f;
+  if (a.add != nullptr) {
+    d0 = __bfloat162float(a.add[s * a.c + c0 + 2 * w]);
+    d1 = __bfloat162float(a.add[s * a.c + c0 + 2 * w + 1]);
+  }
+  float lo0 = INFINITY, hi0 = -INFINITY, lo1 = INFINITY, hi1 = -INFINITY;
+  for (int p = threadIdx.x / words; p < pp; p += rpi) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(base + static_cast<long long>(p) * a.c);
+    float v0 = lo_bf(u), v1 = hi_bf(u);
+    if (a.add != nullptr) {
+      v0 = bf16r(v0 + d0);
+      v1 = bf16r(v1 + d1);
+    }
+    stage[(2 * w) * pp + p] = __float2bfloat16_rn(v0);
+    stage[(2 * w + 1) * pp + p] = __float2bfloat16_rn(v1);
+    lo0 = fminf(lo0, v0), hi0 = fmaxf(hi0, v0), lo1 = fminf(lo1, v1), hi1 = fmaxf(hi1, v1);
+  }
+  flush_minmax(kmin, kmax, k0 + 2 * w, lo0, hi0);
+  flush_minmax(kmin, kmax, k0 + 2 * w + 1, lo1, hi1);
+}
+
+// The statistics, in torch's own order (RowwiseMomentsCUDAKernel, torch's
+// CUDA GroupNorm): each (sample s, group g) is a row of D = Cg * P values
+// v(c, p) in channels-first order, j = c * P + p; T virtual threads (512,
+// or 32 where D < 512) each run Welford over j = t, t + T, ...; a warp's
+// states combine by shuffles down, then (T = 512) the 16 warps' in one
+// warp; mean and rsqrtf(var + eps) (eps in bf16, as torch passes it) are
+// rounded to bf16.  Here a CUDA thread is a virtual thread: T = 512 is a
+// block, T = 32 a warp of a block of 4.  At T = 512 the values come through
+// shared memory, channel-major, `cc` channels at a time, so that each is
+// read from device memory once along the rows (a thread's walk is
+// channel-major, and with P a multiple of 512 a chunk of channels is a run
+// of its steps; the staging takes each channel's min and max); `cc` = 0
+// (T = 32: a row of fewer than 512 values, its sample's 10 KB in L1)
+// reads device memory directly, the walk taking the min and max.  The
+// extremes go to shared memory as order-preserving keys; then each
+// channel's endpoint amax, the sample's
+// and the tensor's (atomicMax on the bits: the order of a max does not
+// matter) and whether any channel's u-interval reaches SiLU's minimum.
+template <int T>
+__global__ void __launch_bounds__(512) norm_moments_kernel(NormArgs a, int cc) {
+  constexpr int kPairs = T == 512 ? 1 : 4;  // T = 32: a block of 4 warps
+  extern __shared__ uint4 dyn[];
+  unsigned* keys = reinterpret_cast<unsigned*>(dyn);  // the pairs' min keys, then their max keys
+  bf16* stage = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(dyn) +
+                                        align16_dev(kPairs * 2 * a.cg * 4));
+  __shared__ Welford partial[16];
+  __shared__ float stat[kPairs][2];
+  __shared__ unsigned pair_max[kPairs];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int local = T == 512 ? 0 : warp, t = T == 512 ? threadIdx.x : lane;
+  const long long pair = static_cast<long long>(blockIdx.x) * kPairs + local;
+  const bool live = pair < a.s * a.g;
+  const long long s = pair / a.g;
+  const int g = static_cast<int>(pair - s * a.g);
+  for (int i = threadIdx.x; i < kPairs * 2 * a.cg; i += blockDim.x)
+    keys[i] = i < kPairs * a.cg ? 0xffffffffu : 0u;
+  if (threadIdx.x < kPairs) pair_max[threadIdx.x] = 0u;
+  unsigned* kmin = keys + local * a.cg;
+  unsigned* kmax = keys + (kPairs + local) * a.cg;
+  const long long d = static_cast<long long>(a.cg) * a.p;
+  const bf16* xg = a.x + s * a.p * a.c + g * a.cg;  // the pair's channels in device memory
+  const bf16* addg = a.add == nullptr ? nullptr : a.add + s * a.c + g * a.cg;
+  Welford w = {0.f, 0.f, 0.f};
+  if (cc == 0) {  // device memory directly
+    __syncthreads();
+    if (live) w = moments_walk<T, true>(a, xg, 1, a.c, addg, t, d, w, kmin, kmax);
+  } else {
+    for (int c0 = 0; c0 < a.cg; c0 += cc) {
+      const int n = min(cc, a.cg - c0);
+      __syncthreads();  // the keys are set, the previous chunk is walked
+      stage_channels(a, s, g * a.cg + c0, n, stage, kmin, kmax, c0);
+      __syncthreads();
+      w = moments_walk<T, false>(a, stage, a.p, 1, nullptr, t, static_cast<long long>(n) * a.p,
+                                 w, kmin, kmax);
+    }
+  }
+  w = welford_warp(w);
+  if (T == 512) {
+    __syncthreads();
+    if (lane == 0) partial[warp] = w;
+    __syncthreads();
+    w = threadIdx.x < 16 ? partial[lane] : Welford{0.f, 0.f, 0.f};
+    if (warp == 0) w = welford_warp(w);
+  }
+  if (t == 0 && live) {
+    const float var = w.m2 / w.nf;
+    const float mean = bf16r(w.mean), rstd = bf16r(rsqrtf(var + bf16r(a.eps)));
+    a.mean[pair] = mean;
+    a.rstd[pair] = rstd;
+    stat[local][0] = mean;
+    stat[local][1] = rstd;
+  }
+  __syncthreads();  // the keys and the statistics are complete
+  int cross = 0;
+  if (live) {
+    for (int c = t; c < a.cg; c += T) {
+      float k, b;
+      int crossing;
+      coeffs(a, stat[local][0], stat[local][1], g * a.cg + c, k, b);
+      const float m = endpoint_amax(k, b, from_key(kmin[c]), from_key(kmax[c]), crossing);
+      atomicMax(&pair_max[local], __float_as_uint(m));
+      cross |= crossing;
+    }
+  }
+  cross = __syncthreads_or(cross);
+  if (t == 0 && live) raise_to(reinterpret_cast<unsigned*>(&a.amax_s[s]), pair_max[local]);
+  if (threadIdx.x == 0) {
+    unsigned m = 0u;
+    for (int i = 0; i < kPairs; ++i) m = max(m, pair_max[i]);
+    raise_to(&a.words[0], m);
+    if (cross) atomicOr(&a.words[1], 1u);
+  }
+}
+
+// 4 bf16 from 8-byte aligned p
+__device__ __forceinline__ uint2 ld64(const bf16* p) { return *reinterpret_cast<const uint2*>(p); }
+
+// y = bf16(silu(bf16(k * v + b))) of 4 values
+__device__ __forceinline__ void chain4(uint2 raw, const float (&d)[4], bool add,
+                                       const float (&k)[4], const float (&b)[4], float (&y)[4],
+                                       const unsigned short* table) {
+  const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v0 = lo_bf(w[h]), v1 = hi_bf(w[h]);
+    if (add) {
+      const uint32_t r = pack_bf16(v0 + d[2 * h], v1 + d[2 * h + 1]);
+      v0 = lo_bf(r);
+      v1 = hi_bf(r);
+    }
+    const uint32_t u = pack_bf16(__fmaf_rn(k[2 * h], v0, b[2 * h]),
+                                 __fmaf_rn(k[2 * h + 1], v1, b[2 * h + 1]));
+    y[2 * h] = __uint_as_float(silu_bits(u & 0xffffu, table) << 16);
+    y[2 * h + 1] = __uint_as_float(silu_bits(u >> 16, table) << 16);
+  }
+}
+
+// 4 values quantized into one 32-bit word (kernel 9's quotient where fast)
+__device__ __forceinline__ uint32_t quantize4(const float (&y)[4], float scale, float inv,
+                                              bool fast) {
+  if (fast) {
+    const uint32_t lo = __byte_perm(q8_magic(y[0], scale, inv), q8_magic(y[1], scale, inv), 0x0040);
+    const uint32_t hi = __byte_perm(q8_magic(y[2], scale, inv), q8_magic(y[3], scale, inv), 0x0040);
+    return __byte_perm(lo, hi, 0x5410);
+  }
+  return q8(y[0], scale) | q8(y[1], scale) << 8 | q8(y[2], scale) << 16 | q8(y[3], scale) << 24;
+}
+
+// The quantize pass (WRITE) or the third pass (max|y| into words[2], only
+// where the endpoints cannot decide it): a wave of blocks, block
+// b walking rows [b * block_rows, (b + 1) * block_rows); one thread 4
+// channels (fixed), rows at once = blockDim / (C / 4), the next row's load
+// in flight under this row's arithmetic.  Few registers a thread, so that
+// many warps hide the loads' latency.
+template <bool WRITE>
+__global__ void __launch_bounds__(1024) norm_apply_kernel(NormArgs a, long long block_rows) {
+  __shared__ float wmax[32];
+  __shared__ unsigned short table[kSiluTable];
+  if (!WRITE && !third_pass_needed(a)) return;
+  fill_silu_table(table);
+  __syncthreads();
+  const int v = a.c / 4, rc = blockDim.x / v;
+  const int t = threadIdx.x, r = t / v, c0 = 4 * (t % v);
+  const long long rows = a.s * a.p;
+  const long long row0 = static_cast<long long>(blockIdx.x) * block_rows;
+  const long long row1 = min(rows, row0 + block_rows);
+  // the 4 channels' groups: g0, and g0 + 1 from channel `split` on (a group holds 4 or more)
+  const int g0 = c0 / a.cg, split = (g0 + 1) * a.cg - c0;
+  float scale = 1.f, inv = 1.f;
+  bool fast = true;
+  if (WRITE) {
+    scale = scale_of(__uint_as_float(third_pass_needed(a) ? a.words[2] : a.words[0]));
+    inv = __frcp_rn(scale);
+    fast = scale >= 7.888609052210118e-31f && scale <= 1.2676506002282294e30f;  // 2^-100, 2^100
+    if (blockIdx.x == 0 && t == 0) a.scale[0] = scale;
+  }
+  const bool has_add = a.add != nullptr;
+  long long s_cur = -1, s = (row0 + r) / a.p, pos = row0 + r - s * a.p;  // the row's sample, position
+  float k[4], b[4], d[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.f;
+  uint2 next = row0 + r < row1 ? ld64(a.x + (row0 + r) * a.c + c0) : make_uint2(0u, 0u);
+  for (long long row = row0 + r; row < row1; row += rc) {
+    const uint2 cur = next;
+    if (row + rc < row1) next = ld64(a.x + (row + rc) * a.c + c0);
+    if (s != s_cur) {
+      s_cur = s;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long sg = s * a.g + g0 + (e >= split);
+        coeffs(a, a.mean[sg], a.rstd[sg], c0 + e, k[e], b[e]);
+      }
+      if (has_add) {
+        const uint2 w = ld64(a.add + s * a.c + c0);
+        d[0] = lo_bf(w.x), d[1] = hi_bf(w.x), d[2] = lo_bf(w.y), d[3] = hi_bf(w.y);
+      }
+      if (WRITE && a.fault == 1) {  // planted: the sample's own amax
+        scale = scale_of(a.amax_s[s]);
+        inv = __frcp_rn(scale);
+        fast = scale >= 7.888609052210118e-31f && scale <= 1.2676506002282294e30f;
+      }
+    }
+    float y[4];
+    chain4(cur, d, has_add, k, b, y, table);
+    if (WRITE) {
+      *reinterpret_cast<uint32_t*>(a.q + row * a.c + c0) = quantize4(y, scale, inv, fast);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m = fmaxf(m, fabsf(y[e]));
+    }
+    for (pos += rc; pos >= a.p; pos -= a.p) ++s;  // no division a row
+  }
+  if (!WRITE) {
+    m = block_max(m, wmax);
+    if (t == 0) {
+      atomicMax(&a.words[2], __float_as_uint(m));
+      if (blockIdx.x == 0) atomicAdd(a.third, 1);
+    }
+  }
+}
+
+// The card's SMs and how many blocks of `threads` of the apply kernel one
+// SM holds, queried once a block size (one device a process).
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+int apply_blocks_per_sm(int threads) {
+  static int cache[1025];
+  int& n = cache[threads];
+  if (n == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, norm_apply_kernel<true>, threads, 0) !=
+            cudaSuccess || n < 1)
+      n = 1;
+  }
+  return n;
+}
+
+long long align16(long long n) { return (n + 15) / 16 * 16; }
+
+// The workspace: words and the samples' amax (zeroed at each launch: the
+// first `zeroed` bytes), then the (S, G) means and rstds.
+long long norm_zeroed(long long s) { return align16(16 + 4 * s); }
+long long norm_workspace(long long s, int g) { return norm_zeroed(s) + 2 * align16(4 * s * g); }
+
+int launch_norm(NormArgs a, void* workspace, cudaStream_t st) {
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  a.words = reinterpret_cast<unsigned*>(ws);
+  a.amax_s = reinterpret_cast<float*>(ws + 16);
+  a.mean = reinterpret_cast<float*>(ws + norm_zeroed(a.s));
+  a.rstd = a.mean + align16(4 * a.s * a.g) / 4;
+  cudaError_t err = cudaMemsetAsync(ws, 0, norm_zeroed(a.s), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // torch's block size for a (sample, group) row of Cg * P values, and the
+  // channels a T = 512 block stages at a time (all of them, or a run of
+  // whole steps: P a multiple of 512), within kStageBytes
+  const long long pairs = a.s * a.g;
+  if (static_cast<long long>(a.cg) * a.p < 512) {
+    norm_moments_kernel<32><<<static_cast<unsigned>((pairs + 3) / 4), 128,
+                              align16_dev(4 * 2 * 4 * a.cg), st>>>(a, 0);
+  } else {
+    int cc = static_cast<int>(kStageBytes / (2 * a.p));  // staged 4 bytes (2 channels) a load
+    cc = a.cg % 2 ? 0 : cc >= a.cg ? a.cg : a.p % 512 == 0 ? cc & ~1 : 0;
+    const size_t smem = align16_dev(2 * 4 * a.cg) + 2 * static_cast<size_t>(cc) * a.p;
+    static bool configured = false;
+    if (!configured) {
+      err = cudaFuncSetAttribute(norm_moments_kernel<512>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kStageBytes + align16_dev(2 * 4 * 1024));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = true;
+    }
+    norm_moments_kernel<512><<<static_cast<unsigned>(pairs), 512, smem, st>>>(a, cc);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the apply passes: one wave of blocks, each a contiguous range of rows
+  const long long rows = a.s * a.p;
+  const int v4 = a.c / 4, threads = v4 * (v4 >= 256 ? 1 : 256 / v4), rows_at_once = threads / v4;
+  const long long slots = static_cast<long long>(sm_count()) * apply_blocks_per_sm(threads);
+  const long long want = (rows + static_cast<long long>(rows_at_once) * kApplyRows - 1) /
+                         (static_cast<long long>(rows_at_once) * kApplyRows);
+  const long long blocks = want < slots ? want : slots;
+  const long long block_rows = (rows + blocks - 1) / blocks;
+  // the third pass: its blocks return at once unless the endpoints cannot decide
+  norm_apply_kernel<false><<<static_cast<unsigned>(blocks), threads, 0, st>>>(a, block_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  norm_apply_kernel<true><<<static_cast<unsigned>(blocks), threads, 0, st>>>(a, block_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 }  // namespace ccedit
@@ -220,4 +808,53 @@ extern "C" int ccedit_quantize_int8(int fp32, int per_row, const void* x, void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return fp32 ? launch<float>(per_row, x, q, scales, amax, rows, groups, len, len_p, st)
               : launch<bf16>(per_row, x, q, scales, amax, rows, groups, len, len_p, st);
+}
+
+// Kernel 8's fused norm form.  s, p, c, g: x's (S, P, C) and the groups.
+// out: (the statistics' block: 32 or 512 threads a (sample, group), as
+// torch's GroupNorm; workspace bytes).  Returns 0; -1 for shapes it does not
+// take.
+extern "C" int ccedit_norm_quantize_plan(long long s, long long p, int c, int g, long long* out) {
+  using namespace ccedit;
+  if (s <= 0 || p <= 0 || c <= 0 || g <= 0 || c % 8 || c % g || c / g < 4 || c > 4096)
+    return -1;
+  out[0] = static_cast<long long>(c / g) * p < 512 ? 32 : 512;
+  out[1] = norm_workspace(s, g);
+  return 0;
+}
+
+// x: contiguous bf16 (S, P, C), 16-byte aligned; add: null or contiguous
+// bf16 (S, C), 16-byte aligned; gamma, beta: null or (C) bf16 (affine_fp32
+// = 0) or fp32; q: int8 (S * P, C); scale: fp32 (1); workspace: the plan's
+// bytes; third: a 32-bit counter of third passes; fault: 0, or a planted
+// fault of the checks (1: each sample quantized with its own amax; 2: the
+// statistics over the first P / 2 positions).  Returns the launches'
+// cudaError_t (0 = success); -1 for arguments it does not take.
+extern "C" int ccedit_norm_silu_quantize(const void* x, const void* add, const void* gamma,
+                                         const void* beta, int affine_fp32, long long s,
+                                         long long p, int c, int g, float eps, void* q,
+                                         void* scale, void* workspace, void* third, int fault,
+                                         void* stream) {
+  using namespace ccedit;
+  if (s <= 0 || p <= 0 || c <= 0 || g <= 0 || c % 8 || c % g || c / g < 4 || c > 4096 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(add) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 8 || fault < 0 || fault > 2)
+    return -1;
+  NormArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.add = static_cast<const bf16*>(add);
+  a.gamma = gamma;
+  a.beta = beta;
+  a.affine_fp32 = affine_fp32;
+  a.s = s;
+  a.p = p;
+  a.c = c;
+  a.g = g;
+  a.cg = c / g;
+  a.eps = eps;
+  a.fault = fault;
+  a.q = static_cast<unsigned char*>(q);
+  a.scale = static_cast<float*>(scale);
+  a.third = static_cast<int*>(third);
+  return launch_norm(a, workspace, static_cast<cudaStream_t>(stream));
 }

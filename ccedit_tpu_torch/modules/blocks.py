@@ -7,6 +7,10 @@ Submodule names follow the sgm state-dict keys (``in_layers.2``,
 ``alpha_temporal1/2``).  Every temporal twin is zero-initialised, so a fresh
 pseudo-3D block computes its 2D function per frame.
 
+Every GroupNorm -> SiLU -> conv chain is a ``NormActConv`` (under W8A8
+kernel 8's fused norm form, the embedding add folded in) but where a
+resample or a scale-shift modulation sits inside it.
+
 Options, as in the JAX blocks: ``use_scale_shift_norm`` (the embedding gives
 a per-channel scale and shift applied after the out norm), ``up`` / ``down``
 (the residual branch resamples between its norm and its conv, the identity
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.video import fold_time, temporal_to_tokens, tokens_to_temporal
-from .layers import QLinear, conv2d, group_norm, temporal_conv
+from .layers import NormActConv, QLinear, conv2d, group_norm, temporal_conv
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -152,11 +156,11 @@ class ResBlock(nn.Module):
         self.use_scale_shift_norm = use_scale_shift_norm
         self.resample = up or down
         self.up = up
-        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(),
-                                       conv2d(channels, out, quant=True))
+        self.in_layers = NormActConv(group_norm(channels), nn.SiLU(),
+                                     conv2d(channels, out, quant=True))
         self.emb_layers = _emb_layers(emb_channels, out, use_scale_shift_norm, skip_t_emb)
-        self.out_layers = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
-                                        conv2d(out, out, zero=True, quant=True))
+        self.out_layers = NormActConv(group_norm(out), nn.SiLU(), nn.Identity(),
+                                      conv2d(out, out, zero=True, quant=True))
         self.skip_connection = (nn.Identity() if out == channels
                                 else _skip_conv(channels, out, use_conv_skip))
 
@@ -171,12 +175,11 @@ class ResBlock(nn.Module):
             emb_out = h.new_zeros((x.shape[0], self.out_channels))
         else:
             emb_out = self.emb_layers(emb)
-        emb_out = emb_out[:, None, None, :]
         if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=-1)
+            scale, shift = emb_out[:, None, None, :].chunk(2, dim=-1)
             h = self.out_layers[1:](self.out_layers[0](h) * (1 + scale) + shift)
         else:
-            h = self.out_layers(h + emb_out)
+            h = self.out_layers(h, add=emb_out)
         return self.skip_connection(x) + h
 
 
@@ -209,16 +212,16 @@ class ResBlock3D(nn.Module):
             self.alpha_temporal2 = nn.Parameter(torch.ones(()))
         else:
             self.alpha_temporal1 = self.alpha_temporal2 = None
-        self.in_layers = nn.Sequential(group_norm(channels), nn.SiLU(),
-                                       conv2d(channels, out, quant=True))
-        self.in_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
-                                                temporal_conv(out, out, k, quant=True))
+        self.in_layers = NormActConv(group_norm(channels), nn.SiLU(),
+                                     conv2d(channels, out, quant=True))
+        self.in_layers_temporal = NormActConv(group_norm(out, temporal=True), nn.SiLU(),
+                                              temporal_conv(out, out, k, quant=True))
         self.emb_layers = _emb_layers(emb_channels, out, use_scale_shift_norm, skip_t_emb)
-        self.out_layers = nn.Sequential(group_norm(out), nn.SiLU(), nn.Identity(),
-                                        conv2d(out, out, zero=True, quant=True))
-        self.out_layers_temporal = nn.Sequential(group_norm(out, temporal=True), nn.SiLU(),
-                                                 nn.Identity(),
-                                                 temporal_conv(out, out, k, quant=True))
+        self.out_layers = NormActConv(group_norm(out), nn.SiLU(), nn.Identity(),
+                                      conv2d(out, out, zero=True, quant=True))
+        self.out_layers_temporal = NormActConv(group_norm(out, temporal=True), nn.SiLU(),
+                                               nn.Identity(),
+                                               temporal_conv(out, out, k, quant=True))
         if out == channels:
             self.skip_connection = None
         else:
@@ -238,6 +241,7 @@ class ResBlock3D(nn.Module):
             emb_out = h.new_zeros((x.shape[0], self.out_channels))
         else:
             emb_out = self.emb_layers(emb)
+        emb_rows = emb_out  # (B, C)
         emb_out = emb_out[:, None, None, None, :]
         scale2 = shift2 = None
         if self.ssn and img_emb is not None:
@@ -258,9 +262,10 @@ class ResBlock3D(nn.Module):
                 h = inject * (1 + scale2) + shift2 if scale2 is not None else inject
             h = spatial_temporal(h, self.out_layers[1:], self.out_layers_temporal,
                                  self.alpha_temporal2)
-        else:
-            h = spatial_temporal(h + emb_out, self.out_layers, self.out_layers_temporal,
-                                 self.alpha_temporal2)
+        else:  # the embedding added inside the out chain, one row a frame
+            add = emb_rows.repeat_interleave(h.shape[1], dim=0)
+            h = spatial_temporal(h, lambda v: self.out_layers(v, add=add),
+                                 self.out_layers_temporal, self.alpha_temporal2)
         if self.skip_connection is None:
             out = identity + h
         else:

@@ -8,7 +8,10 @@ reference sgm names (``weight``, ``bias``).  The JAX package's ``QConv``
 and ``QDense`` (its opt-in W8A8 path, ``ops/quant.py``) are these convs
 built with ``quant=True`` and ``QLinear``: exact unless W8A8 is on; a conv
 or Linear built without the flag (the JAX package's plain ``nn.Conv`` and
-``nn.Dense``) never quantizes.
+``nn.Dense``) never quantizes.  Under W8A8 a GroupNorm -> SiLU -> ``QConv``
+chain (``NormActConv``, ``norm_silu_conv``) hands the conv kernel 8's
+fused norm form (``quant.norm_silu_quantize``: the int8 rows of the SiLU's
+output, no bf16 copy of the norm's or the SiLU's) in place of its input.
 
 Under a spatial clip shard (``parallel/shard.py``: the clip's rows or
 columns split over the ranks) ``Conv2d`` takes halo rows from its
@@ -21,6 +24,7 @@ which every shard keeps whole on one rank, and stays local.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,8 +77,8 @@ class Conv2d(nn.Conv2d):
         self.quant = quant
         self.explicit_pad = explicit_pad
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _w8a8(self):
+    def forward(self, x) -> torch.Tensor:
+        if _w8a8(self):  # x may be a quant.QuantizedActivation (norm_silu_conv)
             pads = self.explicit_pad or tuple((p, p) for p in self.padding)
             return quant.qconv(x, self.weight, self.bias, self.stride, pads)
         if self.explicit_pad is not None:
@@ -105,8 +109,8 @@ class Conv1d(nn.Conv1d):
         super().__init__(*args, **kwargs)
         self.quant = quant
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _w8a8(self):
+    def forward(self, x) -> torch.Tensor:
+        if _w8a8(self):  # x may be a quant.QuantizedActivation (norm_silu_conv)
             return quant.qconv(x, self.weight, self.bias, self.stride,
                                tuple((p, p) for p in self.padding))
         return super().forward(x.transpose(1, 2)).transpose(1, 2)
@@ -195,6 +199,37 @@ class GroupNorm(nn.GroupNorm):
 
 def group_norm(channels: int, eps: float = 1e-5, temporal: bool = False) -> GroupNorm:
     return GroupNorm(32, channels, eps=eps, temporal=temporal)
+
+
+def norm_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv(silu(norm(x + add))), ``add`` (N, C) one value a sample (x's
+    first axis) and channel, or None.  Where ``conv`` runs W8A8 the norm,
+    the SiLU and the conv input's quantization are one launch of kernel 8's
+    fused norm form, the conv reading its int8 rows; otherwise the modules
+    run in turn."""
+    if _w8a8(conv):
+        return conv(quant.norm_silu_quantize(x, norm, add))
+    if add is not None:
+        x = x + quant.sample_addend(x, add)
+    return conv(F.silu(norm(x)))
+
+
+class NormActConv(nn.Sequential):
+    """GroupNorm -> SiLU [-> Identity (dropout)] -> conv, keyed by index as
+    sgm's ``in_layers``/``out_layers`` (``in_layers.0``, ``in_layers.2``):
+    ``norm_silu_conv`` of its first and last modules, ``add`` the ResBlock's
+    embedding.  A slice (``in_layers[:2]``) runs as a plain
+    ``nn.Sequential``."""
+
+    def forward(self, x: torch.Tensor, add: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mods = list(self)
+        if (len(mods) >= 3 and isinstance(mods[0], GroupNorm) and isinstance(mods[1], nn.SiLU)
+                and all(isinstance(m, nn.Identity) for m in mods[2:-1])):
+            return norm_silu_conv(mods[0], mods[-1], x, add)
+        if add is not None:
+            raise ValueError("only a GroupNorm -> SiLU -> conv chain takes an addend")
+        return super().forward(x)
 
 
 class TimeEmbed(nn.Sequential):

@@ -6,9 +6,10 @@ Submodules follow the LDM ``AutoencoderKL`` keys (``encoder.down.{level}.
 block.{i}``, ``encoder.down.{level}.attn.{i}`` at ``attn_resolutions``,
 ``decoder.mid.block_1``, ``quant_conv``, ``post_quant_conv``, ...), so a
 reference ``first_stage_model.`` sub-dict loads with a strict
-``load_state_dict``.  GroupNorm epsilon 1e-6, as in LDM.  Both halves' mid
-blocks hold the single-head d = 512 attention that kernel 3 computes (and,
-in VAE training, kernel 4 differentiates).
+``load_state_dict``.  GroupNorm epsilon 1e-6, as in LDM; each norm -> SiLU
+-> conv is ``norm_silu_conv`` (kernel 8's fused norm form under W8A8).
+Both halves' mid blocks hold the single-head d = 512 attention that kernel
+3 computes (and, in VAE training, kernel 4 differentiates).
 """
 
 from __future__ import annotations
@@ -17,12 +18,11 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
 from .blocks import nearest_upsample_2x
-from .layers import Conv2d, conv2d, group_norm
+from .layers import Conv2d, conv2d, group_norm, norm_silu_conv
 
 
 class VAEResnetBlock(nn.Module):
@@ -32,13 +32,12 @@ class VAEResnetBlock(nn.Module):
         self.conv1 = conv2d(in_channels, out_channels, quant=True)
         self.norm2 = group_norm(out_channels, eps=1e-6)
         self.conv2 = conv2d(out_channels, out_channels, quant=True)
-        self.act = nn.SiLU()
         if out_channels != in_channels:
             self.nin_shortcut = conv2d(in_channels, out_channels, k=1, quant=True)
 
     def forward(self, x):
-        h = self.conv1(self.act(self.norm1(x)))
-        h = self.conv2(self.act(self.norm2(h)))
+        h = norm_silu_conv(self.norm1, self.conv1, x)
+        h = norm_silu_conv(self.norm2, self.conv2, h)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -150,7 +149,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return norm_silu_conv(self.norm_out, self.conv_out, h)
 
 
 class Decoder(nn.Module):
@@ -181,7 +180,7 @@ class Decoder(nn.Module):
             h = self.up[level](h)
             if level:
                 h = self.up[level].upsample(h)
-        return self.conv_out(torch.nn.functional.silu(self.norm_out(h)))
+        return norm_silu_conv(self.norm_out, self.conv_out, h)
 
 
 class DiagonalGaussian:

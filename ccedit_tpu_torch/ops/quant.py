@@ -27,7 +27,13 @@ raises:
 
 * (8) ``quantize_int8`` (``csrc/quantize_int8.cu``): per-row or per-tensor
   amax and quantization into rows zero-padded to 16-byte multiples (the
-  per-tensor amax stays on the device: no host sync);
+  per-tensor amax stays on the device: no host sync); its fused norm form
+  ``norm_silu_quantize``, the per-tensor int8 rows of silu(group_norm(x +
+  add)) in front of each ResBlock conv, from the bf16 activation in two
+  reads and no bf16 GroupNorm or SiLU output (``modules/layers.py``
+  ``norm_silu_conv``, ``NormActConv``); the weights quantized once a
+  version (``quantize_weight`` keeps them beside the parameter: they do not
+  change during an edit);
 * (9) ``gemm_dequant`` (``csrc/int8_gemm.cu``): the int8 product with its
   dequant + bias epilogue (a persistent TMA + wgmma GEMM, tiles from
   ``gemm_tiles``); ``gemm_dequant_bf16a``, its form on the bf16 activation,
@@ -39,9 +45,10 @@ raises:
   from ``conv_tiles``), the same epilogue.
 
 The plain versions compute the int8 products exactly (float64 sums of
-int8 products are integers below 2^53).  ``qlinear`` and ``qconv`` look the
-wrappers (and ``gemm_route``) up at each call, so a caller can swap in the
-plain versions, a planted fault or the other route.  None of the kernels
+int8 products are integers below 2^53).  ``qlinear``, ``qconv`` and the
+layers look the wrappers (``quantize_weight``, ``norm_silu_quantize`` and
+``gemm_route`` too) up at each call, so a caller can swap in the plain
+versions, a planted fault or the other route.  None of the kernels
 replaces a Pallas kernel: the JAX package leaves these products to XLA.
 """
 
@@ -56,6 +63,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import build
 
@@ -224,14 +232,165 @@ quantize_int8.launches = 0
 quantize_int8.variant_launches = collections.Counter()
 
 
-def quantize_weight(weight: torch.Tensor):
-    """A (O, I) Linear or (O, I, *k) conv weight quantized per output
-    channel, in the products' K order: (O, taps * Ip), taps outer, input
-    channels inner, each tap's channels zero-padded to Ip."""
+@dataclasses.dataclass(frozen=True)
+class QuantizedActivation:
+    """A conv input quantized per tensor: int8 rows ``q`` (N * spatial,
+    Cp), the fp32 ``scale`` (1,), the input's channels-last ``shape`` (N,
+    *spatial, C) and ``dtype``.  A ``QConv`` layer (``modules/layers.py``)
+    takes it in place of the activation and skips its own quantization."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def sample_addend(x: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
+    """(S, C) ``add`` as a broadcast over x's (S, ..., C)."""
+    return add.reshape((add.shape[0],) + (1,) * (x.dim() - 2) + (add.shape[-1],))
+
+
+def plain_norm_silu_quantize(x: torch.Tensor, norm, add: Optional[torch.Tensor] = None
+                             ) -> QuantizedActivation:
+    """The unfused chain: ``norm`` (a ``GroupNorm`` module) of x + add
+    (``add`` (S, C), one value a sample and channel, or None), SiLU, then
+    ``plain_quantize_int8`` over the whole tensor."""
+    if add is not None:
+        x = x + sample_addend(x, add)
+    y = F.silu(norm(x))
+    q, scale = plain_quantize_int8(y.reshape(-1, y.shape[-1]), per_row=False)
+    return QuantizedActivation(q, scale, tuple(y.shape), y.dtype)
+
+
+def _third_pass_counter(device) -> torch.Tensor:
+    counter = _THIRD_PASSES.get(device)
+    if counter is None:
+        counter = _THIRD_PASSES[device] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return counter
+
+
+_THIRD_PASSES = {}
+
+
+def third_passes(device) -> int:
+    """How many fused-form launches on ``device`` took their third pass (the
+    amax over the tensor where the channels' extremes could not decide it);
+    reading it waits for the device."""
+    return int(_third_pass_counter(torch.device(device))[0])
+
+
+def norm_silu_quantize(x: torch.Tensor, norm, add: Optional[torch.Tensor] = None,
+                       faults: int = 0) -> QuantizedActivation:
+    """Kernel 8's fused norm form: ``plain_norm_silu_quantize``'s function
+    for a channels-last bf16 x (S, ..., C) whose samples are x's first axis
+    (an image's frames, or a temporal GroupNorm's (h, b, w) rows), ``norm``
+    a ``GroupNorm`` module.  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/quantize_int8.cu``'s fused form (the group
+    statistics in torch's own order and the channels' extremes, then the
+    quantize pass; a third pass only where the extremes cannot decide the
+    amax) or raises: bit for bit the plain version on the card.  Its launch
+    variants say torch's block for the statistics: ``warp`` (32 threads a
+    (sample, group) of fewer than 512 values) or ``block`` (512).
+    ``faults`` plants the checks' faults (1: each sample quantized with its
+    own amax; 2: the statistics over the first half of each sample's
+    positions).  The launch count stays on this function whatever replaces
+    the module's name."""
+    if not x.is_cuda:
+        return plain_norm_silu_quantize(x, norm, add)
+    s, c, g = x.shape[0], x.shape[-1], norm.num_groups
+    p = x.numel() // max(1, s * c)
+    if (x.dtype != torch.bfloat16 or x.dim() < 2 or x.numel() == 0 or c % 16 or c % g
+            or c // g < 4 or c > 4096):
+        raise ValueError(f"norm_silu_quantize takes a bf16 (S, ..., C) x with C <= 4096 a "
+                         f"multiple of 16 and of the {g} groups, 4 channels a group or more; "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if add is not None and (add.dtype != x.dtype or tuple(add.shape) != (s, c)
+                            or add.device != x.device):
+        raise ValueError(f"the addend must be bf16 ({s}, {c}) on {x.device}, got {add.dtype} "
+                         f"{tuple(add.shape)} on {add.device}")
+    affine = [t for t in (norm.weight, norm.bias) if t is not None]
+    if any(t.dtype != affine[0].dtype or t.dtype not in (torch.bfloat16, torch.float32)
+           or t.device != x.device for t in affine):
+        raise ValueError("the GroupNorm's weight and bias must be bf16 or fp32 on the input's "
+                         "device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    if add is not None:
+        add = add.contiguous()
+        if add.data_ptr() % 16:
+            add = add.clone()
+    weight, bias = (None if t is None else t.detach().contiguous() for t in (norm.weight,
+                                                                            norm.bias))
+    plan = (ctypes.c_longlong * 2)()
+    build.launch("ccedit_norm_quantize_plan", s, p, c, g, ctypes.addressof(plan))
+    threads, workspace_bytes = plan[0], plan[1]
+    q = torch.empty((s * p, c), device=x.device, dtype=torch.int8)
+    scale = torch.empty((1,), device=x.device, dtype=torch.float32)
+    workspace = torch.empty((workspace_bytes,), device=x.device, dtype=torch.uint8)
+    build.launch("ccedit_norm_silu_quantize", x.data_ptr(),
+                 0 if add is None else add.data_ptr(),
+                 0 if weight is None else weight.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                 int(bool(affine) and affine[0].dtype == torch.float32), s, p, c, g,
+                 float(norm.eps), q.data_ptr(), scale.data_ptr(), workspace.data_ptr(),
+                 _third_pass_counter(x.device).data_ptr(), faults, build.stream_of(x))
+    _NORM_SILU_QUANTIZE.launches += 1
+    _NORM_SILU_QUANTIZE.variant_launches["block" if threads == 512 else "warp"] += 1
+    return QuantizedActivation(q, scale, tuple(x.shape), x.dtype)
+
+
+_NORM_SILU_QUANTIZE = norm_silu_quantize  # keeps the count whatever replaces the name
+norm_silu_quantize.launches = 0
+norm_silu_quantize.variant_launches = collections.Counter()
+
+
+def _weight_rows(weight: torch.Tensor, dtype: torch.dtype):
+    """A weight as the products read it: (O, taps * I), taps outer, input
+    channels inner, cast to ``dtype``; and its taps."""
     o, i = weight.shape[:2]
     taps = math.prod(weight.shape[2:])
-    rows = weight.permute(0, *range(2, weight.dim()), 1).reshape(o, taps * i)
-    return quantize_int8(rows, per_row=True, groups=taps)
+    rows = weight.detach().to(dtype).permute(0, *range(2, weight.dim()), 1).reshape(o, taps * i)
+    return rows, taps
+
+
+def plain_quantize_weight(weight: torch.Tensor, dtype: Optional[torch.dtype] = None):
+    """``quantize_weight``'s function through ``plain_quantize_int8``, with no
+    cache."""
+    rows, taps = _weight_rows(weight, dtype or weight.dtype)
+    return plain_quantize_int8(rows, True, taps)
+
+
+_WEIGHTS = WeakIdKeyDictionary()  # weight -> (version key, (w8, sw))
+WEIGHT_CACHE = collections.Counter()  # quantize_weight's "hits" and "misses"
+
+
+def quantize_weight(weight: torch.Tensor, dtype: Optional[torch.dtype] = None):
+    """A (O, I) Linear or (O, I, *k) conv weight cast to ``dtype`` (its own
+    by default), then quantized per output channel in the products' K order:
+    (O, taps * Ip), taps outer, input channels inner, each tap's channels
+    zero-padded to Ip (``quantize_int8`` per row).
+
+    Quantized once a version: the result stays beside the tensor, keyed on
+    its ``_version`` (every in-place write bumps it: ``copy_``,
+    ``load_state_dict``, a LoRA merge), storage pointer, dtype, device and
+    shape, and is made again when any of them changes (``.to()`` of a
+    module gives its parameters new storage).  ``WEIGHT_CACHE["hits"]`` and
+    ``["misses"]`` count both outcomes.  An inference tensor has no version
+    counter, so it is refused rather than cached."""
+    dtype = dtype or weight.dtype
+    if weight.is_inference():
+        raise RuntimeError("quantize_weight cannot tell when an inference tensor (made under "
+                           "torch.inference_mode()) changes: load the weights outside it")
+    key = (weight._version, weight.data_ptr(), dtype, weight.device, tuple(weight.shape))
+    entry = _WEIGHTS.get(weight)
+    if entry is not None and entry[0] == key:
+        WEIGHT_CACHE["hits"] += 1
+        return entry[1]
+    rows, taps = _weight_rows(weight, dtype)
+    out = quantize_int8(rows, per_row=True, groups=taps)
+    WEIGHT_CACHE["misses"] += 1
+    _WEIGHTS[weight] = (key, out)
+    return out
 
 
 def plain_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
@@ -486,7 +645,7 @@ def qlinear(x: torch.Tensor, weight: torch.Tensor,
     """A ``QDense``: x (..., C) @ weight (F, C)^T + bias in W8A8, x's dtype
     out."""
     lead, c = x.shape[:-1], x.shape[-1]
-    w8, sw = quantize_weight(weight.to(x.dtype))
+    w8, sw = quantize_weight(weight, x.dtype)
     b = None if bias is None else bias.to(x.dtype)
     if gemm_route(c, w8.shape[0], x.dtype) == "fused":
         y = gemm_dequant_bf16a(x.reshape(-1, c), w8, sw, b, x.dtype)
@@ -496,19 +655,27 @@ def qlinear(x: torch.Tensor, weight: torch.Tensor,
     return y.reshape(*lead, y.shape[-1])
 
 
-def qconv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+def qconv(x, weight: torch.Tensor, bias: Optional[torch.Tensor],
           stride: Sequence[int], padding: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """A ``QConv`` on channels-last x, (N, H, W, C) with a (O, I, kh, kw)
     weight or (N, L, C) with (O, I, k): W8A8 with one activation scale for
-    the whole tensor, x's dtype out.  ``padding``: (lo, hi) a spatial dim."""
-    x4, w4, geom = _to_2d(x, weight, stride, padding)
-    n, h, w, c = x4.shape
-    x8, sx = quantize_int8(x4.reshape(-1, c), per_row=False)
-    w8, sw = quantize_weight(w4.to(x.dtype))
+    the whole tensor, x's dtype out.  ``padding``: (lo, hi) a spatial dim.
+    x may be a ``QuantizedActivation`` (kernel 8's fused norm form made
+    it), whose int8 rows the conv reads as they are."""
+    geom = geometry(weight.shape[2:], stride, padding)
+    if isinstance(x, QuantizedActivation):
+        x8, sx, shape, dtype = x.q, x.scale, x.shape, x.dtype
+    else:
+        shape, dtype = tuple(x.shape), x.dtype
+        x8, sx = quantize_int8(x.reshape(-1, shape[-1]), per_row=False)
+    one_d = weight.dim() == 3
+    n, h, w = (shape[0], shape[1], 1) if one_d else shape[:3]
+    w8, sw = quantize_weight(weight, dtype)
     y = conv_dequant(x8.view(n, h, w, -1), sx, w8, sw,
-                     None if bias is None else bias.to(x.dtype), geom, x.dtype)
-    return y[:, :, 0] if x.dim() == 3 else y
+                     None if bias is None else bias.to(dtype), geom, dtype)
+    return y[:, :, 0] if one_d else y
 
 
-COUNTED = {"quantize_int8": quantize_int8, "int8_gemm_dequant": gemm_dequant,
+COUNTED = {"quantize_int8": quantize_int8, "norm_silu_quantize": norm_silu_quantize,
+           "int8_gemm_dequant": gemm_dequant,
            "int8_gemm_bf16a": gemm_dequant_bf16a, "int8_conv": conv_dequant}

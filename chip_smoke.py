@@ -3586,6 +3586,10 @@ W8A8_LATENT_COSINE = 0.999
 W8A8_KERNELS = (
     dict(name="quantize_int8", source="ccedit_tpu_torch/csrc/quantize_int8.cu",
          replaces="ccedit_tpu/ops/quant.py:61 (XLA in the JAX package, no Pallas kernel)"),
+    dict(name="norm_silu_quantize", source="ccedit_tpu_torch/csrc/quantize_int8.cu",
+         replaces="ccedit_tpu/ops/quant.py:61 per tensor with the GroupNorm and SiLU before "
+                  "each ResBlock QConv (ccedit_tpu/modules/blocks.py:182-194; XLA in the JAX "
+                  "package, no Pallas kernel)"),
     dict(name="int8_gemm_dequant", source="ccedit_tpu_torch/csrc/int8_gemm.cu",
          replaces="ccedit_tpu/ops/quant.py:75 (XLA in the JAX package, no Pallas kernel)"),
     dict(name="int8_gemm_bf16a", source="ccedit_tpu_torch/csrc/int8_gemm.cu",
@@ -3595,6 +3599,33 @@ W8A8_KERNELS = (
          replaces="ccedit_tpu/ops/quant.py:91 (XLA in the JAX package, no Pallas kernel)"),
 )
 W8A8_PATH = "tv2v_int8_umbrella"  # the path whose launches the JSON reports
+W8A8_LAUNCHED = ("quantize_int8", "norm_silu_quantize", "int8_gemm_dequant", "int8_gemm_bf16a",
+                 "int8_conv")  # each W8A8 edit launches every one, no other edit any
+# (a), kernel 8's fused norm form (quant.norm_silu_quantize) against its
+# plain chain (GroupNorm module, SiLU, plain_quantize_int8) at the main
+# path's GroupNorm -> SiLU -> QConv inputs: (label, x shape (S, ..., C),
+# with the ResBlock's embedding add, eps, (gamma, beta) or None for random
+# affine parameters).  The last row's u = gamma * xhat + beta lies on both
+# sides of SiLU's minimum with every |silu| below 0.28: its amax needs the
+# kernel's third pass.
+NORM_SHAPES = (
+    ("level-0 image (+ embedding)", (34, 64, 96, 320), True, 1e-5, None),
+    ("level-0 image 640", (34, 64, 96, 640), False, 1e-5, None),
+    ("level-0 temporal", (12288, 17, 320), False, 1e-5, None),
+    ("level-1 image", (34, 32, 48, 640), True, 1e-5, None),
+    ("level-1 temporal", (3072, 17, 640), False, 1e-5, None),
+    ("level-2 image", (34, 16, 24, 1280), True, 1e-5, None),
+    ("VAE decoder 128", (17, 512, 768, 128), False, 1e-6, None),
+    ("VAE decoder 512", (17, 256, 384, 512), False, 1e-6, None),
+    ("third pass", (8, 64, 96, 320), False, 1e-5, (0.3, -1.3)),
+)
+# its gate against the plain chain: the scale, every int8 code, the share
+# of codes differing, the dequantized values' cosine (the sums run in
+# another order than torch's GroupNorm, so values near a rounding boundary
+# may land one step apart)
+NORM_SCALE_TOLERANCE = 2.0 ** -7
+NORM_CODES_DIFFERING = 1e-3
+NORM_FAULTS = {1: "per-sample amax", 2: "statistics over the first half of the positions"}
 
 
 def w8a8_operands(kind, x_shape, o, kernel, gen, device):
@@ -3823,21 +3854,131 @@ def check_fused_dense(label, x2, w8, sw, bias, ref, ops) -> dict:
                 ms=ms, two_launches_ms=two_ms, plain_ms=plain_ms, library_ms=None, **bound)
 
 
+def norm_operands(shape, add: bool, eps: float, affine, gen, device):
+    """bf16 x with a per-sample spread (0.75-1.25) and a ramp along the
+    positions (-0.5 .. 0.5) over N(0, 1) noise, a GroupNorm(32) with bf16
+    weight 1 + 0.1 N(0, 1) and bias 0.1 N(0, 1) (or the given constants),
+    and an (S, C) addend 0.5 N(0, 1) or None."""
+    import torch
+
+    from ccedit_tpu_torch.modules.layers import GroupNorm
+
+    s, c = shape[0], shape[-1]
+    p = math.prod(shape[1:-1])
+    norm = GroupNorm(32, c, eps=eps, temporal=len(shape) == 3).to(device, torch.bfloat16)
+    with torch.no_grad():
+        if affine is None:
+            norm.weight.copy_(1 + 0.1 * torch.randn((c,), generator=gen, device=device))
+            norm.bias.copy_(0.1 * torch.randn((c,), generator=gen, device=device))
+        else:
+            norm.weight.fill_(affine[0])
+            norm.bias.fill_(affine[1])
+    spread = 0.75 + 0.5 * torch.rand((s, 1, 1), generator=gen, device=device)
+    ramp = torch.linspace(-0.5, 0.5, p, device=device)[None, :, None]
+    x = (torch.randn((s, p, c), generator=gen, device=device) * spread + ramp)
+    x = x.reshape(shape).to(torch.bfloat16)
+    a = (0.5 * torch.randn((s, c), generator=gen, device=device)).to(torch.bfloat16) \
+        if add else None
+    return x, norm, a
+
+
+def norm_gate(qa, ref) -> dict:
+    """The fused form's int8 rows and scale against the plain chain's."""
+    import torch
+
+    diff = (qa.q.to(torch.int16) - ref.q.to(torch.int16)).abs()
+    deq = qa.q.float() * qa.scale
+    deq_ref = ref.q.float() * ref.scale
+    res = dict(scale_rel=abs(qa.scale.item() - ref.scale.item()) / ref.scale.item(),
+               max_code_diff=int(diff.max().item()),
+               codes_differing=diff.count_nonzero().item() / diff.numel(),
+               cosine=cosine(deq, deq_ref), max_abs_err=(deq - deq_ref).abs().max().item())
+    res["passes"] = (res["scale_rel"] <= NORM_SCALE_TOLERANCE and res["max_code_diff"] <= 1
+                     and res["codes_differing"] <= NORM_CODES_DIFFERING
+                     and res["cosine"] >= COSINE)
+    return res
+
+
+def check_norm_shape(label, shape, add, eps, affine, *, gen, device) -> dict:
+    """One row of phase 12 (a) for kernel 8's fused norm form: the gate
+    against the plain chain, both planted faults refused by it, the third
+    pass taken where (and only where) the row needs it; its time beside the
+    unfused chain it replaces (the add, the GroupNorm module, the SiLU, the
+    rows, kernel 8 per tensor) on the same tensors, the plain chain's and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.scripts import roofline
+
+    x, norm, a = norm_operands(shape, add, eps, affine, gen, device)
+    with torch.no_grad():
+        ref = quant.plain_norm_silu_quantize(x, norm, a)
+        before = quant.third_passes(device)
+        gate = norm_gate(quant.norm_silu_quantize(x, norm, a), ref)
+        third = quant.third_passes(device) - before
+        refused = {NORM_FAULTS[f]: norm_gate(quant.norm_silu_quantize(x, norm, a, faults=f), ref)
+                   for f in NORM_FAULTS}
+        del ref
+
+        def unfused():
+            xa = x if a is None else x + quant.sample_addend(x, a)
+            y = F.silu(norm(xa))
+            return quant.quantize_int8(y.reshape(-1, y.shape[-1]), per_row=False)
+
+        ms = cuda_time_ms(lambda: quant.norm_silu_quantize(x, norm, a), 5)
+        unfused_ms = cuda_time_ms(unfused, 5)
+        plain_ms = cuda_time_ms(lambda: quant.plain_norm_silu_quantize(x, norm, a), 1)
+    bound = roofline.norm_quantize_bound(shape, add)
+    print(f"[w8a8] fused norm {label} {shape}{' + addend' if add else ''}: scale rel "
+          f"{gate['scale_rel']:.2e}, codes differing {gate['codes_differing']:.2e} (max "
+          f"{gate['max_code_diff']}), cosine {gate['cosine']:.7f}, third passes {third}; "
+          + "; ".join(f"planted fault ({k}): codes differing {v['codes_differing']:.2e} (max "
+                      f"{v['max_code_diff']}), cosine {v['cosine']:.6f}" for k, v in refused.items())
+          + f"; kernel {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, "
+          f"{100 * bound['bound_ms'] / ms:.1f} %), unfused chain {unfused_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    if not gate["passes"]:
+        raise RuntimeError(f"fused norm {label}: outside its gate against the plain chain: "
+                           f"{gate}")
+    for name, res in refused.items():
+        if res["passes"]:
+            raise RuntimeError(f"fused norm {label}: the gate passes the planted fault ({name}): "
+                               f"{res}")
+    if third != (1 if affine is not None else 0):
+        raise RuntimeError(f"fused norm {label}: {third} third passes")
+    del x, norm, a
+    torch.cuda.empty_cache()
+    return dict(label=label, kind="norm", shape=list(shape), add=add, third_passes=third,
+                faults=refused, ms=ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
+                library_ms=None, **{k: v for k, v in gate.items() if k != "passes"}, **bound)
+
+
 def check_w8a8_kernels(device) -> list:
-    """Phase 12 (a): kernels 8-10 at every shape of W8A8_SHAPES; one JSON
-    record a kernel (the quantizer's times at the first shape's
-    activation, the GEMM's at the first dense shape, the conv's at the
-    first conv shape)."""
+    """Phase 12 (a): kernels 8-10 at every shape of W8A8_SHAPES and kernel
+    8's fused norm form at every shape of NORM_SHAPES; one JSON record a
+    kernel (the quantizer's times at the first shape's activation, the
+    fused norm form's at the first norm shape, the GEMM's at the first
+    dense shape, the conv's at the first conv shape)."""
     import torch
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     rows = [check_w8a8_shape(*spec, gen=gen, device=device) for spec in W8A8_SHAPES]
+    norm_rows = [check_norm_shape(*spec, gen=gen, device=device) for spec in NORM_SHAPES]
     conv = next(r for r in rows if r["kind"] == "conv")
     dense = next(r for r in rows if r["kind"] == "dense")
     records = []
     fused = next(r for r in rows if r["fused"])
     for spec in W8A8_KERNELS:
+        if spec["name"] == "norm_silu_quantize":
+            first = {k: norm_rows[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err")}
+            records.append(dict(name=spec["name"], route="cuda", source=spec["source"],
+                                replaces=spec["replaces"], launches=0, **first, library=None,
+                                shapes=norm_rows))
+            continue
         if spec["name"] == "quantize_int8":
             first = dict(ms=conv["quantize_ms"], plain_ms=conv["quantize_plain_ms"],
                          library_ms=None, bound_ms=conv["quantize_bound_ms"], bound_by="bytes",
@@ -3866,10 +4007,12 @@ def check_w8a8_kernels(device) -> list:
 @contextlib.contextmanager
 def plain_w8a8():
     """The W8A8 layers through the kernels' plain versions on the card
-    (``qlinear``/``qconv`` look the three names up at each call)."""
+    (``qlinear``/``qconv`` and the layers look the names up at each call):
+    the weights quantized at every call, with no cache."""
     from ccedit_tpu_torch.ops import quant
 
-    names = ("quantize_int8", "gemm_dequant", "gemm_dequant_bf16a", "conv_dequant")
+    names = ("quantize_int8", "gemm_dequant", "gemm_dequant_bf16a", "conv_dequant",
+             "norm_silu_quantize", "quantize_weight")
     saved = [getattr(quant, name) for name in names]
     for name in names:
         setattr(quant, name, getattr(quant, f"plain_{name}"))
@@ -3919,8 +4062,8 @@ def weight_scales_per_input_channel():
 
     sound = quant.quantize_weight
 
-    def faulty(weight):
-        w8, sw = sound(weight)
+    def faulty(weight, dtype=None):
+        w8, sw = sound(weight, dtype)
         dims = (0,) + tuple(range(2, weight.dim()))
         amax = weight.float().abs().amax(dim=dims)
         s_in = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
@@ -3936,42 +4079,58 @@ def weight_scales_per_input_channel():
 
 def w8a8_launches(stages) -> dict:
     return {name: sum(c.get(name, 0) for c in stages.values())
-            for name in ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a", "int8_conv",
-                         "quantize_qk")}
+            for name in W8A8_LAUNCHED + ("quantize_qk",)}
+
+
+def weight_quantizations(edit, device, steps: int, seed: int, label: str):
+    """``edit_counted`` with the weight cache's misses and hits counted:
+    (latents, per-stage counts, (misses, hits))."""
+    from ccedit_tpu_torch.ops import quant
+
+    before = quant.WEIGHT_CACHE["misses"], quant.WEIGHT_CACHE["hits"]
+    _, lat, st = edit_counted(edit, device, steps, seed, label)
+    counts = (quant.WEIGHT_CACHE["misses"] - before[0], quant.WEIGHT_CACHE["hits"] - before[1])
+    print(f"[{label}] weight quantizations {counts[0]}, cache hits {counts[1]}", flush=True)
+    return lat, st, counts
 
 
 def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: int) -> dict:
     """Phase 12 (b), on the engine of phase 4 or 5 before it is freed: the
     same edit as ``CCEDIT_QUANT_MATMUL=1`` (W8A8 alone) and ``CCEDIT_INT8=1``
     (W8A8 and the int8 QK^T), then the umbrella edit through the plain
-    versions of kernels 8-10 and with the weight scales read per input
-    channel, and once more with every dense product on the two-launch
-    route (``two_launch_route``), which must give the umbrella edit's final
+    versions of kernels 8-10 (the fused norm form's plain chain, no weight
+    cache) and with the weight scales read per input channel, and once
+    more with every dense product on the two-launch route
+    (``two_launch_route``), which must give the umbrella edit's final
     latents bit for bit (both with cuDNN's deterministic algorithms).
-    Kernels 8-10 (kernel 9 in both forms) must run on both W8A8 edits and
-    not on the exact one; kernel 1c on the umbrella edit only; the umbrella
-    edit's latents must stay within W8A8_LATENT_COSINE of the plain-version
-    edit's, the fault's must not.  Returns the per-stage counts as paths
-    ``path + "_w8a8"`` and ``path + "_int8_umbrella"``."""
+    Kernels 8-10 (kernel 8 in both forms, kernel 9 in both) must run on
+    both W8A8 edits and not on the exact one nor the plain-version one;
+    kernel 1c on the umbrella edit only; the first W8A8 edit quantizes the
+    weights into the cache, the umbrella and two-launch edits after it
+    quantize none; the umbrella edit's latents must stay within
+    W8A8_LATENT_COSINE of the plain-version edit's, the fault's must not.
+    Returns the per-stage counts as paths ``path + "_w8a8"`` and ``path +
+    "_int8_umbrella"``."""
     import torch
 
     from ccedit_tpu_torch.cli.profile_tv2v import int8_environment
 
     t0 = time.perf_counter()
     rows = 2 * steps - 1
-    runs = {}
+    runs, weights = {}, {}
     for mode, env in (("w8a8", {"CCEDIT_QUANT_MATMUL": "1"}),
                       ("int8_umbrella", {"CCEDIT_INT8": "1"})):
         is_umbrella = mode == "int8_umbrella"
         with int8_environment(**env), (deterministic_cudnn() if is_umbrella
                                        else contextlib.nullcontext()):
             t1 = time.perf_counter()
-            _, lat, st = edit_counted(edit, device, steps, seed, f"{path}_{mode}")
+            lat, st, weights[mode] = weight_quantizations(edit, device, steps, seed,
+                                                          f"{path}_{mode}")
             runs[mode] = (lat, st, time.perf_counter() - t1)
             if is_umbrella:
                 with two_launch_route():
-                    _, two_lat, two_st = edit_counted(edit, device, steps, seed,
-                                                      f"{path}_{mode} two launches")
+                    two_lat, two_st, weights["two launches"] = weight_quantizations(
+                        edit, device, steps, seed, f"{path}_{mode} two launches")
                 with plain_w8a8():
                     _, plain_lat, plain_st = edit_counted(edit, device, steps, seed,
                                                           f"{path}_{mode} plain W8A8")
@@ -3983,18 +4142,19 @@ def run_w8a8_edits(path, edit, exact, exact_launches, device, steps: int, seed: 
         print(f"[{path}_{mode}] {secs:.2f} s ({secs / rows:.3f} s a network row of {rows}, "
               f"the edit's stages included), launches {counts}, final latents' cosine to the "
               f"exact edit's {cosine(lat, exact):.6f}", flush=True)
-        if min(counts[k] for k in ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a",
-                                   "int8_conv")) <= 0:
+        if min(counts[k] for k in W8A8_LAUNCHED) <= 0:
             raise RuntimeError(f"the {path} {mode} edit did not launch every W8A8 kernel: {counts}")
         if (counts["quantize_qk"] > 0) != (mode == "int8_umbrella"):
             raise RuntimeError(f"the {path} {mode} edit launched kernel 1c's pre-pass "
                                f"{counts['quantize_qk']} times")
-    w8a8_kernels = ("quantize_int8", "int8_gemm_dequant", "int8_gemm_bf16a", "int8_conv")
     exact_counts = w8a8_launches(exact_launches)
-    if any(exact_counts[k] for k in w8a8_kernels):
+    if any(exact_counts[k] for k in W8A8_LAUNCHED):
         raise RuntimeError(f"the exact {path} edit launched W8A8 kernels: {exact_counts}")
-    if any(w8a8_launches(plain_st)[k] for k in w8a8_kernels):
+    if any(w8a8_launches(plain_st)[k] for k in W8A8_LAUNCHED):
         raise RuntimeError("the plain-version edit launched W8A8 kernels")
+    if weights["w8a8"][0] <= 0 or weights["int8_umbrella"][0] or weights["two launches"][0]:
+        raise RuntimeError(f"the weight cache: quantizations (misses, hits) by edit {weights}: "
+                           f"the first W8A8 edit must fill it, the later ones quantize none")
     umbrella = runs["int8_umbrella"][0]
     two_counts = w8a8_launches(two_st)
     same = bool(torch.equal(two_lat, umbrella))
