@@ -68,11 +68,19 @@ Rank 0 prints the JSON line with the world, the axis, the edit and stage
 seconds, the seconds per row, every rank's peak memory, the busy share of
 rank 0's profile, the device seconds of its NCCL kernels by kind (SendRecv
 is the halos under a height or width split and the all-to-alls under a
-frame split; AllReduce the GroupNorm statistics; AllGather the k/v
+frame split; AllReduce the GroupNorm statistics, and under W8A8 the
+per-tensor amax words; AllGather the k/v
 gathers, and once an edit the latents; Broadcast the centre frame), and
 the collectives a row issues by kind with the bytes rank 0 receives
 (``parallel/shard.py::census``).  NCCL kernel time includes the time a
-rank waits for the others.
+rank waits for the others.  With ``--int8_modes`` too it runs the exact,
+W8A8 and umbrella edits in turns on one engine, each as above, and keeps
+each mode's final latents under ``--out``; a launch beyond one card
+reports each mode's latents' cosine to a one-card launch's of the same
+mode (run ``--nproc_per_node 1`` first with the same ``--out``):
+
+    for n in 1 2 4; do torchrun --nproc_per_node $n -m ccedit_tpu_torch.cli.profile_tv2v \
+        --clip_shard --int8_modes; done
 """
 
 from __future__ import annotations
@@ -403,57 +411,63 @@ def nccl_seconds(kernels: dict, axis: int) -> dict:
     return dict(out)
 
 
-def profile_clip_shard(a, smi: str) -> Optional[dict]:
-    """Time and profile the edit with its sample split over the ranks of a
-    ``torchrun`` launch; rank 0 returns the JSON line, the others None."""
+def _clip_shard_edit(a, edit, device, steps: int, axis: int, out: Path,
+                     latents_name: Optional[str] = None,
+                     exact: Optional[torch.Tensor] = None) -> Optional[dict]:
+    """One split edit, timed after a warm-up, its collectives counted
+    (``census``), then profiled; rank 0 returns its numbers, the others
+    None.  ``latents_name``: rank 0 keeps the final latents beside ``out``
+    by that name and, beyond one card, reports their cosine to the one-card
+    latents of that name (``..._w1.pt``) where a one-card run left them;
+    ``exact``: the same launch's exact latents, whose cosine it reports."""
     import torch.distributed as dist
 
     from ..ops.attention import launch_counts, reset_launch_counts
-    from ..parallel.mesh import init_distributed
-    from ..parallel.sampling import pick_clip_axis
-    from ..parallel.shard import AXES, census
+    from ..parallel.shard import census
 
-    device = init_distributed("cuda")
     rank = dist.get_rank() if dist.is_initialized() else 0
     world = dist.get_world_size() if dist.is_initialized() else 1
-    steps = a.steps or (30 if a.workload == "tv2v" else 50)
-    t, h, w = EDIT_GEOMETRY
-    t = a.frames or t
-    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=t, clip_shard=True)
-    gen = torch.Generator(device=device).manual_seed(a.seed)
-    axis = pick_clip_axis(world, (1, t, h // 8, w // 8, 4))
-
-    edit(1, gen)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
+    edit(1, torch.Generator(device=device).manual_seed(a.seed))  # warm-up
     stages = {}
     torch.cuda.reset_peak_memory_stats(device)
     resident = torch.cuda.memory_allocated(device) / 1e9
     reset_launch_counts()
     with census() as records:
         t0 = time.perf_counter()
-        edit(steps, gen, stage_seconds=stages)
+        _, latents = edit(steps, torch.Generator(device=device).manual_seed(a.seed),
+                          stage_seconds=stages, return_latents=True)
         total = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {k: n for k, n in launch_counts().items() if n}
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     rows = 2 * steps - 1
     per_row = collections.defaultdict(lambda: [0, 0])
     for r in records:
         per_row[r["kind"]][0] += 1
         per_row[r["kind"]][1] += r["bytes"]
-    profile = _profile(lambda: edit(a.profile_steps, gen), Path(a.out) / f"rank{rank}")
+    profile = _profile(lambda: edit(a.profile_steps, torch.Generator(device=device)
+                                    .manual_seed(a.seed)), out / f"rank{rank}")
     peaks = [(peak, resident, total)]
     if dist.is_initialized():
         peaks = [None] * world
         dist.all_gather_object(peaks, (peak, resident, total))
-        dist.destroy_process_group()
     if rank != 0:
         return None
+    cosine = to_exact = None
+    flat = latents.double().flatten().cpu()
+    if exact is not None:
+        to_exact = (flat @ exact / (flat.norm() * exact.norm())).item()
+    if latents_name is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(flat, out.parent / f"{latents_name}_w{world}.pt")
+        one = out.parent / f"{latents_name}_w1.pt"
+        if world > 1 and one.exists():
+            ref = torch.load(one)
+            cosine = (flat @ ref / (flat.norm() * ref.norm())).item()
     p_rows = 2 * a.profile_steps - 1
     nccl = nccl_seconds(profile["nccl_kernels_seconds"], axis)
     return {
-        "gpu": smi, "workload": a.workload, "clip_shard": True, "world": world,
-        "axis": AXES[axis],
-        "quantized_qk": quantized_qk_enabled(), "cfg_scale": cfg_scale,
-        "frames": t, "height": h, "width": w, "steps": steps, "rows": rows,
+        "quantized_qk": quantized_qk_enabled(),
+        "quantized_matmul": quant.quantized_matmul_enabled(),
         "edit_seconds": total, "stage_seconds": stages,
         "sample_seconds_per_row": stages["sample"] / rows,
         "peak_memory_gb_by_rank": [p[0] for p in peaks],
@@ -462,9 +476,54 @@ def profile_clip_shard(a, smi: str) -> Optional[dict]:
         "collectives_per_row": {k: {"count": n / rows, "mb_received": b / rows / 1e6}
                                 for k, (n, b) in sorted(per_row.items())},
         "launches": launches,
+        "latent_cosine_to_one_card": cosine,
+        "latent_cosine_to_exact": to_exact,
+        "latents": flat,
         "nccl_seconds_per_row": {k: v / p_rows for k, v in nccl.items()},
         "profile": dict(profile, steps=a.profile_steps, rows=p_rows),
     }
+
+
+def profile_clip_shard(a, smi: str) -> Optional[dict]:
+    """Time and profile the edit with its sample split over the ranks of a
+    ``torchrun`` launch (with ``--int8_modes`` the exact, W8A8 and umbrella
+    edits in turns, each mode's final latents beside one card's); rank 0
+    returns the JSON line, the others None."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+    from ..parallel.sampling import pick_clip_axis
+    from ..parallel.shard import AXES
+
+    device = init_distributed("cuda")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    steps = a.steps or (30 if a.workload == "tv2v" else 50)
+    t, h, w = EDIT_GEOMETRY
+    t = a.frames or t
+    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=t, clip_shard=True)
+    axis = pick_clip_axis(world, (1, t, h // 8, w // 8, 4))
+    head = {"gpu": smi, "workload": a.workload, "clip_shard": True, "world": world,
+            "axis": AXES[axis], "cfg_scale": cfg_scale, "frames": t, "height": h, "width": w,
+            "steps": steps, "rows": 2 * steps - 1}
+    if a.int8_modes:
+        modes, exact = {}, None
+        for mode, env in INT8_MODES.items():
+            with int8_environment(**env):
+                modes[mode] = _clip_shard_edit(a, edit, device, steps, axis, Path(a.out) / mode,
+                                               f"latents_{a.workload}_t{t}_{mode}", exact)
+            if modes[mode] is not None:
+                modes[mode]["env"] = env
+                latents = modes[mode].pop("latents")
+                exact = latents if exact is None else exact
+        result = dict(head, modes=modes)
+    else:
+        result = dict(head, **(_clip_shard_edit(a, edit, device, steps, axis, Path(a.out))
+                               or {}))
+        result.pop("latents", None)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return result if rank == 0 else None
 
 
 def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) -> dict:

@@ -26,10 +26,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ...io.checkpoint import load_torch_state_dict
+from ...parallel import mesh
 from ..embedders import Embedder, as_float_frames
 from .dpt_midas import DPTHybrid, detect_depth_midas, load_dpt_checkpoint
 from .hed import detect_hed, hed_from_state_dict
@@ -72,9 +74,14 @@ def gradient_pseudo_depth(x: torch.Tensor) -> torch.Tensor:
 
 
 def midas_postprocess(depth: torch.Tensor) -> torch.Tensor:
-    """Clip-global min-max -> clamp -> [-1, 1] -> negate -> 3 channels."""
-    depth = depth - depth.min()
-    depth = depth / torch.clamp(depth.max(), min=1e-8)
+    """Clip-global min-max -> clamp -> [-1, 1] -> negate -> 3 channels.  In a
+    data-parallel training step (``parallel.mesh.data_parallel``) the
+    min and max are the global batch's (MIN and MAX all-reduces over the
+    ranks), as the JAX package's one SPMD step takes them."""
+    lo = mesh.reduce_over_data(depth.min(), dist.ReduceOp.MIN)
+    hi = mesh.reduce_over_data(depth.max(), dist.ReduceOp.MAX)
+    depth = depth - lo
+    depth = depth / torch.clamp(hi - lo, min=1e-8)
     depth = -(depth.clamp(0.0, 1.0) * 2.0 - 1.0)
     return depth[..., None].repeat_interleave(3, dim=-1)
 

@@ -5,7 +5,8 @@
 Architecture, as in the JAX package:
 
 * BiT (ResNetV2) stem + 3 bottleneck stages with weight-standardised convs
-  (biased variance, eps 1e-8) and GroupNorm; the stem conv, the strided 3x3
+  (biased variance, eps 1e-8) and GroupNorm (a bf16 input's statistics and
+  affine map in fp32, as flax keeps them); the stem conv, the strided 3x3
   convs and the stem max-pool use TF-SAME padding, which is asymmetric
   (0, 1) for stride 2 on even sizes, not torch's symmetric padding;
 * ViT-B/16 on the /16 feature map: cls token, position embeddings resized
@@ -68,11 +69,24 @@ class WSConv2d(nn.Conv2d):
                         stride=self.stride)
 
 
+class _GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` whose bf16 (or fp16) input keeps its statistics and
+    affine map in fp32, the output rounded once to the input's dtype, as
+    flax's ``nn.GroupNorm(dtype=...)`` does (torch's own keeps a bf16
+    input's statistics in bf16)."""
+
+    def forward(self, x):
+        if x.dtype not in (torch.bfloat16, torch.float16):
+            return super().forward(x)
+        weight, bias = (None if t is None else t.float() for t in (self.weight, self.bias))
+        return F.group_norm(x.float(), self.num_groups, weight, bias, self.eps).to(x.dtype)
+
+
 class _Stem(nn.Module):
     def __init__(self, width: int, num_groups: int):
         super().__init__()
         self.conv = WSConv2d(3, width, 7, stride=2)
-        self.norm = nn.GroupNorm(num_groups, width, eps=1e-5)
+        self.norm = _GroupNorm(num_groups, width, eps=1e-5)
 
     def forward(self, x):
         x = F.relu(self.norm(self.conv(x)))
@@ -83,7 +97,7 @@ class _Downsample(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, num_groups: int):
         super().__init__()
         self.conv = WSConv2d(cin, cout, 1, stride=stride)
-        self.norm = nn.GroupNorm(num_groups, cout, eps=1e-5)
+        self.norm = _GroupNorm(num_groups, cout, eps=1e-5)
 
     def forward(self, x):
         return self.norm(self.conv(x))
@@ -99,11 +113,11 @@ class BitBottleneck(nn.Module):
         if has_down:
             self.downsample = _Downsample(cin, cout, stride, num_groups)
         self.conv1 = WSConv2d(cin, mid, 1)
-        self.norm1 = nn.GroupNorm(num_groups, mid, eps=1e-5)
+        self.norm1 = _GroupNorm(num_groups, mid, eps=1e-5)
         self.conv2 = WSConv2d(mid, mid, 3, stride=stride)
-        self.norm2 = nn.GroupNorm(num_groups, mid, eps=1e-5)
+        self.norm2 = _GroupNorm(num_groups, mid, eps=1e-5)
         self.conv3 = WSConv2d(mid, cout, 1)
-        self.norm3 = nn.GroupNorm(num_groups, cout, eps=1e-5)
+        self.norm3 = _GroupNorm(num_groups, cout, eps=1e-5)
 
     def forward(self, x):
         shortcut = self.downsample(x) if hasattr(self, "downsample") else x

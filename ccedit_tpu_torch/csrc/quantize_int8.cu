@@ -43,20 +43,32 @@
 // a folded (h, b, w) row of the temporal GroupNorm), P positions, C
 // channels in G groups; `add` an optional (S, C) addend (the ResBlock's
 // embedding), rounded into x in bf16 first, as the plain chain's add does.
-// Each value goes as the plain chain (torch's GroupNorm -> SiLU ->
+// Each value goes as the plain chain (the port's GroupNorm module -> SiLU ->
 // _symmetric_q on the card) computes it, bit for bit:
 //   v = bf16(x + add)
 //   mean, rstd of each (sample, group): torch's CUDA GroupNorm statistics
-//     (RowwiseMomentsCUDAKernel: Welford in its thread order, its reduction
-//     tree, rsqrtf(var + eps), both stored in bf16, the input's dtype)
+//     of the input in fp32 (RowwiseMomentsCUDAKernel: Welford in its thread
+//     order, its reduction tree, rsqrtf(var + eps), all in fp32, as flax
+//     keeps a bf16 GroupNorm's statistics)
 //   k = rstd * gamma;  b = beta - k * mean        (torch's fused parameters)
 //   u = bf16(k * v + b);  y = bf16(u / (1 + exp(-u)))
 //   q = clip(round(y / scale), -127, 127),  scale = max|y| / 127
-// Any other order of the statistics' sums rounds a mean or an rstd to a
-// neighbouring bf16 now and then, which moves a whole group's u by a bf16
-// step; int8 codes flip behind it and the flips cascade through a W8A8
-// network (its edits then decorrelate from the plain chain's as much as
-// W8A8 from exact), so the order is torch's own.
+// Any other order of the statistics' sums moves a mean or an rstd by an ulp
+// now and then, which can flip a u across a bf16 rounding boundary; int8
+// codes flip behind it and the flips cascade through a W8A8 network, so the
+// order is torch's own.  On the card the GroupNorm module itself runs the
+// statistics stage and then writes u (the norm form, ccedit_group_norm), so
+// the fused form is the module's chain by construction.
+//
+// Under a clip shard (the clip's rows split over the ranks) an image
+// GroupNorm's statistics span the ranks: the caller computes each (sample,
+// channel)'s fp32 scale and shift from sums all-reduced over the ranks, and
+// the external-statistics form takes them, u = bf16(bf16(x + add) * scale
+// + shift) as the sharded module computes it (a product, then a sum, each
+// rounded: no fma); it skips the statistics and keeps the extremes.  Every
+// form under a shard runs in two stages: up to the local amax (the word
+// words[3]), which the caller MAX all-reduces over the ranks (a
+// non-negative fp32 orders as its bits), then the quantize pass with it.
 //
 // What bounds it: the statistics follow torch's order, in which a thread
 // walks a group channel by channel, each channel's positions T apart, a
@@ -81,8 +93,8 @@
 // shared-memory table of every bf16 input between 2^-10 and 2^5 (built by
 // the block from the formula), int8 by kernel 9's quotient (a reciprocal,
 // two Markstein corrections, a magic-number rounding).  The stages stay apart
-// (statistics, amax word, quantize), so a sharded run can all-reduce the
-// amax between them.
+// (statistics, amax word, quantize), so a sharded run all-reduces the amax
+// between them; the per-tensor mode likewise (ccedit_quantize_int8's stages).
 #include "attention_common.cuh"
 
 namespace ccedit {
@@ -221,9 +233,32 @@ tensor_quantize_kernel(const T* __restrict__ x, unsigned char* __restrict__ q,
   if (i == 0) scales[0] = scale;
 }
 
+// the per-tensor amax into the word `amax` (zeroed first)
 template <typename T>
-int launch(int per_row, const void* x_, void* q_, void* scales_, void* amax_, long long rows,
-           int groups, int len, int len_p, cudaStream_t st) {
+int tensor_amax(const T* x, unsigned* amax, long long n, bool vec, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units = vec ? n / 16 : n;
+  const long long want = (units + kThreads * 16LL - 1) / (kThreads * 16LL);
+  const unsigned blocks = static_cast<unsigned>(want < 1 ? 1 : (want > 65536 ? 65536 : want));
+  tensor_amax_kernel<T><<<blocks, kThreads, 0, st>>>(x, amax, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int tensor_quantize(const T* x, unsigned char* q, const unsigned* amax, float* scales,
+                    long long rows, int len, int len_p, bool vec, cudaStream_t st) {
+  const long long vectors = rows * (len_p / 16);
+  tensor_quantize_kernel<T><<<static_cast<unsigned>((vectors + kThreads - 1) / kThreads), kThreads,
+                              0, st>>>(x, q, amax, scales, rows, len, len_p, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// per_row, or per tensor in `stages` (1: the amax into the word, 2: the
+// quantize pass reading it, 3: both)
+template <typename T>
+int launch(int per_row, int stages, const void* x_, void* q_, void* scales_, void* amax_,
+           long long rows, int groups, int len, int len_p, cudaStream_t st) {
   const T* x = static_cast<const T*>(x_);
   unsigned char* q = static_cast<unsigned char*>(q_);
   float* scales = static_cast<float*>(scales_);
@@ -235,18 +270,12 @@ int launch(int per_row, const void* x_, void* q_, void* scales_, void* amax_, lo
     return static_cast<int>(cudaGetLastError());
   }
   unsigned* amax = static_cast<unsigned*>(amax_);
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = rows * len, units = vec ? n / 16 : n;
-  const long long want = (units + kThreads * 16LL - 1) / (kThreads * 16LL);
-  const unsigned blocks = static_cast<unsigned>(want < 1 ? 1 : (want > 65536 ? 65536 : want));
-  tensor_amax_kernel<T><<<blocks, kThreads, 0, st>>>(x, amax, n, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vectors = rows * (len_p / 16);
-  tensor_quantize_kernel<T><<<static_cast<unsigned>((vectors + kThreads - 1) / kThreads), kThreads,
-                              0, st>>>(x, q, amax, scales, rows, len, len_p, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (stages & 1) {
+    const int err = tensor_amax<T>(x, amax, rows * len, vec, st);
+    if (err != 0) return err;
+  }
+  if (stages & 2) return tensor_quantize<T>(x, q, amax, scales, rows, len, len_p, vec, st);
+  return 0;
 }
 
 // ---- the fused norm form ----
@@ -266,14 +295,19 @@ struct NormArgs {
   int c, g, cg;
   float eps;
   int fault;         // 1: each sample quantized with its own amax; 2: statistics over P / 2
+  const float* ext_scale;  // (S, C) or null: u = bf16(v * scale + shift), the statistics
+  const float* ext_shift;  // computed outside (over a clip shard's ranks)
+  int extremes;      // track each channel's min and max for the amax (not the norm form)
+  int global;        // the quantize pass reads its amax from words[3] (a caller's all-reduce)
   unsigned char* q;  // (S * P, C)
   float* scale;      // (1)
+  bf16* out;         // (S * P, C): the norm form's GroupNorm output
   // workspace
   unsigned* words;   // [0] endpoint amax bits, [1] a channel reaches SiLU's minimum,
-                     // [2] the third pass's amax bits
+                     // [2] the third pass's amax bits, [3] the local amax (staged form)
   float* amax_s;     // (S) each sample's endpoint amax
-  float* mean;       // (S, G), bf16 values
-  float* rstd;       // (S, G), bf16 values
+  float* mean;       // (S, G)
+  float* rstd;       // (S, G)
   int* third;        // third passes taken (cumulative)
 };
 
@@ -300,6 +334,25 @@ __device__ __forceinline__ void coeffs(const NormArgs& a, float mean, float rstd
                                        float& b) {
   k = __fmul_rn(rstd, affine(a.gamma, a.affine_fp32, c, 1.f));
   b = __fmaf_rn(-k, mean, affine(a.beta, a.affine_fp32, c, 0.f));
+}
+
+// channel c of sample s: (k, b) from the group statistics, or the external
+// scale and shift
+__device__ __forceinline__ void coeffs_of(const NormArgs& a, long long s, int c, float mean,
+                                          float rstd, float& k, float& b) {
+  if (a.ext_scale != nullptr) {
+    k = a.ext_scale[s * a.c + c];
+    b = a.ext_shift[s * a.c + c];
+  } else {
+    coeffs(a, mean, rstd, c, k, b);
+  }
+}
+
+// u before its rounding to bf16: one fma, or (external statistics) the
+// sharded GroupNorm's product then sum, each rounded (no fma)
+template <bool EXT>
+__device__ __forceinline__ float affine_u(float k, float v, float b) {
+  return EXT ? __fadd_rn(__fmul_rn(v, k), b) : __fmaf_rn(k, v, b);
 }
 
 // torch's SiLU in fp32 (an accurate exp, a true quotient)
@@ -370,8 +423,9 @@ __device__ float block_max(float m, float* w) {
 // The endpoint amax of channel c (u = bf16(k v + b) over v in [lo, hi]):
 // the larger |y| at the two ends; `cross` whether the u-interval reaches
 // SiLU's minimum (kSiluWindow), where |y| may peak inside it.
+template <bool EXT>
 __device__ __forceinline__ float endpoint_amax(float k, float b, float lo, float hi, int& cross) {
-  const float u_lo = bf16r(__fmaf_rn(k, lo, b)), u_hi = bf16r(__fmaf_rn(k, hi, b));
+  const float u_lo = bf16r(affine_u<EXT>(k, lo, b)), u_hi = bf16r(affine_u<EXT>(k, hi, b));
   cross = fminf(u_lo, u_hi) <= kSiluWindowHi && fmaxf(u_lo, u_hi) >= kSiluWindowLo;
   return fmaxf(fabsf(bf16r(silu(u_lo))), fabsf(bf16r(silu(u_hi))));
 }
@@ -509,8 +563,10 @@ __device__ __forceinline__ void stage_channels(const NormArgs& a, long long s, i
     stage[(2 * w + 1) * pp + p] = __float2bfloat16_rn(v1);
     lo0 = fminf(lo0, v0), hi0 = fmaxf(hi0, v0), lo1 = fminf(lo1, v1), hi1 = fmaxf(hi1, v1);
   }
-  flush_minmax(kmin, kmax, k0 + 2 * w, lo0, hi0);
-  flush_minmax(kmin, kmax, k0 + 2 * w + 1, lo1, hi1);
+  if (a.extremes) {
+    flush_minmax(kmin, kmax, k0 + 2 * w, lo0, hi0);
+    flush_minmax(kmin, kmax, k0 + 2 * w + 1, lo1, hi1);
+  }
 }
 
 // The statistics, in torch's own order (RowwiseMomentsCUDAKernel, torch's
@@ -518,8 +574,9 @@ __device__ __forceinline__ void stage_channels(const NormArgs& a, long long s, i
 // v(c, p) in channels-first order, j = c * P + p; T virtual threads (512,
 // or 32 where D < 512) each run Welford over j = t, t + T, ...; a warp's
 // states combine by shuffles down, then (T = 512) the 16 warps' in one
-// warp; mean and rsqrtf(var + eps) (eps in bf16, as torch passes it) are
-// rounded to bf16.  Here a CUDA thread is a virtual thread: T = 512 is a
+// warp; mean and rsqrtf(var + eps) stay in fp32 (torch's fp32 GroupNorm, as
+// the port runs a bf16 input's: flax keeps a bf16 GroupNorm's statistics in
+// fp32).  Here a CUDA thread is a virtual thread: T = 512 is a
 // block, T = 32 a warp of a block of 4.  At T = 512 the values come through
 // shared memory, channel-major, `cc` channels at a time, so that each is
 // read from device memory once along the rows (a thread's walk is
@@ -531,7 +588,10 @@ __device__ __forceinline__ void stage_channels(const NormArgs& a, long long s, i
 // channel's endpoint amax, the sample's
 // and the tensor's (atomicMax on the bits: the order of a max does not
 // matter) and whether any channel's u-interval reaches SiLU's minimum.
-template <int T>
+// With external statistics (EXT: a clip shard's, summed over the ranks)
+// the Welford walk is skipped where the staging takes the extremes; without
+// `extremes` (the norm form) only the statistics are made.
+template <int T, bool EXT>
 __global__ void __launch_bounds__(512) norm_moments_kernel(NormArgs a, int cc) {
   constexpr int kPairs = T == 512 ? 1 : 4;  // T = 32: a block of 4 warps
   extern __shared__ uint4 dyn[];
@@ -558,15 +618,17 @@ __global__ void __launch_bounds__(512) norm_moments_kernel(NormArgs a, int cc) {
   Welford w = {0.f, 0.f, 0.f};
   if (cc == 0) {  // device memory directly
     __syncthreads();
-    if (live) w = moments_walk<T, true>(a, xg, 1, a.c, addg, t, d, w, kmin, kmax);
+    if (live && a.extremes) w = moments_walk<T, true>(a, xg, 1, a.c, addg, t, d, w, kmin, kmax);
+    else if (live && !EXT) w = moments_walk<T, false>(a, xg, 1, a.c, addg, t, d, w, kmin, kmax);
   } else {
     for (int c0 = 0; c0 < a.cg; c0 += cc) {
       const int n = min(cc, a.cg - c0);
       __syncthreads();  // the keys are set, the previous chunk is walked
       stage_channels(a, s, g * a.cg + c0, n, stage, kmin, kmax, c0);
       __syncthreads();
-      w = moments_walk<T, false>(a, stage, a.p, 1, nullptr, t, static_cast<long long>(n) * a.p,
-                                 w, kmin, kmax);
+      if (!EXT)
+        w = moments_walk<T, false>(a, stage, a.p, 1, nullptr, t,
+                                   static_cast<long long>(n) * a.p, w, kmin, kmax);
     }
   }
   w = welford_warp(w);
@@ -577,22 +639,23 @@ __global__ void __launch_bounds__(512) norm_moments_kernel(NormArgs a, int cc) {
     w = threadIdx.x < 16 ? partial[lane] : Welford{0.f, 0.f, 0.f};
     if (warp == 0) w = welford_warp(w);
   }
-  if (t == 0 && live) {
+  if (t == 0 && live && !EXT) {
     const float var = w.m2 / w.nf;
-    const float mean = bf16r(w.mean), rstd = bf16r(rsqrtf(var + bf16r(a.eps)));
+    const float mean = w.mean, rstd = rsqrtf(var + a.eps);
     a.mean[pair] = mean;
     a.rstd[pair] = rstd;
     stat[local][0] = mean;
     stat[local][1] = rstd;
   }
   __syncthreads();  // the keys and the statistics are complete
+  if (!a.extremes) return;  // the norm form: the statistics alone
   int cross = 0;
   if (live) {
     for (int c = t; c < a.cg; c += T) {
       float k, b;
       int crossing;
-      coeffs(a, stat[local][0], stat[local][1], g * a.cg + c, k, b);
-      const float m = endpoint_amax(k, b, from_key(kmin[c]), from_key(kmax[c]), crossing);
+      coeffs_of(a, s, g * a.cg + c, stat[local][0], stat[local][1], k, b);
+      const float m = endpoint_amax<EXT>(k, b, from_key(kmin[c]), from_key(kmax[c]), crossing);
       atomicMax(&pair_max[local], __float_as_uint(m));
       cross |= crossing;
     }
@@ -610,11 +673,12 @@ __global__ void __launch_bounds__(512) norm_moments_kernel(NormArgs a, int cc) {
 // 4 bf16 from 8-byte aligned p
 __device__ __forceinline__ uint2 ld64(const bf16* p) { return *reinterpret_cast<const uint2*>(p); }
 
-// y = bf16(silu(bf16(k * v + b))) of 4 values
-__device__ __forceinline__ void chain4(uint2 raw, const float (&d)[4], bool add,
-                                       const float (&k)[4], const float (&b)[4], float (&y)[4],
-                                       const unsigned short* table) {
+// u = bf16(k * v + b) of 4 values, two bf16 a word
+template <bool EXT>
+__device__ __forceinline__ uint2 norm4(uint2 raw, const float (&d)[4], bool add,
+                                       const float (&k)[4], const float (&b)[4]) {
   const uint32_t w[2] = {raw.x, raw.y};
+  uint32_t u[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float v0 = lo_bf(w[h]), v1 = hi_bf(w[h]);
@@ -623,10 +687,19 @@ __device__ __forceinline__ void chain4(uint2 raw, const float (&d)[4], bool add,
       v0 = lo_bf(r);
       v1 = hi_bf(r);
     }
-    const uint32_t u = pack_bf16(__fmaf_rn(k[2 * h], v0, b[2 * h]),
-                                 __fmaf_rn(k[2 * h + 1], v1, b[2 * h + 1]));
-    y[2 * h] = __uint_as_float(silu_bits(u & 0xffffu, table) << 16);
-    y[2 * h + 1] = __uint_as_float(silu_bits(u >> 16, table) << 16);
+    u[h] = pack_bf16(affine_u<EXT>(k[2 * h], v0, b[2 * h]),
+                     affine_u<EXT>(k[2 * h + 1], v1, b[2 * h + 1]));
+  }
+  return make_uint2(u[0], u[1]);
+}
+
+// y = bf16(silu(u)) of the 4 values of norm4
+__device__ __forceinline__ void silu4(uint2 u, float (&y)[4], const unsigned short* table) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    y[2 * h] = __uint_as_float(silu_bits(w[h] & 0xffffu, table) << 16);
+    y[2 * h + 1] = __uint_as_float(silu_bits(w[h] >> 16, table) << 16);
   }
 }
 
@@ -641,18 +714,29 @@ __device__ __forceinline__ uint32_t quantize4(const float (&y)[4], float scale, 
   return q8(y[0], scale) | q8(y[1], scale) << 8 | q8(y[2], scale) << 16 | q8(y[3], scale) << 24;
 }
 
-// The quantize pass (WRITE) or the third pass (max|y| into words[2], only
-// where the endpoints cannot decide it): a wave of blocks, block
-// b walking rows [b * block_rows, (b + 1) * block_rows); one thread 4
+// The apply passes' modes: the third pass (max|y| into words[2], only where
+// the endpoints cannot decide it), the quantize pass, and the norm form's
+// output u
+enum ApplyMode { kThird = 0, kQuantize = 1, kNormOut = 2 };
+
+// The resolved amax of the staged form: the third pass's where it ran, else
+// the endpoints', into words[3] for the caller's all-reduce
+__global__ void resolve_amax_kernel(NormArgs a) {
+  a.words[3] = third_pass_needed(a) ? a.words[2] : a.words[0];
+}
+
+// An apply pass (MODE; EXT: external statistics): a wave of blocks, block b
+// walking rows [b * block_rows, (b + 1) * block_rows); one thread 4
 // channels (fixed), rows at once = blockDim / (C / 4), the next row's load
 // in flight under this row's arithmetic.  Few registers a thread, so that
 // many warps hide the loads' latency.
-template <bool WRITE>
+template <int MODE, bool EXT>
 __global__ void __launch_bounds__(1024) norm_apply_kernel(NormArgs a, long long block_rows) {
+  constexpr bool WRITE = MODE == kQuantize;
   __shared__ float wmax[32];
-  __shared__ unsigned short table[kSiluTable];
-  if (!WRITE && !third_pass_needed(a)) return;
-  fill_silu_table(table);
+  __shared__ unsigned short table[MODE == kNormOut ? 1 : kSiluTable];
+  if (MODE == kThird && !third_pass_needed(a)) return;
+  if (MODE != kNormOut) fill_silu_table(table);
   __syncthreads();
   const int v = a.c / 4, rc = blockDim.x / v;
   const int t = threadIdx.x, r = t / v, c0 = 4 * (t % v);
@@ -664,7 +748,9 @@ __global__ void __launch_bounds__(1024) norm_apply_kernel(NormArgs a, long long 
   float scale = 1.f, inv = 1.f;
   bool fast = true;
   if (WRITE) {
-    scale = scale_of(__uint_as_float(third_pass_needed(a) ? a.words[2] : a.words[0]));
+    scale = scale_of(__uint_as_float(a.global            ? a.words[3]
+                                     : third_pass_needed(a) ? a.words[2]
+                                                            : a.words[0]));
     inv = __frcp_rn(scale);
     fast = scale >= 7.888609052210118e-31f && scale <= 1.2676506002282294e30f;  // 2^-100, 2^100
     if (blockIdx.x == 0 && t == 0) a.scale[0] = scale;
@@ -681,7 +767,8 @@ __global__ void __launch_bounds__(1024) norm_apply_kernel(NormArgs a, long long 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const long long sg = s * a.g + g0 + (e >= split);
-        coeffs(a, a.mean[sg], a.rstd[sg], c0 + e, k[e], b[e]);
+        if (EXT) coeffs_of(a, s, c0 + e, 0.f, 0.f, k[e], b[e]);
+        else coeffs(a, a.mean[sg], a.rstd[sg], c0 + e, k[e], b[e]);
       }
       if (has_add) {
         const uint2 w = ld64(a.add + s * a.c + c0);
@@ -693,17 +780,22 @@ __global__ void __launch_bounds__(1024) norm_apply_kernel(NormArgs a, long long 
         fast = scale >= 7.888609052210118e-31f && scale <= 1.2676506002282294e30f;
       }
     }
-    float y[4];
-    chain4(cur, d, has_add, k, b, y, table);
-    if (WRITE) {
-      *reinterpret_cast<uint32_t*>(a.q + row * a.c + c0) = quantize4(y, scale, inv, fast);
+    const uint2 u = norm4<EXT>(cur, d, has_add, k, b);
+    if (MODE == kNormOut) {
+      *reinterpret_cast<uint2*>(a.out + row * a.c + c0) = u;
     } else {
+      float y[4];
+      silu4(u, y, table);
+      if (WRITE) {
+        *reinterpret_cast<uint32_t*>(a.q + row * a.c + c0) = quantize4(y, scale, inv, fast);
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) m = fmaxf(m, fabsf(y[e]));
+        for (int e = 0; e < 4; ++e) m = fmaxf(m, fabsf(y[e]));
+      }
     }
     for (pos += rc; pos >= a.p; pos -= a.p) ++s;  // no division a row
   }
-  if (!WRITE) {
+  if (MODE == kThird) {
     m = block_max(m, wmax);
     if (t == 0) {
       atomicMax(&a.words[2], __float_as_uint(m));
@@ -728,7 +820,8 @@ int apply_blocks_per_sm(int threads) {
   static int cache[1025];
   int& n = cache[threads];
   if (n == 0) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, norm_apply_kernel<true>, threads, 0) !=
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, norm_apply_kernel<kQuantize, false>,
+                                                      threads, 0) !=
             cudaSuccess || n < 1)
       n = 1;
   }
@@ -742,38 +835,35 @@ long long align16(long long n) { return (n + 15) / 16 * 16; }
 long long norm_zeroed(long long s) { return align16(16 + 4 * s); }
 long long norm_workspace(long long s, int g) { return norm_zeroed(s) + 2 * align16(4 * s * g); }
 
-int launch_norm(NormArgs a, void* workspace, cudaStream_t st) {
-  unsigned char* ws = static_cast<unsigned char*>(workspace);
-  a.words = reinterpret_cast<unsigned*>(ws);
-  a.amax_s = reinterpret_cast<float*>(ws + 16);
-  a.mean = reinterpret_cast<float*>(ws + norm_zeroed(a.s));
-  a.rstd = a.mean + align16(4 * a.s * a.g) / 4;
-  cudaError_t err = cudaMemsetAsync(ws, 0, norm_zeroed(a.s), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // torch's block size for a (sample, group) row of Cg * P values, and the
-  // channels a T = 512 block stages at a time (all of them, or a run of
-  // whole steps: P a multiple of 512), within kStageBytes
+// The statistics kernel at torch's block size for a (sample, group) row of
+// Cg * P values, and the channels a T = 512 block stages at a time (all of
+// them, or a run of whole steps: P a multiple of 512), within kStageBytes
+template <bool EXT>
+int launch_moments(const NormArgs& a, cudaStream_t st) {
   const long long pairs = a.s * a.g;
   if (static_cast<long long>(a.cg) * a.p < 512) {
-    norm_moments_kernel<32><<<static_cast<unsigned>((pairs + 3) / 4), 128,
-                              align16_dev(4 * 2 * 4 * a.cg), st>>>(a, 0);
+    norm_moments_kernel<32, EXT><<<static_cast<unsigned>((pairs + 3) / 4), 128,
+                                   align16_dev(4 * 2 * 4 * a.cg), st>>>(a, 0);
   } else {
     int cc = static_cast<int>(kStageBytes / (2 * a.p));  // staged 4 bytes (2 channels) a load
     cc = a.cg % 2 ? 0 : cc >= a.cg ? a.cg : a.p % 512 == 0 ? cc & ~1 : 0;
     const size_t smem = align16_dev(2 * 4 * a.cg) + 2 * static_cast<size_t>(cc) * a.p;
     static bool configured = false;
     if (!configured) {
-      err = cudaFuncSetAttribute(norm_moments_kernel<512>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kStageBytes + align16_dev(2 * 4 * 1024));
+      const cudaError_t err = cudaFuncSetAttribute(norm_moments_kernel<512, EXT>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   kStageBytes + align16_dev(2 * 4 * 1024));
       if (err != cudaSuccess) return static_cast<int>(err);
       configured = true;
     }
-    norm_moments_kernel<512><<<static_cast<unsigned>(pairs), 512, smem, st>>>(a, cc);
+    norm_moments_kernel<512, EXT><<<static_cast<unsigned>(pairs), 512, smem, st>>>(a, cc);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the apply passes: one wave of blocks, each a contiguous range of rows
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An apply pass over the rows: one wave of blocks, each a contiguous range
+template <int MODE, bool EXT>
+int launch_apply(const NormArgs& a, cudaStream_t st) {
   const long long rows = a.s * a.p;
   const int v4 = a.c / 4, threads = v4 * (v4 >= 256 ? 1 : 256 / v4), rows_at_once = threads / v4;
   const long long slots = static_cast<long long>(sm_count()) * apply_blocks_per_sm(threads);
@@ -781,12 +871,51 @@ int launch_norm(NormArgs a, void* workspace, cudaStream_t st) {
                          (static_cast<long long>(rows_at_once) * kApplyRows);
   const long long blocks = want < slots ? want : slots;
   const long long block_rows = (rows + blocks - 1) / blocks;
-  // the third pass: its blocks return at once unless the endpoints cannot decide
-  norm_apply_kernel<false><<<static_cast<unsigned>(blocks), threads, 0, st>>>(a, block_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  norm_apply_kernel<true><<<static_cast<unsigned>(blocks), threads, 0, st>>>(a, block_rows);
+  norm_apply_kernel<MODE, EXT><<<static_cast<unsigned>(blocks), threads, 0, st>>>(a, block_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch stages: kAll the fused form whole; kLocalAmax its statistics
+// (or the external ones' extremes), the third pass where needed and the
+// resolved local amax in words[3]; kQuantizeGlobal the quantize pass with
+// the amax words[3] holds (after the caller's all-reduce, on the
+// workspace kLocalAmax filled); kNorm the norm form (statistics, then u).
+enum Stage { kAll = 0, kLocalAmax = 1, kQuantizeGlobal = 2, kNorm = 3 };
+
+template <bool EXT>
+int launch_norm_stages(NormArgs a, int stage, cudaStream_t st) {
+  int err = 0;
+  if (stage != kQuantizeGlobal) {
+    err = launch_moments<EXT>(a, st);
+    if (err != 0) return err;
+  }
+  if (stage == kNorm) return launch_apply<kNormOut, false>(a, st);
+  if (stage == kAll || stage == kLocalAmax) {
+    // the third pass: its blocks return at once unless the endpoints cannot decide
+    err = launch_apply<kThird, EXT>(a, st);
+    if (err != 0) return err;
+  }
+  if (stage == kLocalAmax) {
+    resolve_amax_kernel<<<1, 1, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  a.global = stage == kQuantizeGlobal;
+  return launch_apply<kQuantize, EXT>(a, st);
+}
+
+int launch_norm(NormArgs a, void* workspace, int stage, cudaStream_t st) {
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  a.words = reinterpret_cast<unsigned*>(ws);
+  a.amax_s = reinterpret_cast<float*>(ws + 16);
+  a.mean = reinterpret_cast<float*>(ws + norm_zeroed(a.s));
+  a.rstd = a.mean + align16(4 * a.s * a.g) / 4;
+  a.extremes = stage != kNorm;
+  if (stage != kQuantizeGlobal) {
+    const cudaError_t err = cudaMemsetAsync(ws, 0, norm_zeroed(a.s), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return a.ext_scale != nullptr ? launch_norm_stages<true>(a, stage, st)
+                                : launch_norm_stages<false>(a, stage, st);
 }
 
 }  // namespace
@@ -796,18 +925,21 @@ int launch_norm(NormArgs a, void* workspace, cudaStream_t st) {
 // Kernel 8.  x: contiguous (rows, groups * len), bf16 (fp32 = 0) or fp32;
 // q: contiguous int8 (rows, groups * len_p); scales: fp32 (rows) per row or
 // (1) per tensor; amax: one 32-bit word of scratch (per tensor; zeroed
-// here).  Per tensor takes groups = 1.  Returns the launches' cudaError_t
+// here).  Per tensor takes groups = 1 and runs `stages`: 1 writes the
+// tensor's amax (its fp32 bits) into the word, 2 quantizes with the amax the
+// word then holds, 3 both (a sharded tensor's caller all-reduces the word
+// between 1 and 2); per row takes 3.  Returns the launches' cudaError_t
 // (0 = success); -1 for arguments it does not take.
-extern "C" int ccedit_quantize_int8(int fp32, int per_row, const void* x, void* q, void* scales,
-                                    void* amax, long long rows, int groups, int len, int len_p,
-                                    void* stream) {
+extern "C" int ccedit_quantize_int8(int fp32, int per_row, int stages, const void* x, void* q,
+                                    void* scales, void* amax, long long rows, int groups, int len,
+                                    int len_p, void* stream) {
   using namespace ccedit;
   if (rows <= 0 || groups <= 0 || len <= 0 || len_p < len || len_p % 16 ||
-      (!per_row && groups != 1))
+      (!per_row && groups != 1) || stages < 1 || stages > 3 || (per_row && stages != 3))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fp32 ? launch<float>(per_row, x, q, scales, amax, rows, groups, len, len_p, st)
-              : launch<bf16>(per_row, x, q, scales, amax, rows, groups, len, len_p, st);
+  return fp32 ? launch<float>(per_row, stages, x, q, scales, amax, rows, groups, len, len_p, st)
+              : launch<bf16>(per_row, stages, x, q, scales, amax, rows, groups, len, len_p, st);
 }
 
 // Kernel 8's fused norm form.  s, p, c, g: x's (S, P, C) and the groups.
@@ -825,20 +957,26 @@ extern "C" int ccedit_norm_quantize_plan(long long s, long long p, int c, int g,
 
 // x: contiguous bf16 (S, P, C), 16-byte aligned; add: null or contiguous
 // bf16 (S, C), 16-byte aligned; gamma, beta: null or (C) bf16 (affine_fp32
-// = 0) or fp32; q: int8 (S * P, C); scale: fp32 (1); workspace: the plan's
+// = 0) or fp32; ext_scale, ext_shift: null, or contiguous fp32 (S, C) each,
+// the statistics made outside (u = bf16(v * scale + shift); gamma, beta and
+// eps unread); q: int8 (S * P, C); scale: fp32 (1); workspace: the plan's
 // bytes; third: a 32-bit counter of third passes; fault: 0, or a planted
 // fault of the checks (1: each sample quantized with its own amax; 2: the
-// statistics over the first P / 2 positions).  Returns the launches'
-// cudaError_t (0 = success); -1 for arguments it does not take.
+// statistics over the first P / 2 positions); stage: 0 the whole form, 1 up
+// to the local amax (the word at workspace + 12 bytes, for the caller to
+// all-reduce), 2 the quantize pass with the amax that word holds (the
+// workspace stage 1 filled).  Returns the launches' cudaError_t (0 =
+// success); -1 for arguments it does not take.
 extern "C" int ccedit_norm_silu_quantize(const void* x, const void* add, const void* gamma,
-                                         const void* beta, int affine_fp32, long long s,
-                                         long long p, int c, int g, float eps, void* q,
-                                         void* scale, void* workspace, void* third, int fault,
-                                         void* stream) {
+                                         const void* beta, int affine_fp32, const void* ext_scale,
+                                         const void* ext_shift, long long s, long long p, int c,
+                                         int g, float eps, void* q, void* scale, void* workspace,
+                                         void* third, int fault, int stage, void* stream) {
   using namespace ccedit;
   if (s <= 0 || p <= 0 || c <= 0 || g <= 0 || c % 8 || c % g || c / g < 4 || c > 4096 ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(add) % 16 ||
-      reinterpret_cast<uintptr_t>(q) % 8 || fault < 0 || fault > 2)
+      reinterpret_cast<uintptr_t>(q) % 8 || fault < 0 || fault > 2 || stage < 0 || stage > 2 ||
+      (ext_scale == nullptr) != (ext_shift == nullptr) || (ext_scale != nullptr && fault == 2))
     return -1;
   NormArgs a{};
   a.x = static_cast<const bf16*>(x);
@@ -846,6 +984,8 @@ extern "C" int ccedit_norm_silu_quantize(const void* x, const void* add, const v
   a.gamma = gamma;
   a.beta = beta;
   a.affine_fp32 = affine_fp32;
+  a.ext_scale = static_cast<const float*>(ext_scale);
+  a.ext_shift = static_cast<const float*>(ext_shift);
   a.s = s;
   a.p = p;
   a.c = c;
@@ -856,5 +996,33 @@ extern "C" int ccedit_norm_silu_quantize(const void* x, const void* add, const v
   a.q = static_cast<unsigned char*>(q);
   a.scale = static_cast<float*>(scale);
   a.third = static_cast<int*>(third);
-  return launch_norm(a, workspace, static_cast<cudaStream_t>(stream));
+  return launch_norm(a, workspace, stage, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 8's norm form: the GroupNorm alone, out = bf16(k * x + b) from the
+// fp32 statistics of the fused form (torch's fp32 GroupNorm of the bf16
+// input, rounded once), channels-last.  x: contiguous bf16 (S, P, C),
+// 16-byte aligned; gamma, beta as above; out: contiguous bf16 (S * P, C),
+// 8-byte aligned; workspace: the plan's bytes.  Returns the launches'
+// cudaError_t (0 = success); -1 for arguments it does not take.
+extern "C" int ccedit_group_norm(const void* x, const void* gamma, const void* beta,
+                                 int affine_fp32, long long s, long long p, int c, int g,
+                                 float eps, void* out, void* workspace, void* stream) {
+  using namespace ccedit;
+  if (s <= 0 || p <= 0 || c <= 0 || g <= 0 || c % 8 || c % g || c / g < 4 || c > 4096 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 8)
+    return -1;
+  NormArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.gamma = gamma;
+  a.beta = beta;
+  a.affine_fp32 = affine_fp32;
+  a.s = s;
+  a.p = p;
+  a.c = c;
+  a.g = g;
+  a.cg = c / g;
+  a.eps = eps;
+  a.out = static_cast<bf16*>(out);
+  return launch_norm(a, workspace, kNorm, static_cast<cudaStream_t>(stream));
 }

@@ -30,6 +30,7 @@ from ..diffusion.guidance import IdentityGuider, VanillaCFG
 from ..diffusion.samplers import BaseSampler
 from ..modules.controlnet import CCEditNetwork
 from ..modules.vae import AutoencoderKL, DiagonalGaussian
+from ..parallel import mesh
 from ..parallel.shard import clip_randn
 from ..train.ema import Ema
 from ..train.freeze import freeze_mask
@@ -284,11 +285,13 @@ class CCEditEngine:
         """One batch of training: loss + backward, its grads scaled by
         1/``accumulate`` and added to ``.grad``; with ``apply`` (the last of
         ``accumulate`` batches) ``reduce_grads(trainable parameters)`` (data
-        parallelism: ``parallel.mesh.all_reduce_grads``), the AdamW update,
-        zeroed grads and an LR schedule step; then the EMA update.  Returns
-        the detached loss."""
-        loss = self.backward_step(batch, generator, autocast_dtype,
-                                  grad_scale=1.0 / accumulate, **overrides)
+        parallelism: ``parallel.mesh.all_reduce_grads``, the batch then a
+        ``parallel.mesh.data_parallel`` step), the AdamW update, zeroed grads
+        and an LR schedule step; then the EMA update.  Returns the detached
+        loss."""
+        with (mesh.data_parallel() if reduce_grads is not None else contextlib.nullcontext()):
+            loss = self.backward_step(batch, generator, autocast_dtype,
+                                      grad_scale=1.0 / accumulate, **overrides)
         if apply:
             if reduce_grads is not None:
                 reduce_grads(self.trainable_parameters())

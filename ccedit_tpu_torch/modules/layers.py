@@ -13,12 +13,21 @@ chain (``NormActConv``, ``norm_silu_conv``) hands the conv kernel 8's
 fused norm form (``quant.norm_silu_quantize``: the int8 rows of the SiLU's
 output, no bf16 copy of the norm's or the SiLU's) in place of its input.
 
+A GroupNorm keeps its statistics and its affine map in fp32 and rounds
+only its output to the input's dtype, as flax's ``nn.GroupNorm(dtype=...)``
+does (torch's own GroupNorm of a bf16 input keeps bf16 statistics): on the
+CPU through ``quant.plain_group_norm``, on the card through kernel 8's norm
+form (``quant.group_norm``), whose statistics the fused form shares.
+
 Under a spatial clip shard (``parallel/shard.py``: the clip's rows or
 columns split over the ranks) ``Conv2d`` takes halo rows from its
 neighbours and a ``GroupNorm`` that normalises images all-reduces its
 statistics; a ``temporal`` GroupNorm (the pseudo-3D blocks' temporal
 preludes, the transformers' temporal norms) normalises (H*B*W, T, C) rows,
-which every shard keeps whole on one rank, and stays local.
+which every shard keeps whole on one rank, and stays local.  Under W8A8 a
+``QConv`` quantizes its input with one scale for the whole clip (the
+per-tensor amax all-reduced over the ranks, ``ops/quant.py``) and takes its
+halo rows as int8.
 """
 
 from __future__ import annotations
@@ -30,8 +39,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import quant
+from ..ops import build, quant
 from ..parallel.shard import active
+
+
+def _autocast(device_type: str) -> bool:
+    """Whether autocast is on for ``device_type`` (never for a device that
+    has none, such as ``meta``)."""
+    return device_type in ("cuda", "cpu") and torch.is_autocast_enabled(device_type)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -49,15 +64,24 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 def _w8a8(module: nn.Module) -> bool:
-    """Whether a layer built with ``quant=True`` runs W8A8 now.  Refused
-    under a clip shard: the per-tensor activation scale would need a MAX
-    all-reduce over the ranks at every conv."""
-    if not (module.quant and quant.quantized_matmul_enabled()):
-        return False
-    if active() is not None:
-        raise NotImplementedError("W8A8 (CCEDIT_QUANT_MATMUL / CCEDIT_INT8) under a clip "
-                                  "shard: each rank would quantize with its own scale")
-    return True
+    """Whether a layer built with ``quant=True`` runs W8A8 now."""
+    return module.quant and quant.quantized_matmul_enabled()
+
+
+def _split_rows(conv: nn.Conv2d, x_rows: int, pads, dim: int):
+    """A k x k convolution's rows on a spatial shard's split axis (``dim``
+    of (N, H, W, C)): the halo rows (before, after) it takes from the
+    previous and the next rank, and its padding with that axis's set to
+    zero.  ``pads``: ((top, bottom), (left, right))."""
+    i = dim - 1
+    k, s, p = conv.kernel_size[i], conv.stride[i], pads[i][0]
+    after = k - s - p
+    if x_rows % s or after < 0:
+        raise ValueError(f"a {k}x{k} stride-{s} convolution cannot split a block of "
+                         f"{x_rows} rows")
+    pads = list(pads)
+    pads[i] = (0, 0)
+    return p, after, tuple(pads)
 
 
 class Conv2d(nn.Conv2d):
@@ -78,26 +102,26 @@ class Conv2d(nn.Conv2d):
         self.explicit_pad = explicit_pad
 
     def forward(self, x) -> torch.Tensor:
+        shard = active()
+        split = shard is not None and shard.spatial and self.kernel_size != (1, 1)
         if _w8a8(self):  # x may be a quant.QuantizedActivation (norm_silu_conv)
             pads = self.explicit_pad or tuple((p, p) for p in self.padding)
+            if split:  # the halo rows as int8, under the clip's one scale
+                qa = x if isinstance(x, quant.QuantizedActivation) else quant.quantize_activation(x)
+                dim = shard.axis - 1
+                before, after, pads = _split_rows(self, qa.shape[dim], pads, dim)
+                x = quant.with_halo(qa, shard, dim, before, after)
             return quant.qconv(x, self.weight, self.bias, self.stride, pads)
         if self.explicit_pad is not None:
             (t, b), (left, right) = self.explicit_pad
             x = F.pad(x, (0, 0, left, right, t, b))
-        shard = active()
-        if shard is None or not shard.spatial or self.kernel_size == (1, 1):
+        if not split:
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         dim = shard.axis - 1  # H (1) or W (2) of (N, H, W, C)
-        i = dim - 1
-        k, s, p = self.kernel_size[i], self.stride[i], self.padding[i]
-        after = k - s - p
-        if x.shape[dim] % s or after < 0:
-            raise ValueError(f"a {k}x{k} stride-{s} convolution cannot split a block of "
-                             f"{x.shape[dim]} rows of {tuple(x.shape)}")
-        padding = list(self.padding)
-        padding[i] = 0
-        y = F.conv2d(shard.halo(x, dim, p, after).permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, tuple(padding), self.dilation, self.groups)
+        before, after, pads = _split_rows(self, x.shape[dim], tuple((p, p) for p in self.padding),
+                                          dim)
+        y = F.conv2d(shard.halo(x, dim, before, after).permute(0, 3, 1, 2), self.weight,
+                     self.bias, self.stride, tuple(p for p, _ in pads), self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -171,16 +195,33 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shard = active()
-        if (shard is not None and not self.temporal
-                and (shard.spatial or (shard.frame and x.dim() == 5))):
+        if self.spans_shard(x, shard):
             return self._sharded(x, shard)
-        y = F.group_norm(x.movedim(-1, 1), self.num_groups, self.weight,
-                         self.bias, self.eps)
-        return y.movedim(1, -1)
+        if _autocast(x.device.type):  # torch's fp32 GroupNorm, left to autocast
+            return F.group_norm(x.movedim(-1, 1), self.num_groups, self.weight,
+                                self.bias, self.eps).movedim(1, -1)
+        # kernel 8 has no backward: a call that autograd differentiates runs
+        # torch's fp32 GroupNorm, as does an fp32 or fp64 x
+        if (x.is_cuda and x.dtype == torch.bfloat16
+                and not build.needs_grad(x, *self.parameters())):
+            return quant.group_norm(x, self)  # raises for a shape it does not take
+        return quant.plain_group_norm(x, self)
 
-    def _sharded(self, x: torch.Tensor, shard) -> torch.Tensor:
+    def spans_shard(self, x: torch.Tensor, shard) -> bool:
+        """Whether x's statistics span the ranks of ``shard``: an image
+        GroupNorm under a spatial shard, or a clip's under a frame shard."""
+        return (shard is not None and not self.temporal
+                and (shard.spatial or (shard.frame and x.dim() == 5)))
+
+    def sharded_affine(self, x: torch.Tensor, shard):
+        """Each (sample, channel)'s (scale, shift) of x's normalisation over
+        the ranks of ``shard``: each rank's per-(sample, group) sum and sum of
+        squares (from fp32 moments, fp64 for an fp64 x) summed in fp64 over the
+        ranks.  Two (N, C) tensors of x's compute dtype (fp32, or fp64), and
+        x in that dtype (the copy the moments read)."""
         n, c, g = x.shape[0], x.shape[-1], self.num_groups
-        xg = x.reshape(n, -1, g, c // g).float()
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xg = x.reshape(n, -1, g, c // g).to(dtype)
         var, mean = (m.double() for m in torch.var_mean(xg, dim=(1, 3), correction=0))
         count = xg.shape[1] * xg.shape[3]
         # (2, N, G) sum and sum of squares, in fp64 so that the variance's
@@ -191,10 +232,15 @@ class GroupNorm(nn.GroupNorm):
         mean = stats[0] / total
         var = (stats[1] / total - mean * mean).clamp_min(0.0)
         scale = (torch.rsqrt(var + self.eps)[..., None]
-                 * self.weight.double().view(g, c // g)).float()
-        shift = (self.bias.double().view(g, c // g) - mean[..., None] * scale).float()
+                 * self.weight.double().view(g, c // g)).to(dtype)
+        shift = (self.bias.double().view(g, c // g) - mean[..., None] * scale).to(dtype)
+        return scale.reshape(n, c), shift.reshape(n, c), xg.view(x.shape)
+
+    def _sharded(self, x: torch.Tensor, shard) -> torch.Tensor:
+        n, c = x.shape[0], x.shape[-1]
+        scale, shift, xf = self.sharded_affine(x, shard)
         shape = (n,) + (1,) * (x.dim() - 2) + (c,)
-        return (xg.view(x.shape) * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
+        return (xf * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
 
 
 def group_norm(channels: int, eps: float = 1e-5, temporal: bool = False) -> GroupNorm:

@@ -67,14 +67,18 @@ _SIGNATURES = {
     # q, k, v, o, batch, heads, T, head_dim, strides, scale, stream
     "ccedit_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES,
                                   ctypes.c_float, _P),
-    # fp32, per_row, x, q, scales, amax, rows, groups, len, len_p, stream
-    "ccedit_quantize_int8": (_I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+    # fp32, per_row, stages, x, q, scales, amax, rows, groups, len, len_p, stream
+    "ccedit_quantize_int8": (_I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
     # s, p, c, groups, long long[2] out: (statistics block, workspace bytes)
     "ccedit_norm_quantize_plan": (ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P),
-    # x, add, gamma, beta, affine_fp32, s, p, c, groups, eps, q, scale, workspace,
-    # third, fault, stream
-    "ccedit_norm_silu_quantize": (_P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I,
-                                  _I, ctypes.c_float, _P, _P, _P, _P, _I, _P),
+    # x, add, gamma, beta, affine_fp32, ext_scale, ext_shift, s, p, c, groups, eps, q,
+    # scale, workspace, third, fault, stage, stream
+    "ccedit_norm_silu_quantize": (_P, _P, _P, _P, _I, _P, _P, ctypes.c_longlong,
+                                  ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _P, _P, _P, _I,
+                                  _I, _P),
+    # x, gamma, beta, affine_fp32, s, p, c, groups, eps, out, workspace, stream
+    "ccedit_group_norm": (_P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
+                          ctypes.c_float, _P, _P, _P),
     # out_kind, a8, w8, out, sx, sw, bias, m, n, k, stream
     "ccedit_int8_gemm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # out_kind, x, w8, out, sw, bias, q_out, sx_out, faults, m, n, k, stream

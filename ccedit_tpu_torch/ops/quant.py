@@ -44,6 +44,18 @@ raises:
   convolution on channels-last data (TMA im2col loads, s8 wgmma, tiles
   from ``conv_tiles``), the same epilogue.
 
+Kernel 8's norm form (``group_norm``) is the port's GroupNorm on the card,
+W8A8 or not: the fused form's statistics stage, then u written out in bf16
+(channels-last), the statistics in fp32 as flax keeps them.
+
+Under a clip shard of more than one rank (``parallel/shard.py``) every
+per-tensor quantization takes the whole clip's amax: the local amax, then
+``ClipShard.all_reduce_amax`` (a MAX over the ranks), then the quantize
+pass, as GSPMD reduces the JAX package's ``_symmetric_q`` over the sharded
+tensor; the fused norm form takes an image GroupNorm's statistics summed
+over the ranks (its external-statistics form).  Per-token and per-row
+scales need no collective.
+
 The plain versions compute the int8 products exactly (float64 sums of
 int8 products are integers below 2^53).  ``qlinear``, ``qconv`` and the
 layers look the wrappers (``quantize_weight``, ``norm_silu_quantize`` and
@@ -57,6 +69,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 import math
 import os
 from typing import Optional, Sequence, Tuple
@@ -65,6 +78,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..parallel.shard import active
 from . import build
 
 _STATE = {"matmul": None}
@@ -92,10 +106,29 @@ def symmetric_q(x: torch.Tensor, dims: Sequence[int]) -> Tuple[torch.Tensor, tor
     divides a CUDA tensor by a Python number as a product with its
     reciprocal, a last bit away from the true quotient."""
     xf = x.float()
-    amax = xf.abs().amax(dim=tuple(dims), keepdim=True)
+    return _quantize_with(xf, xf.abs().amax(dim=tuple(dims), keepdim=True))
+
+
+def _quantize_with(xf: torch.Tensor, amax: torch.Tensor):
     scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
     q = (xf / scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale
+
+
+def _sharded():
+    """The active clip shard where it has more than one rank, else None."""
+    shard = active()
+    return shard if shard is not None and shard.world > 1 else None
+
+
+def clip_amax(amax: torch.Tensor) -> torch.Tensor:
+    """A per-tensor fp32 amax made the whole clip's under a clip shard of
+    more than one rank (``ClipShard.all_reduce_amax`` of its bits, in place);
+    as it is otherwise."""
+    shard = _sharded()
+    if shard is not None:
+        shard.all_reduce_amax(amax.view(torch.int32))
+    return amax
 
 
 def _exact_mm(a8: torch.Tensor, b8_t: torch.Tensor) -> torch.Tensor:
@@ -196,7 +229,11 @@ def plain_quantize_int8(x: torch.Tensor, per_row: bool, groups: int = 1):
     L values zero-padded to Lp = ``padded(L)``; scales (R,) or (1,)."""
     rows, n = x.shape
     length = n // groups
-    q, scale = symmetric_q(x, (1,) if per_row else (0, 1))
+    if per_row:
+        q, scale = symmetric_q(x, (1,))
+    else:  # the whole clip's amax under a clip shard
+        xf = x.float()
+        q, scale = _quantize_with(xf, clip_amax(xf.abs().amax().reshape(1, 1)))
     q = F.pad(q.reshape(rows, groups, length), (0, padded(length) - length))
     return q.reshape(rows, -1), scale.reshape(-1)
 
@@ -206,7 +243,8 @@ def quantize_int8(x: torch.Tensor, per_row: bool, groups: int = 1):
     tensor.  A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/quantize_int8.cu`` (per row: one warp a row, amax then quantize;
     per tensor: a grid-wide amax into a device word, then the quantize pass
-    reading it) or raises."""
+    reading it; under a clip shard of more than one rank the word is
+    all-reduced between the two) or raises."""
     if not x.is_cuda:
         return plain_quantize_int8(x, per_row, groups)
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2:
@@ -220,11 +258,16 @@ def quantize_int8(x: torch.Tensor, per_row: bool, groups: int = 1):
     q = torch.empty((rows, groups * padded(length)), device=x.device, dtype=torch.int8)
     scales = torch.empty((rows if per_row else 1,), device=x.device, dtype=torch.float32)
     amax = torch.empty((1,), device=x.device, dtype=torch.int32)
-    build.launch("ccedit_quantize_int8", int(x.dtype == torch.float32), int(per_row),
-                 x.data_ptr(), q.data_ptr(), scales.data_ptr(), amax.data_ptr(), rows, groups,
-                 length, padded(length), build.stream_of(x))
+    fp32, shard = int(x.dtype == torch.float32), None if per_row else _sharded()
+    for stages in ((3,) if shard is None else (1, 2)):
+        build.launch("ccedit_quantize_int8", fp32, int(per_row), stages, x.data_ptr(),
+                     q.data_ptr(), scales.data_ptr(), amax.data_ptr(), rows, groups, length,
+                     padded(length), build.stream_of(x))
+        if stages == 1:  # the local amax, made the clip's
+            shard.all_reduce_amax(amax)
     quantize_int8.launches += 1
-    quantize_int8.variant_launches["rows" if per_row else "tensor"] += 1
+    quantize_int8.variant_launches["rows" if per_row else "tensor" if shard is None
+                                   else "tensor sharded"] += 1
     return q, scales
 
 
@@ -243,6 +286,27 @@ class QuantizedActivation:
     scale: torch.Tensor
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+def quantize_activation(x: torch.Tensor) -> QuantizedActivation:
+    """A channels-last conv input (N, *spatial, C) quantized per tensor
+    (kernel 8; the whole clip's scale under a clip shard)."""
+    q, scale = quantize_int8(x.reshape(-1, x.shape[-1]), per_row=False)
+    return QuantizedActivation(q, scale, tuple(x.shape), x.dtype)
+
+
+def with_halo(qa: QuantizedActivation, shard, dim: int, before: int,
+              after: int) -> QuantizedActivation:
+    """``qa``, an (N, H, W, C) image's int8 rows, with ``before`` rows of the
+    previous rank's block and ``after`` of the next rank's along ``dim`` (1
+    or 2 of (N, H, W, C); zeros past the clip's edges: ``ClipShard.halo`` on
+    the (N, H, W, Cp) int8 view).  The clip's one scale makes the
+    neighbours' codes this rank's."""
+    n, h, w = qa.shape[:3]
+    q = shard.halo(qa.q.view(n, h, w, -1), dim, before, after)
+    shape = list(qa.shape)
+    shape[dim] = q.shape[dim]
+    return QuantizedActivation(q.reshape(-1, q.shape[-1]), qa.scale, tuple(shape), qa.dtype)
 
 
 def sample_addend(x: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
@@ -279,6 +343,42 @@ def third_passes(device) -> int:
     return int(_third_pass_counter(torch.device(device))[0])
 
 
+def _norm_operands(name: str, x: torch.Tensor, norm, c_multiple: int):
+    """x contiguous and 16-byte aligned, and the GroupNorm's (weight, bias,
+    fp32 flag), checked for kernel 8's fused and norm forms."""
+    s, c, g = x.shape[0], x.shape[-1], norm.num_groups
+    if (x.dtype != torch.bfloat16 or x.dim() < 2 or x.numel() == 0 or c % c_multiple or c % g
+            or c // g < 4 or c > 4096):
+        raise ValueError(f"{name} takes a bf16 (S, ..., C) x with C <= 4096 a multiple of "
+                         f"{c_multiple} and of the {g} groups, 4 channels a group or more; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    affine = [t for t in (norm.weight, norm.bias) if t is not None]
+    if any(t.dtype != affine[0].dtype or t.dtype not in (torch.bfloat16, torch.float32)
+           or t.device != x.device for t in affine):
+        raise ValueError("the GroupNorm's weight and bias must be bf16 or fp32 on the input's "
+                         "device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    weight, bias = (None if t is None else t.detach().contiguous() for t in (norm.weight,
+                                                                            norm.bias))
+    return x, weight, bias, int(bool(affine) and affine[0].dtype == torch.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(s: int, p: int, c: int, g: int) -> Tuple[int, int]:
+    plan = (ctypes.c_longlong * 2)()
+    build.launch("ccedit_norm_quantize_plan", s, p, c, g, ctypes.addressof(plan))
+    return plan[0], plan[1]
+
+
+def _workspace(x: torch.Tensor, s: int, p: int, c: int, g: int):
+    """Kernel 8's plan for (S, P, C) in G groups: (statistics block, the
+    workspace tensor)."""
+    threads, size = _plan(s, p, c, g)
+    return threads, torch.empty((size,), device=x.device, dtype=torch.uint8)
+
+
 def norm_silu_quantize(x: torch.Tensor, norm, add: Optional[torch.Tensor] = None,
                        faults: int = 0) -> QuantizedActivation:
     """Kernel 8's fused norm form: ``plain_norm_silu_quantize``'s function
@@ -288,9 +388,17 @@ def norm_silu_quantize(x: torch.Tensor, norm, add: Optional[torch.Tensor] = None
     tensor launches ``csrc/quantize_int8.cu``'s fused form (the group
     statistics in torch's own order and the channels' extremes, then the
     quantize pass; a third pass only where the extremes cannot decide the
-    amax) or raises: bit for bit the plain version on the card.  Its launch
-    variants say torch's block for the statistics: ``warp`` (32 threads a
-    (sample, group) of fewer than 512 values) or ``block`` (512).
+    amax) or raises: bit for bit the plain version on the card.
+
+    Under a clip shard of more than one rank the kernel stops after the
+    local amax, which ``ClipShard.all_reduce_amax`` makes the clip's, and
+    then quantizes; where the norm's statistics span the ranks (an image
+    GroupNorm under a spatial split) it takes them from outside: the scale
+    and shift ``norm.sharded_affine`` makes of x + add from sums all-reduced
+    over the ranks (the external-statistics form, variant ``external``).
+    Its other launch variants say torch's block for the statistics: ``warp``
+    (32 threads a (sample, group) of fewer than 512 values) or ``block``
+    (512), ``sharded`` beside them when the amax was all-reduced.
     ``faults`` plants the checks' faults (1: each sample quantized with its
     own amax; 2: the statistics over the first half of each sample's
     positions).  The launch count stays on this function whatever replaces
@@ -298,50 +406,85 @@ def norm_silu_quantize(x: torch.Tensor, norm, add: Optional[torch.Tensor] = None
     if not x.is_cuda:
         return plain_norm_silu_quantize(x, norm, add)
     s, c, g = x.shape[0], x.shape[-1], norm.num_groups
-    p = x.numel() // max(1, s * c)
-    if (x.dtype != torch.bfloat16 or x.dim() < 2 or x.numel() == 0 or c % 16 or c % g
-            or c // g < 4 or c > 4096):
-        raise ValueError(f"norm_silu_quantize takes a bf16 (S, ..., C) x with C <= 4096 a "
-                         f"multiple of 16 and of the {g} groups, 4 channels a group or more; "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    x, weight, bias, affine_fp32 = _norm_operands("norm_silu_quantize", x, norm, 16)
     if add is not None and (add.dtype != x.dtype or tuple(add.shape) != (s, c)
                             or add.device != x.device):
         raise ValueError(f"the addend must be bf16 ({s}, {c}) on {x.device}, got {add.dtype} "
                          f"{tuple(add.shape)} on {add.device}")
-    affine = [t for t in (norm.weight, norm.bias) if t is not None]
-    if any(t.dtype != affine[0].dtype or t.dtype not in (torch.bfloat16, torch.float32)
-           or t.device != x.device for t in affine):
-        raise ValueError("the GroupNorm's weight and bias must be bf16 or fp32 on the input's "
-                         "device")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
+    shard = _sharded()
+    ext = None
+    if shard is not None and norm.spans_shard(x, shard):
+        if add is not None:  # the statistics are x + add's, rounded as the chain rounds it
+            x, add = (x + sample_addend(x, add)).contiguous(), None
+        ext = tuple(t.contiguous() for t in norm.sharded_affine(x, shard)[:2])
     if add is not None:
         add = add.contiguous()
         if add.data_ptr() % 16:
             add = add.clone()
-    weight, bias = (None if t is None else t.detach().contiguous() for t in (norm.weight,
-                                                                            norm.bias))
-    plan = (ctypes.c_longlong * 2)()
-    build.launch("ccedit_norm_quantize_plan", s, p, c, g, ctypes.addressof(plan))
-    threads, workspace_bytes = plan[0], plan[1]
+    p = x.numel() // max(1, s * c)
+    threads, workspace = _workspace(x, s, p, c, g)
     q = torch.empty((s * p, c), device=x.device, dtype=torch.int8)
     scale = torch.empty((1,), device=x.device, dtype=torch.float32)
-    workspace = torch.empty((workspace_bytes,), device=x.device, dtype=torch.uint8)
-    build.launch("ccedit_norm_silu_quantize", x.data_ptr(),
-                 0 if add is None else add.data_ptr(),
-                 0 if weight is None else weight.data_ptr(), 0 if bias is None else bias.data_ptr(),
-                 int(bool(affine) and affine[0].dtype == torch.float32), s, p, c, g,
-                 float(norm.eps), q.data_ptr(), scale.data_ptr(), workspace.data_ptr(),
-                 _third_pass_counter(x.device).data_ptr(), faults, build.stream_of(x))
+    for stage in ((0,) if shard is None else (1, 2)):
+        build.launch("ccedit_norm_silu_quantize", x.data_ptr(),
+                     0 if add is None else add.data_ptr(),
+                     0 if weight is None else weight.data_ptr(),
+                     0 if bias is None else bias.data_ptr(), affine_fp32,
+                     0 if ext is None else ext[0].data_ptr(),
+                     0 if ext is None else ext[1].data_ptr(), s, p, c, g, float(norm.eps),
+                     q.data_ptr(), scale.data_ptr(), workspace.data_ptr(),
+                     _third_pass_counter(x.device).data_ptr(), faults, stage,
+                     build.stream_of(x))
+        if stage == 1:  # the local amax, words[3] of the workspace, made the clip's
+            shard.all_reduce_amax(workspace[12:16].view(torch.int32))
     _NORM_SILU_QUANTIZE.launches += 1
-    _NORM_SILU_QUANTIZE.variant_launches["block" if threads == 512 else "warp"] += 1
+    variant = "external" if ext is not None else "block" if threads == 512 else "warp"
+    _NORM_SILU_QUANTIZE.variant_launches[variant + (" sharded" if shard else "")] += 1
     return QuantizedActivation(q, scale, tuple(x.shape), x.dtype)
 
 
 _NORM_SILU_QUANTIZE = norm_silu_quantize  # keeps the count whatever replaces the name
 norm_silu_quantize.launches = 0
 norm_silu_quantize.variant_launches = collections.Counter()
+
+
+def plain_group_norm(x: torch.Tensor, norm) -> torch.Tensor:
+    """A ``GroupNorm`` module's function on a channels-last x (S, ..., C):
+    torch's GroupNorm with the statistics and the affine map in fp32 (fp64
+    for an fp64 x), the output rounded once to x's dtype, as flax's
+    ``nn.GroupNorm(dtype=x.dtype)`` keeps them."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    weight, bias = (None if t is None else t.to(dtype) for t in (norm.weight, norm.bias))
+    y = F.group_norm(x.movedim(-1, 1).to(dtype), norm.num_groups, weight, bias, norm.eps)
+    return y.movedim(1, -1).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, norm) -> torch.Tensor:
+    """Kernel 8's norm form: ``plain_group_norm``'s function for a
+    channels-last bf16 x (S, ..., C), C <= 4096 a multiple of 8 and of the
+    groups with 4 channels a group or more (the port's networks' every
+    GroupNorm), ``norm`` a ``GroupNorm`` module.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/quantize_int8.cu``'s norm
+    form (the fused form's statistics stage in torch's fp32 order, then one
+    pass writing bf16(k * x + b) channels-last: no channels-first copies) or
+    raises."""
+    if not x.is_cuda:
+        return plain_group_norm(x, norm)
+    shape, s, c, g = tuple(x.shape), x.shape[0], x.shape[-1], norm.num_groups
+    x, weight, bias, affine_fp32 = _norm_operands("group_norm", x, norm, 8)
+    p = x.numel() // (s * c)
+    threads, workspace = _workspace(x, s, p, c, g)
+    out = torch.empty(shape, device=x.device, dtype=x.dtype)
+    build.launch("ccedit_group_norm", x.data_ptr(), 0 if weight is None else weight.data_ptr(),
+                 0 if bias is None else bias.data_ptr(), affine_fp32, s, p, c, g,
+                 float(norm.eps), out.data_ptr(), workspace.data_ptr(), build.stream_of(x))
+    group_norm.launches += 1
+    group_norm.variant_launches["block" if threads == 512 else "warp"] += 1
+    return out
+
+
+group_norm.launches = 0
+group_norm.variant_launches = collections.Counter()
 
 
 def _weight_rows(weight: torch.Tensor, dtype: torch.dtype):
@@ -677,5 +820,5 @@ def qconv(x, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 COUNTED = {"quantize_int8": quantize_int8, "norm_silu_quantize": norm_silu_quantize,
-           "int8_gemm_dequant": gemm_dequant,
+           "group_norm": group_norm, "int8_gemm_dequant": gemm_dequant,
            "int8_gemm_bf16a": gemm_dequant_bf16a, "int8_conv": conv_dequant}

@@ -12,10 +12,16 @@ up over k batches and are reduced once, at the apply step: the math of
 ``optax.MultiSteps`` over a psum-ed step.  No ``DistributedDataParallel``
 wrapper: the engine reaches into ``engine.network.*`` everywhere, and the
 non-reentrant ``use_checkpoint`` would run under a wrapper's hooks.
+
+Inside ``data_parallel`` (the engine's training step under a reducing
+trainer) the ops that the JAX package's one SPMD program computes over the
+global batch, and not per sample, reduce over the ranks: the MiDaS hint's
+min-max (``reduce_over_data``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Iterable
 
@@ -52,6 +58,29 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+_DATA_PARALLEL = [0]  # the depth of nested data_parallel blocks
+
+
+@contextlib.contextmanager
+def data_parallel():
+    """While the block runs, a data-parallel step over the default group:
+    ``reduce_over_data`` reduces over its ranks."""
+    _DATA_PARALLEL[0] += 1
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL[0] -= 1
+
+
+def reduce_over_data(t: torch.Tensor, op) -> torch.Tensor:
+    """``t`` reduced in place with ``op`` (``dist.ReduceOp``) over the ranks
+    of the ``data_parallel`` step the caller runs in; as it is outside one,
+    or outside a process group of more than one rank."""
+    if _DATA_PARALLEL[0] and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.all_reduce(t, op=op)
+    return t
 
 
 def batch_slice(batch_size: int, rank: int, world: int) -> slice:

@@ -24,7 +24,6 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..ops import quant
 from .shard import AXES, ClipShard, mesh_context
 
 # conditioning entries carrying per-frame (T at dim 1) and spatial (H, W at
@@ -111,11 +110,9 @@ def make_frame_sharded_sample(engine, shape: Sequence[int], num_steps: Optional[
     ``x_prior``, ``init_noise``, ``inpaint_x0``, ``inpaint_mask`` (whole
     clips) and ``loop_noise`` (whole rows) are cut like the output.  Draws
     from ``generator`` are the whole clip's, of which each rank keeps its
-    block, so the stream does not depend on the world size."""
-    if quant.quantized_matmul_enabled():
-        raise NotImplementedError(
-            "W8A8 (CCEDIT_QUANT_MATMUL / CCEDIT_INT8) under a clip shard: each conv's one "
-            "activation scale would need a MAX all-reduce over the ranks, which is not ported")
+    block, so the stream does not depend on the world size.  Under W8A8
+    (``CCEDIT_QUANT_MATMUL``, ``CCEDIT_INT8``) each per-tensor quantization
+    takes the whole clip's scale (``ops/quant.py``)."""
     shape = tuple(shape)
     world = dist.get_world_size(group) if dist.is_initialized() else 1
     rank = dist.get_rank(group) if dist.is_initialized() else 0

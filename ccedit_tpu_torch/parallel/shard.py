@@ -17,13 +17,17 @@ package:
   and sum of squares in fp32 (``all_reduce_stats``); a self-attention over
   clip tokens gathers its k and v along the token axis, q staying local
   (``gather_tokens``, JAX's token branch).  The temporal ops stay local:
-  the h-major fold keeps a (h, b, w) row's frames on one rank.
+  the h-major fold keeps a (h, b, w) row's frames on one rank.  Under W8A8
+  a k x k ``QConv`` takes its halo rows as int8 (``halo`` of the int8
+  rows, census kind "int8_halo").
 * frame axis: the spatial ops are local.  The fold to temporal rows and
   back is an all-to-all that trades frame blocks for blocks of the h-major
   (H*B*W) rows (``frames_to_rows`` / ``rows_to_frames``, JAX's batch branch
   of the folded axis), and the centre frame (the CFCA anchor, the
   appearance branch's input) is broadcast by the rank that holds it
   (``centre_frame``).
+* any axis, under W8A8: each per-tensor quantization's amax is the whole
+  clip's, a MAX all-reduce of its fp32 bits (``all_reduce_amax``).
 
 At world 1 every op is the unsharded one, so a world-1 sample equals
 ``engine.sample`` bit for bit.  Each collective adds a record to every open
@@ -128,7 +132,8 @@ class ClipShard:
         received = ((before if prev_rank is not None else 0)
                     + (after if next_rank is not None else 0))
         row = x.numel() // x.shape[dim]
-        self._record("halo", x, received * row, rows=(before, after), row=row)
+        self._record("int8_halo" if x.dtype == torch.int8 else "halo", x, received * row,
+                     rows=(before, after), row=row)
         return torch.cat([t for t in (top, x, bottom) if t is not None], dim=dim)
 
     def all_reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
@@ -136,6 +141,14 @@ class ClipShard:
         dist.all_reduce(stats, group=self.group)
         self._record("norm_all_reduce", stats, stats.numel() * (self.world - 1))
         return stats
+
+    def all_reduce_amax(self, word: torch.Tensor) -> torch.Tensor:
+        """The MAX over the ranks of ``word``, in place: int32 views of
+        non-negative fp32 amaxes (kernel 8's amax word), which order as
+        their bits, so the clip's amax comes out exactly in any order."""
+        dist.all_reduce(word, op=dist.ReduceOp.MAX, group=self.group)
+        self._record("amax_all_reduce", word, word.numel() * (self.world - 1))
+        return word
 
     def gather_tokens(self, x: torch.Tensor, segments: int = 1) -> torch.Tensor:
         """(N, segments * L, C) blocks of tokens -> (N, segments * world * L,
@@ -224,10 +237,11 @@ def unsharded():
 def census():
     """Collect every collective the block issues: a list of records
     ``{"kind", "shape" (the local tensor sent), "dtype", "bytes"
-    (received by this rank)}``, kind one of "halo", "norm_all_reduce",
-    "kv_all_gather", "all_to_all" and "broadcast"; a halo's record also has
-    ``rows`` (taken from the previous and the next rank) and ``row`` (the
-    elements of one row)."""
+    (received by this rank)}``, kind one of "halo", "int8_halo" (a W8A8
+    convolution's int8 rows), "norm_all_reduce", "amax_all_reduce" (a
+    per-tensor quantization's amax), "kv_all_gather", "all_to_all" and
+    "broadcast"; a halo's record also has ``rows`` (taken from the previous
+    and the next rank) and ``row`` (the elements of one row)."""
     records: list = []
     _CENSUS.append(records)
     try:

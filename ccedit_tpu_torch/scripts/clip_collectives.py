@@ -1,26 +1,31 @@
 """What single-clip sharding's collectives cost a network row, on the cards.
 
     torchrun --nproc_per_node 4 -m ccedit_tpu_torch.scripts.clip_collectives [--workload tvi2v]
+        [--w8a8]
 
 Every rank builds the full-width engine of the edit (``profile_tv2v.build_edit``:
 seeded random weights, bf16) and runs one CFG-doubled network row of the
 17x512x768 clip (``--frames``) split over the ranks on ``pick_clip_axis``'s
 axis, the ControlNet's hint pyramid computed once beforehand, as the sampler
-hoists it.  Rank 0 prints one JSON line with
+hoists it; with ``--w8a8`` the row runs W8A8 (``CCEDIT_QUANT_MATMUL=1``:
+int8 halos, the per-tensor amax all-reduces).  Rank 0 prints one JSON line
+with
 
 * ``row_seconds`` and ``row_seconds_without``: the medians of ``--rows``
   rows each (host clock around a row that ends in a device synchronise,
-  every rank starting together), the second with the halo exchanges and
-  the GroupNorm all-reduces replaced by zero rows and local statistics
-  (wrong numbers, the same compute), the two taken in turns (with,
+  every rank starting together), the second with the halo exchanges, the
+  GroupNorm all-reduces and the amax all-reduces replaced by zero rows,
+  local statistics and the local amax (wrong numbers, the same compute),
+  the two taken in turns (with,
   without, without, with, ...) after a warm-up of each: the difference is
   what those collectives cost end to end, waiting included;
 * ``isolated_seconds_per_row``: every collective that one row issues
   (``parallel/shard.py::census``), replayed alone by kind at its recorded
   shape and received bytes, every rank starting together, timed with CUDA
   events: the transfer and latency without the compute or the ranks' skew.
-  A halo is replayed as its rows: ``before`` to the next rank and ``after``
-  to the previous, as ``ClipShard.halo`` sends them.
+  A halo (bf16 or, under W8A8, int8) is replayed as its rows: ``before``
+  to the next rank and ``after`` to the previous, as ``ClipShard.halo``
+  sends them; an amax all-reduce as a MAX over one int32 word.
 """
 
 from __future__ import annotations
@@ -78,14 +83,17 @@ def _timed(fn) -> float:
 
 @contextlib.contextmanager
 def _without_halo_and_norm_collectives():
-    halo, stats = ClipShard.halo, ClipShard.all_reduce_stats
+    halo, stats, amax = ClipShard.halo, ClipShard.all_reduce_stats, ClipShard.all_reduce_amax
     ClipShard.halo = lambda self, x, dim, before, after: torch.cat(
-        [x.narrow(dim, 0, before).mul(0.0), x, x.narrow(dim, 0, after).mul(0.0)], dim=dim)
+        [torch.zeros_like(x.narrow(dim, 0, before)), x,
+         torch.zeros_like(x.narrow(dim, 0, after))], dim=dim)
     ClipShard.all_reduce_stats = lambda self, s: s.mul_(self.world)
+    ClipShard.all_reduce_amax = lambda self, word: word
     try:
         yield
     finally:
         ClipShard.halo, ClipShard.all_reduce_stats = halo, stats
+        ClipShard.all_reduce_amax = amax
 
 
 def _rows_in_turns(row, n: int) -> tuple:
@@ -114,7 +122,7 @@ def _replay(records, shard, device) -> dict:
         bufs = []
         for r in recs:
             dtype = getattr(torch, r["dtype"].split(".")[-1])
-            if kind == "halo":  # rows for the next rank (before) and the previous (after)
+            if kind in ("halo", "int8_halo"):  # rows for the next rank (before), the previous
                 bufs.append([torch.zeros(n * r["row"], dtype=dtype, device=device)
                              for n in r["rows"]])
             else:
@@ -122,7 +130,7 @@ def _replay(records, shard, device) -> dict:
 
         def run():
             for b in bufs:
-                if kind == "halo":
+                if kind in ("halo", "int8_halo"):
                     ops = []
                     for send, recv_from, to in ((b[0], rank - 1, rank + 1),
                                                 (b[1], rank + 1, rank - 1)):
@@ -134,6 +142,8 @@ def _replay(records, shard, device) -> dict:
                         work.wait()
                 elif kind == "norm_all_reduce":
                     dist.all_reduce(b)
+                elif kind == "amax_all_reduce":
+                    dist.all_reduce(b, op=dist.ReduceOp.MAX)
                 elif kind == "kv_all_gather":
                     dist.all_gather_into_tensor(
                         b.new_empty((world * b.shape[0],) + tuple(b.shape[1:])), b)
@@ -156,7 +166,7 @@ def _replay(records, shard, device) -> dict:
 
 
 def main(argv=None) -> None:
-    from ..cli.profile_tv2v import build_edit
+    from ..cli.profile_tv2v import build_edit, int8_environment
     from ..parallel.mesh import init_distributed
     from ..parallel.shard import AXES, census
 
@@ -165,6 +175,7 @@ def main(argv=None) -> None:
     ap.add_argument("--frames", type=int, default=17)
     ap.add_argument("--rows", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--w8a8", action="store_true", help="the row under CCEDIT_QUANT_MATMUL=1")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("clip_collectives needs a CUDA device")
@@ -172,10 +183,11 @@ def main(argv=None) -> None:
     if not dist.is_initialized():
         raise SystemExit("run it under torchrun")
     engine, _, _ = build_edit(a.workload, device, a.seed, 1)
-    row, shard = _row(engine, device, a.frames, a.seed)
-    row_s, without = _rows_in_turns(row, a.rows)
-    with census() as records:
-        row()
+    with int8_environment(**({"CCEDIT_QUANT_MATMUL": "1"} if a.w8a8 else {})):
+        row, shard = _row(engine, device, a.frames, a.seed)
+        row_s, without = _rows_in_turns(row, a.rows)
+        with census() as records:
+            row()
     torch.cuda.synchronize()
     isolated = _replay(records, shard, device)
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -185,6 +197,7 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"gpu": smi.splitlines()[0], "workload": a.workload, "world": world,
+                      "w8a8": a.w8a8,
                       "axis": AXES[shard.axis], "frames": a.frames, "rows": a.rows,
                       "row_seconds": row_s, "row_seconds_without": without,
                       "isolated_seconds_per_row": isolated}))

@@ -60,16 +60,27 @@ def prepass_bound(b: int, h: int, n_q: int, n_k: int, d: int) -> dict:
     return bound(nbytes=float(b * h * (n_q + n_k)) * (2 * d + int8_width(d)) + 4.0 * b * h)
 
 
-def norm_quantize_bound(x_shape, add: bool = False, affine_bytes: int = 2) -> dict:
+def norm_quantize_bound(x_shape, add: bool = False, affine_bytes: int = 2,
+                        external: bool = False) -> dict:
     """Kernel 8's fused norm form on a bf16 (S, ..., C) x: x (and an (S, C)
     bf16 addend) read once, the int8 rows and the fp32 scale written once,
-    the GroupNorm's weight and bias (``affine_bytes`` a value) read once."""
+    the GroupNorm's weight and bias (``affine_bytes`` a value) read once;
+    ``external``: the (S, C) fp32 scale and shift read in their place."""
     s, c = x_shape[0], x_shape[-1]
     numel = 1
     for d in x_shape:
         numel *= d
-    return bound(nbytes=3.0 * numel + (2.0 * s * c if add else 0.0) + 4.0
-                 + 2.0 * affine_bytes * c)
+    params = 8.0 * s * c if external else 2.0 * affine_bytes * c
+    return bound(nbytes=3.0 * numel + (2.0 * s * c if add else 0.0) + 4.0 + params)
+
+
+def group_norm_bound(x_shape, affine_bytes: int = 2) -> dict:
+    """Kernel 8's norm form on a bf16 (S, ..., C) x: x read once, the bf16
+    output written once, the weight and bias read once."""
+    numel = 1
+    for d in x_shape:
+        numel *= d
+    return bound(nbytes=4.0 * numel + 2.0 * affine_bytes * x_shape[-1])
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int) -> float:

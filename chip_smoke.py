@@ -758,6 +758,69 @@ def clip_shard_fault(fault: str):
         setattr(ClipShard, name, saved)
 
 
+W8A8_CLIP_FAULTS = ("own_amax", "amax_sum", "fused_local_norm", "int8_halo_zero")
+
+
+@contextlib.contextmanager
+def w8a8_clip_fault(fault: str):
+    """A planted fault of W8A8 under a clip shard while the block runs:
+    "own_amax", each rank quantizing with its own amax (the amax all-reduce
+    skipped); "amax_sum", the ranks' amaxes summed where they should take
+    their MAX (the same wrong scale on every rank); "fused_local_norm", kernel 8's fused form taking each rank's
+    own GroupNorm statistics under a spatial split (its external statistics
+    left out; the unfused chain still all-reduces them); "int8_halo_zero", a
+    ``QConv``'s int8 halo rows left as zeros (no exchange)."""
+    import torch
+
+    from ccedit_tpu_torch.modules.layers import GroupNorm
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.parallel.shard import ClipShard
+
+    if fault in ("own_amax", "amax_sum"):
+        import torch.distributed as dist
+
+        def summed(self, word):
+            dist.all_reduce(word.view(torch.float32), op=dist.ReduceOp.SUM, group=self.group)
+            return word
+
+        saved = ClipShard.all_reduce_amax
+        ClipShard.all_reduce_amax = (lambda self, word: word) if fault == "own_amax" else summed
+        try:
+            yield
+        finally:
+            ClipShard.all_reduce_amax = saved
+    elif fault == "fused_local_norm":
+        sound = quant.norm_silu_quantize
+
+        def local(x, norm, add=None, faults=0):
+            spans = GroupNorm.spans_shard
+            GroupNorm.spans_shard = lambda self, x, shard: False
+            try:
+                return sound(x, norm, add, faults)
+            finally:
+                GroupNorm.spans_shard = spans
+
+        quant.norm_silu_quantize = local
+        try:
+            yield
+        finally:
+            quant.norm_silu_quantize = sound
+    else:
+        halo = ClipShard.halo
+
+        def zero_int8_rows(self, x, dim, before, after):
+            if x.dtype != torch.int8:
+                return halo(self, x, dim, before, after)
+            rows = lambda n: torch.zeros_like(x.narrow(dim, 0, n))
+            return torch.cat([rows(before), x, rows(after)], dim=dim)
+
+        ClipShard.halo = zero_int8_rows
+        try:
+            yield
+        finally:
+            ClipShard.halo = halo
+
+
 def cosine(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return (a @ b / (a.norm() * b.norm())).item()
@@ -3330,6 +3393,15 @@ def run_image(device, seed: int) -> dict:
 CLIP_DIR = "build/chip_smoke_clip"  # phase 11's result file
 CLIP_FRAME_T = 16  # frames of the frame-axis row: 16 divides 1, 2 and 4 ranks
 CLIP_COSINE = 0.999  # a sharded network row against the one-GPU row
+# a split W8A8 row or edit against one GPU's exact one: at most this many
+# times as far (1 - cosine, and max|err|/max|ref|) as one GPU's W8A8 one.
+# The split W8A8 row is not held to one GPU's W8A8 row itself: the split's
+# GroupNorm statistics, summed in another order, move the one-GPU W8A8 row
+# alone by max|err|/max|ref| 0.114, cosine 0.99028 and 4.3 % at some site's
+# scale (``scripts/group_norm_route.py --rows`` on an H100), as far as W8A8
+# is from exact (0.120, 0.99199): int8 codes flip behind the one-ulp
+# differences and the flips cascade
+W8A8_NOISE_FACTOR = 2.0
 
 
 def clip_world() -> int:
@@ -3341,65 +3413,64 @@ def clip_world() -> int:
 
 def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     """One CFG-doubled network row at t x 512 x 768 (bf16, through the
-    kernels), split over the ranks on ``pick_clip_axis``'s axis and gathered,
-    against the same row on one GPU (rank 0): max|err| / max|ref| within
-    ROUTE_TOLERANCE and cosine >= CLIP_COSINE; with ``faults`` (two or more
-    ranks) each planted fault of ``clip_shard_fault`` must fail that check.
-    Rank 0 returns the numbers, the other ranks None."""
+    kernels, ``clip_inputs``), split over the ranks on ``pick_clip_axis``'s
+    axis and gathered, against the same row on one GPU (rank 0): max|err| /
+    max|ref| within ROUTE_TOLERANCE and cosine >= CLIP_COSINE, and on a
+    spatial axis beyond one rank the row's k/v all-gathered
+    (``parallel.shard.census``: its kv_all_gather records); with ``faults``
+    (two or more ranks) each planted fault of ``clip_shard_fault`` must fail
+    that check.  Rank 0 returns the numbers, the other ranks None."""
     import torch
     import torch.distributed as dist
 
-    from ccedit_tpu_torch.parallel.sampling import gather_clip, pick_clip_axis, shard_clip_cond
-    from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, mesh_context
+    from ccedit_tpu_torch.parallel.sampling import gather_clip, shard_clip_cond
+    from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, census, mesh_context
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    dtype = engine.network_dtype
-    gen = torch.Generator(device=device).manual_seed(seed + t)
-    x = torch.randn((2, t, H // 8, W // 8, 4), generator=gen, device=device).to(dtype)
-    ts = torch.tensor([500.0, 500.0], device=device)
-    cond = {"crossattn": (torch.randn((2, 77, 768), generator=gen, device=device)).to(dtype),
-            "control_hint": (torch.rand((2, t, H, W, 3), generator=gen, device=device) * 2
-                             - 1).to(dtype)}
-    axis = pick_clip_axis(world, (1, t, H // 8, W // 8, 4))
+    x, ts, cond, axis = clip_inputs(engine, device, t, seed)
+    gathering = world > 1 and axis != 1  # the clip tokens' attentions gather k and v
 
     def sharded():
         shard = ClipShard(axis, t)
         xb = shard.block(x, axis).contiguous()
         cb = shard_clip_cond(cond, x.shape, axis, rank, world)
-        with mesh_context(shard), torch.no_grad():
+        with mesh_context(shard), torch.no_grad(), census() as records:
             y = engine.network(xb, ts, cb)
-        return gather_clip(y, axis)
+        return gather_clip(y, axis), sum(r["kind"] == "kv_all_gather" for r in records)
 
-    def held(out, ref):
+    def held(out, ref, gathers):
         rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-        return rel, cosine(out, ref)
+        cos = cosine(out, ref)
+        passes = rel <= ROUTE_TOLERANCE and cos >= CLIP_COSINE and (gathers > 0 or not gathering)
+        return rel, cos, passes
 
     with torch.no_grad():
         ref = engine.network(x, ts, cond) if rank == 0 else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sharded()
+    out, gathers = sharded()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     res = None
     if rank == 0:
-        rel, cos = held(out, ref)
-        res = dict(frames=t, axis=AXES[axis], rel=rel, cosine=cos, seconds=seconds)
+        rel, cos, passes = held(out, ref, gathers)
+        res = dict(frames=t, axis=AXES[axis], rel=rel, cosine=cos, kv_all_gathers=gathers,
+                   seconds=seconds)
         print(f"[clip_shard] row {t}x{H}x{W} on the {AXES[axis]} axis over {world} rank(s): "
               f"max|err|/max|ref| {rel:.3e} (tol {ROUTE_TOLERANCE:.0e}), cosine {cos:.6f} "
-              f"(>= {CLIP_COSINE}), {seconds:.3f} s", flush=True)
-        if not (rel <= ROUTE_TOLERANCE and cos >= CLIP_COSINE):
-            raise RuntimeError(f"the sharded row disagrees with the one-GPU row: {rel}, {cos}")
+              f"(>= {CLIP_COSINE}), {gathers} k/v all-gathers, {seconds:.3f} s", flush=True)
+        if not passes:
+            raise RuntimeError(f"the sharded row disagrees with the one-GPU row: {res}")
     if faults:
         for fault in CLIP_SHARD_FAULTS:
             with clip_shard_fault(fault):
-                bad = sharded()
+                bad, bad_gathers = sharded()
             if rank == 0:
-                f_rel, f_cos = held(bad, ref)
-                res[f"fault_{fault}"] = dict(rel=f_rel, cosine=f_cos)
+                f_rel, f_cos, f_passes = held(bad, ref, bad_gathers)
+                res[f"fault_{fault}"] = dict(rel=f_rel, cosine=f_cos, kv_all_gathers=bad_gathers)
                 print(f"[clip_shard] planted fault {fault}: max|err|/max|ref| {f_rel:.3e}, "
-                      f"cosine {f_cos:.6f} (refused)", flush=True)
-                if f_rel <= ROUTE_TOLERANCE and f_cos >= CLIP_COSINE:
+                      f"cosine {f_cos:.6f}, {bad_gathers} k/v all-gathers (refused)", flush=True)
+                if f_passes:
                     raise RuntimeError(f"the sharded row check passes the planted fault {fault}")
             del bad
     del ref, out
@@ -3407,12 +3478,245 @@ def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     return res
 
 
-def clip_edit(path: str, edit, device, seed: int) -> dict:
+def clip_inputs(engine, device, t: int, seed: int):
+    """Phase 11's CFG-doubled network row at t x 512 x 768: (x, ts, cond,
+    axis)."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.parallel.sampling import pick_clip_axis
+
+    dtype = engine.network_dtype
+    gen = torch.Generator(device=device).manual_seed(seed + t)
+    x = torch.randn((2, t, H // 8, W // 8, 4), generator=gen, device=device).to(dtype)
+    ts = torch.tensor([500.0, 500.0], device=device)
+    cond = {"crossattn": (torch.randn((2, 77, 768), generator=gen, device=device)).to(dtype),
+            "control_hint": (torch.rand((2, t, H, W, 3), generator=gen, device=device) * 2
+                             - 1).to(dtype)}
+    return x, ts, cond, pick_clip_axis(dist.get_world_size(), (1, t, H // 8, W // 8, 4))
+
+
+@contextlib.contextmanager
+def qconv_scales():
+    """Record, while the block runs, the activation scale of every
+    ``quant.qconv`` call in call order (``scales``, (1,) fp32 tensors: one a
+    per-tensor quantization site of a forward), and how many sites came
+    before the first GroupNorm whose statistics span the shard's ranks
+    (``exact_sites``, None where none ran): up to there a split forward
+    computes one GPU's values in the same order, so a MAX over the ranks
+    gives one GPU's scale bit for bit."""
+    from ccedit_tpu_torch.modules.layers import GroupNorm
+    from ccedit_tpu_torch.ops import quant
+
+    record = {"scales": [], "exact_sites": None}
+    sound_qconv, sound_affine = quant.qconv, GroupNorm.sharded_affine
+
+    def qconv(x, weight, bias, stride, padding):
+        if not isinstance(x, quant.QuantizedActivation):  # as qconv quantizes it
+            x = quant.quantize_activation(x)
+        record["scales"].append(x.scale)
+        return sound_qconv(x, weight, bias, stride, padding)
+
+    def sharded_affine(self, x, shard):
+        if record["exact_sites"] is None:
+            record["exact_sites"] = len(record["scales"])
+        return sound_affine(self, x, shard)
+
+    quant.qconv, GroupNorm.sharded_affine = qconv, sharded_affine
+    try:
+        yield record
+    finally:
+        quant.qconv, GroupNorm.sharded_affine = sound_qconv, sound_affine
+
+
+@contextlib.contextmanager
+def first_spanning_norm_input(store: dict):
+    """Keep the first input of kernel 8's fused form whose GroupNorm
+    statistics span the shard's ranks (x, the norm, the addend) in
+    ``store`` while the block runs."""
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.parallel.shard import active
+
+    sound = quant.norm_silu_quantize
+
+    def keeping(x, norm, add=None, faults=0):
+        shard = active()
+        if not store and shard is not None and norm.spans_shard(x, shard):
+            store.update(x=x.clone(), norm=norm, add=None if add is None else add.clone(),
+                         shard=shard)
+        return sound(x, norm, add, faults)
+
+    quant.norm_silu_quantize = keeping
+    try:
+        yield store
+    finally:
+        quant.norm_silu_quantize = sound
+
+
+def external_norm_check(site: dict, fault: str = "") -> bool:
+    """Kernel 8's external-statistics fused form on ``site`` (a real input
+    of the split row) bit for bit its sharded plain chain (the sharded
+    GroupNorm, SiLU, the per-tensor quantizer with the clip's amax) on every
+    rank; with ``fault`` planted in the fused form.  Every rank returns the
+    verdict over all ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.parallel.shard import mesh_context
+
+    x, norm, add = site["x"], site["norm"], site["add"]
+    with mesh_context(site["shard"]), torch.no_grad():
+        ref = quant.plain_norm_silu_quantize(x, norm, add)
+        with w8a8_clip_fault(fault) if fault else contextlib.nullcontext():
+            before = quant._NORM_SILU_QUANTIZE.variant_launches["external sharded"]
+            got = quant.norm_silu_quantize(x, norm, add)
+            took = quant._NORM_SILU_QUANTIZE.variant_launches["external sharded"] - before
+    same = bool(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale))
+    if not fault and x.is_cuda and took != 1:
+        raise RuntimeError("the split row's spanning GroupNorm site did not take the "
+                           "external-statistics form")
+    verdicts = [None] * dist.get_world_size()
+    dist.all_gather_object(verdicts, same)
+    return all(verdicts)
+
+
+def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
+    """Phase 11's W8A8 row (``CCEDIT_QUANT_MATMUL=1``): clip_row's inputs
+    split over the ranks and gathered, against the same W8A8 row on one GPU
+    (rank 0), each with the per-tensor scale of every ``qconv`` call
+    (``qconv_scales``).  At world 1 the two must be equal bit for bit,
+    scales too.  At two or more ranks: every site's scale equal on every
+    rank; on a spatial axis the sites before the first GroupNorm whose
+    statistics span the ranks (at least one) bit for bit one GPU's scales,
+    and kernel 8's external-statistics form bit for bit its sharded plain
+    chain at that GroupNorm's site (``external_norm_check``); and the split
+    row as near one GPU's exact row as one GPU's W8A8 row is, within
+    W8A8_NOISE_FACTOR (its distance to one GPU's W8A8 row, and each site's
+    scale beside one GPU's, printed beside them).  With ``faults`` each of
+    W8A8_CLIP_FAULTS must fail its check: own_amax and amax_sum the
+    scales', fused_local_norm the external form's, int8_halo_zero the
+    row's.  Rank 0 returns the numbers, the other ranks None."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.cli.profile_tv2v import int8_environment
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.parallel.sampling import gather_clip, shard_clip_cond
+    from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, mesh_context
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x, ts, cond, axis = clip_inputs(engine, device, t, seed)
+
+    def sharded(site=None):
+        shard = ClipShard(axis, t)
+        xb = shard.block(x, axis).contiguous()
+        cb = shard_clip_cond(cond, x.shape, axis, rank, world)
+        keep = first_spanning_norm_input(site) if site is not None else contextlib.nullcontext()
+        with mesh_context(shard), torch.no_grad(), qconv_scales() as record, keep:
+            y = engine.network(xb, ts, cb)
+        scales = torch.cat(record["scales"]).cpu().tolist()
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, scales)
+        return gather_clip(y, axis), by_rank, record["exact_sites"]
+
+    rel_of = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    def held(out, ref, exact, by_rank, ref_scales, exact_sites):
+        same_scales = all(s == by_rank[0] for s in by_rank)
+        exact_prefix = None  # one rank, or a frame split (its GroupNorms stay local)
+        if world > 1 and axis != 1:  # the sites before the first spanning GroupNorm
+            exact_prefix = (exact_sites is not None and exact_sites > 0
+                            and by_rank[0][:exact_sites] == ref_scales[:exact_sites])
+        scale_rel = max(abs(a - b) / b for a, b in zip(by_rank[0], ref_scales))
+        first_off = next((i for i, (a, b) in enumerate(zip(by_rank[0], ref_scales))
+                          if abs(a - b) > 1e-3 * b), None)
+        noise = dict(rel=rel_of(ref, exact), distance=1 - cosine(ref, exact))
+        to_exact = dict(rel=rel_of(out, exact), distance=1 - cosine(out, exact))
+        return dict(rel=rel_of(out, ref), cosine=cosine(out, ref),
+                    scales_equal_on_ranks=same_scales, scale_rel=scale_rel, sites=len(ref_scales),
+                    first_site_off=first_off, exact_sites=exact_sites,
+                    exact_sites_bit_for_bit=exact_prefix,
+                    to_exact=to_exact, one_gpu_w8a8_to_exact=noise,
+                    row_passes=all(to_exact[k] <= W8A8_NOISE_FACTOR * noise[k] for k in noise),
+                    scales_pass=(same_scales and len(by_rank[0]) == len(ref_scales)
+                                 and exact_prefix is not False))
+
+    res = exact = None
+    if rank == 0:
+        with torch.no_grad():
+            exact = engine.network(x, ts, cond)
+    with int8_environment(CCEDIT_QUANT_MATMUL="1"):
+        ref = ref_scales = None
+        if rank == 0:
+            with torch.no_grad(), qconv_scales() as record:
+                ref = engine.network(x, ts, cond)
+            ref_scales = torch.cat(record["scales"]).cpu().tolist()
+        torch.cuda.synchronize()
+        site = {}
+        t0 = time.perf_counter()
+        out, by_rank, exact_sites = sharded(site if world > 1 and axis != 1 else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        external = external_norm_check(site) if site else None
+        if rank == 0:
+            res = dict(frames=t, axis=AXES[axis], seconds=seconds, external_bit_for_bit=external,
+                       **held(out, ref, exact, by_rank, ref_scales, exact_sites))
+            if world == 1:
+                res["bit_for_bit"] = bool(torch.equal(out, ref)) and by_rank[0] == ref_scales
+            e, n = res["to_exact"], res["one_gpu_w8a8_to_exact"]
+            print(f"[clip_shard] W8A8 row {t}x{H}x{W} on the {AXES[axis]} axis over {world} "
+                  f"rank(s): to one GPU's exact row max|err|/max|ref| {e['rel']:.3e}, 1 - cosine "
+                  f"{e['distance']:.3e} (one GPU's W8A8 row {n['rel']:.3e}, {n['distance']:.3e}; "
+                  f"factor {W8A8_NOISE_FACTOR}); to one GPU's W8A8 row {res['rel']:.3e}, cosine "
+                  f"{res['cosine']:.6f}; {res['sites']} per-tensor scales, equal on the ranks "
+                  f"{res['scales_equal_on_ranks']}, largest difference to one GPU's "
+                  f"{res['scale_rel']:.3e} (first above 1e-3 at site {res['first_site_off']}); "
+                  f"the {res['exact_sites']} sites before the first spanning GroupNorm bit for "
+                  f"bit one GPU's: {res['exact_sites_bit_for_bit']}; "
+                  f"external-statistics form bit for bit its chain: {external}; bit for bit "
+                  f"the one-GPU row: {res.get('bit_for_bit')}; {seconds:.3f} s", flush=True)
+            if world == 1 and not res["bit_for_bit"]:
+                raise RuntimeError("at world 1 the W8A8 row under mesh_context is not the "
+                                   "one-GPU W8A8 row bit for bit")
+            if not (res["row_passes"] and res["scales_pass"]) or external is False:
+                raise RuntimeError(f"the sharded W8A8 row disagrees with the one-GPU row: {res}")
+        if faults:
+            for fault in W8A8_CLIP_FAULTS:
+                with w8a8_clip_fault(fault):
+                    bad, bad_scales, _ = sharded()
+                bad_external = external_norm_check(site, fault) if site else None
+                if rank == 0:  # the sites of the sound split row
+                    f = held(bad, ref, exact, bad_scales, ref_scales, exact_sites)
+                    f["external_bit_for_bit"] = bad_external
+                    res[f"fault_{fault}"] = f
+                    refused = {"own_amax": not f["scales_pass"],
+                               "amax_sum": not f["scales_pass"],
+                               "fused_local_norm": bad_external is False,
+                               "int8_halo_zero": not f["row_passes"]}[fault]
+                    print(f"[clip_shard] W8A8 planted fault {fault}: to one GPU's exact row "
+                          f"max|err|/max|ref| {f['to_exact']['rel']:.3e}, 1 - cosine "
+                          f"{f['to_exact']['distance']:.3e}; scales equal on the ranks "
+                          f"{f['scales_equal_on_ranks']}, the first {exact_sites} one GPU's "
+                          f"{f['exact_sites_bit_for_bit']}; external form bit for bit "
+                          f"{bad_external}: refused by its check {refused}", flush=True)
+                    if not refused:
+                        raise RuntimeError(f"the W8A8 row checks pass the planted fault {fault}")
+                del bad
+    del ref, exact, out, site
+    torch.cuda.empty_cache()
+    return res
+
+
+def clip_edit(path: str, edit, device, seed: int, exact=None) -> dict:
     """The 3-step edit sampled split over the ranks (rank 0 decodes), then
     on one GPU (rank 0 alone) from the same generator seed: at world 1 the
-    final latents must be equal bit for bit, else within LATENT_COSINE.
-    Launch counts are reset just before the sharded edit and read, by
-    stage, just after.  Rank 0 returns the numbers and its counts."""
+    final latents must be equal bit for bit, else within LATENT_COSINE; or,
+    with ``exact`` (a W8A8 edit: ``exact()`` gives one GPU's exact final
+    latents), as near those as one GPU's edit is, within W8A8_NOISE_FACTOR
+    in 1 - cosine (the cosine to one GPU's edit printed beside it).  Launch
+    counts are reset just before the sharded edit and read, by stage, just
+    after.  Rank 0 returns the numbers and its counts."""
     import torch
     import torch.distributed as dist
 
@@ -3450,24 +3754,37 @@ def clip_edit(path: str, edit, device, seed: int) -> dict:
             raise FloatingPointError(f"the sharded {path} edit's latents are not finite")
         if world == 1 and not same:
             raise RuntimeError(f"at world 1 the sharded {path} sample is not engine.sample's")
-        if not cos >= LATENT_COSINE:
-            raise RuntimeError(f"the sharded {path} edit left the one-GPU edit: cosine {cos}")
         res = dict(seconds=total, stages=stages, cosine=cos, bit_for_bit=same,
                    peak_gb_by_rank=[p[1] for p in per_rank],
                    launches_by_rank=[p[0] for p in per_rank], launches=launches)
+        if exact is None:
+            if not cos >= LATENT_COSINE:
+                raise RuntimeError(f"the sharded {path} edit left the one-GPU edit: cosine {cos}")
+        else:
+            ex = exact()
+            res["distance_to_exact"] = 1 - cosine(latents, ex)
+            res["one_gpu_distance_to_exact"] = 1 - cosine(ref, ex)
+            print(f"[clip_shard] {path} final latents to one GPU's exact edit's: 1 - cosine "
+                  f"{res['distance_to_exact']:.3e} (one GPU's {path} edit "
+                  f"{res['one_gpu_distance_to_exact']:.3e}, factor {W8A8_NOISE_FACTOR})",
+                  flush=True)
+            if not res["distance_to_exact"] <= W8A8_NOISE_FACTOR * res["one_gpu_distance_to_exact"]:
+                raise RuntimeError(f"the sharded {path} edit left one GPU's exact edit farther "
+                                   f"than one GPU's {path} edit: {res}")
     dist.barrier()
     return res
 
 
 def clip_shard_rank() -> int:
     """Phase 11 on one rank of ``torchrun``: the TV2V row on the height axis
-    (17 frames; with the planted faults at two or more ranks), the 3-step
-    TV2V and TVI2V edits, the TV2V row on the frame axis (16 frames); rank
-    0 writes the results to CLIP_DIR."""
+    (17 frames; with the planted faults at two or more ranks), the TV2V row
+    on the frame axis (16 frames), both again under W8A8 (``clip_w8a8_row``,
+    the W8A8 faults on the height axis), the 3-step TV2V edit exact and
+    W8A8, the TVI2V edit; rank 0 writes the results to CLIP_DIR."""
     import torch
     import torch.distributed as dist
 
-    from ccedit_tpu_torch.cli.profile_tv2v import build_edit
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit, int8_environment
     from ccedit_tpu_torch.parallel.mesh import init_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3481,7 +3798,16 @@ def clip_shard_rank() -> int:
         print("[clip_shard] world 1: the planted faults (halos, GroupNorm statistics, k/v "
               "gathers) need two or more ranks; not run", flush=True)
     res["frame_row"] = clip_row(engine, device, CLIP_FRAME_T, SEED, faults=False)
+    res["tv2v_w8a8_row"] = clip_w8a8_row(engine, device, T, SEED, faults=world > 1)
+    res["frame_w8a8_row"] = clip_w8a8_row(engine, device, CLIP_FRAME_T, SEED, faults=False)
     res["tv2v"] = clip_edit("tv2v", edit, device, SEED)
+    def exact_latents():
+        with int8_environment():
+            return edit(STEPS, torch.Generator(device=device).manual_seed(SEED), clip_shard=False,
+                        return_latents=True)[1]
+
+    with int8_environment(CCEDIT_QUANT_MATMUL="1"):
+        res["tv2v_w8a8"] = clip_edit("tv2v_w8a8", edit, device, SEED, exact=exact_latents)
     del engine, edit
     torch.cuda.empty_cache()
     engine, edit, _ = build_edit("tvi2v", device, SEED, STEPS, clip_shard=True)
@@ -3535,7 +3861,8 @@ def run_clip_shard(seed: int) -> dict:
                                f"n_q and {gathered} at the gathered n_k")
     print(f"[clip_shard] phase 11 at world {res['world']} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return {"clip_shard_tv2v": tv2v, "clip_shard_tvi2v": res["tvi2v"]["launches"]}
+    return {"clip_shard_tv2v": tv2v, "clip_shard_tvi2v": res["tvi2v"]["launches"],
+            "clip_shard_tv2v_w8a8": res["tv2v_w8a8"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3626,6 +3953,33 @@ NORM_SHAPES = (
 NORM_SCALE_TOLERANCE = 2.0 ** -7
 NORM_CODES_DIFFERING = 1e-3
 NORM_FAULTS = {1: "per-sample amax", 2: "statistics over the first half of the positions"}
+# (a), the external-statistics fused form (an image GroupNorm's statistics
+# summed over a height split's ranks) at a rank's block of the split
+# network's inputs, on one card through ``group_norm_route.OrderOnlyShard``
+# (this rank's sums standing for every rank's): (label, x shape, with the
+# embedding add, eps, the world whose block it is); bit for bit its sharded
+# plain chain
+NORM_SPLIT_SHAPES = (
+    ("level-0 image, height split over 2 (+ embedding)", (34, 32, 96, 320), True, 1e-5, 2),
+    ("level-0 image, height split over 4 (+ embedding)", (34, 16, 96, 320), True, 1e-5, 4),
+    ("level-1 image, height split over 4", (34, 8, 48, 640), False, 1e-5, 4),
+)
+# phase 3's GroupNorm (kernel 8's norm form, the port's GroupNorm module on
+# the card): (label, x shape, eps); at most GROUP_NORM_DIFFERING of its bf16
+# outputs may differ from fp64 statistics' (torch's bf16 GroupNorm, whose
+# statistics stay in bf16, must exceed it)
+GROUP_NORM_SHAPES = (
+    ("level-0 image", (34, 64, 96, 320), 1e-5),
+    ("level-0 temporal", (12288, 17, 320), 1e-5),
+    ("VAE decoder 128", (17, 512, 768, 128), 1e-6),
+)
+GROUP_NORM_DIFFERING = 1e-2
+GROUP_NORM_RECORD = dict(
+    name="group_norm", source="ccedit_tpu_torch/csrc/quantize_int8.cu",
+    replaces="ccedit_tpu/modules/blocks.py:182 nn.GroupNorm(dtype=bfloat16) (flax, XLA in the "
+             "JAX package, no Pallas kernel; every GroupNorm of the networks)")
+# the paths whose exact GroupNorms must launch it
+GROUP_NORM_PATHS = ("tv2v", "tvi2v", "clip_shard_tv2v", "clip_shard_tvi2v")
 
 
 def w8a8_operands(kind, x_shape, o, kernel, gen, device):
@@ -3955,6 +4309,114 @@ def check_norm_shape(label, shape, add, eps, affine, *, gen, device) -> dict:
                 library_ms=None, **{k: v for k, v in gate.items() if k != "passes"}, **bound)
 
 
+def check_external_norm_shape(label, shape, add, eps, world, *, gen, device) -> dict:
+    """One row of phase 12 (a) for the external-statistics fused form: bit
+    for bit its sharded plain chain (the sharded GroupNorm, SiLU, the
+    per-tensor quantizer) under ``OrderOnlyShard``, on a block of the split
+    over ``world``; its time beside the unsharded fused form's on the same
+    tensor and the chain's."""
+    import torch
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.parallel.shard import mesh_context
+    from ccedit_tpu_torch.scripts import roofline
+    from ccedit_tpu_torch.scripts.group_norm_route import OrderOnlyShard
+
+    x, norm, a = norm_operands(shape, add, eps, None, gen, device)
+    with torch.no_grad():
+        with mesh_context(OrderOnlyShard()):
+            before = quant._NORM_SILU_QUANTIZE.variant_launches["external sharded"]
+            ref = quant.plain_norm_silu_quantize(x, norm, a)
+            got = quant.norm_silu_quantize(x, norm, a)
+            if quant._NORM_SILU_QUANTIZE.variant_launches["external sharded"] != before + 1:
+                raise RuntimeError(f"external norm {label}: the external-statistics form did "
+                                   "not run")
+            same = bool(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale))
+            gate = norm_gate(got, ref)
+            ms = cuda_time_ms(lambda: quant.norm_silu_quantize(x, norm, a), 5)
+            chain_ms = cuda_time_ms(lambda: quant.plain_norm_silu_quantize(x, norm, a), 5)
+        local_ms = cuda_time_ms(lambda: quant.norm_silu_quantize(x, norm, a), 5)
+    bound = roofline.norm_quantize_bound(shape, add, external=True)
+    print(f"[w8a8] external norm {label} {shape}: bit for bit the sharded plain chain {same} "
+          f"(codes differing {gate['codes_differing']:.2e}); kernel {ms:.4f} ms (bound "
+          f"{bound['bound_ms']:.4f} ms, {100 * bound['bound_ms'] / ms:.1f} %), the local-"
+          f"statistics form {local_ms:.4f} ms, the sharded plain chain {chain_ms:.4f} ms",
+          flush=True)
+    if not same:
+        raise RuntimeError(f"external norm {label}: not bit for bit its sharded chain: {gate}")
+    del x, norm, a, ref, got
+    torch.cuda.empty_cache()
+    return dict(label=label, kind="external norm", shape=list(shape), add=add, world=world,
+                bit_for_bit=same, ms=ms, local_ms=local_ms, plain_ms=chain_ms, library_ms=None,
+                **{k: v for k, v in gate.items() if k != "passes"}, **bound)
+
+
+def check_group_norm(device) -> dict:
+    """Phase 3's GroupNorm row: the port's GroupNorm module on the card
+    (kernel 8's norm form, ``quant.group_norm``) at GROUP_NORM_SHAPES against
+    the plain fp32 form (``quant.plain_group_norm``: torch's fp32 GroupNorm
+    of the bf16 input) at phase 3's gate, reporting whether it is bit for
+    bit; at most GROUP_NORM_DIFFERING of its outputs differing from an
+    fp64-statistics GroupNorm rounded to bf16, and torch's bf16 GroupNorm
+    (bf16 statistics, the module before it kept fp32 ones) refused by that
+    limit.  Times with CUDA events beside the plain form's and torch's bf16
+    one (the library call) and the byte bound.  Returns the JSON record."""
+    import torch
+    import torch.nn.functional as F
+
+    from ccedit_tpu_torch.ops import quant
+    from ccedit_tpu_torch.scripts import roofline
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows = []
+    for label, shape, eps in GROUP_NORM_SHAPES:
+        x, norm, _ = norm_operands(shape, False, eps, None, gen, device)
+        with torch.no_grad():
+            launches = quant.group_norm.launches
+            out = norm(x)
+            if quant.group_norm.launches != launches + 1:
+                raise RuntimeError(f"group norm {label}: the module did not launch kernel 8's "
+                                   "norm form")
+            plain = quant.plain_group_norm(x, norm)
+            bf16_stats = F.group_norm(x.movedim(-1, 1), 32, norm.weight, norm.bias,
+                                      eps).movedim(1, -1)
+            ref = F.group_norm(x.movedim(-1, 1).double(), 32, norm.weight.double(),
+                               norm.bias.double(), eps).movedim(1, -1).to(torch.bfloat16)
+            share = lambda y: (y != ref).count_nonzero().item() / y.numel()
+            err = (out.float() - plain.float()).abs().max().item()
+            rel = err / plain.float().abs().max().item()
+            row = dict(label=label, shape=list(shape), max_abs_err=err, max_rel_err=rel,
+                       cosine=cosine(out, plain), bit_for_bit=bool(torch.equal(out, plain)),
+                       differing_fp64=share(out), plain_differing_fp64=share(plain),
+                       bf16_stats_differing_fp64=share(bf16_stats),
+                       ms=cuda_time_ms(lambda: quant.group_norm(x, norm), 10),
+                       plain_ms=cuda_time_ms(lambda: quant.plain_group_norm(x, norm), 10),
+                       library_ms=cuda_time_ms(lambda: F.group_norm(
+                           x.movedim(-1, 1), 32, norm.weight, norm.bias, eps), 10),
+                       **roofline.group_norm_bound(shape))
+        print(f"[group_norm] {label} {shape}: vs the plain fp32 form max|err| {err:.3e} "
+              f"({rel:.2e} of max|plain|), cosine {row['cosine']:.7f}, bit for bit "
+              f"{row['bit_for_bit']}; outputs differing from fp64 statistics: kernel "
+              f"{row['differing_fp64']:.2e}, plain fp32 {row['plain_differing_fp64']:.2e}, "
+              f"torch bf16 {row['bf16_stats_differing_fp64']:.2e} (limit "
+              f"{GROUP_NORM_DIFFERING}); kernel {row['ms']:.4f} ms (bound "
+              f"{row['bound_ms']:.4f}), plain {row['plain_ms']:.4f}, torch bf16 "
+              f"{row['library_ms']:.4f}", flush=True)
+        if not (rel <= TOLERANCE and row["cosine"] >= COSINE
+                and row["differing_fp64"] <= GROUP_NORM_DIFFERING):
+            raise RuntimeError(f"group norm {label}: outside its gate: {row}")
+        if not row["bf16_stats_differing_fp64"] > GROUP_NORM_DIFFERING:
+            raise RuntimeError(f"group norm {label}: the fp64-statistics check passes torch's "
+                               f"bf16 statistics: {row}")
+        rows.append(row)
+        del x, norm, out, plain, bf16_stats, ref
+        torch.cuda.empty_cache()
+    first = {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")}
+    return dict(GROUP_NORM_RECORD, route="cuda", launches=0, **first,
+                library="torch's bf16 GroupNorm (F.group_norm, bf16 statistics)", shapes=rows)
+
+
 def check_w8a8_kernels(device) -> list:
     """Phase 12 (a): kernels 8-10 at every shape of W8A8_SHAPES and kernel
     8's fused norm form at every shape of NORM_SHAPES; one JSON record a
@@ -3967,6 +4429,8 @@ def check_w8a8_kernels(device) -> list:
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     rows = [check_w8a8_shape(*spec, gen=gen, device=device) for spec in W8A8_SHAPES]
     norm_rows = [check_norm_shape(*spec, gen=gen, device=device) for spec in NORM_SHAPES]
+    norm_rows += [check_external_norm_shape(*spec, gen=gen, device=device)
+                  for spec in NORM_SPLIT_SHAPES]
     conv = next(r for r in rows if r["kind"] == "conv")
     dense = next(r for r in rows if r["kind"] == "dense")
     records = []
@@ -4228,6 +4692,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = check_kernels(device)
+    group_norm_record = check_group_norm(device)
     probe_records, probe_counts = run_probes(device)
     # phase 12 (a): the W8A8 kernels against their plain versions
     w8a8_records = check_w8a8_kernels(device)
@@ -4262,6 +4727,14 @@ def main() -> int:
             if (n > 0) != p.endswith(("_w8a8", "_int8_umbrella")):
                 return fail(f"the {p} path launched {rec['name']} {n} times")
     records += w8a8_records
+    group_norm_record["launches_by_path"] = {
+        p: sum(c.get("group_norm", 0) for c in st.values())
+        for p, st in by_path.items() if p != "probes"}
+    group_norm_record["launches"] = group_norm_record["launches_by_path"]["tv2v"]
+    for p in GROUP_NORM_PATHS:
+        if group_norm_record["launches_by_path"][p] <= 0:
+            return fail(f"the {p} path never launched group_norm")
+    records.append(group_norm_record)
     for rec in probe_records:
         rec["launches"] = by_path["probes"]["probes"].get(rec["name"], 0)
         if rec["launches"] <= 0:

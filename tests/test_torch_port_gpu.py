@@ -14,7 +14,10 @@ it; a narrow TVI2V training step's gradients through the CFCA backward to
 plain attention, and the world-1 NCCL step to the plain one, as phase 6b
 holds them.  The W8A8 kernels (8-10) are held to their plain versions bit
 for bit, as ``chip_smoke.py`` phase 12 (a) holds them: the quantizer's int8
-values and scales, the raw int32 accumulators and the dequantized outputs.
+values and scales, the raw int32 accumulators and the dequantized outputs;
+under a clip shard its staged forms too.  Kernel 8's norm form (the
+GroupNorm module on the card) is held to the plain fp32 form at phase 3's
+gate and to fp64 statistics in 99 % of its outputs.
 """
 
 import copy
@@ -1029,3 +1032,56 @@ def test_w8a8_block_launches_the_kernels(cuda, monkeypatch):
         monkeypatch.setattr(quant, "gemm_route", lambda k, n, dtype: "two_launches")
         before = quant.gemm_dequant.launches
         assert torch.equal(block(x, emb), ref) and quant.gemm_dequant.launches > before
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 48, 320), (1536, 17, 320), (4, 64, 96, 128)])
+def test_group_norm_form_keeps_fp32_statistics(cuda, shape):
+    """Kernel 8's norm form (the GroupNorm module on the card) against the
+    plain fp32 form at phase 3's gate, and at most 1 % of its outputs off a
+    GroupNorm with fp64 statistics."""
+    import torch.nn.functional as F
+
+    from ccedit_tpu_torch.modules.layers import GroupNorm
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    c = shape[-1]
+    norm = GroupNorm(32, c, temporal=len(shape) == 3).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn((c,), generator=g, device=cuda))
+        norm.bias.copy_(0.1 * torch.randn((c,), generator=g, device=cuda))
+        x = (torch.randn(shape, generator=g, device=cuda) * 3 + 1.5).to(torch.bfloat16)
+        before = quant.group_norm.launches
+        out = norm(x)
+        assert quant.group_norm.launches == before + 1
+        ref = F.group_norm(x.movedim(-1, 1).double(), 32, norm.weight.double(),
+                           norm.bias.double(), norm.eps).movedim(1, -1).to(torch.bfloat16)
+        assert _agrees(out, quant.plain_group_norm(x, norm))
+    assert (out != ref).count_nonzero().item() / out.numel() <= 1e-2
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_w8a8_staged_forms_under_a_shard_are_their_chains(cuda, world):
+    """Under a height split (``group_norm_route.OrderOnlyShard``: this
+    rank's block standing for every rank's) the per-tensor quantizer's
+    staged form and kernel 8's external-statistics fused form are bit for
+    bit their plain chains (the sharded GroupNorm, SiLU, the quantizer)."""
+    from ccedit_tpu_torch.modules.layers import GroupNorm
+    from ccedit_tpu_torch.parallel.shard import mesh_context
+    from ccedit_tpu_torch.scripts.group_norm_route import OrderOnlyShard
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+    norm = GroupNorm(32, 320).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn((320,), generator=g, device=cuda))
+        norm.bias.copy_(0.1 * torch.randn((320,), generator=g, device=cuda))
+    x = torch.randn((8, 64 // world, 96, 320), generator=g, device=cuda).to(torch.bfloat16)
+    add = (0.5 * torch.randn((8, 320), generator=g, device=cuda)).to(torch.bfloat16)
+    with mesh_context(OrderOnlyShard()), torch.no_grad():
+        q, s = quant.quantize_int8(x.reshape(-1, 320), per_row=False)
+        pq, ps = quant.plain_quantize_int8(x.reshape(-1, 320), per_row=False)
+        assert torch.equal(q, pq) and torch.equal(s, ps)
+        before = quant.norm_silu_quantize.variant_launches["external sharded"]
+        got = quant.norm_silu_quantize(x, norm, add)
+        ref = quant.plain_norm_silu_quantize(x, norm, add)
+        assert quant.norm_silu_quantize.variant_launches["external sharded"] == before + 1
+    assert torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale)

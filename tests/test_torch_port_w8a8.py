@@ -20,7 +20,7 @@ to XLA).
   held to the JAX network on the same inputs (fp64 on both sides).
 - The switches: the trainer refuses W8A8, ``CCEDIT_QUANT_MATMUL`` alone
   turns on W8A8 and not the int8 QK^T, the flag off restores the exact path
-  bit for bit, a clip-shard sample refuses W8A8.
+  bit for bit.  W8A8 under a clip shard: ``test_torch_port_w8a8_clip_shard.py``.
 """
 
 import collections
@@ -612,14 +612,3 @@ def test_switch_off_restores_the_exact_path():
     assert cosine(quantized.numpy(), exact.numpy()) > 0.99
     assert torch.equal(again, exact)
 
-
-def test_clip_shard_refuses_w8a8():
-    from ccedit_tpu_torch.parallel.sampling import make_frame_sharded_sample
-
-    saved = quant._STATE["matmul"]
-    try:
-        quant.set_quantized_matmul(True)
-        with pytest.raises(NotImplementedError, match="clip shard"):
-            make_frame_sharded_sample(None, (1, 4, 8, 8, 4), 2)
-    finally:
-        quant._STATE["matmul"] = saved

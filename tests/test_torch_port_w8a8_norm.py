@@ -18,8 +18,9 @@ CPU.
   the plain chain's amax bit for bit: random data, channels
   all negative, a negative gamma, an all-zero tensor (scale 1), and data
   whose amax SiLU's minimum sets (the mirror takes its third pass); with
-  the statistics rounded to bf16 (as the kernel and torch's CUDA GroupNorm
-  round them) its amax is its own largest value over every element.
+  the statistics' sums split another way its amax is again the chain's.
+  The statistics stay in fp32, as the kernel keeps them (the port's
+  GroupNorm keeps a bf16 input's in fp32, as flax does).
 - The kernel's SiLU table: outside it bf16(silu(u)) is u / 2 or u.
 - The weight cache: ``quantize_weight`` equals ``plain_quantize_weight`` bit
   for bit, hits on a second call and quantizes again after ``copy_``,
@@ -216,14 +217,12 @@ def _fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def mirror_norm_amax(x, norm, add=None, splits=3, round_stats=False):
+def mirror_norm_amax(x, norm, add=None, splits=3):
     """The pass structure of ``norm_silu_quantize`` (``csrc/quantize_int8.cu``):
-    v = bf16(x + add); each (sample, group)'s mean and rstd (here from
-    split sums of v - its group's first value, combined in fp64: the
-    kernel reproduces torch's CUDA Welford order instead, which only the
-    card can check; rounded to bf16 with ``round_stats``, as the kernel and
-    torch's CUDA GroupNorm round them; torch's CPU GroupNorm keeps fp32);
-    k = rstd * gamma, b =
+    v = bf16(x + add); each (sample, group)'s mean and rstd in fp32 (here
+    from ``splits`` sums of v - its group's first value, combined in fp64:
+    the kernel reproduces torch's CUDA Welford order instead, which only the
+    card can check); k = rstd * gamma, b =
     fma(-k, mean, beta); each (sample, channel)'s min and max of v; the amax
     the largest |bf16(silu(bf16(fma(k, v, b))))| at them, unless it is
     below SILU_PEAK while some channel's u-interval reaches SILU_WINDOW:
@@ -249,8 +248,6 @@ def mirror_norm_amax(x, norm, add=None, splits=3, round_stats=False):
     var = (d2 / (p * cg) - m1 * m1).clamp_min(0)
     mean = (shift[..., 0].double() + m1).float()
     rstd = (1.0 / (var + norm.eps).sqrt()).float()
-    if round_stats:
-        mean, rstd = (t.to(torch.bfloat16).float() for t in (mean, rstd))
     mean, rstd = (t.repeat_interleave(cg, 1) for t in (mean, rstd))
     k = rstd * norm.weight.float()
     b = _fma32(-k, mean, norm.bias.float().expand(s, c))
@@ -297,12 +294,13 @@ def test_mirror_amax_is_the_chains(case):
     x, norm, add, third = _amax_case(case, rs)
     with torch.no_grad():
         amax, took, every = mirror_norm_amax(x, norm, add)
-        rounded = mirror_norm_amax(x, norm, add, round_stats=True)
+        other = mirror_norm_amax(x, norm, add, splits=1)
         ref = quant.plain_norm_silu_quantize(x, norm, add)
         xa = x if add is None else x + add[:, None, None, :]
         plain_amax = F.silu(norm(xa)).float().abs().max()
-    assert took == third and rounded[1] == third
-    assert torch.equal(amax, every) and torch.equal(rounded[0], rounded[2])
+    assert took == third and other[1] == third
+    assert torch.equal(amax, every) and torch.equal(other[0], other[2])
+    assert torch.equal(other[0], amax)
     assert torch.equal(amax, plain_amax), (amax.item(), plain_amax.item())
     want = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
     assert torch.equal(ref.scale.reshape(()), want)
