@@ -63,12 +63,15 @@ trace goes to ``--out``.
 process a GPU, NCCL): every rank builds the same seeded engine and
 conditions the whole clip, the sample runs ONE clip split over the ranks
 (``parallel/sampling.py``: the frame axis when ``--frames`` divides the
-world, else the height axis), and rank 0 decodes the gathered latents.
+world, else the height axis; ``--height``/``--width`` give the clip another
+size, 576x1024 say, whose deepest UNet level is padded), and rank 0
+decodes the gathered latents.
 Rank 0 prints the JSON line with the world, the axis, the edit and stage
 seconds, the seconds per row, every rank's peak memory, the busy share of
 rank 0's profile, the device seconds of its NCCL kernels by kind (SendRecv
 is the halos under a height or width split and the all-to-alls under a
-frame split; AllReduce the GroupNorm statistics, and under W8A8 the
+frame split, and the reblocks at a padded level's transitions; AllReduce
+the GroupNorm statistics, and under W8A8 the
 per-tensor amax words; AllGather the k/v
 gathers, and once an edit the latents; Broadcast the centre frame), and
 the collectives a row issues by kind with the bytes rank 0 receives
@@ -362,40 +365,51 @@ def int8_environment(**env):
 
 
 def build_edit(workload: str, device, seed: int, steps: int, config=None,
-               frames: Optional[int] = None, clip_shard: bool = False):
+               frames: Optional[int] = None, clip_shard: bool = False,
+               height: Optional[int] = None, width: Optional[int] = None):
     """The full-width engine of the ``tv2v``, ``tvi2v`` or ``tvi2v_zoe``
-    edit (seeded random weights, bf16) and ``edit(n_steps, generator,
-    **edit_clip keywords)``, which edits the synthetic 17x512x768 clip as
-    the README's settings do: TV2V with the luminance depth stand-in at CFG
-    7.5; TVI2V with a random DPT-Hybrid (``tvi2v_zoe``: ZoeD_M12_N), the
-    centre frame with its colours shifted as the edited reference,
-    ``prior_type="ref"`` and prior_coefficient_x 0.03 at CFG 7.  ``config``
-    replaces the workload's engine config (another structure hint, say; an
-    annotator read from its ``ckpt_path`` keeps its weights); ``frames``
-    replaces the clip's 17 keyframes; ``clip_shard`` samples the clip split
-    over the ranks of a ``torchrun`` launch (``edit_clips``).  Returns
-    (engine, edit, cfg_scale)."""
+    edit (seeded random weights, bf16; TVI2V's depth network a random
+    DPT-Hybrid, ``tvi2v_zoe``'s ZoeD_M12_N) and its ``edit`` (``make_edit``,
+    to which ``frames``, ``clip_shard``, ``height`` and ``width`` go).
+    ``config`` replaces the workload's engine config (another structure
+    hint, say; an annotator read from its ``ckpt_path`` keeps its weights).
+    Returns (engine, edit, cfg_scale)."""
+    tvi2v = workload != "tv2v"
+    args = base_parser().parse_args(
+        ["--bf16", "--device", str(device), "--seed", str(seed), "--sample_steps", str(steps),
+         "--cfg_scale", str(7.0 if tvi2v else 7.5)] + ([] if tvi2v else ["--fake_annotator"]))
+    engine, _ = load_engine(args, steps, config or EDIT_CONFIGS[workload])
+    edit, cfg_scale = make_edit(engine, workload, frames, clip_shard, height, width)
+    return engine, edit, cfg_scale
+
+
+def make_edit(engine, workload: str, frames: Optional[int] = None, clip_shard: bool = False,
+              height: Optional[int] = None, width: Optional[int] = None):
+    """``edit(n_steps, generator, **edit_clip keywords)``, which edits the
+    synthetic clip with ``engine`` (``build_edit``'s for ``workload``; its
+    networks take any geometry) as the README's settings do: TV2V with the
+    luminance depth stand-in at CFG 7.5; TVI2V with the centre frame with
+    its colours shifted as the edited reference, ``prior_type="ref"`` and
+    prior_coefficient_x 0.03 at CFG 7.  The clip is ``EDIT_GEOMETRY``'s 17
+    keyframes at 512x768, ``frames``, ``height`` and ``width`` (multiples of
+    64) in place of its own; ``clip_shard`` samples it split over the ranks
+    of a ``torchrun`` launch (``edit_clips``).  Returns (edit, cfg_scale)."""
     tvi2v = workload != "tv2v"
     cfg_scale = 7.0 if tvi2v else 7.5
     t, h, w = EDIT_GEOMETRY
-    t = frames or t
-    args = base_parser().parse_args(
-        ["--bf16", "--device", str(device), "--seed", str(seed), "--H", str(h),
-         "--W", str(w), "--num_keyframes", str(t), "--sample_steps", str(steps),
-         "--cfg_scale", str(cfg_scale)] + ([] if tvi2v else ["--fake_annotator"]))
-    engine, _ = load_engine(args, steps, config or EDIT_CONFIGS[workload])
-    frames = moving_gradient_clip(t, h, w)
+    t, h, w = frames or t, height or h, width or w
+    clip = moving_gradient_clip(t, h, w)
     extra = {}
     if tvi2v:  # the edited reference: the centre frame with its colours shifted
-        extra = dict(reference=np.ascontiguousarray(np.roll(frames[t // 2], 1, axis=-1)),
+        extra = dict(reference=np.ascontiguousarray(np.roll(clip[t // 2], 1, axis=-1)),
                      prior_type="ref", prior_coefficient_x=0.03)
 
     def edit(n_steps, generator, **kw):
         kw.setdefault("clip_shard", clip_shard)
-        return edit_clip(engine, frames, "a robot bear walking through the snow",
+        return edit_clip(engine, clip, "a robot bear walking through the snow",
                          "ugly, low quality", cfg_scale, n_steps, generator, **extra, **kw)
 
-    return engine, edit, cfg_scale
+    return edit, cfg_scale
 
 
 def nccl_seconds(kernels: dict, axis: int) -> dict:
@@ -499,9 +513,9 @@ def profile_clip_shard(a, smi: str) -> Optional[dict]:
     rank = dist.get_rank() if dist.is_initialized() else 0
     world = dist.get_world_size() if dist.is_initialized() else 1
     steps = a.steps or (30 if a.workload == "tv2v" else 50)
-    t, h, w = EDIT_GEOMETRY
-    t = a.frames or t
-    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=t, clip_shard=True)
+    t, h, w = geometry(a)
+    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=t, clip_shard=True,
+                                    height=h, width=w)
     axis = pick_clip_axis(world, (1, t, h // 8, w // 8, 4))
     head = {"gpu": smi, "workload": a.workload, "clip_shard": True, "world": world,
             "axis": AXES[axis], "cfg_scale": cfg_scale, "frames": t, "height": h, "width": w,
@@ -524,6 +538,13 @@ def profile_clip_shard(a, smi: str) -> Optional[dict]:
     if dist.is_initialized():
         dist.destroy_process_group()
     return result if rank == 0 else None
+
+
+def geometry(a):
+    """(frames, height, width) of the edit: ``EDIT_GEOMETRY`` with
+    ``--frames``, ``--height`` and ``--width`` in place of its own."""
+    t, h, w = EDIT_GEOMETRY
+    return a.frames or t, a.height or h, a.width or w
 
 
 def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) -> dict:
@@ -561,7 +582,7 @@ def profile_int8_modes(a, device, smi: str, edit, cfg_scale: float, steps: int) 
                 "latent_cosine_to_exact":
                     (latents @ exact / (latents.norm() * exact.norm())).item(),
                 "profile": dict(profile, steps=a.profile_steps, rows=2 * a.profile_steps - 1)}
-    t, h, w = EDIT_GEOMETRY
+    t, h, w = geometry(a)
     return {"gpu": smi, "workload": a.workload, "cfg_scale": cfg_scale, "frames": t, "height": h,
             "width": w, "steps": steps, "rows": rows, "modes": modes}
 
@@ -583,6 +604,10 @@ def main(argv=None) -> None:
                     help="tv2v/tvi2v under torchrun: one clip split over the ranks' GPUs")
     ap.add_argument("--frames", type=int, default=None,
                     help="keyframes of the edit (default 17); 16 splits on the frame axis")
+    ap.add_argument("--height", type=int, default=None,
+                    help="the tv2v/tvi2v clip's height in pixels (default 512; a multiple of 64)")
+    ap.add_argument("--width", type=int, default=None,
+                    help="the tv2v/tvi2v clip's width in pixels (default 768; a multiple of 64)")
     ap.add_argument("--int8_modes", action="store_true",
                     help="tv2v/tvi2v: time and profile the edit exact, with W8A8 alone "
                          "(CCEDIT_QUANT_MATMUL=1) and with CCEDIT_INT8=1 on one engine")
@@ -607,14 +632,15 @@ def main(argv=None) -> None:
         print(json.dumps(profile_txt2img(a, device, smi)))
         return
     steps = a.steps or (30 if a.workload == "tv2v" else 50)
-    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps)
+    t, h, w = geometry(a)
+    _, edit, cfg_scale = build_edit(a.workload, device, a.seed, steps, frames=a.frames,
+                                    height=h, width=w)
     if a.int8_modes:
         if a.workload not in ("tv2v", "tvi2v"):
             raise SystemExit("--int8_modes profiles the tv2v and tvi2v edits")
         print(json.dumps(profile_int8_modes(a, device, smi, edit, cfg_scale, steps)))
         return
     gen = torch.Generator(device=device).manual_seed(a.seed)
-    t, h, w = EDIT_GEOMETRY
 
     edit(1, gen)  # warm-up: cuDNN/cuBLAS algorithm selection, kernel library load
     stages = {}

@@ -98,20 +98,21 @@ def _pre_step(mode: str, x0: torch.Tensor, mask: Optional[torch.Tensor]) -> Call
     with img_orig = (x0 + noise * sigma) / sqrt(1 + sigma^2).  Inpainting
     keeps x where ``mask`` is 1 and img_orig where it is 0; blending
     re-seeds the first half of the clip (axis 1) from img_orig's second
-    half."""
+    half (under a frame shard on the gathered clip, of which this rank
+    keeps its block)."""
     def fn(x, sigma: float, noise):
         s = np.float32(sigma)
         img_orig = (x0 + noise * float(s)) / float(np.sqrt(np.float32(1.0) + s * s))
         if mode == "inpaint":
             return x * mask + img_orig * (1.0 - mask)
         shard = active()
-        if shard is not None and shard.frame:
-            raise NotImplementedError("blending under a frame shard: it moves frames "
-                                      "between ranks")
+        frame = shard is not None and shard.frame
+        if frame:  # the frames it moves lie on other ranks: the hook on the whole clip
+            x, img_orig = shard.gather(x, 1), shard.gather(img_orig, 1)
         t = x.shape[1]
         out = x.clone()
         out[:, : t // 2] = img_orig[:, t // 2 + 1:]
-        return out
+        return shard.block(out, 1) if frame else out
     return fn
 
 

@@ -29,17 +29,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.video import fold_time, temporal_to_tokens, tokens_to_temporal
+from ..ops.video import fold_time, temporal_apply
+from ..parallel.shard import active
 from .layers import NormActConv, QLinear, conv2d, group_norm, temporal_conv
 
 
+def _spatial_shard():
+    shard = active()
+    return shard if shard is not None and shard.spatial else None
+
+
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) -> (N, 2H, 2W, C), nearest."""
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    """(N, H, W, C) -> (N, 2H, 2W, C), nearest.  Under a spatial shard, in
+    the blocks of the upper level (``ClipShard.upsampled_blocks``)."""
+    y = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    shard = _spatial_shard()
+    if shard is not None:
+        dim = shard.split_dim(x)
+        y = shard.upsampled_blocks(y, dim, 2 * shard.level_rows(x, dim))
+    return y
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) -> (N, H/2, W/2, C), 2x2 mean."""
+    """(N, H, W, C) -> (N, H/2, W/2, C), 2x2 mean.  Under a spatial shard,
+    from blocks that halve into the lower level's
+    (``ClipShard.stride2_blocks``)."""
+    shard = _spatial_shard()
+    if shard is not None:
+        x = shard.stride2_blocks(x, shard.split_dim(x))
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
@@ -59,11 +76,14 @@ def spatial_temporal(x: torch.Tensor, spatial_fn: Callable,
     b, t = x.shape[0], x.shape[1]
     xs = spatial_fn(fold_time(x))
     _, h, w, _ = xs.shape
-    xt = tokens_to_temporal(xs, b)
-    if temporal_fn is not None:
+
+    def temporal(xt):
+        if temporal_fn is None:
+            return xt
         y = temporal_fn(xt)
-        xt = alpha * xt + (1 - alpha) * y if alpha is not None else xt + y
-    xs = temporal_to_tokens(xt, b, h, w)
+        return alpha * xt + (1 - alpha) * y if alpha is not None else xt + y
+
+    xs = temporal_apply(xs, b, temporal)
     return xs.reshape(b, t, h, w, xs.shape[-1])
 
 

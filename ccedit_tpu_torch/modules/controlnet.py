@@ -17,14 +17,16 @@ trunk; ControlNet3D adds ``zero_convs_temporal.{i}.0`` and
 are.
 
 Under a clip shard (``parallel/shard.py``) the appearance branch runs on the
-clip's centre frame: under a height or width shard on this rank's rows of
-it, with the same rows of the replicated ``cond_feat`` (and of
-``interpolate_first_last``); under a frame shard on the whole centre frame,
-broadcast by the rank that holds it, on every rank.
+clip's centre frame (the interpolation branch on its first and last, RAIG's
+on the image): under a height or width shard on this rank's rows of it,
+with the same rows of the replicated ``cond_feat`` (and of
+``interpolate_first_last``); under a frame shard on the whole frames,
+broadcast by the ranks that hold them, on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -271,11 +273,10 @@ class CCEditNetwork(nn.Module):
         shard = active()
         spatial = shard is not None and shard.spatial
         if self.raig:
-            if shard is not None and shard.world > 1:
-                raise NotImplementedError("RAIG's 2-D network under a clip shard")
             bank = []
-            cn_img(x, cn_img.encode_hint(cond["cond_feat"]), timesteps, context=context, y=y,
-                   bank=bank)
+            feat = cond["cond_feat"]  # (B, h, w, C): this rank's rows of it
+            feat = shard.block(feat, shard.axis - 1) if spatial else feat
+            cn_img(x, cn_img.encode_hint(feat), timesteps, context=context, y=y, bank=bank)
             mapping = raig_ref_mapping(self.unet.channel_mult, self.unet.num_res_blocks,
                                        self.unet.attention_resolutions)
             refs = [_tokens(bank[m]) for m in mapping]
@@ -289,15 +290,16 @@ class CCEditNetwork(nn.Module):
                 control = self.controlnet(x, feats, timesteps, context=context, y=y)
         img_control = ref_contexts = interpolate_control = None
         if self.interpolate:
-            if shard is not None and shard.frame:
-                raise NotImplementedError("the interpolation network under a frame shard: "
-                                          "the first and last frames lie on two ranks")
             ifl = cond["interpolate_first_last"]  # (B, 2, h, w, C): split like the latents
             ifl = shard.block(ifl, shard.axis) if spatial else ifl
             double = lambda a: None if a is None else torch.cat([a, a], dim=0)
-            taps = cn_img(torch.cat([x[:, 0], x[:, -1]], dim=0),
-                          cn_img.encode_hint(torch.cat([ifl[:, 0], ifl[:, 1]], dim=0)),
-                          double(timesteps), context=double(context), y=double(y))
+            frame = shard is not None and shard.frame
+            ends = ((shard.frame_at(x, 0), shard.frame_at(x, shard.frames - 1)) if frame
+                    else (x[:, 0], x[:, -1]))
+            with unsharded() if frame else contextlib.nullcontext():  # whole frames on every rank
+                taps = cn_img(torch.cat(ends, dim=0),
+                              cn_img.encode_hint(torch.cat([ifl[:, 0], ifl[:, 1]], dim=0)),
+                              double(timesteps), context=double(context), y=double(y))
             interpolate_control = tuple(zip(*(c.chunk(2, dim=0) for c in taps)))
         elif cn_img is not None and "cond_feat" in cond:
             bank = [] if self.crossframe_type == "reference" else None

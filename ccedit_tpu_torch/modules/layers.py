@@ -28,10 +28,19 @@ which every shard keeps whole on one rank, and stays local.  Under W8A8 a
 ``QConv`` quantizes its input with one scale for the whole clip (the
 per-tensor amax all-reduced over the ranks, ``ops/quant.py``) and takes its
 halo rows as int8.
+
+At a level that does not divide over the ranks (``parallel/shard.py``'s
+padding) a convolution zeroes the padding rows of its input before it
+reads them (a stride-2 one first takes the blocks that halve into the next
+level's), a GroupNorm leaves them out of its statistics, and under W8A8 the
+GroupNorm -> SiLU -> ``QConv`` chain runs unfused (``padded``): the fused
+form's amax would read the normalised padding, which the conv zeroes
+before it quantizes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -66,6 +75,33 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 def _w8a8(module: nn.Module) -> bool:
     """Whether a layer built with ``quant=True`` runs W8A8 now."""
     return module.quant and quant.quantized_matmul_enabled()
+
+
+def padded(x) -> bool:
+    """Whether ``x`` (an image, or the temporal rows of a fold) has padding
+    under the entered shard: where kernel 8's fused norm form would read
+    it into its amax."""
+    shard = active()
+    return shard is not None and shard.world > 1 and shard.padding(x) is not None
+
+
+def _level_input(conv: nn.Conv2d, shard, x):
+    """A convolution's input at its level under a spatial shard: in front
+    of a stride-2 transition in blocks that halve into the next level's,
+    its padding zeroed (the conv reads it, and under W8A8 its amax)."""
+    dim = shard.split_dim(x)
+    if conv.stride[dim - 1] == 2 and isinstance(x, torch.Tensor):
+        moved = shard.stride2_blocks(x, dim)
+        if moved is not x:  # zero rows past the level's
+            return moved
+    pad = shard.padding(x)
+    if pad is None:
+        return x
+    if isinstance(x, quant.QuantizedActivation):  # the int8 rows' padding, as 0
+        n, h, w = x.shape[:3]
+        q = shard.zero_padding(x.q.view(n, h, w, -1), pad)
+        return dataclasses.replace(x, q=q.view(x.q.shape))
+    return shard.zero_padding(x, pad)
 
 
 def _split_rows(conv: nn.Conv2d, x_rows: int, pads, dim: int):
@@ -103,8 +139,12 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x) -> torch.Tensor:
         shard = active()
-        split = shard is not None and shard.spatial and self.kernel_size != (1, 1)
-        if _w8a8(self):  # x may be a quant.QuantizedActivation (norm_silu_conv)
+        spatial = shard is not None and shard.spatial
+        split = spatial and self.kernel_size != (1, 1)
+        w8a8 = _w8a8(self)
+        if split or (spatial and w8a8):
+            x = _level_input(self, shard, x)
+        if w8a8:  # x may be a quant.QuantizedActivation (norm_silu_conv)
             pads = self.explicit_pad or tuple((p, p) for p in self.padding)
             if split:  # the halo rows as int8, under the clip's one scale
                 qa = x if isinstance(x, quant.QuantizedActivation) else quant.quantize_activation(x)
@@ -135,6 +175,9 @@ class Conv1d(nn.Conv1d):
 
     def forward(self, x) -> torch.Tensor:
         if _w8a8(self):  # x may be a quant.QuantizedActivation (norm_silu_conv)
+            shard = active()
+            if shard is not None and isinstance(x, torch.Tensor):  # padding out of the amax
+                x = shard.zero_padding(x)
             return quant.qconv(x, self.weight, self.bias, self.stride,
                                tuple((p, p) for p in self.padding))
         return super().forward(x.transpose(1, 2)).transpose(1, 2)
@@ -217,18 +260,26 @@ class GroupNorm(nn.GroupNorm):
         """Each (sample, channel)'s (scale, shift) of x's normalisation over
         the ranks of ``shard``: each rank's per-(sample, group) sum and sum of
         squares (from fp32 moments, fp64 for an fp64 x) summed in fp64 over the
-        ranks.  Two (N, C) tensors of x's compute dtype (fp32, or fp64), and
-        x in that dtype (the copy the moments read)."""
+        ranks, of its real rows alone at a padded level.  Two (N, C) tensors
+        of x's compute dtype (fp32, or fp64), and x in that dtype (the copy
+        the moments read)."""
         n, c, g = x.shape[0], x.shape[-1], self.num_groups
         dtype = torch.promote_types(x.dtype, torch.float32)
         xg = x.reshape(n, -1, g, c // g).to(dtype)
-        var, mean = (m.double() for m in torch.var_mean(xg, dim=(1, 3), correction=0))
         count = xg.shape[1] * xg.shape[3]
-        # (2, N, G) sum and sum of squares, in fp64 so that the variance's
-        # E[x^2] - E[x]^2 does not cancel the fp32 statistics' digits away
-        stats = torch.stack([mean, var + mean * mean]) * count
-        shard.all_reduce_stats(stats)
         total = count * shard.world
+        pad = shard.padding(x)
+        real = xg if pad is None else pad.real(x).reshape(n, -1, g, c // g).to(dtype)
+        if pad is not None:  # the level's real rows over the ranks
+            total = count // pad.block * pad.rows
+        if real.shape[1]:
+            var, mean = (m.double() for m in torch.var_mean(real, dim=(1, 3), correction=0))
+            # (2, N, G) sum and sum of squares, in fp64 so that the variance's
+            # E[x^2] - E[x]^2 does not cancel the fp32 statistics' digits away
+            stats = torch.stack([mean, var + mean * mean]) * (real.shape[1] * real.shape[3])
+        else:  # a rank that holds only padding
+            stats = torch.zeros((2, n, g), dtype=torch.float64, device=x.device)
+        shard.all_reduce_stats(stats)
         mean = stats[0] / total
         var = (stats[1] / total - mean * mean).clamp_min(0.0)
         scale = (torch.rsqrt(var + self.eps)[..., None]
@@ -253,8 +304,9 @@ def norm_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor,
     first axis) and channel, or None.  Where ``conv`` runs W8A8 the norm,
     the SiLU and the conv input's quantization are one launch of kernel 8's
     fused norm form, the conv reading its int8 rows; otherwise the modules
-    run in turn."""
-    if _w8a8(conv):
+    run in turn, as they also do at a level with padding (``padded``), whose
+    conv zeroes it before it quantizes."""
+    if _w8a8(conv) and not padded(x):
         return conv(quant.norm_silu_quantize(x, norm, add))
     if add is not None:
         x = x + quant.sample_addend(x, add)

@@ -18,10 +18,11 @@ the temporal branch with its input).
 
 Under a spatial clip shard (``parallel/shard.py``) the attentions whose keys
 are clip tokens (``token_kv``: the spatial self-attentions, the CFCA and
-the reference attentions) gather k and v along the token axis and keep q
-local; the text cross-attention and the temporal attentions need nothing.
-Under a frame shard the CFCA's centre frame comes from the rank that holds
-it.
+the reference attentions) gather k and v along the token axis, without a
+padded level's padding, and keep q local; the text cross-attention and the
+temporal attentions need nothing.  Under a frame shard the CFCA's centre
+frame comes from the rank that holds it, and the k/v reuse gathers the
+folded batch over the frames.
 """
 
 from __future__ import annotations
@@ -33,11 +34,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from ..ops.video import fold_time, repeat_ctx_temporal, temporal_to_tokens, tokens_to_temporal
+from ..ops.video import fold_time, repeat_ctx_temporal, temporal_apply
 from ..parallel.shard import active
 from .layers import Conv1d, QLinear, conv2d, group_norm, zero_module
 
 LN_EPS = 1e-6
+
+
+def _reuse(t: torch.Tensor, n: int, shard) -> torch.Tensor:
+    """TokenFlow's k/v reuse over a folded batch (b, t): row j takes row
+    (j // n) * n's.  Under a frame shard the rows are this rank's frames of
+    each sample, and the source of a row may lie on another rank (or, where
+    n does not divide T, in another sample): the folded batch is gathered
+    over the frames, reused, and this rank's frames kept."""
+    frame = shard is not None and shard.frame
+    if frame:
+        per = shard.frames // shard.world
+        whole = shard.gather(t.reshape((t.shape[0] // per, per) + tuple(t.shape[1:])), 1)
+        t = whole.reshape((-1,) + tuple(t.shape[1:]))
+    if t.shape[0] % n:
+        raise ValueError(f"batch {t.shape[0]} is not a multiple of kv_reuse_every {n}")
+    t = torch.repeat_interleave(t[::n], n, dim=0)
+    if frame:
+        t = shard.block(t.reshape((-1, shard.frames) + tuple(t.shape[1:])), 1)
+        t = t.reshape((-1,) + tuple(t.shape[2:]))
+    return t
 
 
 class CrossAttention(nn.Module):
@@ -66,14 +87,7 @@ class CrossAttention(nn.Module):
         k, v = self.to_k(context), self.to_v(context)
         shard = active()
         if kv_reuse_every:
-            n = kv_reuse_every
-            if k.shape[0] % n:
-                raise ValueError(f"batch {k.shape[0]} is not a multiple of kv_reuse_every {n}")
-            if shard is not None and shard.frame:
-                raise NotImplementedError("kv_reuse_every under a frame shard: the reused "
-                                          "frames may lie on another rank")
-            k = torch.repeat_interleave(k[::n], n, dim=0)
-            v = torch.repeat_interleave(v[::n], n, dim=0)
+            k, v = (_reuse(t, kv_reuse_every, shard) for t in (k, v))
         if self.token_kv and shard is not None and shard.spatial:
             k, v = shard.gather_tokens(k, kv_segments), shard.gather_tokens(v, kv_segments)
 
@@ -292,8 +306,7 @@ class SpatialTransformer3D(nn.Module):
         ctx_tok = None
         if not self.disable_temporal_text_ca and context is not None:
             ctx_tok = repeat_ctx_temporal(context, h, w)  # (H*B*W, L, D)
-        xt = self._temporal(tokens_to_temporal(xs, b), ctx_tok)
-        return temporal_to_tokens(xt, b, h, w)
+        return temporal_apply(xs, b, lambda xt: self._temporal(xt, ctx_tok))
 
     def forward(self, x, context=None):
         return self._spatial_temporal(x, context).reshape(x.shape)

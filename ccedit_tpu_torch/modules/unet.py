@@ -51,12 +51,22 @@ def _add_to_frame(h: torch.Tensor, frame: int, c: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def frame_index(t: int, index: int) -> Optional[int]:
+    """The local index of the clip's frame ``index`` (negative: from the
+    end) in a (B, t, ...) tensor: under a frame shard on the rank that holds
+    it, None on the others."""
+    shard = active()
+    if shard is None or not shard.frame:
+        return index % t
+    return shard.local_frame(index % shard.frames)
+
+
 def centre_index(t: int) -> Optional[int]:
     """The index of the clip's centre frame in a (B, t, ...) tensor: t // 2,
     or under a frame shard the local index on the rank that holds it and
     None on the others."""
     shard = active()
-    return shard.local_centre() if shard is not None and shard.frame else t // 2
+    return shard.local_frame(shard.frames // 2) if shard is not None and shard.frame else t // 2
 
 
 def heads_dims(ch: int, num_heads: int, num_head_channels: int,
@@ -259,8 +269,10 @@ class UNetModel(nn.Module):
                 if frame is not None:
                     h = _add_to_frame(h, frame, c)
             if ic_first is not None:  # at T = 1 both land on the one frame
-                h = _add_to_frame(h, 0, ic_first.pop(0))
-                h = _add_to_frame(h, h.shape[1] - 1, ic_last.pop(0))
+                for taps, index in ((ic_first, 0), (ic_last, -1)):
+                    c, frame = taps.pop(0), frame_index(h.shape[1], index)
+                    if frame is not None:
+                        h = _add_to_frame(h, frame, c)
             return h
 
         hs = []

@@ -13,8 +13,15 @@ one-process sample on the same noise, up to the order of reductions.
     block = call(c, uc, generator=gen)        # this rank's block
     latents = gather_clip(block, call.axis)   # the whole clip, on every rank
 
-GSPMD pads a UNet level whose rows do not divide the mesh; the port has no
-padding and refuses such a shape before the first step, naming the level.
+The latent is a clip (B, T, H, W, C) or, for RAIG's 2-D network, an image
+(B, H, W, C), whose rows or columns are split (the JAX package's axis 1
+or 2 of it: its "T" is H).  A UNet level whose rows do not divide the world
+is padded as GSPMD pads it: blocks of ceil(R / world) rows, the padding at
+the clip's tail (``parallel/shard.py``); under a frame split the temporal
+rows (B*H*W) likewise.  So every shape the JAX package's
+``make_frame_sharded_sample`` takes samples here, but a 2-D latent whose
+rows and columns both do not divide (the JAX package then splits its
+channels; the port's multiple-of-64 pixel sizes never do that).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .shard import AXES, ClipShard, mesh_context
+from .shard import ClipShard, mesh_context
 
 # conditioning entries carrying per-frame (T at dim 1) and spatial (H, W at
 # dims 2, 3) axes: video-shaped tensors (control_hint_features is the
@@ -76,36 +83,13 @@ def shard_clip_cond(cond: Dict, shape: Sequence[int], axis: int, rank: int,
     return out
 
 
-def check_divisible(network, shape: Sequence[int], axis: int, world: int,
-                    batch: int) -> None:
-    """Raise unless every UNet level splits evenly: under a height or width
-    shard each level's rows (or columns) on that axis; under a frame shard
-    each level's temporal rows (``batch`` x H x W, ``batch`` the
-    CFG-doubled batch) for the all-to-all."""
-    if world == 1:
-        return
-    levels = len(network.unet.channel_mult)
-    _, _, h, w = shape[:4]
-    for level in range(levels):
-        f = 2 ** level
-        if axis == 1:
-            size, what = batch * (h // f) * (w // f), "temporal rows (B*H*W)"
-            bad = size % world
-        else:
-            size, what = shape[axis] / f, f"{AXES[axis]} rows"
-            bad = shape[axis] % (f * world)
-        if bad:
-            raise ValueError(f"UNet level {level}: {size:g} {what} of the latent shape "
-                             f"{tuple(shape)} do not divide over {world} ranks (the JAX "
-                             "package pads such a level; the port has no padding)")
-
-
 def make_frame_sharded_sample(engine, shape: Sequence[int], num_steps: Optional[int],
                               group=None, **sample_kwargs):
     """``call(c, uc, generator=None, x_prior=None, ...)`` running
     ``engine.sample`` on this rank's block of ONE clip of ``shape`` split
     over ``group`` (the default group; world 1 outside a process group), on
-    ``pick_clip_axis``'s axis; it returns this rank's block of the latents (``call.axis``; ``gather_clip`` assembles them).  ``c`` and
+    ``pick_clip_axis``'s axis; it returns this rank's block of the latents
+    (on dim ``call.axis``; ``gather_clip`` assembles them).  ``c`` and
     ``uc`` are the whole conditioning, as every rank computes it;
     ``x_prior``, ``init_noise``, ``inpaint_x0``, ``inpaint_mask`` (whole
     clips) and ``loop_noise`` (whole rows) are cut like the output.  Draws
@@ -116,16 +100,16 @@ def make_frame_sharded_sample(engine, shape: Sequence[int], num_steps: Optional[
     shape = tuple(shape)
     world = dist.get_world_size(group) if dist.is_initialized() else 1
     rank = dist.get_rank(group) if dist.is_initialized() else 0
-    axis = pick_clip_axis(world, shape)
-    shard = ClipShard(axis, shape[1], group)
-    net = engine.network
-    if getattr(net, "raig", False):
-        raise NotImplementedError("RAIG's 2-D network is not clip-sharded")
-    if getattr(net, "interpolate", False) and shard.frame:
-        raise NotImplementedError("the interpolation network under a frame shard")
-    local = list(shape)
-    if local[axis] % world:
+    axis = pick_clip_axis(world, shape)  # a dim of the latent
+    image = len(shape) == 4
+    if image and axis == 3:
+        raise ValueError(f"the 2-D latent {shape} splits over {world} ranks only on its "
+                         "channels, which the port does not split")
+    shard = ClipShard(axis + image, 1 if image else shape[1], group,
+                      size=shape[1:3] if image else shape[2:4])
+    if shape[axis] % world:
         raise ValueError(f"axis {axis} of {shape} does not divide over {world} ranks")
+    local = list(shape)
     local[axis] //= world
 
     def cut(x, dim):
@@ -133,7 +117,6 @@ def make_frame_sharded_sample(engine, shape: Sequence[int], num_steps: Optional[
 
     def call(c: Dict, uc: Optional[Dict], generator: Optional[torch.Generator] = None,
              loop_noise=None, **kwargs):
-        check_divisible(net, shape, axis, world, shape[0] * (2 if uc is not None else 1))
         for name in _CLIP_ARGS:
             if kwargs.get(name) is not None:
                 kwargs[name] = cut(kwargs[name], axis)

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import quant
+from ..parallel.shard import ClipShard
 
 # (label, x shape (S, ..., C), GroupNorm eps)
 SHAPES = (
@@ -191,7 +192,7 @@ def time_edits(steps: int, seed: int, device) -> dict:
                 latent_cosine=(a @ b / (a.norm() * b.norm())).item())
 
 
-class OrderOnlyShard:
+class OrderOnlyShard(ClipShard):
     """A clip shard of one rank's work that reports a split: the image
     GroupNorms take ``GroupNorm.sharded_affine``'s statistics (this rank's
     sums standing for every rank's, scaled by the world) and the fused
@@ -200,7 +201,9 @@ class OrderOnlyShard:
     so the function is the one-card row's with the statistics summed in the
     split's order."""
 
-    axis, frames, rank, world, spatial, frame = 2, 1, 0, 2, True, False
+    def __init__(self, block):  # rank 0 of a height split in two of a latent
+        super().__init__(2, 1, size=(2 * block[0], block[1]))  # of 2 x ``block``'s (H, W)
+        self.rank, self.world = 0, 2
 
     def all_reduce_stats(self, stats):
         return stats.mul_(self.world)
@@ -236,7 +239,7 @@ def row_sensitivity(seed: int, device) -> dict:
 
     rows, scales = {}, {}
     variants = (("norm_form", contextlib.nullcontext), ("plain_fp32", plain_route),
-                ("split_order", lambda: mesh_context(OrderOnlyShard())))
+                ("split_order", lambda: mesh_context(OrderOnlyShard(x.shape[2:4]))))
     for mode, env in (("exact", {}), ("w8a8", {"CCEDIT_QUANT_MATMUL": "1"})):
         with int8_environment(**env):
             for route, ctx in variants:

@@ -179,16 +179,33 @@ Phases:
      gathered is held to the same row on one card (ROUTE_TOLERANCE, cosine
      CLIP_COSINE), and each planted fault of ``clip_shard_fault`` (halos
      left out, the GroupNorm on local statistics, k/v not gathered) must
-     fail that check; a row at 16 frames on the frame axis likewise; then a
-     3-step TV2V and a 3-step TVI2V edit sampled split over the ranks (rank
-     0 decodes) are held to the one-card edit from the same seed by their
-     final latents' cosine (LATENT_COSINE), with every rank's launches by
-     stage: kernel 1 only at the gathered n_k in the sharded TV2V sample,
-     1b, 2 and 3 on the TVI2V path.  On a single card the phase runs at
-     world 1 through the same code, where the sharded samples must equal
-     the one-card ones bit for bit and the faults cannot act (the phase
-     says so).  Phase 3 holds kernels 1 and 1b at the gathered shapes
-     (n_k = 4 n_q and 2 n_q; 8 n_q and 4 n_q for 1b) with the log2 e fault.
+     fail that check; a row at 16 frames on the frame axis likewise.  Rows
+     whose UNet levels do not divide the ranks (GSPMD's padding): 17x576x1024
+     on the height axis (level 3's 9 rows; level 2's 18 at 4 ranks), where
+     the padding faults (its rows not zeroed before a conv, counted in the
+     GroupNorm statistics) must fail, and 16x320x576 on the frame axis
+     (level 3's 90 temporal rows at 4 ranks).  The rows again under W8A8
+     (``clip_w8a8_row``: every scale equal on the ranks, the external form,
+     the W8A8 faults).  At 576x1024 the first padded site must be blind to
+     what its padding rows hold (``padded_site_check``: its real outputs
+     bit for bit the same with the padding set to 1e3), which each padding
+     fault must fail (pad_amax, the fused form at padded levels, under
+     W8A8).  Then 3-step edits sampled split over the ranks (rank 0
+     decodes), held to the one-card edit from the same seed by their final
+     latents' cosine (LATENT_COSINE): TV2V at 512x768 and at 576x1024, W8A8
+     TV2V, TVI2V, with every rank's launches by stage (kernel 1 only at the
+     gathered n_k in the sharded TV2V sample; 1b, 2 and 3 on the TVI2V
+     path); a 3-step blending sample at 4x512x768 and a 3-step sample of
+     the interpolation network at 16x512x768, both on the frame axis, held
+     likewise, where the blending hook on each rank's own frames
+     (``blend_local``) and the interpolation controls added on every rank
+     (``interp_local``) must fail; a row of RAIG's 2-D network at 2x512x512
+     split on its rows.
+     On a single card the phase runs at world 1 through the same code,
+     where the sharded samples must equal the one-card ones bit for bit and
+     the faults cannot act (the phase says so).  Phase 3 holds kernels 1
+     and 1b at the gathered shapes (n_k = 4 n_q and 2 n_q; 8 n_q and 4 n_q
+     for 1b; 576x1024's levels 0 and 1 at 4 ranks) with the log2 e fault.
  12. the W8A8 path (``ops/quant.py``; kernels 8-10: ``csrc/quantize_int8.cu``,
      ``int8_gemm.cu``'s dequant GEMM in its two forms, ``int8_conv.cu``).
      (a) Each kernel at the shapes the main path gives it (``W8A8_SHAPES``:
@@ -242,6 +259,7 @@ Any failed phase exits non-zero before those lines.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -386,14 +404,16 @@ KERNELS = (
          count=lambda st: _variant_sum(st, "d", "n_k!=n_q")),
     # single-clip sharding (phase 11): kernel 1 at the local queries of a
     # height split against the gathered keys (4 ranks: level 0; 2 ranks:
-    # levels 0 and 1), kernel 1b at the CFCA's gathered centre + own keys;
-    # each row refuses log2 e left out of its scale.  Counted on the sharded
-    # edits: every exact kernel-1 launch (at world 1 no key is gathered)
+    # levels 0 and 1; 576x1024 at 4 ranks: levels 0 and 1), kernel 1b at
+    # the CFCA's gathered centre + own keys; each row refuses log2 e left
+    # out of its scale.  Counted on the sharded edits: every exact kernel-1
+    # launch (at world 1 no key is gathered)
     dict(name="spatial_attention_gathered", kernel="spatial", path="clip_shard_tv2v",
          fault="log2e", source="ccedit_tpu_torch/csrc/spatial_attention.cu",
          replaces="ccedit_tpu/ops/spatial_attention.py:113",
          shapes=(((34, 8, 1536, 40), 6144, 1), ((34, 8, 3072, 40), 6144, 1),
-                 ((34, 8, 768, 80), 1536, 34)),
+                 ((34, 8, 768, 80), 1536, 34), ((34, 8, 2304, 40), 9216, 1),
+                 ((34, 8, 576, 80), 2304, 34)),
          count=lambda st: _variant_sum(st, "d", "n_k")),
     dict(name="spatial_attention_1b_gathered", kernel="spatial", path="clip_shard_tvi2v",
          fault="log2e", source="ccedit_tpu_torch/csrc/spatial_attention.cu",
@@ -528,6 +548,11 @@ PATH_KERNELS = {
     "clip_shard_tv2v": ("spatial_attention_gathered", "temporal_attention", "flash_attention"),
     "clip_shard_tvi2v": ("spatial_attention_gathered", "spatial_attention_1b_gathered",
                          "temporal_attention", "flash_attention", "flash_attention_encoder"),
+    "clip_shard_tv2v_pad": ("spatial_attention_gathered", "temporal_attention",
+                            "flash_attention"),
+    "clip_shard_blend": ("spatial_attention", "temporal_attention"),
+    "clip_shard_interp": ("spatial_attention", "temporal_attention"),
+    "clip_shard_raig": ("spatial_attention_gathered",),
 }
 
 
@@ -723,7 +748,12 @@ def planted_forward_fault(fault: str, q, k, v, scale):
         sa.prepass = prepass
 
 
-CLIP_SHARD_FAULTS = ("halo", "local_norm", "kv_local")
+CLIP_SHARD_FAULTS = ("halo", "local_norm", "kv_local", "pad_unmasked", "pad_counted",
+                     "pad_amax", "blend_local", "interp_local")
+# the faults that act only where a UNet level is padded (pad_amax only under W8A8)
+PAD_FAULTS = ("pad_unmasked", "pad_counted", "pad_amax")
+# the faults that act only in a frame-axis sample: blending's, the interpolation network's
+SAMPLE_FAULTS = ("blend_local", "interp_local")
 
 
 @contextlib.contextmanager
@@ -733,10 +763,25 @@ def clip_shard_fault(fault: str):
     exchange); "local_norm", every image GroupNorm on this rank's own
     statistics (the all-reduce skipped, the sums scaled as if every rank
     held the same); "kv_local", k and v not gathered (each rank attends to
-    its own tokens only)."""
+    its own tokens only).  At a padded level (``parallel/shard.py``):
+    "pad_unmasked", the padding rows not zeroed before a convolution reads
+    them; "pad_counted", the image GroupNorms counting the padding rows into
+    their statistics; "pad_amax", under W8A8 the GroupNorm -> SiLU -> QConv
+    chain fused at padded levels too, so that kernel 8's per-tensor amax
+    reads the normalised padding.  Under a frame split: "blend_local", the
+    blending hook on this rank's frames alone (no gather: at one frame a
+    rank it moves none, at two it raises); "interp_local", the interpolation
+    network's first- and last-frame controls added on every rank, at its
+    local first and last frame."""
+    import importlib
+
     import torch
 
+    from ccedit_tpu_torch.modules import layers
     from ccedit_tpu_torch.parallel.shard import ClipShard
+
+    samplers = importlib.import_module("ccedit_tpu_torch.diffusion.samplers")
+    unet = importlib.import_module("ccedit_tpu_torch.modules.unet")
 
     def zero_halo(self, x, dim, before, after):
         rows = lambda n: x.narrow(dim, 0, n).mul(0.0)
@@ -748,14 +793,31 @@ def clip_shard_fault(fault: str):
     def no_gather(self, x, segments=1):
         return x
 
-    name, fn = {"halo": ("halo", zero_halo), "local_norm": ("all_reduce_stats", local_stats),
-                "kv_local": ("gather_tokens", no_gather)}[fault]
-    saved = getattr(ClipShard, name)
-    setattr(ClipShard, name, fn)
+    sound_affine = layers.GroupNorm.sharded_affine
+
+    def counted(self, x, shard):
+        padding = ClipShard.padding
+        ClipShard.padding = lambda self, x: None
+        try:
+            return sound_affine(self, x, shard)
+        finally:
+            ClipShard.padding = padding
+
+    owner, name, fn = {
+        "halo": (ClipShard, "halo", zero_halo),
+        "local_norm": (ClipShard, "all_reduce_stats", local_stats),
+        "kv_local": (ClipShard, "gather_tokens", no_gather),
+        "pad_unmasked": (ClipShard, "zero_padding", lambda self, x, pad=None: x),
+        "pad_counted": (layers.GroupNorm, "sharded_affine", counted),
+        "pad_amax": (layers, "padded", lambda x: False),
+        "blend_local": (samplers, "active", lambda: None),
+        "interp_local": (unet, "frame_index", lambda t, index: index % t)}[fault]
+    saved = getattr(owner, name)
+    setattr(owner, name, fn)
     try:
         yield
     finally:
-        setattr(ClipShard, name, saved)
+        setattr(owner, name, saved)
 
 
 W8A8_CLIP_FAULTS = ("own_amax", "amax_sum", "fused_local_norm", "int8_halo_zero")
@@ -3393,6 +3455,13 @@ def run_image(device, seed: int) -> dict:
 CLIP_DIR = "build/chip_smoke_clip"  # phase 11's result file
 CLIP_FRAME_T = 16  # frames of the frame-axis row: 16 divides 1, 2 and 4 ranks
 CLIP_COSINE = 0.999  # a sharded network row against the one-GPU row
+# padded UNet levels: 576x1024's level 3 has 9 rows (padded at 2 and 4
+# ranks; level 2's 18 at 4); 16x320x576's level 3 folds to 2 x 5 x 9 = 90
+# temporal rows (padded at 4 ranks)
+CLIP_PAD = (576, 1024)
+CLIP_FRAME_PAD = (16, 320, 576)
+CLIP_BLEND_T = 4  # blending moves frame 3 onto frames 0 and 1: across ranks
+CLIP_RAIG = 512  # RAIG's images, split on their rows
 # a split W8A8 row or edit against one GPU's exact one: at most this many
 # times as far (1 - cosine, and max|err|/max|ref|) as one GPU's W8A8 one.
 # The split W8A8 row is not held to one GPU's W8A8 row itself: the split's
@@ -3411,15 +3480,18 @@ def clip_world() -> int:
     return min(4, torch.cuda.device_count())
 
 
-def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
-    """One CFG-doubled network row at t x 512 x 768 (bf16, through the
-    kernels, ``clip_inputs``), split over the ranks on ``pick_clip_axis``'s
-    axis and gathered, against the same row on one GPU (rank 0): max|err| /
-    max|ref| within ROUTE_TOLERANCE and cosine >= CLIP_COSINE, and on a
-    spatial axis beyond one rank the row's k/v all-gathered
-    (``parallel.shard.census``: its kv_all_gather records); with ``faults``
-    (two or more ranks) each planted fault of ``clip_shard_fault`` must fail
-    that check.  Rank 0 returns the numbers, the other ranks None."""
+def clip_row(engine, device, t: int, seed: int, faults=(), h: int = H, w: int = W) -> dict:
+    """One CFG-doubled network row at t x h x w (bf16, through the kernels,
+    ``clip_inputs``), split over the ranks on ``pick_clip_axis``'s axis and
+    gathered, against the same row on one GPU (rank 0): max|err| / max|ref|
+    within ROUTE_TOLERANCE and cosine >= CLIP_COSINE, and on a spatial axis
+    beyond one rank the row's k/v all-gathered (``parallel.shard.census``:
+    its kv_all_gather records; its reblocks, where a UNet level is padded,
+    are counted beside them), and where a level is padded its first padded
+    site blind to what the padding holds (``padded_site_check``); each
+    planted fault of ``clip_shard_fault`` in ``faults`` (two or more ranks)
+    must fail one of those checks.  Rank 0 returns the numbers, the other
+    ranks None."""
     import torch
     import torch.distributed as dist
 
@@ -3427,16 +3499,21 @@ def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, census, mesh_context
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    x, ts, cond, axis = clip_inputs(engine, device, t, seed)
+    x, ts, cond, axis = clip_inputs(engine, device, t, seed, h, w)
     gathering = world > 1 and axis != 1  # the clip tokens' attentions gather k and v
 
-    def sharded():
-        shard = ClipShard(axis, t)
+    def sharded(padded_site=None):
+        shard = ClipShard(axis, t, size=(h // 8, w // 8))
         xb = shard.block(x, axis).contiguous()
         cb = shard_clip_cond(cond, x.shape, axis, rank, world)
-        with mesh_context(shard), torch.no_grad(), census() as records:
+        keep = (first_padded_norm_site(padded_site) if padded_site is not None
+                else contextlib.nullcontext())
+        with mesh_context(shard), torch.no_grad(), census() as records, keep:
             y = engine.network(xb, ts, cb)
-        return gather_clip(y, axis), sum(r["kind"] == "kv_all_gather" for r in records)
+        kinds = [r["kind"] for r in records]
+        reblocks = [r for r in records if r["kind"] == "reblock"]
+        return (gather_clip(y, axis), kinds.count("kv_all_gather"),
+                dict(count=len(reblocks), mb=sum(r["bytes"] for r in reblocks) / 1e6))
 
     def held(out, ref, gathers):
         rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
@@ -3447,39 +3524,46 @@ def clip_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     with torch.no_grad():
         ref = engine.network(x, ts, cond) if rank == 0 else None
     torch.cuda.synchronize()
+    site = {}
     t0 = time.perf_counter()
-    out, gathers = sharded()
+    out, gathers, reblocks = sharded(site)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    blind = padded_site_check(site) if site else None  # a padded level's
     res = None
     if rank == 0:
         rel, cos, passes = held(out, ref, gathers)
-        res = dict(frames=t, axis=AXES[axis], rel=rel, cosine=cos, kv_all_gathers=gathers,
-                   seconds=seconds)
-        print(f"[clip_shard] row {t}x{H}x{W} on the {AXES[axis]} axis over {world} rank(s): "
+        res = dict(frames=t, height=h, width=w, axis=AXES[axis], rel=rel, cosine=cos,
+                   kv_all_gathers=gathers, reblocks=reblocks, seconds=seconds,
+                   padded_site_blind_to_padding=blind)
+        print(f"[clip_shard] row {t}x{h}x{w} on the {AXES[axis]} axis over {world} rank(s): "
               f"max|err|/max|ref| {rel:.3e} (tol {ROUTE_TOLERANCE:.0e}), cosine {cos:.6f} "
-              f"(>= {CLIP_COSINE}), {gathers} k/v all-gathers, {seconds:.3f} s", flush=True)
-        if not passes:
+              f"(>= {CLIP_COSINE}), {gathers} k/v all-gathers, {reblocks['count']} reblocks "
+              f"({reblocks['mb']:.3f} MB to rank 0), the padded site blind to its padding "
+              f"{blind}, {seconds:.3f} s", flush=True)
+        if not passes or blind is False:
             raise RuntimeError(f"the sharded row disagrees with the one-GPU row: {res}")
-    if faults:
-        for fault in CLIP_SHARD_FAULTS:
-            with clip_shard_fault(fault):
-                bad, bad_gathers = sharded()
-            if rank == 0:
-                f_rel, f_cos, f_passes = held(bad, ref, bad_gathers)
-                res[f"fault_{fault}"] = dict(rel=f_rel, cosine=f_cos, kv_all_gathers=bad_gathers)
-                print(f"[clip_shard] planted fault {fault}: max|err|/max|ref| {f_rel:.3e}, "
-                      f"cosine {f_cos:.6f}, {bad_gathers} k/v all-gathers (refused)", flush=True)
-                if f_passes:
-                    raise RuntimeError(f"the sharded row check passes the planted fault {fault}")
-            del bad
-    del ref, out
+    for fault in faults:
+        with clip_shard_fault(fault):
+            bad, bad_gathers, _ = sharded()
+        bad_blind = padded_site_check(site, fault) if site and fault in PAD_FAULTS else None
+        if rank == 0:
+            f_rel, f_cos, f_passes = held(bad, ref, bad_gathers)
+            res[f"fault_{fault}"] = dict(rel=f_rel, cosine=f_cos, kv_all_gathers=bad_gathers,
+                                         padded_site_blind_to_padding=bad_blind)
+            print(f"[clip_shard] planted fault {fault}: max|err|/max|ref| {f_rel:.3e}, "
+                  f"cosine {f_cos:.6f}, {bad_gathers} k/v all-gathers, the padded site blind "
+                  f"to its padding {bad_blind} (refused)", flush=True)
+            if f_passes and bad_blind is not False:
+                raise RuntimeError(f"the sharded row check passes the planted fault {fault}")
+        del bad
+    del ref, out, site
     torch.cuda.empty_cache()
     return res
 
 
-def clip_inputs(engine, device, t: int, seed: int):
-    """Phase 11's CFG-doubled network row at t x 512 x 768: (x, ts, cond,
+def clip_inputs(engine, device, t: int, seed: int, h: int = H, w: int = W):
+    """Phase 11's CFG-doubled network row at t x h x w: (x, ts, cond,
     axis)."""
     import torch
     import torch.distributed as dist
@@ -3488,12 +3572,12 @@ def clip_inputs(engine, device, t: int, seed: int):
 
     dtype = engine.network_dtype
     gen = torch.Generator(device=device).manual_seed(seed + t)
-    x = torch.randn((2, t, H // 8, W // 8, 4), generator=gen, device=device).to(dtype)
+    x = torch.randn((2, t, h // 8, w // 8, 4), generator=gen, device=device).to(dtype)
     ts = torch.tensor([500.0, 500.0], device=device)
     cond = {"crossattn": (torch.randn((2, 77, 768), generator=gen, device=device)).to(dtype),
-            "control_hint": (torch.rand((2, t, H, W, 3), generator=gen, device=device) * 2
+            "control_hint": (torch.rand((2, t, h, w, 3), generator=gen, device=device) * 2
                              - 1).to(dtype)}
-    return x, ts, cond, pick_clip_axis(dist.get_world_size(), (1, t, H // 8, W // 8, 4))
+    return x, ts, cond, pick_clip_axis(dist.get_world_size(), (1, t, h // 8, w // 8, 4))
 
 
 @contextlib.contextmanager
@@ -3581,7 +3665,62 @@ def external_norm_check(site: dict, fault: str = "") -> bool:
     return all(verdicts)
 
 
-def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
+@contextlib.contextmanager
+def first_padded_norm_site(store: dict):
+    """Keep the first GroupNorm -> SiLU -> conv chain (``norm_silu_conv``)
+    whose image input has padding under the entered shard (the norm, the
+    conv, x, the addend, the shard) in ``store`` while the block runs."""
+    from ccedit_tpu_torch.modules import layers
+    from ccedit_tpu_torch.parallel.shard import active
+
+    sound = layers.norm_silu_conv
+
+    def keeping(norm, conv, x, add=None):
+        shard = active()
+        if (not store and shard is not None and x.dim() == 4 and shard.spatial
+                and shard.padding(x) is not None):
+            store.update(norm=norm, conv=conv, x=x.clone(),
+                         add=None if add is None else add.clone(), shard=shard)
+        return sound(norm, conv, x, add)
+
+    layers.norm_silu_conv = keeping
+    try:
+        yield store
+    finally:
+        layers.norm_silu_conv = sound
+
+
+def padded_site_check(site: dict, fault: str = "") -> bool:
+    """At a padded site of a split row (``first_padded_norm_site``: a
+    GroupNorm whose statistics span the ranks, SiLU, a 3x3 conv with halos,
+    under W8A8 its per-tensor amax), the chain run twice, on x as it came
+    and on x with its padding rows set to 1e3: the padding must not reach a
+    real row, so the real rows of the two outputs must be equal bit for bit
+    on every rank; with ``fault`` planted.  Every rank returns the same
+    answer."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.modules import layers
+    from ccedit_tpu_torch.parallel.shard import mesh_context
+
+    shard, x = site["shard"], site["x"]
+    pad = shard.padding(x)
+    probe = x.clone()
+    probe.view(pad.lead + (-1,)).narrow(pad.dim, pad.valid, pad.block - pad.valid).fill_(1e3)
+    outs = []
+    planted = clip_shard_fault(fault) if fault else contextlib.nullcontext()
+    with planted, mesh_context(shard), torch.no_grad():
+        for v in (x, probe):
+            y = layers.norm_silu_conv(site["norm"], site["conv"], v, site["add"])
+            outs.append(shard.padding(y).real(y))
+    same = torch.tensor([int(torch.equal(*outs))], device=x.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def clip_w8a8_row(engine, device, t: int, seed: int, faults=(), h: int = H,
+                  w: int = W) -> dict:
     """Phase 11's W8A8 row (``CCEDIT_QUANT_MATMUL=1``): clip_row's inputs
     split over the ranks and gathered, against the same W8A8 row on one GPU
     (rank 0), each with the per-tensor scale of every ``qconv`` call
@@ -3593,10 +3732,12 @@ def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     chain at that GroupNorm's site (``external_norm_check``); and the split
     row as near one GPU's exact row as one GPU's W8A8 row is, within
     W8A8_NOISE_FACTOR (its distance to one GPU's W8A8 row, and each site's
-    scale beside one GPU's, printed beside them).  With ``faults`` each of
-    W8A8_CLIP_FAULTS must fail its check: own_amax and amax_sum the
-    scales', fused_local_norm the external form's, int8_halo_zero the
-    row's.  Rank 0 returns the numbers, the other ranks None."""
+    scale beside one GPU's, printed beside them).  Where a UNet level is
+    padded, the first padded site's output must not see the padding
+    (``padded_site_check``).  Each fault in ``faults`` must fail its check:
+    own_amax and amax_sum the scales', fused_local_norm the external
+    form's, int8_halo_zero the row's, pad_amax the padded site's.  Rank 0
+    returns the numbers, the other ranks None."""
     import torch
     import torch.distributed as dist
 
@@ -3606,14 +3747,16 @@ def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
     from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, mesh_context
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    x, ts, cond, axis = clip_inputs(engine, device, t, seed)
+    x, ts, cond, axis = clip_inputs(engine, device, t, seed, h, w)
 
-    def sharded(site=None):
-        shard = ClipShard(axis, t)
+    def sharded(site=None, padded_site=None):
+        shard = ClipShard(axis, t, size=(h // 8, w // 8))
         xb = shard.block(x, axis).contiguous()
         cb = shard_clip_cond(cond, x.shape, axis, rank, world)
         keep = first_spanning_norm_input(site) if site is not None else contextlib.nullcontext()
-        with mesh_context(shard), torch.no_grad(), qconv_scales() as record, keep:
+        keep_padded = (first_padded_norm_site(padded_site) if padded_site is not None
+                       else contextlib.nullcontext())
+        with mesh_context(shard), torch.no_grad(), qconv_scales() as record, keep, keep_padded:
             y = engine.network(xb, ts, cb)
         scales = torch.cat(record["scales"]).cpu().tolist()
         by_rank = [None] * world
@@ -3653,19 +3796,22 @@ def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
                 ref = engine.network(x, ts, cond)
             ref_scales = torch.cat(record["scales"]).cpu().tolist()
         torch.cuda.synchronize()
-        site = {}
+        site, padded_site = {}, {}
         t0 = time.perf_counter()
-        out, by_rank, exact_sites = sharded(site if world > 1 and axis != 1 else None)
+        out, by_rank, exact_sites = sharded(site if world > 1 and axis != 1 else None,
+                                            padded_site)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         external = external_norm_check(site) if site else None
+        padded = padded_site_check(padded_site) if padded_site else None
         if rank == 0:
-            res = dict(frames=t, axis=AXES[axis], seconds=seconds, external_bit_for_bit=external,
+            res = dict(frames=t, height=h, width=w, axis=AXES[axis], seconds=seconds,
+                       external_bit_for_bit=external, padded_site_blind_to_padding=padded,
                        **held(out, ref, exact, by_rank, ref_scales, exact_sites))
             if world == 1:
                 res["bit_for_bit"] = bool(torch.equal(out, ref)) and by_rank[0] == ref_scales
             e, n = res["to_exact"], res["one_gpu_w8a8_to_exact"]
-            print(f"[clip_shard] W8A8 row {t}x{H}x{W} on the {AXES[axis]} axis over {world} "
+            print(f"[clip_shard] W8A8 row {t}x{h}x{w} on the {AXES[axis]} axis over {world} "
                   f"rank(s): to one GPU's exact row max|err|/max|ref| {e['rel']:.3e}, 1 - cosine "
                   f"{e['distance']:.3e} (one GPU's W8A8 row {n['rel']:.3e}, {n['distance']:.3e}; "
                   f"factor {W8A8_NOISE_FACTOR}); to one GPU's W8A8 row {res['rel']:.3e}, cosine "
@@ -3674,44 +3820,53 @@ def clip_w8a8_row(engine, device, t: int, seed: int, faults: bool) -> dict:
                   f"{res['scale_rel']:.3e} (first above 1e-3 at site {res['first_site_off']}); "
                   f"the {res['exact_sites']} sites before the first spanning GroupNorm bit for "
                   f"bit one GPU's: {res['exact_sites_bit_for_bit']}; "
-                  f"external-statistics form bit for bit its chain: {external}; bit for bit "
-                  f"the one-GPU row: {res.get('bit_for_bit')}; {seconds:.3f} s", flush=True)
+                  f"external-statistics form bit for bit its chain: {external}; the padded "
+                  f"site blind to its padding: {padded}; bit for bit the one-GPU row: "
+                  f"{res.get('bit_for_bit')}; {seconds:.3f} s", flush=True)
             if world == 1 and not res["bit_for_bit"]:
                 raise RuntimeError("at world 1 the W8A8 row under mesh_context is not the "
                                    "one-GPU W8A8 row bit for bit")
-            if not (res["row_passes"] and res["scales_pass"]) or external is False:
+            if (not (res["row_passes"] and res["scales_pass"]) or external is False
+                    or padded is False):
                 raise RuntimeError(f"the sharded W8A8 row disagrees with the one-GPU row: {res}")
-        if faults:
-            for fault in W8A8_CLIP_FAULTS:
-                with w8a8_clip_fault(fault):
-                    bad, bad_scales, _ = sharded()
-                bad_external = external_norm_check(site, fault) if site else None
-                if rank == 0:  # the sites of the sound split row
-                    f = held(bad, ref, exact, bad_scales, ref_scales, exact_sites)
-                    f["external_bit_for_bit"] = bad_external
-                    res[f"fault_{fault}"] = f
-                    refused = {"own_amax": not f["scales_pass"],
-                               "amax_sum": not f["scales_pass"],
-                               "fused_local_norm": bad_external is False,
-                               "int8_halo_zero": not f["row_passes"]}[fault]
-                    print(f"[clip_shard] W8A8 planted fault {fault}: to one GPU's exact row "
-                          f"max|err|/max|ref| {f['to_exact']['rel']:.3e}, 1 - cosine "
-                          f"{f['to_exact']['distance']:.3e}; scales equal on the ranks "
-                          f"{f['scales_equal_on_ranks']}, the first {exact_sites} one GPU's "
-                          f"{f['exact_sites_bit_for_bit']}; external form bit for bit "
-                          f"{bad_external}: refused by its check {refused}", flush=True)
-                    if not refused:
-                        raise RuntimeError(f"the W8A8 row checks pass the planted fault {fault}")
-                del bad
-    del ref, exact, out, site
+        for fault in faults:
+            planted = clip_shard_fault(fault) if fault in PAD_FAULTS else w8a8_clip_fault(fault)
+            with planted:
+                bad, bad_scales, _ = sharded()
+            bad_external = external_norm_check(site, fault) if site and fault not in PAD_FAULTS \
+                else None
+            bad_padded = padded_site_check(padded_site, fault) if padded_site else None
+            if rank == 0:  # the sites of the sound split row
+                f = held(bad, ref, exact, bad_scales, ref_scales, exact_sites)
+                f["external_bit_for_bit"] = bad_external
+                f["padded_site_blind_to_padding"] = bad_padded
+                res[f"fault_{fault}"] = f
+                refused = {"own_amax": not f["scales_pass"],
+                           "amax_sum": not f["scales_pass"],
+                           "fused_local_norm": bad_external is False,
+                           "int8_halo_zero": not f["row_passes"],
+                           "pad_amax": bad_padded is False}[fault]
+                print(f"[clip_shard] W8A8 planted fault {fault}: to one GPU's exact row "
+                      f"max|err|/max|ref| {f['to_exact']['rel']:.3e}, 1 - cosine "
+                      f"{f['to_exact']['distance']:.3e}; scales equal on the ranks "
+                      f"{f['scales_equal_on_ranks']}, the first {exact_sites} one GPU's "
+                      f"{f['exact_sites_bit_for_bit']}; external form bit for bit "
+                      f"{bad_external}; the padded site blind to its padding "
+                      f"{bad_padded}: refused by its check {refused}", flush=True)
+                if not refused:
+                    raise RuntimeError(f"the W8A8 row checks pass the planted fault {fault}")
+            del bad
+    del ref, exact, out, site, padded_site
     torch.cuda.empty_cache()
     return res
 
 
-def clip_edit(path: str, edit, device, seed: int, exact=None) -> dict:
-    """The 3-step edit sampled split over the ranks (rank 0 decodes), then
-    on one GPU (rank 0 alone) from the same generator seed: at world 1 the
-    final latents must be equal bit for bit, else within LATENT_COSINE; or,
+def clip_edit(path: str, edit, device, seed: int, exact=None, h: int = H,
+              w: int = W) -> dict:
+    """The 3-step edit (of a clip T x h x w) sampled split over the ranks
+    (rank 0 decodes), then on one GPU (rank 0 alone) from the same generator
+    seed: at world 1 the final latents must be equal bit for bit, else
+    within LATENT_COSINE; or,
     with ``exact`` (a W8A8 edit: ``exact()`` gives one GPU's exact final
     latents), as near those as one GPU's edit is, within W8A8_NOISE_FACTOR
     in 1 - cosine (the cosine to one GPU's edit printed beside it).  Launch
@@ -3742,7 +3897,7 @@ def clip_edit(path: str, edit, device, seed: int, exact=None) -> dict:
         for r, (counts, _, _) in enumerate(per_rank):
             print(f"[clip_shard] {path} rank {r} kernel launches by stage "
                   f"{json.dumps(counts)}", flush=True)
-        if out is None or out.shape != (T, H, W, 3):
+        if out is None or out.shape != (T, h, w, 3):
             raise RuntimeError(f"the sharded {path} edit returned no clip on rank 0")
         one, ref = edit(STEPS, torch.Generator(device=device).manual_seed(seed),
                         clip_shard=False, return_latents=True)
@@ -3775,16 +3930,222 @@ def clip_edit(path: str, edit, device, seed: int, exact=None) -> dict:
     return res
 
 
-def clip_shard_rank() -> int:
-    """Phase 11 on one rank of ``torchrun``: the TV2V row on the height axis
-    (17 frames; with the planted faults at two or more ranks), the TV2V row
-    on the frame axis (16 frames), both again under W8A8 (``clip_w8a8_row``,
-    the W8A8 faults on the height axis), the 3-step TV2V edit exact and
-    W8A8, the TVI2V edit; rank 0 writes the results to CLIP_DIR."""
+def clip_sample(label: str, sharded, one, faults=()) -> dict:
+    """A sample split over the ranks (``sharded()`` on every rank, the
+    gathered latents) against the same sample on one GPU (``one()``, rank 0
+    alone) from the same generator seed: at world 1 equal bit for bit, else
+    final latents' cosine >= LATENT_COSINE.  Launch counts are reset just
+    before the split sample and read just after (its path's counts).  Each
+    planted fault of ``clip_shard_fault`` in ``faults`` (two or more ranks)
+    must fail that check, or raise on every rank.  Rank 0 returns the
+    numbers."""
     import torch
     import torch.distributed as dist
 
-    from ccedit_tpu_torch.cli.profile_tv2v import build_edit, int8_environment
+    from ccedit_tpu_torch.ops import attention as att
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sharded()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"sample": {k: n for k, n in att.launch_counts().items() if n}}
+    res = None
+    if rank == 0:
+        t1 = time.perf_counter()
+        ref = one()
+        torch.cuda.synchronize()
+        one_seconds = time.perf_counter() - t1
+        same, cos = torch.equal(out, ref), cosine(out, ref)
+        print(f"[clip_shard] {label} over {world} rank(s): {seconds:.2f} s (one GPU "
+              f"{one_seconds:.2f} s); final latents vs one GPU's: cosine {cos:.6f} "
+              f"(>= {LATENT_COSINE}), bit for bit {same}; launches "
+              f"{json.dumps(launches['sample'])}", flush=True)
+        if not bool(torch.isfinite(out).all()):
+            raise FloatingPointError(f"the split {label}'s latents are not finite")
+        if (world == 1 and not same) or not cos >= LATENT_COSINE:
+            raise RuntimeError(f"the split {label} left the one-GPU sample: cosine {cos}, "
+                               f"bit for bit {same}")
+        res = dict(seconds=seconds, one_gpu_seconds=one_seconds, cosine=cos, bit_for_bit=same,
+                   launches=launches)
+    for fault in faults:
+        with clip_shard_fault(fault):
+            try:
+                bad, error = sharded(), None
+            except (RuntimeError, ValueError) as e:  # raised by the hook itself, on every rank
+                bad, error = None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        if rank == 0:
+            f_cos = None if bad is None else cosine(bad, ref)
+            res[f"fault_{fault}"] = dict(cosine=f_cos, error=error)
+            reading = f"raised {error}" if bad is None else f"cosine {f_cos:.6f}"
+            print(f"[clip_shard] {label} planted fault {fault}: final latents vs one GPU's "
+                  f"{reading} (refused)", flush=True)
+            if bad is not None and f_cos >= LATENT_COSINE:
+                raise RuntimeError(f"the split {label}'s check passes the planted fault {fault}")
+        del bad
+    dist.barrier()
+    return res
+
+
+def clip_interp_sample(device, seed: int, faults=()) -> dict:
+    """The interpolation network (``INTERP_TRAIN_CONFIG``'s, full width,
+    seeded random weights, bf16) sampled 3 steps at CLIP_FRAME_T x 512 x 768
+    through ``make_frame_sharded_sample``, split on the frame axis (the first
+    and the last frame on two ranks), against ``engine.sample`` on one GPU;
+    with the planted ``faults`` (``clip_sample``)."""
+    import torch
+
+    from ccedit_tpu_torch import config
+    from ccedit_tpu_torch.conditioning.conditioner import Conditioner
+    from ccedit_tpu_torch.diffusion import (DiscreteDenoiser, DPMPP2SAncestralSampler,
+                                            LegacyDDPMDiscretization, VanillaCFG)
+    from ccedit_tpu_torch.models.engine import CCEditEngine
+    from ccedit_tpu_torch.parallel.sampling import gather_clip, make_frame_sharded_sample
+
+    with device:
+        net = config.build_network(copy.deepcopy(
+            config.INTERP_TRAIN_CONFIG["model"]["params"]["network_config"]))
+    engine = CCEditEngine(random_module(net, device, seed), DiscreteDenoiser(),
+                          DPMPP2SAncestralSampler(LegacyDDPMDiscretization(), num_steps=STEPS),
+                          Conditioner([]), guider=VanillaCFG(scale=7.5))
+    t = CLIP_FRAME_T
+    shape = (1, t, H // 8, W // 8, 4)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = lambda *s: torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+    hint = (torch.rand((1, t, H, W, 3), generator=gen, device=device) * 2 - 1).to(torch.bfloat16)
+    ends = bf16(1, 2, H // 8, W // 8, 4)
+    c = {"crossattn": bf16(1, 77, 768), "control_hint": hint, "interpolate_first_last": ends}
+    uc = dict(c, crossattn=bf16(1, 77, 768))
+    call = make_frame_sharded_sample(engine, shape, STEPS)
+    draw = lambda: torch.Generator(device=device).manual_seed(seed)
+    res = clip_sample(f"interpolation sample {STEPS} steps {t}x{H}x{W}",
+                      lambda: gather_clip(call(c, uc, generator=draw()), call.axis),
+                      lambda: engine.sample(c, uc, shape, num_steps=STEPS, generator=draw()),
+                      faults)
+    del engine, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def clip_blend_sample(engine, device, seed: int, faults=()) -> dict:
+    """The TV2V engine's sampler in its blending mode (frames [: T/2]
+    re-seeded from the noised x0's [T/2 + 1 :] before every step), 3 steps
+    at CLIP_BLEND_T x 512 x 768 split on the frame axis, against the same
+    sample on one GPU; with the planted ``faults`` (``clip_sample``)."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.parallel.sampling import (gather_clip, pick_clip_axis,
+                                                    shard_clip_cond)
+    from ccedit_tpu_torch.parallel.shard import ClipShard, clip_randn, mesh_context
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t = CLIP_BLEND_T
+    shape = (1, t, H // 8, W // 8, 4)
+    dtype = engine.network_dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = {"crossattn": torch.randn((1, 77, 768), generator=gen, device=device).to(dtype),
+         "control_hint": (torch.rand((1, t, H, W, 3), generator=gen, device=device) * 2
+                          - 1).to(dtype)}
+    uc = dict(c, crossattn=torch.randn((1, 77, 768), generator=gen, device=device).to(dtype))
+    x0 = torch.randn(shape, generator=gen, device=device)
+    axis = pick_clip_axis(world, shape)
+    shard = ClipShard(axis, t, size=shape[2:4])
+    local = list(shape)
+    local[axis] //= world
+
+    def blend(cond, ucond, x0_part, shape_part):
+        draw = torch.Generator(device=device).manual_seed(seed)
+        x = clip_randn(shape_part, draw, device)
+        return engine.sampler.sampling_blending(engine.make_denoise_fn(cond, ucond), x, x0_part,
+                                                num_steps=STEPS, generator=draw)
+
+    def sharded():
+        cb = shard_clip_cond(c, shape, axis, rank, world)
+        ub = shard_clip_cond(uc, shape, axis, rank, world)
+        with mesh_context(shard), torch.no_grad():
+            out = blend(cb, ub, shard.block(x0, axis).contiguous(), local)
+        return gather_clip(out, axis)
+
+    def one():
+        with torch.no_grad():
+            return blend(c, uc, x0, shape)
+
+    return clip_sample(f"blending sample {STEPS} steps {t}x{H}x{W}", sharded, one, faults)
+
+
+def clip_raig_row(device, seed: int) -> dict:
+    """RAIG's 2-D network (full SD-1.5 width with TVI2V's appearance
+    ControlNet, seeded random weights, bf16) on one CFG-doubled row of
+    CLIP_RAIG x CLIP_RAIG images, split on the height axis (the JAX
+    ``pick_clip_axis``'s axis 1 of the 4-D latent) and gathered, against the
+    same row on one GPU: ROUTE_TOLERANCE and CLIP_COSINE.  Launch counts are
+    reset just before the split row and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch import config
+    from ccedit_tpu_torch.ops import attention as att
+    from ccedit_tpu_torch.parallel.sampling import gather_clip, pick_clip_axis
+    from ccedit_tpu_torch.parallel.shard import AXES, ClipShard, census, mesh_context
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    appearance = copy.deepcopy(config.TVI2V_CONFIG["model"]["params"]["network_config"]
+                               ["params"]["controlnet_img_config"])
+    with device:
+        net = config.build_network({
+            "target": "sgm.modules.diffusionmodules.controlmodel.ControlledUNetModel2DRAIG",
+            "params": dict(config._SD15_UNET, controlnet_img_config=appearance)})
+    net = random_module(net, device, seed)
+    n = CLIP_RAIG // 8
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = lambda *s: torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+    x, ts = bf16(2, n, n, 4), torch.tensor([999.0, 999.0], device=device)
+    cond = {"crossattn": bf16(2, 77, 768), "cond_feat": bf16(2, n, n, 4)}
+    dim = pick_clip_axis(world, (1, n, n, 4))  # a dim of the (B, H, W, C) latent
+    shard = ClipShard(dim + 1, 1, size=(n, n))
+    reset_launches()
+    with mesh_context(shard), torch.no_grad(), census() as records:
+        out = gather_clip(net(shard.block(x, dim).contiguous(), ts, cond), dim)
+    torch.cuda.synchronize()
+    launches = {"forward": {k: v for k, v in att.launch_counts().items() if v}}
+    gathers = sum(r["kind"] == "kv_all_gather" for r in records)
+    res = None
+    if rank == 0:
+        with torch.no_grad():
+            ref = net(x, ts, cond)
+        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        cos = cosine(out, ref)
+        print(f"[clip_shard] RAIG row 2x{CLIP_RAIG}x{CLIP_RAIG} on the {AXES[shard.axis]} axis "
+              f"over {world} rank(s): max|err|/max|ref| {rel:.3e} (tol {ROUTE_TOLERANCE:.0e}), "
+              f"cosine {cos:.6f} (>= {CLIP_COSINE}), {gathers} k/v all-gathers; launches "
+              f"{json.dumps(launches['forward'])}", flush=True)
+        if not (rel <= ROUTE_TOLERANCE and cos >= CLIP_COSINE and (gathers or world == 1)):
+            raise RuntimeError(f"the split RAIG row disagrees with the one-GPU row: {rel}, {cos}")
+        res = dict(axis=AXES[shard.axis], rel=rel, cosine=cos, kv_all_gathers=gathers,
+                   launches=launches)
+    del net
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def clip_shard_rank() -> int:
+    """Phase 11 on one rank of ``torchrun``: the TV2V row on the height axis
+    (17 frames; with the planted faults at two or more ranks), the TV2V row
+    on the frame axis (16 frames), the padded rows (CLIP_PAD on the height
+    axis with the padding faults, CLIP_FRAME_PAD on the frame axis), the
+    512x768 and padded rows again under W8A8 (``clip_w8a8_row``, the W8A8
+    faults on the height axis, pad_amax on the padded row), the 3-step
+    TV2V edit exact (512x768 and CLIP_PAD) and W8A8, the blending sample,
+    the TVI2V edit, the interpolation sample and the RAIG row; rank 0
+    writes the results to CLIP_DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from ccedit_tpu_torch.cli.profile_tv2v import build_edit, int8_environment, make_edit
     from ccedit_tpu_torch.parallel.mesh import init_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3793,14 +4154,29 @@ def clip_shard_rank() -> int:
     rank, world = dist.get_rank(), dist.get_world_size()
     res = {"world": world}
     engine, edit, _ = build_edit("tv2v", device, SEED, STEPS, clip_shard=True)
-    res["tv2v_row"] = clip_row(engine, device, T, SEED, faults=world > 1)
-    if rank == 0 and world == 1:
+    split = world > 1  # the planted faults act only beyond one rank
+    faults = (tuple(f for f in CLIP_SHARD_FAULTS if f not in PAD_FAULTS + SAMPLE_FAULTS)
+              if split else ())
+    res["tv2v_row"] = clip_row(engine, device, T, SEED, faults)
+    if rank == 0 and not split:
         print("[clip_shard] world 1: the planted faults (halos, GroupNorm statistics, k/v "
-              "gathers) need two or more ranks; not run", flush=True)
-    res["frame_row"] = clip_row(engine, device, CLIP_FRAME_T, SEED, faults=False)
-    res["tv2v_w8a8_row"] = clip_w8a8_row(engine, device, T, SEED, faults=world > 1)
-    res["frame_w8a8_row"] = clip_w8a8_row(engine, device, CLIP_FRAME_T, SEED, faults=False)
+              "gathers, the padding's zeros, statistics and amax, blending's gather, the "
+              "interpolation controls' frames) need two or more ranks; not run", flush=True)
+    res["frame_row"] = clip_row(engine, device, CLIP_FRAME_T, SEED)
+    ph, pw = CLIP_PAD
+    res["pad_row"] = clip_row(engine, device, T, SEED,
+                              ("pad_unmasked", "pad_counted") if split else (), ph, pw)
+    t_fp, h_fp, w_fp = CLIP_FRAME_PAD
+    res["frame_pad_row"] = clip_row(engine, device, t_fp, SEED, (), h_fp, w_fp)
+    res["tv2v_w8a8_row"] = clip_w8a8_row(engine, device, T, SEED,
+                                         W8A8_CLIP_FAULTS if split else ())
+    res["frame_w8a8_row"] = clip_w8a8_row(engine, device, CLIP_FRAME_T, SEED)
+    res["pad_w8a8_row"] = clip_w8a8_row(engine, device, T, SEED,
+                                        ("pad_amax",) if split else (), ph, pw)
     res["tv2v"] = clip_edit("tv2v", edit, device, SEED)
+    edit_pad, _ = make_edit(engine, "tv2v", clip_shard=True, height=ph, width=pw)
+    res["tv2v_pad"] = clip_edit("tv2v_pad", edit_pad, device, SEED, h=ph, w=pw)
+    res["blend"] = clip_blend_sample(engine, device, SEED, ("blend_local",) if split else ())
     def exact_latents():
         with int8_environment():
             return edit(STEPS, torch.Generator(device=device).manual_seed(SEED), clip_shard=False,
@@ -3812,6 +4188,10 @@ def clip_shard_rank() -> int:
     torch.cuda.empty_cache()
     engine, edit, _ = build_edit("tvi2v", device, SEED, STEPS, clip_shard=True)
     res["tvi2v"] = clip_edit("tvi2v", edit, device, SEED)
+    del engine, edit
+    torch.cuda.empty_cache()
+    res["interp"] = clip_interp_sample(device, SEED, ("interp_local",) if split else ())
+    res["raig_row"] = clip_raig_row(device, SEED)
     if rank == 0:
         from pathlib import Path
 
@@ -3862,7 +4242,11 @@ def run_clip_shard(seed: int) -> dict:
     print(f"[clip_shard] phase 11 at world {res['world']} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return {"clip_shard_tv2v": tv2v, "clip_shard_tvi2v": res["tvi2v"]["launches"],
-            "clip_shard_tv2v_w8a8": res["tv2v_w8a8"]["launches"]}
+            "clip_shard_tv2v_w8a8": res["tv2v_w8a8"]["launches"],
+            "clip_shard_tv2v_pad": res["tv2v_pad"]["launches"],
+            "clip_shard_blend": res["blend"]["launches"],
+            "clip_shard_interp": res["interp"]["launches"],
+            "clip_shard_raig": res["raig_row"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4324,7 +4708,7 @@ def check_external_norm_shape(label, shape, add, eps, world, *, gen, device) -> 
 
     x, norm, a = norm_operands(shape, add, eps, None, gen, device)
     with torch.no_grad():
-        with mesh_context(OrderOnlyShard()):
+        with mesh_context(OrderOnlyShard(shape[1:3])):
             before = quant._NORM_SILU_QUANTIZE.variant_launches["external sharded"]
             ref = quant.plain_norm_silu_quantize(x, norm, a)
             got = quant.norm_silu_quantize(x, norm, a)

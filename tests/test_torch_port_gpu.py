@@ -1076,7 +1076,7 @@ def test_w8a8_staged_forms_under_a_shard_are_their_chains(cuda, world):
         norm.bias.copy_(0.1 * torch.randn((320,), generator=g, device=cuda))
     x = torch.randn((8, 64 // world, 96, 320), generator=g, device=cuda).to(torch.bfloat16)
     add = (0.5 * torch.randn((8, 320), generator=g, device=cuda)).to(torch.bfloat16)
-    with mesh_context(OrderOnlyShard()), torch.no_grad():
+    with mesh_context(OrderOnlyShard(x.shape[1:3])), torch.no_grad():
         q, s = quant.quantize_int8(x.reshape(-1, 320), per_row=False)
         pq, ps = quant.plain_quantize_int8(x.reshape(-1, 320), per_row=False)
         assert torch.equal(q, pq) and torch.equal(s, ps)

@@ -128,7 +128,7 @@ def _forward(net, d, axis):
     from ccedit_tpu_torch.parallel.sampling import gather_clip, shard_clip_cond
     from ccedit_tpu_torch.parallel.shard import ClipShard, mesh_context
 
-    shard = ClipShard(axis, d["shape"][1])
+    shard = ClipShard(axis, d["shape"][1], size=d["shape"][2:4])
     x = shard.block(_t64(d["x2"]), axis)
     cond = shard_clip_cond(_t64(d["cond2"]), d["x2"].shape, axis, shard.rank, shard.world)
     with mesh_context(shard), torch.no_grad():
@@ -160,7 +160,7 @@ def _external(world):
         norm.bias.normal_(0.0, 0.2)
     x = (torch.randn(3, 4 * world, 6, 32) * 3 + 1.5).to(torch.bfloat16)
     add = (torch.randn(3, 32) * 0.5).to(torch.bfloat16)
-    shard = ClipShard(2, 1)
+    shard = ClipShard(2, 1, size=x.shape[1:3])
     xb = shard.block(x, 1)
     with mesh_context(shard), torch.no_grad():
         ref = quant.plain_norm_silu_quantize(xb, norm, add)
