@@ -1,4 +1,6 @@
-// Kernel 5: probes of kernel 1's phases at the level-0 shape (272, 6144, 40).
+// Kernel 5: probes of kernel 1's phases at the level-0 shape (272, 6144, 40)
+// and, in the plain layout, at head_dim 64 (SD-2.x's heads: (10, 9216, 64)
+// and (20, 2304, 64), SD-2.1-768's levels 0 and 1).
 //
 // Replaces: scripts/kv_resident_attn.py `make_call` (:188; bodies
 // `_qkt_kernel` :73, `_softmax_kernel` :80, `_full_kernel` :90),
@@ -44,14 +46,14 @@
 // inside the kernel: it moves 0.29 GB at the bytes bound (~0.09 ms, a fifth
 // of the int8 qkt bound), and it keeps the kernel kernel 1c's own
 // instantiation instead of adding a transposing stage between the TMA and
-// the wgmma to kernel 1's pipeline.  N is a multiple of 64; D is 40.
+// the wgmma to kernel 1's pipeline.  N is a multiple of 64; D is 40, or 64
+// for the three plain bf16 variants (kernel 1's d = 64 instantiation, 192
+// query rows a block, stopped after each stage).
 #include "spatial_attention.cuh"
 
 namespace ccedit {
 
 namespace {
-
-constexpr int kD = 40;  // head_dim of the probes
 
 // (batch, token, d) element strides of one probe operand
 struct Layout {
@@ -64,7 +66,7 @@ struct Layout {
 Strides row_strides(Layout l) { return Strides{l.b, l.b, l.n}; }
 Strides tr_strides(Layout l) { return Strides{l.b, l.b, l.d}; }
 
-template <class QK, int ST, class L>
+template <int kD, class QK, int ST, class L>
 int launch_probe(const void* q, const void* k, const void* v, void* out, int batch, int n,
                  Layout lq, Layout lk, Layout lv, Layout lo, float scale_log2,
                  cudaStream_t stream) {
@@ -102,7 +104,8 @@ int launch_probe(const void* q, const void* k, const void* v, void* out, int bat
 }  // namespace ccedit
 
 // C entry point.  stage 0 qkt, 1 softmax, 2 full; int8 q/k only with the
-// transposed layout.  q and k are (B, N, 40) or, transposed, (B, 40, N)
+// transposed layout, head_dim 64 only with bf16 q/k in the plain layout.  q
+// and k are (B, N, D) or, transposed, (B, D, N)
 // with unit token stride; v and out (full) likewise, bf16; out is (B, N)
 // fp32 for qkt and softmax.  For int8 the q and k given are the (B, N, 48)
 // rows that ccedit_transpose_int8 makes of the transposed q8 and k8.
@@ -111,8 +114,8 @@ int launch_probe(const void* q, const void* k, const void* v, void* out, int bat
 // probes do not have.
 extern "C" int ccedit_attention_probe(int stage, int int8, int transposed, const void* q,
                                       const void* k, const void* v, void* out, int batch,
-                                      int n, const long long* strides, float scale_log2,
-                                      void* stream) {
+                                      int n, int head_dim, const long long* strides,
+                                      float scale_log2, void* stream) {
   using namespace ccedit;
   const Layout lq{strides[0], strides[1], strides[2]};
   const Layout lk{strides[3], strides[4], strides[5]};
@@ -120,24 +123,38 @@ extern "C" int ccedit_attention_probe(int stage, int int8, int transposed, const
   const Layout lo{strides[9], strides[10], strides[11]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || n % 64 != 0) return -1;
+  if (head_dim == 64 && !int8 && !transposed) {
+    switch (stage) {
+      case kQKT:
+        return launch_probe<64, Bf16QK<64>, kQKT, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      case kSoftmax:
+        return launch_probe<64, Bf16QK<64>, kSoftmax, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      case kFull:
+        return launch_probe<64, Bf16QK<64>, kFull, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      default:
+        return -1;
+    }
+  }
+  if (head_dim != 40) return -1;
+  constexpr int kD = 40;
   using Plain = Bf16QK<kD>;
   using Tr = Bf16QKTr<kD>;
   using Tr8 = Int8QK<kD, true>;
   switch (stage * 4 + int8 * 2 + transposed) {
     case kQKT * 4:
-      return launch_probe<Plain, kQKT, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Plain, kQKT, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kSoftmax * 4:
-      return launch_probe<Plain, kSoftmax, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Plain, kSoftmax, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kFull * 4:
-      return launch_probe<Plain, kFull, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Plain, kFull, RowLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kQKT * 4 + 1:
-      return launch_probe<Tr, kQKT, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Tr, kQKT, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kFull * 4 + 1:
-      return launch_probe<Tr, kFull, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Tr, kFull, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kQKT * 4 + 3:
-      return launch_probe<Tr8, kQKT, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Tr8, kQKT, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     case kFull * 4 + 3:
-      return launch_probe<Tr8, kFull, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
+      return launch_probe<kD, Tr8, kFull, TrLayout>(q, k, v, out, batch, n, lq, lk, lv, lo, scale_log2, st);
     default:
       return -1;
   }

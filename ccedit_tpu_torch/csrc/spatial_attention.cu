@@ -19,6 +19,10 @@
 // the tensor time is twice the exp time.  q/k/v/out are 0.5 GB; the fp32
 // scores (41 GB at level 0) never leave the SM.
 //
+// At d = 64 the tile is 192 query rows (three consumers) where that grid
+// covers the SMs, and the softmax rescales lazily: spatial_attention.cuh's
+// "Head dim 64" says why.
+//
 // What held the simple design back, and what this one does about it:
 // synchronous K/V staging (now TMA into a ring, overlapped), V transposed
 // element by element (now read MN-major by wgmma), mma.sync from 4 warps
@@ -49,8 +53,11 @@ extern "C" int ccedit_spatial_attention(
       return launch_spatial<40, Bf16QK<40>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,
                                             sk, sv, so, scale_log2, st);
     case 64:
-      return launch_spatial<64, Bf16QK<64>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,
-                                            sk, sv, so, scale_log2, st);
+      if (d64_query_tile(n_q, batch * heads) == 192)
+        return launch_spatial<64, Bf16QK<64>, 192>(q, k, v, o, l, nullptr, batch, heads, n_q,
+                                                   n_k, sq, sk, sv, so, scale_log2, st);
+      return launch_spatial<64, Bf16QK<64>, 128>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k,
+                                                 sq, sk, sv, so, scale_log2, st);
     case 80:
       return launch_spatial<80, Bf16QK<80>>(q, k, v, o, l, nullptr, batch, heads, n_q, n_k, sq,
                                             sk, sv, so, scale_log2, st);

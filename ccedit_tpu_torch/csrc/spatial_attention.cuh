@@ -23,9 +23,10 @@
 //     its half of the Q tile so the stores run along the tokens);
 //   - the tile: BM query rows a block (64 a consumer warpgroup: 64, 128 or
 //     192) and BN keys a K/V tile (16 .. 256; kernel 7 sweeps both).
-// Kernels 1 and 1c instantiate the defaults (BM 128, BN 128, or 64 at
-// d = 160), for which the stage's, the layout's and the tile's branches
-// compile away.
+// Kernels 1 and 1c instantiate the defaults (BM 128, or 192 at d = 64; BN
+// 128, or 64 at d = 160), for which the stage's, the layout's and the
+// tile's branches compile away; at d = 64 also BM 128, taken where the
+// 192-row grid would leave SMs idle (d64_query_tile).
 //
 // Design (FlashAttention-3's shape): one block of three warpgroups per
 // (batch*head, 128-query tile) at the default tile.
@@ -72,8 +73,9 @@
 //   bf16 d = 160: BN 64,  3 stages: 48 KB + 3 x 48 KB = 192 KB
 //   s8 d = 40:    BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB
 //   s8 d = 80:    BN 128, 4 stages: 16 KB + 4 x 48 KB = 208 KB
-//   bf16 and s8 d = 64: BN 128, 4 stages: 16 KB + 4 x 32 KB = 144 KB (a
-//     row is exactly one 128-byte chunk: the TMA box's natural width)
+//   bf16 and s8 d = 64: BN 128, 4 stages: 24 KB + 4 x 32 KB = 152 KB at BM
+//     192, 16 KB + 4 x 32 KB = 144 KB at BM 128 (a row is exactly one
+//     128-byte chunk: the TMA box's natural width)
 //   kernel 5, d = 40, 4 stages: qkt and softmax 16 KB + 4 x 16 KB (K only);
 //     tr bf16 Q 2 x 48 x 128 B = 12 KB, a stage K 12 KB + V^T 2 x 40 x 128
 //     B = 10 KB (qkt 12 + 4 x 12 KB, full 12 + 4 x 22 KB)
@@ -85,6 +87,29 @@
 // grants later, so setmaxnreg (40 / 232) is kept only for kernel 1's two
 // consumers (kernel 7's kept pairs and their registers: attention_tiles.cu).
 // One block an SM; (34, 8, 6144, 40) is 48 x 272 blocks at BM 128.
+//
+// Head dim 64 (SD-2.x's heads; kernels 1, 1c and kernel 5's d = 64 probes;
+// PERF.md section 6).  The two bounds are equal: at (2, 5, 9216, 64) the
+// products take 0.220 ms at 989 TFLOP/s and the exponentials 0.218 ms at
+// ~3.9 T/s.  Kernel 5's split of the 128-row design on an H100 (0.727 ms):
+// Q.K^T alone 0.195 ms (56 % of its bound), the softmax +0.272, P.V +0.256.
+// Neither unit is the ceiling: the same kernel without its exponentials
+// (scripts/d64_compare.py's no_exp2) is no faster; moving a share of them
+// to a polynomial on the FMA pipe, or issuing Q.K^T of tile j ahead of P.V
+// of tile j - 1, made it slower, and packing P to bf16 on the integer pipe
+// gained nothing.  What helped, and is the design:
+//   - BM 192, three consumer warpgroups taking turns round robin (kernel
+//     7's finding at d = 40): a K/V tile feeds 192 query rows, and while one
+//     warpgroup runs its softmax two queue products.  At 512 threads ptxas
+//     compiles within 128 registers; S 64 + P 32 + O 32 fit without spills
+//     (ptxas: 128 registers, 0 bytes spilled; kernel 1c 127).  Where the
+//     192-row grid leaves SMs without a block (SD-2.1-768's 576-token
+//     level: 120 blocks), the 128-row tile, whose 200 blocks ran faster.
+//   - O and l rescaled only where a row's max grows more than kLazy = 8
+//     (a factor 2^8) past the m its probabilities are taken against, the
+//     warp's 16 rows deciding together (one vote): P <= 2^8 stays exact in
+//     bf16 and fp32, and O / l is exact after the final division.  Kernel
+//     5's softmax probe rescales its row sums to the true max at the end.
 //
 // Training: given a non-null `lse`, the kernel also writes each row's fp32
 // log-sum-exp in the log2 domain, m + log2(l) over s * scale_log2, to
@@ -245,10 +270,25 @@ struct Bf16QKTr {
   }
 };
 
-// kernel 1's key tile at head dim D
+// kernel 1's query and key tiles at head dim D
+constexpr int default_bm(int d) { return d == 64 ? 192 : 128; }
 constexpr int default_bn(int d) { return d > 128 ? 64 : 128; }
 
-template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+// The query tile of kernels 1 and 1c at head dim 64: 192 rows (three
+// consumers) where that grid still gives every SM a block, else 128 (at
+// SD-2.1-768's level 2, (2, 20, 576, 64), 120 blocks of 192 rows leave 12
+// SMs idle and ran slower than 200 of 128).
+inline int d64_query_tile(int n_q, int batch_heads) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return static_cast<long long>(n_q + 191) / 192 * batch_heads >= sms ? 192 : 128;
+}
+
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = default_bm(D),
           int BN = default_bn(D)>
 struct SpatialTiles {
   static constexpr int kVChunks = (D + 63) / 64;  // 128-byte chunks of a V row
@@ -268,6 +308,11 @@ struct SpatialTiles {
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kSmemBytes = 1024 + kQBytes + kStages * kStageBytes;
   static constexpr int kPitchTr = 144;  // bytes of a staged O^T row: 64 tokens + 16, conflict-free
+  // head_dim 64 (kernels 1, 1c and 5 at d = 64; the header's "Head dim
+  // 64"): O and l are rescaled only where a row's max grows more than kLazy
+  // past the m its probabilities are taken against
+  static constexpr bool kD64 = D == 64 && !L::kTr;
+  static constexpr float kLazy = 8.f;
   static_assert(D % 8 == 0 && D <= 256, "P.V writes D columns in blocks of 8, at most 256");
   static_assert(BM % 64 == 0 && BM >= 64 && BM <= 192, "one to three consumers of 64 rows");
   static_assert(BN % 16 == 0 && BN >= 16 && BN <= 256, "a key tile is wgmma's N");
@@ -278,7 +323,7 @@ struct SpatialTiles {
 
 constexpr int kTurn = 1;  // named barriers kTurn + w: warpgroup w's turn at the tensor cores
 
-template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = default_bm(D),
           int BN = default_bn(D)>
 __global__ void __launch_bounds__(SpatialTiles<D, QK, ST, L, BM, BN>::kThreads, 1)
 spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -347,6 +392,7 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  [[maybe_unused]] float mr0 = -INFINITY, mr1 = -INFINITY;  // kD64 kSoftmax: the rows' true max
 
   mbar_wait(&q_full, 0);
   if constexpr (NC > 1)
@@ -404,33 +450,77 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds a valid key, so the new maxima are finite
-    const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-    const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);  // 0 on the first tile
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NS; i += 4) {
-      sc[i] = ex2(fmaf(sc[i], sl2, -mn0));
-      sc[i + 1] = ex2(fmaf(sc[i + 1], sl2, -mn0));
-      sc[i + 2] = ex2(fmaf(sc[i + 2], sl2, -mn1));
-      sc[i + 3] = ex2(fmaf(sc[i + 3], sl2, -mn1));
-      rs0 += sc[i] + sc[i + 1];
-      rs1 += sc[i + 2] + sc[i + 3];
-    }
-    l0 = l0 * corr0 + rs0;  // this thread's share of the row sum
-    l1 = l1 * corr1 + rs1;
-    if constexpr (ST == kFull) {
-#pragma unroll
-      for (int i = 0; i < D / 2; i += 4) {
-        acc[i] *= corr0;
-        acc[i + 1] *= corr0;
-        acc[i + 2] *= corr1;
-        acc[i + 3] *= corr1;
+    if constexpr (T::kD64) {
+      // every tile holds a valid key, so the tile's maxima are finite; the
+      // warp rescales (all 16 of its rows) only where one of its rows' max
+      // grows kLazy past m, so p = 2^(s - m) <= 2^kLazy and O / l is exact
+      const float mt0 = mx0 * sl2, mt1 = mx1 * sl2;
+      if constexpr (ST == kSoftmax) {  // the probe's row sums are against the true max
+        mr0 = fmaxf(mr0, mt0);
+        mr1 = fmaxf(mr1, mt1);
       }
+      if (__any_sync(0xffffffffu, mt0 > m0 + T::kLazy || mt1 > m1 + T::kLazy)) {
+        const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+        const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);  // 0 on the first tile
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= corr0;
+        l1 *= corr1;
+        if constexpr (ST == kFull) {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) p_fragment(pa[kk], sc + 8 * kk, sc + 8 * kk + 4);
+          for (int i = 0; i < D / 2; i += 4) {
+            acc[i] *= corr0;
+            acc[i + 1] *= corr0;
+            acc[i + 2] *= corr1;
+            acc[i + 3] *= corr1;
+          }
+        }
+      }
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        sc[i] = ex2(fmaf(sc[i], sl2, -m0));
+        sc[i + 1] = ex2(fmaf(sc[i + 1], sl2, -m0));
+        sc[i + 2] = ex2(fmaf(sc[i + 2], sl2, -m1));
+        sc[i + 3] = ex2(fmaf(sc[i + 3], sl2, -m1));
+        rs0 += sc[i] + sc[i + 1];
+        rs1 += sc[i + 2] + sc[i + 3];
+      }
+      l0 += rs0;  // this thread's share of the row sum
+      l1 += rs1;
+      if constexpr (ST == kFull) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) p_fragment(pa[kk], sc + 8 * kk, sc + 8 * kk + 4);
+      }
+    } else {
+      // every tile holds a valid key, so the new maxima are finite
+      const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+      const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);  // 0 on the first tile
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < NS; i += 4) {
+        sc[i] = ex2(fmaf(sc[i], sl2, -mn0));
+        sc[i + 1] = ex2(fmaf(sc[i + 1], sl2, -mn0));
+        sc[i + 2] = ex2(fmaf(sc[i + 2], sl2, -mn1));
+        sc[i + 3] = ex2(fmaf(sc[i + 3], sl2, -mn1));
+        rs0 += sc[i] + sc[i + 1];
+        rs1 += sc[i + 2] + sc[i + 3];
+      }
+      l0 = l0 * corr0 + rs0;  // this thread's share of the row sum
+      l1 = l1 * corr1 + rs1;
+      if constexpr (ST == kFull) {
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4) {
+          acc[i] *= corr0;
+          acc[i + 1] *= corr0;
+          acc[i + 2] *= corr1;
+          acc[i + 3] *= corr1;
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) p_fragment(pa[kk], sc + 8 * kk, sc + 8 * kk + 4);
+      }
     }
   }
   if constexpr (ST == kFull) {  // O += P.V of the last tile
@@ -448,6 +538,10 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   if constexpr (ST != kFull) {  // the probes' row sums, to lse[b*h, row]
+    if constexpr (T::kD64 && ST == kSoftmax) {  // against the true max, not the lazy m
+      l0 *= ex2(m0 - mr0);
+      l1 *= ex2(m1 - mr1);
+    }
     const int row0 = q0 + 64 * w + 16 * warp + lane / 4, row1 = row0 + 8;
     if (t == 0) {
       float* rows = lse + static_cast<long long>(bh) * n_q;
@@ -505,7 +599,7 @@ spatial_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 // of q, k, v has the tokens inside the heads, load_chunk's flag).  `lse`
 // takes kernel 1's log-sum-exp (null: none) or, before the full stage, the
 // probes' (B*H, n_q) row sums.
-template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = 128,
+template <int D, class QK, int ST = kFull, class L = RowLayout, int BM = default_bm(D),
           int BN = default_bn(D)>
 int launch_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                   int tokens_inner, void* o, float* lse, const float* scales, int batch,
@@ -528,7 +622,7 @@ int launch_kernel(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMa
 // width QK::kWidth), bf16 v and o.  Strides are in elements of each
 // operand.  `scales` is read by QK::scale_log2 (kernel 1c's per-(b, h)
 // folded scales; null for kernel 1).  BM and BN: the tile (kernel 7's sweep).
-template <int D, class QK, int BM = 128, int BN = default_bn(D)>
+template <int D, class QK, int BM = default_bm(D), int BN = default_bn(D)>
 int launch_spatial(const void* q, const void* k, const void* v, void* o, float* lse,
                    const float* scales, int batch, int heads, int n_q, int n_k, Strides sq,
                    Strides sk, Strides sv, Strides so, float scale_log2, cudaStream_t stream) {

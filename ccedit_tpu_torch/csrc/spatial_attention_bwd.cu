@@ -57,7 +57,8 @@
 // Shared memory: K + V 2 x 128 x chunks x 128 B, a stage Q + dO 2 x 64 x
 // chunks x 128 B + 512 B of lse and delta, dS^T 2 x 16 KB:
 //   d = 40:  32 KB + 4 stages x 16.5 KB + 32 KB = 131 KB
-//   d = 64:  the same (one 128-byte chunk a row, no zero columns)
+//   d = 64:  32 KB + 2 stages x 16.5 KB + 32 KB + 16 B = 97 KB (one
+//            128-byte chunk a row, no zero columns)
 //   d = 80:  64 KB + 3 stages x 32.5 KB + 32 KB = 194 KB
 //   d = 160: 96 KB + 2 stages x 48.5 KB + 32 KB = 225 KB (of 227)
 // Registers of a consumer thread: dK and dV D/2 fp32 each (20 / 40 / 80),
@@ -65,6 +66,29 @@
 // At d = 160, where dK and dV alone take 160, S^T and dP^T are computed in
 // two halves of 32 queries and dQ in column pieces of 64, 64 and 32, so at
 // most 208 are live.
+//
+// Head dim 64 (SD-2.x's heads; PERF.md section 6).  Bound by the tensor
+// cores: five products of 0.069 ms at (2, 10, 2304, 64), the exp2 0.027.
+// On an H100, scripts/bwd_breakdown.py d64 split the d 40/80/160 design's
+// 0.278 ms there: the dQ product and its atomics 31-39 % of the time (the
+// atomics alone 21-28 %), the exponentials 6-10 %.  That design spills 20
+// bytes at d = 64 (168 registers: dK, dV, S^T and dP^T take 128, the P^T
+// fragment beside them while dP^T lands); in its variants ptxas spilled
+// the walk's first query tile, reloaded every tile.  The d = 64 path:
+//   - S^T and dP^T issued as one wgmma group; once both land, one pass
+//     over 16-query blocks forms P^T, dS^T and both bf16 fragments, so each
+//     block's fp32 values die as its fragments fill;
+//   - the producer writes each stage's first query row to shared memory
+//     (16 bytes past the stats), which the consumers read before releasing
+//     the stage, so no consumer register holds the walk's first tile;
+//   - dQ added by float4 atomics, the quad's neighbours swapping a pair so
+//     each adds 4 consecutive columns of one row: no faster than float2
+//     pairs, but with those ptxas spills again;
+//   - 2 ring stages, measured faster than 4.
+// ptxas: 168 registers, no spills.  Issuing S^T and dP^T one after the
+// other into one accumulator, or dropping the producer warpgroup (256
+// threads, so ptxas may use 255 registers), removed the spills too, but ran
+// slower than the d 40/80/160 design.
 #include "hopper.cuh"
 
 namespace ccedit {
@@ -79,17 +103,23 @@ constexpr int kDsBar = 1;  // named barriers kDsBar + parity: a tile's dS^T is c
 
 template <int D>
 struct BwdTiles {
+  // head_dim 64 (the header's "Head dim 64"): P^T, dS^T and their
+  // fragments formed in one pass after S^T and dP^T land; each stage's
+  // first query row passed in shared memory (16 bytes past the stats), so
+  // no consumer register holds the walk's first tile; dQ added 4 columns
+  // an atomic
+  static constexpr bool kD64 = D == 64;
   static constexpr int kChunks = (D + 63) / 64;  // 128-byte chunks of a head
   static constexpr int kKSteps = (D + 15) / 16;  // 16-deep steps of S and dP
   static constexpr int kHalves = D > 128 ? 2 : 1;  // S and dP in query halves
-  static constexpr int kStages = D <= 64 ? 4 : (D <= 128 ? 3 : 2);
+  static constexpr int kStages = D < 64 ? 4 : (D == 64 ? 2 : (D <= 128 ? 3 : 2));
   static constexpr int kKVBytes = kBN * kChunks * 128;  // K or V
   static constexpr int kQBytes = kBM * kChunks * 128;   // Q or dO of a stage
   static constexpr int kDsBytes = kBN * kBM * 2;        // dS^T, bf16 [key][query]
   static constexpr int kStatBytes = kBM * 8;            // lse and delta of a stage's queries
   // + 1024: the dynamic buffer is aligned up to the swizzle atom by hand
   static constexpr int kSmemBytes = 1024 + 2 * kKVBytes + kStages * 2 * kQBytes +
-                                    2 * kDsBytes + kStages * kStatBytes;
+                                    2 * kDsBytes + kStages * kStatBytes + (kD64 ? 16 : 0);
   static constexpr int kThreads = 384;
   static_assert(D % 8 == 0 && D <= 256, "dK and dV are written in blocks of 8 columns");
   static_assert(kSmemBytes + 128 <= 232448, "the tiles do not fit in a block's shared memory");
@@ -103,8 +133,11 @@ __device__ __forceinline__ void store_ds(unsigned char* ds, int r, int c, uint32
 
 // One column piece of dQ for the tile: dS (64 queries x 128 keys, MN-major
 // from the dS^T tile) times K's N columns from chunk `kp` (MN-major), added
-// to the fp32 accumulator at this thread's rows `row0` and `row0 + 8`.
-template <int N>
+// to the fp32 accumulator at this thread's rows `row0` and `row0 + 8`.  With
+// V4 (d = 64) the quad's neighbours t and t ^ 1 swap a pair, so each adds 4
+// consecutive columns of one row (t even: row0, odd: row0 + 8) with one
+// float4 atomic; `row0` then points at column 2 (t & ~1).
+template <int N, bool V4 = false>
 __device__ __forceinline__ void dq_piece(const unsigned char* ds, const unsigned char* kp,
                                          float* row0, int ld) {
   float acc[N / 2];
@@ -116,11 +149,25 @@ __device__ __forceinline__ void dq_piece(const unsigned char* ds, const unsigned
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (V4) {
+    const bool odd = threadIdx.x & 1;
+    float* row = row0 + (odd ? 8 * ld : 0);
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    atomicAdd(reinterpret_cast<float2*>(row0 + 8 * j), make_float2(acc[4 * j], acc[4 * j + 1]));
-    atomicAdd(reinterpret_cast<float2*>(row0 + 8 * ld + 8 * j),
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+    for (int j = 0; j < N / 8; ++j) {
+      // even t sends its row-g + 8 pair and keeps row g's; odd t the reverse
+      const float s0 = odd ? acc[4 * j] : acc[4 * j + 2], s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3])
+                           : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+      atomicAdd(reinterpret_cast<float4*>(row + 8 * j), v);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      atomicAdd(reinterpret_cast<float2*>(row0 + 8 * j), make_float2(acc[4 * j], acc[4 * j + 1]));
+      atomicAdd(reinterpret_cast<float2*>(row0 + 8 * ld + 8 * j),
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+    }
   }
 }
 
@@ -185,6 +232,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
   unsigned char* s_ds = s_qdo + S * 2 * T::kQBytes;  // dS^T of even and odd tiles
   // stage s: the tile's kBM lse, then its kBM deltas
   float* s_stats = reinterpret_cast<float*>(s_ds + 2 * T::kDsBytes);
+  [[maybe_unused]] int* stage_q0 = reinterpret_cast<int*>(s_stats + S * 2 * kBM);  // d = 64
   __shared__ uint64_t kv_full, full[S], empty[S];
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -219,6 +267,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int i = 0; i < n_qt; ++i) {
         const int s = i % S, q0 = ((first + i) % n_qt) * kBM;
         if (i >= S) mbar_wait(&empty[s], (i / S - 1) & 1);
+        if constexpr (T::kD64) stage_q0[s] = q0;
         mbar_expect_tx(&full[s], 2 * T::kQBytes + T::kStatBytes);
         unsigned char* sq = s_qdo + s * 2 * T::kQBytes;
         for (int c = 0; c < T::kChunks; ++c) {
@@ -245,7 +294,7 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   mbar_wait(&kv_full, 0);
   for (int i = 0; i < n_qt; ++i) {
-    const int s = i % S, q0 = ((first + i) % n_qt) * kBM;
+    const int s = i % S, q0 = T::kD64 ? 0 : ((first + i) % n_qt) * kBM;
     mbar_wait(&full[s], (i / S) & 1);
     const unsigned char* sq = s_qdo + s * 2 * T::kQBytes;
     const unsigned char* sdo = sq + T::kQBytes;
@@ -257,6 +306,45 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t pa[kBM / 16][4], da[kBM / 16][4];
 #pragma unroll
     for (int hf = 0; hf < T::kHalves; ++hf) {
+      if constexpr (T::kD64) {
+        // S^T and dP^T as one wgmma group, then P^T, dS^T and both bf16
+        // fragments in one pass over 16-query blocks: the fp32 P^T and dS^T
+        // die as their fragments fill, so no P^T fragment is live beside
+        // both accumulators
+        float sc[NH / 2], dp[NH / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T::kKSteps; ++kk)
+          WgmmaSS<NH, 0>::run(sc, desc(k_w + (kk / 4) * kBN * 128 + (kk % 4) * 32, 16, 1024, 1),
+                              desc(sq + q_off(hf, kk), 16, 1024, 1), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < T::kKSteps; ++kk)
+          WgmmaSS<NH, 0>::run(dp, desc(v_w + (kk / 4) * kBN * 128 + (kk % 4) * 32, 16, 1024, 1),
+                              desc(sdo + q_off(hf, kk), 16, 1024, 1), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+#pragma unroll
+        for (int kb = 0; kb < NH / 16; ++kb) {
+#pragma unroll
+          for (int j = 2 * kb; j < 2 * kb + 2; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(st + hf * NH + 8 * j + 2 * t);
+            const float2 dl = *reinterpret_cast<const float2*>(st + kBM + hf * NH + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float pt = ((e & 2) ? valid1 : valid0)
+                                   ? ex2(fmaf(sc[4 * j + e], scale_log2, -((e & 1) ? l.y : l.x)))
+                                   : 0.f;
+              sc[4 * j + e] = pt;
+              dp[4 * j + e] = pt * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+            }
+          }
+          p_fragment(pa[hf * NH / 16 + kb], sc + 8 * kb, sc + 8 * kb + 4);
+          p_fragment(da[hf * NH / 16 + kb], dp + 8 * kb, dp + 8 * kb + 4);
+        }
+        continue;
+      }
       // S^T and dP^T as two wgmma groups: P's exponentials run while dP^T
       // is still on the tensor cores
       float sc[NH / 2], dp[NH / 2];
@@ -330,11 +418,15 @@ attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
+    const int row_q0 = T::kD64 ? stage_q0[s] : q0;  // read before the stage is released
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
 
     if (dq_turn) {  // dQ = dS K over the block's 128 keys
-      float* row0 = dq_acc + (static_cast<long long>(bh) * n_q_pad + q0 + 16 * warp + g) * D + 2 * t;
-      if constexpr (D > 128) {
+      float* row0 = dq_acc + (static_cast<long long>(bh) * n_q_pad + row_q0 + 16 * warp + g) * D +
+                    2 * (T::kD64 ? t & ~1 : t);
+      if constexpr (T::kD64) {
+        dq_piece<D, true>(ds, s_k, row0, D);
+      } else if constexpr (D > 128) {
         dq_piece<64>(ds, s_k, row0, D);
         dq_piece<64>(ds, s_k + kBN * 128, row0 + 64, D);
         dq_piece<D - 128>(ds, s_k + 2 * kBN * 128, row0 + 128, D);

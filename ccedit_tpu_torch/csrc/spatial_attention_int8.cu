@@ -26,7 +26,9 @@
 // (batch, head)'s folded scale, scale * amax_q * amax_k / 127^2
 // (scales[b*h], on the device), times log2(e) is the exp2's factor, as
 // kernel 1's scalar scale is.  With K in one chunk the ring takes 4 stages
-// at d = 80 (kernel 1: 3).
+// at d = 80 (kernel 1: 3).  At d = 64 kernel 1's tile and softmax: 192 query
+// rows where that grid covers the SMs, the lazy rescale
+// (spatial_attention.cuh's "Head dim 64").
 #include "spatial_attention.cuh"
 
 // Kernel 1c's entry point.  q8 and k8 are int8 (B, H, N, DK) with DK the
@@ -52,8 +54,11 @@ extern "C" int ccedit_spatial_attention_int8(
       return launch_spatial<40, Int8QK<40>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,
                                             sq, sk, sv, so, 0.f, st);
     case 64:
-      return launch_spatial<64, Int8QK<64>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,
-                                            sq, sk, sv, so, 0.f, st);
+      if (d64_query_tile(n_q, batch * heads) == 192)
+        return launch_spatial<64, Int8QK<64>, 192>(q8, k8, v, o, nullptr, sc, batch, heads, n_q,
+                                                   n_k, sq, sk, sv, so, 0.f, st);
+      return launch_spatial<64, Int8QK<64>, 128>(q8, k8, v, o, nullptr, sc, batch, heads, n_q,
+                                                 n_k, sq, sk, sv, so, 0.f, st);
     case 80:
       return launch_spatial<80, Int8QK<80>>(q8, k8, v, o, nullptr, sc, batch, heads, n_q, n_k,
                                             sq, sk, sv, so, 0.f, st);

@@ -42,8 +42,8 @@ _SIGNATURES = {
     # q, k, q8, k8, amax, scales, batch, heads, n_q, n_k, head_dim, strides, scale, stream
     "ccedit_quantize_qk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                            ctypes.c_float, _P),
-    # stage, int8, transposed, q, k, v, out, batch, n, strides, scale_log2, stream
-    "ccedit_attention_probe": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _STRIDES,
+    # stage, int8, transposed, q, k, v, out, batch, n, head_dim, strides, scale_log2, stream
+    "ccedit_attention_probe": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _STRIDES,
                                ctypes.c_float, _P),
     # int8, a, b, c, m, n, k, stream
     "ccedit_gemm": (_I, _P, _P, _P, _I, _I, _I, _P),

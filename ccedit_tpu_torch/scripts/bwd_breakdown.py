@@ -1,6 +1,6 @@
 """Kernel 4's time split by leaving parts of its work out, on one GPU.
 
-    python -m ccedit_tpu_torch.scripts.bwd_breakdown [d40] [d512]
+    python -m ccedit_tpu_torch.scripts.bwd_breakdown [d40] [d64] [d512]
 
 ``d40`` (the default) builds variants of ``csrc/spatial_attention_bwd.cu`` (a patched copy each,
 compiled with nvcc into ``build/bwd_breakdown/``) and times each, in turns,
@@ -18,6 +18,12 @@ The variants that leave work out give wrong gradients and time only what
 remains; the reduce-add keeps the work, and each line reports every
 variant's largest dq/dk/dv difference from the kernel's, relative to the
 kernel's largest value, so that one shows it is right.
+
+``d64`` times the same four variants beside the kernel at head_dim 64
+(SD-2.x's heads): SD-2.1-768's levels 1 and 0, (2, 10, 2304, 64) and
+(2, 5, 9216, 64), and a ragged (2, 8, 600, 64), with the whole wrapper
+(``wrapper_ms``: prep, main and convert kernels), SDPA's backward alone
+(``library_ms``) and the bound beside them.
 
 ``d512`` builds variants of ``csrc/flash_attention_bwd.cu`` that launch one
 of its three passes alone (``dk_only``, ``dq_only``, ``dv_only``, each after
@@ -45,11 +51,14 @@ from ..ops import spatial_attention as sa
 from . import roofline
 
 SHAPES = (((48, 8, 3072, 40), 3072), ((48, 8, 768, 80), 768), ((4, 8, 3072, 40), 6144))
+SHAPES_64 = (((2, 10, 2304, 64), 2304), ((2, 5, 9216, 64), 9216), ((2, 8, 600, 64), 600))
 OUT = build.BUILD_DIR.parent / "bwd_breakdown"
 
-_ATOMICS = """    atomicAdd(reinterpret_cast<float2*>(row0 + 8 * j), make_float2(acc[4 * j], acc[4 * j + 1]));
-    atomicAdd(reinterpret_cast<float2*>(row0 + 8 * ld + 8 * j),
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+_ATOMICS = """      atomicAdd(reinterpret_cast<float2*>(row0 + 8 * j), make_float2(acc[4 * j], acc[4 * j + 1]));
+      atomicAdd(reinterpret_cast<float2*>(row0 + 8 * ld + 8 * j),
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+"""
+_ATOMICS_V4 = """      atomicAdd(reinterpret_cast<float4*>(row + 8 * j), v);
 """
 _DQ_TURN = "if (dq_turn) {  // dQ"
 _EXP2 = "ex2(fmaf(sc[4 * j + e], scale_log2, -((e & 1) ? l.y : l.x)))"
@@ -81,23 +90,24 @@ _BULK_DQ = """{
         named_sync(3 + w, 128);
         if (tid == 0) {
           asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\\n"
-                       ::"l"(reinterpret_cast<uint64_t>(dq_acc + (static_cast<long long>(bh) * n_q_pad + q0) * D)),
+                       ::"l"(reinterpret_cast<uint64_t>(dq_acc + (static_cast<long long>(bh) * n_q_pad + row_q0) * D)),
                        "r"(smem_addr(stg)), "r"(kBM * D * 4) : "memory");
           asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
         }
       }"""
 VARIANTS = {
-    "no_dq_atomics": ((_ATOMICS, ""),),
+    "no_dq_atomics": ((_ATOMICS, ""), (_ATOMICS_V4, "")),
     "no_dq": ((_DQ_TURN, "if (false) {  // dQ"),),
     "no_exp2": ((_EXP2, _EXP2[4:-1]),),
     "dq_bulk_reduce": (
-        ("static constexpr int kStages = D <= 64 ? 4 : (D <= 128 ? 3 : 2);",
-         "static constexpr int kStages = D <= 64 ? 4 : 2;"),
-        ("2 * kDsBytes + kStages * kStatBytes;",
-         "2 * kDsBytes + kStages * kStatBytes + (D <= 128 ? 2 * kBM * D * 4 : 0);"),
+        ("static constexpr int kStages = D < 64 ? 4 : (D == 64 ? 2 : (D <= 128 ? 3 : 2));",
+         "static constexpr int kStages = D < 64 ? 4 : 2;"),
+        ("2 * kDsBytes + kStages * kStatBytes + (kD64 ? 16 : 0);",
+         "2 * kDsBytes + kStages * kStatBytes + 16 + (D <= 128 ? 2 * kBM * D * 4 : 0);"),
         ("  __shared__ uint64_t kv_full, full[S], empty[S];",
-         "  float* s_dqs = s_stats + S * 2 * kBM;\n  __shared__ uint64_t kv_full, full[S], empty[S];"),
+         "  float* s_dqs = s_stats + S * 2 * kBM + 4;\n  __shared__ uint64_t kv_full, full[S], empty[S];"),
         ("dq_piece<D>(ds, s_k, row0, D);", _BULK_DQ),
+        ("dq_piece<D, true>(ds, s_k, row0, D);", _BULK_DQ),
         ("\n  const int row0 = key, row1 = key + 8;",
          "\n  if (tid == 0) asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: \"memory\");"
          "\n  const int row0 = key, row1 = key + 8;"),
@@ -155,13 +165,14 @@ def build_variants(variants: dict = VARIANTS, source: str = "spatial_attention_b
     return fns
 
 
-def run(device, iters: int = 10) -> list:
-    """Time the kernel and every variant at each of ``SHAPES``, twice in
-    turns; one record a shape."""
-    fns = {"kernel": build.library().ccedit_spatial_attention_bwd, **build_variants()}
+def run(device, iters: int = 10, shapes=SHAPES, fns=None) -> list:
+    """Time the kernel and every variant at each of ``shapes``, twice in
+    turns; one record a shape.  At head_dim 64 the record adds the whole
+    wrapper's time, SDPA's backward alone and the bound."""
+    fns = fns or {"kernel": build.library().ccedit_spatial_attention_bwd, **build_variants()}
     gen = torch.Generator(device=device).manual_seed(0)
     records = []
-    for shape, n_k in SHAPES:
+    for shape, n_k in shapes:
         b, h, n_q, d = shape
         q, k, v, do = (torch.randn((b, n, h, d), generator=gen, device=device)
                        .to(torch.bfloat16).permute(0, 2, 1, 3) for n in (n_q, n_k, n_k, n_q))
@@ -192,8 +203,16 @@ def run(device, iters: int = 10) -> list:
                 ms[name].append(roofline.cuda_time_ms(lambda: call(fn), iters))
                 diff[name] = [((x.float() - w).abs().max() / w.abs().max()).item()
                               for x, w in zip(grads, want)]
+        extra = {}
+        if d == 64:
+            extra = dict(
+                wrapper_ms=roofline.cuda_time_ms(
+                    lambda: sa.spatial_attention_bwd(q, k, v, out, do, lse, scale), iters),
+                library_ms=roofline.sdpa_ms(q, k, v, scale, iters, grad_out=do,
+                                            backward_only=True)[0],
+                **roofline.attention_bound(b, h, n_q, n_k, d, backward=True))
         records.append(dict(shape=list(shape), n_k=n_k, ms=ms,
-                            max_rel_diff_dq_dk_dv=diff))
+                            max_rel_diff_dq_dk_dv=diff, **extra))
     return records
 
 
@@ -241,7 +260,7 @@ def run_512(device, iters: int = 10) -> list:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("parts", nargs="*", choices=("d40", "d512"))
+    ap.add_argument("parts", nargs="*", choices=("d40", "d64", "d512"))
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bwd_breakdown needs a CUDA device")
@@ -249,9 +268,13 @@ def main(argv=None) -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     parts = set(a.parts) or {"d40"}
     device = torch.device("cuda:0")
-    if "d40" in parts:
-        for record in run(device):
-            print(json.dumps(dict(gpu=smi, part="d40", **record)), flush=True)
+    fns = None
+    for part, shapes in (("d40", SHAPES), ("d64", SHAPES_64)):
+        if part in parts:
+            fns = fns or {"kernel": build.library().ccedit_spatial_attention_bwd,
+                          **build_variants()}
+            for record in run(device, shapes=shapes, fns=fns):
+                print(json.dumps(dict(gpu=smi, part=part, **record)), flush=True)
     if "d512" in parts:
         for record in run_512(device):
             print(json.dumps(dict(gpu=smi, part="d512", **record)), flush=True)

@@ -1,6 +1,6 @@
 """Kernel 5: probes that split kernel 1's time into its phases, on one GPU.
 
-    python -m ccedit_tpu_torch.scripts.kv_resident_attn
+    python -m ccedit_tpu_torch.scripts.kv_resident_attn [d40] [d64]
 
 Port of ``scripts/kv_resident_attn.py``: its seven Pallas kernels
 (``make_call`` qkt / softmax / full in the (B, N, D) layout,
@@ -20,6 +20,14 @@ full minus softmax the P.V product, and full plain bf16 over kernel 1 (one
 design now) should be 1. The TPU scripts' compile cache and ``fori_loop``
 slope timing are TPU scaffolding and are not ported: CUDA events time the
 launches.
+
+``d64`` runs the three plain-layout variants (qkt, softmax, full) at head_dim
+64, SD-2.x's heads, at SD-2.1-768's levels 0 and 1 as (B*H, N, 64) =
+(10, 9216, 64) and (20, 2304, 64) (``D64_SHAPES``), each held to
+``plain_probe`` on its first rows, with kernel 1 (exact and 1c) and SDPA on
+the same tensors as (2, H, N, 64), both contiguous and as the head-split
+view of a (2, N, H*64) projection (the model's layout: each token's 128-byte
+row a head stride apart), one JSON line a shape.
 
 ``probe`` is the wrapper (a CPU tensor takes ``plain_probe``, a CUDA tensor
 launches the kernel or raises); ``probe.launches`` and
@@ -44,6 +52,11 @@ from .int8_probe import transpose_int8
 B, N, D = 272, 6144, 40
 INT8_WIDTH = 48  # kernel 1c's int8 row: D rounded up to 16 bytes
 SCALE = D ** -0.5
+# head_dim 64: (batch, heads, tokens) of SD-2.1-768's levels 0 and 1 (CFG
+# batch 2); the probes run at (batch * heads, tokens, 64)
+D64 = 64
+D64_SHAPES = ((2, 5, 9216), (2, 10, 2304))
+D64_VARIANTS = (("qkt", False, False), ("softmax", False, False), ("full", False, False))
 _LOG2E = 1.0 / math.log(2.0)
 _STAGES = {"qkt": 0, "softmax": 1, "full": 2}
 # (stage, transposed layout, int8 q/k): the seven pallas_calls
@@ -143,8 +156,10 @@ def probe(stage: str, q, k, v=None, scale: float = SCALE, transposed: bool = Fal
         raise ValueError(f"no probe {variant_name(stage, transposed, int8)}")
     shape = tuple(q.shape)
     b, n, d = (shape[0], shape[2], shape[1]) if transposed else shape
-    if d != D or n % 64:
-        raise ValueError(f"the probes take head_dim {D} and N % 64 == 0, got {shape}")
+    if d not in (D, D64) or n % 64:
+        raise ValueError(f"the probes take head_dim {D} or {D64} and N % 64 == 0, got {shape}")
+    if d == D64 and (stage, transposed, int8) not in D64_VARIANTS:
+        raise ValueError(f"no probe {variant_name(stage, transposed, int8)} at head_dim {D64}")
     _check("q", q, q.dtype, shape, transposed, q.device)
     _check("k", k, q.dtype, shape, transposed, q.device)
     if stage == "full":
@@ -162,11 +177,12 @@ def probe(stage: str, q, k, v=None, scale: float = SCALE, transposed: bool = Fal
     layouts = _layout(q, qk_layout) + _layout(k, qk_layout) + (
         _layout(v, transposed) if stage == "full" else (0, 0, 0)) + out_layout
     build.launch("ccedit_attention_probe", _STAGES[stage], int(int8), int(transposed),
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d,
                  (ctypes.c_longlong * 12)(*layouts), float(scale) * _LOG2E,
                  build.stream_of(q))
     probe.launches += 1
-    probe.variant_launches[variant_name(stage, transposed, int8)] += 1
+    probe.variant_launches[variant_name(stage, transposed, int8)
+                           + ("" if d == D else f" d{d}")] += 1
     return out
 
 
@@ -191,7 +207,8 @@ def probe_bound(stage: str, int8: bool, b: int = B, n: int = N, d: int = D) -> d
                           nbytes=qk_bytes + 2.0 * 2 * b * n * d)
 
 
-def library_ms(x: dict, stage: str, transposed: bool, int8: bool, iters: int):
+def library_ms(x: dict, stage: str, transposed: bool, int8: bool, iters: int,
+               scale: float = SCALE):
     """The time of the one PyTorch call that computes a variant's function
     on the same inputs, a yardstick the port never calls, and that call's
     name; (None, why) where there is none.  The bf16 qkt row sums are one
@@ -204,18 +221,18 @@ def library_ms(x: dict, stage: str, transposed: bool, int8: bool, iters: int):
         return roofline.cuda_time_ms(lambda: torch.einsum(eq, q, k), iters), (
             f"torch.einsum('{eq}')")
     if stage == "full":
-        ms, backend = roofline.sdpa_ms(*(x[n][:, None] for n in ("q", "k", "v")), SCALE, iters)
+        ms, backend = roofline.sdpa_ms(*(x[n][:, None] for n in ("q", "k", "v")), scale, iters)
         return ms, f"scaled_dot_product_attention [{backend}] on the (B, 1, N, D) bf16 inputs"
     if stage == "softmax":
         return None, "none: no single PyTorch call gives the row sums of exp(s - rowmax)"
     return None, "none: PyTorch has no batched int8 product on CUDA"
 
 
-def inputs(device, seed: int = 0, b: int = B, n: int = N):
-    """Seeded bf16 q, k, v (b, n, D), their (b, D, n) copies and the
+def inputs(device, seed: int = 0, b: int = B, n: int = N, d: int = D):
+    """Seeded bf16 q, k, v (b, n, d), their (b, d, n) copies and the
     per-tensor int8 q and k of the transposed copies with their scales."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v = (torch.randn((b, n, D), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v = (torch.randn((b, n, d), generator=gen, device=device).to(torch.bfloat16)
                for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sq, q8 = quantize_per_tensor(qt)
@@ -225,12 +242,13 @@ def inputs(device, seed: int = 0, b: int = B, n: int = N):
 
 def call_args(x: dict, stage: str, transposed: bool, int8: bool):
     """The probe's (q, k, v, scale, transposed) for one variant on
-    ``inputs``' tensors."""
+    ``inputs``' tensors (the scale head_dim^-0.5)."""
+    scale = x["q"].shape[-1] ** -0.5
     if int8:
-        return x["q8"], x["k8"], x["vt"], x["sq"] * x["sk"] * SCALE, True
+        return x["q8"], x["k8"], x["vt"], x["sq"] * x["sk"] * scale, True
     if transposed:
-        return x["qt"], x["kt"], x["vt"], SCALE, True
-    return x["q"], x["k"], x["v"], SCALE, False
+        return x["qt"], x["kt"], x["vt"], scale, True
+    return x["q"], x["k"], x["v"], scale, False
 
 
 def run(device, iters: int = 5, b: int = B, n: int = N, rows: int = COMPARE_ROWS) -> dict:
@@ -284,15 +302,80 @@ def run(device, iters: int = 5, b: int = B, n: int = N, rows: int = COMPARE_ROWS
                 qkt_by_row_pitch_ms=qkt_by_row_pitch)
 
 
+def head_split(x, heads: int):
+    """A contiguous (B * heads, N, d) probe operand as (B, heads, N, d) in the
+    model's layout: the head-split view of a (B, N, heads * d) projection
+    holding the same values."""
+    bh, n, d = x.shape
+    y = torch.empty((bh // heads, n, heads, d), device=x.device, dtype=x.dtype)
+    y.copy_(x.view(bh // heads, heads, n, d).transpose(1, 2))
+    return y.transpose(1, 2)
+
+
+def run_d64(device, iters: int = 5, rows: int = COMPARE_ROWS) -> list:
+    """The plain-layout variants at head_dim 64 at each of ``D64_SHAPES``
+    (as (batch * heads, N, 64)): each one's first ``rows`` rows against
+    ``plain_probe``, its time beside its bound and library call, then
+    kernel 1 (exact and 1c) and SDPA on the same values as (batch, heads,
+    N, 64), contiguous and head-split (``head_split``), and kernel 1's
+    split.  One record a shape."""
+    from ..ops import spatial_attention as sa
+
+    out = []
+    for batch, heads, n in D64_SHAPES:
+        b = batch * heads
+        x = inputs(device, b=b, n=n, d=D64)
+        scale = D64 ** -0.5
+        records = []
+        for stage, transposed, int8 in D64_VARIANTS:
+            q, k, v, _, _ = call_args(x, stage, transposed, int8)
+            part = (q[:rows], k[:rows], v[:rows], scale, False)
+            checked = compare(stage, probe(stage, q, k, v, scale)[:rows], plain_probe(stage, *part))
+            ms = roofline.cuda_time_ms(lambda: probe(stage, q, k, v, scale), iters)
+            lib_ms, library = library_ms(x, stage, transposed, int8, iters, scale)
+            records.append(dict(
+                variant=variant_name(stage, transposed, int8), ms=ms,
+                compared_ms=roofline.cuda_time_ms(lambda: probe(stage, *part), iters),
+                plain_ms=roofline.cuda_time_ms(lambda: plain_probe(stage, *part),
+                                               max(iters // 2, 1)),
+                plain_shape=[rows, n, D64], library_ms=lib_ms, library=library,
+                **checked, **probe_bound(stage, int8, b, n, D64)))
+        shape = (batch, heads, n, D64)
+        layouts = {"contiguous": tuple(x[name].view(shape) for name in ("q", "k", "v")),
+                   "head-split": tuple(head_split(x[name], heads) for name in ("q", "k", "v"))}
+        kernel1 = {f"{quant} {name}": roofline.cuda_time_ms(
+            lambda: sa.kv_resident_attention(*qkv, scale, quantized_qk=quant == "int8"), iters)
+            for name, qkv in layouts.items() for quant in ("exact", "int8")}
+        sdpa = {name: roofline.sdpa_ms(*qkv, scale, iters)[0] for name, qkv in layouts.items()}
+        del layouts
+        ms = {r["variant"]: r["ms"] for r in records}
+        split = {"qk^T": ms["qkt plain bf16"],
+                 "softmax": ms["softmax plain bf16"] - ms["qkt plain bf16"],
+                 "p.v and output": ms["full plain bf16"] - ms["softmax plain bf16"]}
+        out.append(dict(shape=list(shape), probe_shape=[b, n, D64], variants=records,
+                        kernel1_ms=kernel1, library_ms=sdpa, kernel1_split_ms=split,
+                        full_over_kernel1=ms["full plain bf16"] / kernel1["exact contiguous"],
+                        **{f"kernel1_{k}": v for k, v in
+                           roofline.attention_bound(batch, heads, n, n, D64).items()}))
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parts", nargs="*", choices=("d40", "d64"))
     ap.add_argument("--iters", type=int, default=5)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kv_resident_attn needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps(dict(gpu=smi, **run(torch.device("cuda:0"), a.iters))))
+    parts = set(a.parts) or {"d40"}
+    device = torch.device("cuda:0")
+    if "d40" in parts:
+        print(json.dumps(dict(gpu=smi, part="d40", **run(device, a.iters))), flush=True)
+    if "d64" in parts:
+        for record in run_d64(device, a.iters):
+            print(json.dumps(dict(gpu=smi, part="d64", **record)), flush=True)
 
 
 if __name__ == "__main__":

@@ -295,7 +295,8 @@ BWD_TOLERANCE = 2e-2
 # shape (VAE training) and every d = 64 one (an SD-2.x UNet's)
 DELTA_FAULT_SHAPES = ((48, 8, 3072, 40), (48, 8, 768, 80), (17, 8, 3072, 40),
                       (17, 8, 768, 80), (12, 1, 1024, 512), (4, 1, 4096, 512),
-                      (2, 1, 600, 512), (2, 10, 2304, 64), (2, 8, 600, 64))
+                      (2, 1, 600, 512), (2, 10, 2304, 64), (2, 5, 9216, 64),
+                      (2, 20, 576, 64), (2, 8, 600, 64))
 # relative error of a full bf16 network forward, kernels vs plain attention:
 # bf16 rounding differences inside attention compound through ~70 layers
 ROUTE_TOLERANCE = 5e-2
@@ -465,7 +466,7 @@ KERNELS = (
     # head_dim 64, SD-2.1-768's heads: kernel 1 at its three levels (CFG
     # 2 x 5, 10, 20 heads of 9216, 2304, 576 tokens), kernel 1c and its
     # pre-pass at the two whose n_q is a multiple of 128 (the JAX gate's),
-    # kernel 4 at level 1 and a ragged shape; each row also refuses its
+    # kernel 4 at all three levels and a ragged shape; each row also refuses its
     # planted fault (kernel 1: log2 e left out of its scale; kernel 1c and
     # the pre-pass: the dequant factor left out of the folded scales;
     # kernel 4: delta left out, DELTA_FAULT_SHAPES)
@@ -488,7 +489,8 @@ KERNELS = (
     dict(name="spatial_attention_bwd_d64", kernel="spatial_bwd", path="txt2img_train",
          source="ccedit_tpu_torch/csrc/spatial_attention_bwd.cu",
          replaces="ccedit_tpu/ops/attention.py:173",
-         shapes=(((2, 10, 2304, 64), 2304, 2), ((2, 8, 600, 64), 600, 2)),
+         shapes=(((2, 10, 2304, 64), 2304, 2), ((2, 5, 9216, 64), 9216, 1),
+                 ((2, 20, 576, 64), 576, 2), ((2, 8, 600, 64), 600, 2)),
          count=lambda st: sum(c.get("spatial_attention_bwd[d64 n_k=n_q]", 0)
                               for c in st.values())),
     dict(name="flash_attention_lse", kernel="flash_lse", path="vae_train",
@@ -1035,7 +1037,9 @@ def record(spec, per_shape) -> dict:
 def run_probes(device):
     """Phase 3b: the probe scripts' own runs, counted.
     ``kv_resident_attn.run`` runs kernel 5's seven variants at (272, 6144,
-    40) and holds each one's first rows to ``plain_probe``;
+    40) and holds each one's first rows to ``plain_probe``, ``run_d64`` its
+    three plain-layout variants at head_dim 64 at SD-2.1-768's levels 0 and
+    1, (10, 9216, 64) and (20, 2304, 64);
     ``int8_probe.part_kernel`` runs kernel 6 at 1024x512x1024 and 4096^3
     against ``plain_gemm`` (the int8 product exactly); ``profile_blocks.sweep``
     runs kernel 7's tile pairs (``TILES``) at (34, 8, 6144, 40) against the
@@ -1054,6 +1058,7 @@ def run_probes(device):
 
     reset_launches()
     split = kr.run(device, iters=5)
+    splits64 = kr.run_d64(device, iters=5)
     gemms = ip.part_kernel(device, iters=5)
     sweep = pb.sweep(device, iters=5)
     counts = {f"attention_probe[{k}]": n for k, n in kr.probe.variant_launches.items()}
@@ -1085,20 +1090,47 @@ def run_probes(device):
             **{f: r[f] for f in ("max_abs_err", "max_rel_err", "cosine", "ms", "compared_ms",
                                  "plain_ms", "plain_shape", "bound_ms", "bound_by",
                                  "bound_what", "library_ms", "library")}))
-    x = kr.inputs(device, b=kr.COMPARE_ROWS)
+    per_variant = {}
+    for split64 in splits64:
+        shape = tuple(split64["shape"])
+        print(f"[probes] kv_resident_attn.run_d64 {shape}: kernel 1 "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in split64["kernel1_ms"].items())
+              + f" (SDPA {split64['library_ms']}); kernel 5's split "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in split64["kernel1_split_ms"].items())
+              + f"; full plain bf16 / kernel 1 {split64['full_over_kernel1']:.4f}", flush=True)
+        for r in split64["variants"]:
+            print(f"[probes] kernel 5 {r['variant']} d64 {tuple(split64['probe_shape'])}: "
+                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_what']}; "
+                  f"{r['library']} {r['library_ms']} ms); on {r['plain_shape']}: max_abs_err "
+                  f"{r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e}, cosine "
+                  f"{r['cosine']:.7f}", flush=True)
+            if not r["ok"]:
+                raise RuntimeError(f"probe {r['variant']} d64 disagrees with its plain version: {r}")
+            per_variant.setdefault(r["variant"], []).append(dict(
+                shape=split64["probe_shape"], compare_shape=r["plain_shape"], **r))
+    for key in kr.D64_VARIANTS:
+        name = kr.variant_name(*key)
+        records.append(record(dict(name=f"attention_probe[{name} d64]",
+                                   source="ccedit_tpu_torch/csrc/attention_probe.cu",
+                                   replaces="scripts/kv_resident_attn.py" + kr.REPLACES[key]),
+                              per_variant[name]))
     log2e = kr._LOG2E
     kr._LOG2E = 1.0  # the planted fault
     try:
-        for key in kr.VARIANTS:
+        cases = [(key, kr.inputs(device, b=kr.COMPARE_ROWS)) for key in kr.VARIANTS]
+        cases += [(key, kr.inputs(device, b=kr.COMPARE_ROWS, n=kr.D64_SHAPES[1][2], d=kr.D64))
+                  for key in kr.D64_VARIANTS]
+        for key, x in cases:
             if key[0] == "qkt":  # reads no scale
                 continue
             args = kr.call_args(x, *key)
+            label = kr.variant_name(*key) + ("" if x["q"].shape[-1] == kr.D else " d64")
             fault = kr.compare(key[0], kr.probe(key[0], *args), kr.plain_probe(key[0], *args))
-            print(f"[probes] kernel 5 {kr.variant_name(*key)} without log2 e in its scale: "
+            print(f"[probes] kernel 5 {label} without log2 e in its scale: "
                   f"relative {fault['max_rel_err']:.3e}, cosine {fault['cosine']:.7f}", flush=True)
             if fault["ok"]:
-                raise RuntimeError(f"the probe check passes {kr.variant_name(*key)} with its "
-                                   f"softmax temperature off by ln 2: {fault}")
+                raise RuntimeError(f"the probe check passes {label} with its softmax "
+                                   f"temperature off by ln 2: {fault}")
     finally:
         kr._LOG2E = log2e
     qs, ks, vs = pb.compare_inputs(device)

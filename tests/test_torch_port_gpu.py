@@ -800,7 +800,8 @@ def test_d64_prepass_equals_its_plain_version(cuda, shape):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape,n_k", [((2, 10, 2304, 64), 2304), ((2, 8, 600, 64), 600),
+@pytest.mark.parametrize("shape,n_k", [((2, 10, 2304, 64), 2304), ((2, 5, 9216, 64), 9216),
+                                        ((2, 20, 576, 64), 576), ((2, 8, 600, 64), 600),
                                         ((1, 2, 300, 64), 700)])
 def test_d64_backward_kernel_matches_plain(cuda, shape, n_k):
     q, k, v = _qkv(shape, n_k, cuda, seed=sum(shape) + n_k)
@@ -822,6 +823,48 @@ def test_d64_backward_kernel_matches_plain(cuda, shape, n_k):
     fault = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
              for g, r in zip(faulty, refs)]
     assert max(fault) > TOL  # delta left out
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 9216, 64), (2, 3, 1000, 64)])
+def test_d64_kernel1_rescales_past_the_first_tile(cuda, shape):
+    """Scores spread wide (q scaled by 6) so later key tiles raise rows'
+    maxima past 2^8, the d = 64 softmax's rescale threshold: kernel 1 still
+    agrees with its plain version, and so does its lse."""
+    q, k, v = _qkv(shape, shape[2], cuda, seed=sum(shape) + 5)
+    q = (q.float() * 6).to(torch.bfloat16)
+    scale = 64 ** -0.5
+    b, h, n, _ = shape
+    lse = torch.empty((b * h, n), device=cuda, dtype=torch.float32)
+    out = sa._forward(q, k, v, scale, lse)
+    assert _agrees(out, sa.plain_spatial_attention(q, k, v, scale))
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * sa._LOG2E)
+    want = torch.logsumexp(s2 * math.log(2.0), -1) / math.log(2.0)
+    assert (lse.view(b, h, n) - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("stage", ["qkt", "softmax", "full"])
+@pytest.mark.parametrize("n", [2304, 960])  # 960: the last 128-key tile half past N
+def test_d64_probe_matches_plain(cuda, stage, n):
+    """Kernel 5's plain-layout probes at head_dim 64 within
+    ``kv_resident_attn.compare``'s limits; softmax and full refuse log2 e
+    left out of their scale."""
+    from ccedit_tpu_torch.scripts import kv_resident_attn as kr
+
+    x = kr.inputs(cuda, seed=2, b=4, n=n, d=64)
+    q, k, v, scale, tr = kr.call_args(x, stage, False, False)
+    before = kr.probe.variant_launches[f"{stage} plain bf16 d64"]
+    out = kr.probe(stage, q, k, v, scale, tr)
+    torch.cuda.synchronize()
+    assert kr.probe.variant_launches[f"{stage} plain bf16 d64"] == before + 1
+    ref = kr.plain_probe(stage, q, k, v, scale, tr)
+    checked = kr.compare(stage, out, ref)
+    assert checked["ok"], checked
+    if stage != "qkt":
+        log2e, kr._LOG2E = kr._LOG2E, 1.0
+        try:
+            assert not kr.compare(stage, kr.probe(stage, q, k, v, scale, tr), ref)["ok"]
+        finally:
+            kr._LOG2E = log2e
 
 
 def test_d64_autograd_launches_kernel_4(cuda):
