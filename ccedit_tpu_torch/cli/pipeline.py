@@ -19,6 +19,7 @@ conditions the whole clip, the sample runs split over the ranks
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -38,6 +39,7 @@ from ..io.lora import merge_kohya_lora
 from ..ops.attention import launch_counts
 from ..parallel.mesh import rank as process_rank
 from ..parallel.sampling import gather_clip, make_frame_sharded_sample
+from ..utils import trace
 
 PRIOR_TYPES = ("video", "ref", "video_ref")
 
@@ -243,7 +245,8 @@ def make_inpaint_mask(frames: np.ndarray, factor: int = 8) -> np.ndarray:
 
 class _Stopwatch:
     """Stage timer; synchronises the device so each stage's work is done.
-    With ``launches`` it also records each stage's kernel launches."""
+    With ``launches`` it also records each stage's kernel launches.  Each
+    ``stage`` is also a span (``utils/trace.py``: ``ccedit.edit.<name>``)."""
 
     def __init__(self, device: torch.device, out: Optional[Dict[str, float]],
                  launches: Optional[Dict[str, Dict[str, int]]] = None):
@@ -268,6 +271,13 @@ class _Stopwatch:
             self.launches[name] = {k: prev.get(k, 0) + n - self.counts.get(k, 0)
                                    for k, n in counts.items()}
             self.counts = counts
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Run stage ``name`` inside its span, then ``lap(name)``."""
+        with trace.span(trace.EDIT_STAGES[name]):
+            yield
+        self.lap(name)
 
 
 def edit_clip(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
@@ -339,30 +349,31 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
     cond = engine.conditioner
     device = next(engine.network.parameters()).device
     watch = _Stopwatch(device, stage_seconds, stage_launches)
-    c, uc = cond.get_unconditional_conditioning({"txt": [prompt]}, {"txt": [negative_prompt]})
-    watch.lap("text")
-    video = torch.from_numpy(np.ascontiguousarray(frames_u8))[None]
-    hint = cond.embed(cond.prepare({"control_hint": video}))
-    c.update(hint)
-    uc.update(hint)  # the same clip conditions both halves of CFG
-    watch.lap("hint")
+    with watch.stage("text"):
+        c, uc = cond.get_unconditional_conditioning({"txt": [prompt]},
+                                                    {"txt": [negative_prompt]})
+    with watch.stage("hint"):
+        video = torch.from_numpy(np.ascontiguousarray(frames_u8))[None]
+        hint = cond.embed(cond.prepare({"control_hint": video}))
+        c.update(hint)
+        uc.update(hint)  # the same clip conditions both halves of CFG
     t, h, w = frames_u8.shape[:3]
     x_prior = None
     use_prior = prior_coefficient_x != 0 or sdedit or inpainting
     if reference is not None or use_prior:
-        if reference is not None:
-            ref = torch.from_numpy(np.ascontiguousarray(reference))[None]
-            feat = cond.embed(cond.prepare({"cond_img": ref}))
-            c.update(feat)
-            uc.update(feat)
-        if use_prior:
-            use_ref = reference is not None and not sdedit and prior_type != "video"
-            if not use_ref or prior_type == "video_ref":
-                x_prior = engine.encode_first_stage(video.to(device))
-            if use_ref:  # the reference latent, repeated over T
-                z_ref = c["cond_feat"].float()[:, None].repeat(1, t, 1, 1, 1)
-                x_prior = z_ref if x_prior is None else 0.5 * (x_prior + z_ref)
-        watch.lap("encode")
+        with watch.stage("encode"):
+            if reference is not None:
+                ref = torch.from_numpy(np.ascontiguousarray(reference))[None]
+                feat = cond.embed(cond.prepare({"cond_img": ref}))
+                c.update(feat)
+                uc.update(feat)
+            if use_prior:
+                use_ref = reference is not None and not sdedit and prior_type != "video"
+                if not use_ref or prior_type == "video_ref":
+                    x_prior = engine.encode_first_stage(video.to(device))
+                if use_ref:  # the reference latent, repeated over T
+                    z_ref = c["cond_feat"].float()[:, None].repeat(1, t, 1, 1, 1)
+                    x_prior = z_ref if x_prior is None else 0.5 * (x_prior + z_ref)
     f = engine.latent_factor
     mask = (torch.from_numpy(make_inpaint_mask(frames_u8, f)).to(device) if inpainting
             else None)
@@ -378,20 +389,19 @@ def edit_clips(engine, frames_u8: np.ndarray, prompt: str, negative_prompt: str,
               prior_noise_coefficient=prior_coefficient_noise,
               mode="sdedit" if sdedit else "full",
               inpaint_x0=x_prior if inpainting else None, inpaint_mask=mask)
-    if clip_shard:
-        call = make_frame_sharded_sample(engine, shape, num_steps)
-        latents = gather_clip(call(c, uc, **kw), call.axis)
-    else:
-        latents = engine.sample(c, uc, shape, num_steps=num_steps, **kw)
-    watch.lap("sample")
-    if clip_shard and process_rank() != 0:
-        watch.lap("decode")
-        return None, latents
-    decoded = engine.decode_first_stage(latents).float()
-    if not bool(torch.isfinite(decoded).all()):
-        raise FloatingPointError("the decoded clip has non-finite values")
-    out = ((decoded + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
-    watch.lap("decode")
+    with watch.stage("sample"):
+        if clip_shard:
+            call = make_frame_sharded_sample(engine, shape, num_steps)
+            latents = gather_clip(call(c, uc, **kw), call.axis)
+        else:
+            latents = engine.sample(c, uc, shape, num_steps=num_steps, **kw)
+    with watch.stage("decode"):
+        out = None
+        if not clip_shard or process_rank() == 0:
+            decoded = engine.decode_first_stage(latents).float()
+            if not bool(torch.isfinite(decoded).all()):
+                raise FloatingPointError("the decoded clip has non-finite values")
+            out = ((decoded + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
     return out, latents
 
 

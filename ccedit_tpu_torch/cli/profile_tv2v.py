@@ -106,6 +106,7 @@ from ..data.video import moving_gradient_clip
 from ..ops import attention as att
 from ..ops import quant
 from ..ops.attention import quantized_qk_enabled
+from ..utils import trace
 from .pipeline import base_parser, edit_clip, load_engine
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -170,14 +171,20 @@ def summarise_trace(trace_path: Path, wall_seconds: float, top: int = 25) -> dic
 
 
 def _profile(fn, out: Path) -> dict:
-    """Run ``fn`` under torch.profiler; the trace goes to ``out``."""
+    """Run ``fn`` under torch.profiler with the port's spans on
+    (``utils/trace.py``); the trace goes to ``out``."""
     out.mkdir(parents=True, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
+    was = trace.enabled()
+    trace.enable(True)
+    try:
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    finally:
+        trace.enable(was)
     prof.export_chrome_trace(str(out / "trace.json"))
     return summarise_trace(out / "trace.json", wall)
 

@@ -202,9 +202,9 @@ def sample_images(session: ImageSession, args, save_dir: Optional[Path] = None,
     engine = session.engine
     watch = _Stopwatch(session.device, stage_seconds, stage_launches)
     configure_sampler(engine, args, session.samplers)
-    batch, batch_uc = _make_batches(engine, args)
-    c, uc = engine.conditioner.get_unconditional_conditioning(batch, batch_uc)
-    watch.lap("text")
+    with watch.stage("text"):
+        batch, batch_uc = _make_batches(engine, args)
+        c, uc = engine.conditioner.get_unconditional_conditioning(batch, batch_uc)
     if save_dir is not None:
         save_dir.mkdir(parents=True, exist_ok=True)
     sample_filter, watermarker = _filters(args, session.device)
@@ -213,30 +213,30 @@ def sample_images(session: ImageSession, args, save_dir: Optional[Path] = None,
     z_shape = ((1, 1) if session.video_mode else (1,)) + (args.H // f, args.W // f, channels)
     x_prior = None
     if args.init_image:
-        img = torch.from_numpy(load_image(args.init_image, (args.H, args.W))[None])
-        x_prior = engine.encode_first_stage(
-            (img[None] if session.video_mode else img).to(session.device))
-        watch.lap("encode")
+        with watch.stage("encode"):
+            img = torch.from_numpy(load_image(args.init_image, (args.H, args.W))[None])
+            x_prior = engine.encode_first_stage(
+                (img[None] if session.video_mode else img).to(session.device))
     gen = torch.Generator(device=session.device).manual_seed(args.seed)
     outputs: List[np.ndarray] = []
     for i in range(args.num_samples):
         t0 = time.time()
         drawn = noise[i] if noise is not None else {}
-        lat = engine.sample(c, uc, z_shape, generator=gen, init_noise=drawn.get("init"),
-                            loop_noise=drawn.get("loop"), guider_scale=args.cfg_scale,
-                            x_prior=x_prior, mode="sdedit" if x_prior is not None else "full")
-        watch.lap("sample")
-        img = engine.decode_first_stage(lat).float()
-        if session.video_mode:
-            img = img[:, 0]
-        img01 = (img.clamp(-1.0, 1.0) + 1.0) / 2.0
-        if sample_filter is not None:
-            img01 = sample_filter(img01)
-        img01 = img01.cpu().numpy()
-        if watermarker is not None:
-            img01 = watermarker(img01)
-        out = to_uint8(img01[0] * 2.0 - 1.0)
-        watch.lap("decode")
+        with watch.stage("sample"):
+            lat = engine.sample(c, uc, z_shape, generator=gen, init_noise=drawn.get("init"),
+                                loop_noise=drawn.get("loop"), guider_scale=args.cfg_scale,
+                                x_prior=x_prior, mode="sdedit" if x_prior is not None else "full")
+        with watch.stage("decode"):
+            img = engine.decode_first_stage(lat).float()
+            if session.video_mode:
+                img = img[:, 0]
+            img01 = (img.clamp(-1.0, 1.0) + 1.0) / 2.0
+            if sample_filter is not None:
+                img01 = sample_filter(img01)
+            img01 = img01.cpu().numpy()
+            if watermarker is not None:
+                img01 = watermarker(img01)
+            out = to_uint8(img01[0] * 2.0 - 1.0)
         outputs.append(out)
         if save_dir is not None:
             write_png(str(save_dir / f"sample_{i:03d}.png"), out)

@@ -34,6 +34,7 @@ from ..parallel import mesh
 from ..parallel.shard import clip_randn
 from ..train.ema import Ema
 from ..train.freeze import freeze_mask
+from ..utils import trace
 
 
 class CCEditEngine:
@@ -101,7 +102,8 @@ class CCEditEngine:
         return self.vae.decode((z / self.scale_factor).to(dtype))
 
     def _network_fn(self, x, c_noise, cond):
-        return self.network(x.to(self.network_dtype), c_noise, cond).to(torch.float32)
+        with trace.span(trace.NETWORK):
+            return self.network(x.to(self.network_dtype), c_noise, cond).to(torch.float32)
 
     def _hoist_control_hint(self, cond_cat: Dict) -> Dict:
         """The ControlNet hint pyramid depends only on the hint: run it once

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops.video import fold_time, unfold_time
 from ..parallel.shard import active, unsharded
+from ..utils import trace
 from .blocks import spatial_temporal
 from .layers import conv2d, temporal_conv
 from .unet import UNetModel, per_level
@@ -276,7 +277,8 @@ class CCEditNetwork(nn.Module):
             bank = []
             feat = cond["cond_feat"]  # (B, h, w, C): this rank's rows of it
             feat = shard.block(feat, shard.axis - 1) if spatial else feat
-            cn_img(x, cn_img.encode_hint(feat), timesteps, context=context, y=y, bank=bank)
+            with trace.span(trace.APPEARANCE):
+                cn_img(x, cn_img.encode_hint(feat), timesteps, context=context, y=y, bank=bank)
             mapping = raig_ref_mapping(self.unet.channel_mult, self.unet.num_res_blocks,
                                        self.unet.attention_resolutions)
             refs = [_tokens(bank[m]) for m in mapping]
@@ -287,7 +289,8 @@ class CCEditNetwork(nn.Module):
             if feats is None and "control_hint" in cond:
                 feats = self.encode_control_hint(cond["control_hint"])
             if feats is not None:
-                control = self.controlnet(x, feats, timesteps, context=context, y=y)
+                with trace.span(trace.CONTROLNET):
+                    control = self.controlnet(x, feats, timesteps, context=context, y=y)
         img_control = ref_contexts = interpolate_control = None
         if self.interpolate:
             ifl = cond["interpolate_first_last"]  # (B, 2, h, w, C): split like the latents
@@ -296,7 +299,8 @@ class CCEditNetwork(nn.Module):
             frame = shard is not None and shard.frame
             ends = ((shard.frame_at(x, 0), shard.frame_at(x, shard.frames - 1)) if frame
                     else (x[:, 0], x[:, -1]))
-            with unsharded() if frame else contextlib.nullcontext():  # whole frames on every rank
+            with (unsharded() if frame else contextlib.nullcontext(),  # whole frames on every rank
+                  trace.span(trace.APPEARANCE)):
                 taps = cn_img(torch.cat(ends, dim=0),
                               cn_img.encode_hint(torch.cat([ifl[:, 0], ifl[:, 1]], dim=0)),
                               double(timesteps), context=double(context), y=double(y))
@@ -307,8 +311,9 @@ class CCEditNetwork(nn.Module):
                       else x[:, x.shape[1] // 2])
             feat = cond["cond_feat"]  # (B, h, w, C): this rank's rows of it
             feat = shard.block(feat, shard.axis - 1) if spatial else feat
-            img_control = cn_img(centre, cn_img.encode_hint(feat), timesteps, context=context,
-                                 y=y, bank=bank)
+            with trace.span(trace.APPEARANCE):
+                img_control = cn_img(centre, cn_img.encode_hint(feat), timesteps,
+                                     context=context, y=y, bank=bank)
             if bank is not None:
                 ref_contexts = [_tokens(a) for a in bank]
         return self.unet(x, timesteps, context=context, y=y, control=control,

@@ -52,6 +52,7 @@ from typing import Dict, Optional
 import torch
 
 from ..parallel.shard import mesh_context  # noqa: F401  (the JAX name)
+from ..utils import trace
 from . import flash_attention as fa
 from . import quant
 from . import spatial_attention as sa
@@ -118,7 +119,9 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None) -> torch.Tenso
     """Multi-head SDPA over (B, H, N, D) tensors; scale defaults to D**-0.5."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
-    return _ROUTES[attention_route(q, k)](q, k, v, scale)
+    route = attention_route(q, k)
+    with trace.span(trace.ATTENTION[route]):
+        return _ROUTES[route](q, k, v, scale)
 
 
 _COUNTED = {"spatial_attention": sa.kv_resident_attention,

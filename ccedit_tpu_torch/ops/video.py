@@ -28,6 +28,7 @@ from typing import Callable
 import torch
 
 from ..parallel.shard import active
+from ..utils import trace
 
 
 def fold_time(x: torch.Tensor) -> torch.Tensor:
@@ -69,11 +70,12 @@ def temporal_apply(xs: torch.Tensor, batch: int, fn: Callable) -> torch.Tensor:
     shard told where it lies (``ClipShard.folded``)."""
     _, h, w, _ = xs.shape
     shard = active()
-    pad = shard.fold_padding(xs, batch) if shard is not None and shard.world > 1 else None
-    xt = tokens_to_temporal(xs, batch)
-    with shard.folded(pad) if pad is not None else contextlib.nullcontext():
-        y = fn(xt)
-    return temporal_to_tokens(y, batch, h, w)
+    with trace.span(trace.TEMPORAL):
+        pad = shard.fold_padding(xs, batch) if shard is not None and shard.world > 1 else None
+        xt = tokens_to_temporal(xs, batch)
+        with shard.folded(pad) if pad is not None else contextlib.nullcontext():
+            y = fn(xt)
+        return temporal_to_tokens(y, batch, h, w)
 
 
 def repeat_ctx_temporal(context: torch.Tensor, h: int, w: int) -> torch.Tensor:
